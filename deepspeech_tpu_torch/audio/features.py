@@ -1,0 +1,141 @@
+"""Log-STFT spectrogram front-end on padded batches.
+
+Reference behaviour (data/data_loader_aug.py of the reference): n_fft =
+int(sr * window_size), hop = int(sr * window_stride), symmetric window,
+magnitude, mirror-fill to 161 bins when sr < 16 kHz, crop to 161, then one
+of the normalize modes ``mean`` / ``norm`` / ``frame`` / ``max_frame`` /
+``none``. The batch path masks each utterance's statistics to its valid
+frames. Augmentation is not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import scipy.signal
+import torch
+
+from deepspeech_tpu_torch.models.layers import length_mask
+from deepspeech_tpu_torch.ops.cuda import stft as stft_kernel
+
+N_BINS = 161  # fixed spectrogram height everywhere in the reference
+
+WINDOWS = ("hamming", "hann", "blackman", "bartlett")
+
+
+@functools.lru_cache(maxsize=16)
+def make_window(name: str, length: int) -> np.ndarray:
+    """Symmetric analysis window, matching scipy.signal's defaults."""
+    if name not in WINDOWS:
+        name = "hamming"
+    return scipy.signal.get_window(name, length, fftbins=False).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioConf:
+    """Front-end configuration; embeds into checkpoints as ``audio_conf``."""
+    sample_rate: int = 16000
+    window_size: float = 0.02
+    window_stride: float = 0.01
+    window: str = "hamming"
+    noise_dir: str | None = None
+    noise_prob: float = 0.4
+    noise_levels: tuple = (0.0, 0.5)
+    aug_prob_8khz: float = 0.0
+    aug_prob_spect: float = 0.0
+
+    @property
+    def n_fft(self) -> int:
+        return int(self.sample_rate * (self.window_size + 1e-8))
+
+    @property
+    def hop(self) -> int:
+        return int(self.sample_rate * (self.window_stride + 1e-8))
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["noise_levels"] = tuple(d["noise_levels"])
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "AudioConf":
+        known = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in known}
+        if "noise_levels" in kw and kw["noise_levels"] is not None:
+            kw["noise_levels"] = tuple(kw["noise_levels"])
+        return cls(**kw)
+
+
+def masked_mean(seq: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Mean over the first ``length`` entries of each (B, T) row -> (B,).
+
+    The reference subtracts the mean of a gaussian-smoothed per-frame mean
+    (sigma 50 for ``frame``, 20 for ``max_frame``) with scipy's symmetric
+    boundaries. That smoothing matrix is doubly stochastic, so the smoothed
+    sequence has exactly the mean of the original: a masked mean suffices."""
+    mask = length_mask(lengths, seq.shape[-1])
+    return (seq * mask).sum(-1) / mask.sum(-1).clamp(min=1.0)
+
+
+def normalize_spectrogram_batch(spect: torch.Tensor,
+                                frame_lengths: torch.Tensor,
+                                mode: str) -> torch.Tensor:
+    """Batched, masked normalize: (B, 161, T), (B,) -> (B, 161, T), with
+    padded frames zeroed."""
+    mask = length_mask(frame_lengths, spect.shape[-1])  # (B, T)
+    m3 = mask[:, None, :]
+    denom = mask.sum(-1).clamp(min=1.0) * spect.shape[1]
+
+    if mode == "max_frame":
+        spect = torch.log1p(spect * 1048576.0)
+        out = spect - masked_mean(spect.mean(1), frame_lengths)[:, None, None]
+    elif mode == "frame":
+        spect = torch.log1p(spect)
+        out = spect - masked_mean(spect.mean(1), frame_lengths)[:, None, None]
+    elif mode in ("mean", "norm"):
+        spect = torch.log1p(spect)
+        mean = (spect * m3).sum((1, 2)) / denom
+        out = spect - mean[:, None, None]
+        if mode == "norm":
+            # per-frame std over freq (unbiased), averaged over valid frames
+            fmean = out.mean(1, keepdim=True)
+            var = ((out - fmean) ** 2).sum(1) / (spect.shape[1] - 1)
+            std_mean = ((torch.sqrt(var) * mask).sum(-1)
+                        / mask.sum(-1).clamp(min=1.0))
+            out = out / std_mean[:, None, None]
+    elif not mode or mode == "none":
+        out = torch.log1p(spect)
+    else:
+        raise ValueError(f"No such normalization: {mode}")
+    return out * m3
+
+
+def featurize_batch(audio: torch.Tensor, audio_lengths: torch.Tensor,
+                    conf: AudioConf, normalize: str = "max_frame"):
+    """Padded waveforms -> normalized spectrograms on the waveforms' device.
+
+    audio: (B, S) f32, zero-padded; audio_lengths: (B,) valid sample counts.
+    Returns (spect (B, 161, T), frame_lengths (B,)). The STFT reflect-pads
+    the whole padded row, so a short utterance's last frame reflects into
+    its zero padding, as the JAX package does for raw padded input.
+    """
+    if conf.aug_prob_spect > 0 or conf.aug_prob_8khz > 0:
+        raise NotImplementedError(
+            "spectrogram augmentation is not ported yet (see ROADMAP.md)")
+    window = make_window(conf.window, conf.n_fft)
+    mag = stft_kernel.stft_mag(audio, conf.n_fft, conf.hop, window,
+                               center=True)
+    n_bins = conf.n_fft // 2 + 1
+    if n_bins < N_BINS:
+        out = mag.new_zeros((*mag.shape[:-2], N_BINS, mag.shape[-1]))
+        out[..., :n_bins, :] = mag
+        # mirror of the zero-filled rows 80..1, like the reference's resize
+        out[..., 81:, :] = torch.flip(out[..., 1:81, :], dims=(-2,))
+        mag = out
+    else:
+        mag = mag[..., :N_BINS, :]
+    frame_lengths = 1 + audio_lengths.to(mag.device) // conf.hop
+    return normalize_spectrogram_batch(mag, frame_lengths, normalize), \
+        frame_lengths

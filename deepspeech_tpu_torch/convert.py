@@ -1,0 +1,98 @@
+"""Weight bridge between the JAX package's variable trees and the port.
+
+The JAX model's ``params`` and ``batch_stats`` are nested dicts of numpy
+arrays (as checkpoints hold them); the port's DeepSpeech2 takes a torch
+``state_dict``. The map:
+
+* ``conv/conv{i}/kernel`` (kh, kw, in, out) <-> ``conv.conv{i}.weight``
+  (out, in, kh, kw), i.e. transpose (3, 2, 0, 1); ``bias`` as is;
+* ``conv/bn{i}``, ``rnn{i}/bn``, ``fc_bn``: ``scale``/``bias`` params and
+  ``mean``/``var`` stats <-> ``weight``/``bias``/``running_mean``/
+  ``running_var``;
+* ``rnn{i}/{w_ih,b_ih,w_hh,b_hh}`` <-> ``rnns.{i}.{...}``, same layout;
+* ``fc/kernel`` (H, C) <-> ``fc.weight`` (C, H);
+* ``lookahead/weight`` <-> ``lookahead.weight``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_BN_PARAMS = (("scale", "weight"), ("bias", "bias"))
+_BN_STATS = (("mean", "running_mean"), ("var", "running_var"))
+_RNN = ("w_ih", "b_ih", "w_hh", "b_hh")
+
+
+def _bn_paths(params: dict):
+    """(path in the JAX trees, prefix in the state_dict) of every BN."""
+    out = [(("conv", "bn0"), "conv.bn0"), (("conv", "bn1"), "conv.bn1")]
+    i = 1
+    while f"rnn{i}" in params:
+        out.append(((f"rnn{i}", "bn"), f"rnns.{i}.bn"))
+        i += 1
+    out.append((("fc_bn",), "fc_bn"))
+    return out
+
+
+def _get(tree: dict, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set(tree: dict, path, key, value):
+    for k in path:
+        tree = tree.setdefault(k, {})
+    tree[key] = value
+
+
+def jax_to_torch(params: dict, batch_stats: dict) -> dict:
+    """JAX variable trees (numpy leaves) -> the port's state_dict."""
+    sd = {}
+    for i in (0, 1):
+        conv = params["conv"][f"conv{i}"]
+        sd[f"conv.conv{i}.weight"] = np.asarray(conv["kernel"]).transpose(
+            3, 2, 0, 1)
+        sd[f"conv.conv{i}.bias"] = conv["bias"]
+    i = 0
+    while f"rnn{i}" in params:
+        for k in _RNN:
+            sd[f"rnns.{i}.{k}"] = params[f"rnn{i}"][k]
+        i += 1
+    for path, prefix in _bn_paths(params):
+        for jk, tk in _BN_PARAMS:
+            sd[f"{prefix}.{tk}"] = _get(params, path)[jk]
+        for jk, tk in _BN_STATS:
+            sd[f"{prefix}.{tk}"] = _get(batch_stats, path)[jk]
+    sd["fc.weight"] = np.asarray(params["fc"]["kernel"]).T
+    if "lookahead" in params:
+        sd["lookahead.weight"] = params["lookahead"]["weight"]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def torch_to_jax(state_dict: dict) -> tuple[dict, dict]:
+    """The port's state_dict -> (params, batch_stats) JAX trees of numpy
+    arrays."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    params: dict = {}
+    stats: dict = {}
+    for i in (0, 1):
+        _set(params, ("conv", f"conv{i}"), "kernel",
+             sd[f"conv.conv{i}.weight"].transpose(2, 3, 1, 0).copy())
+        _set(params, ("conv", f"conv{i}"), "bias", sd[f"conv.conv{i}.bias"])
+    i = 0
+    while f"rnns.{i}.w_ih" in sd:
+        for k in _RNN:
+            _set(params, (f"rnn{i}",), k, sd[f"rnns.{i}.{k}"])
+        i += 1
+    for path, prefix in _bn_paths(params):
+        for jk, tk in _BN_PARAMS:
+            _set(params, path, jk, sd[f"{prefix}.{tk}"])
+        for jk, tk in _BN_STATS:
+            _set(stats, path, jk, sd[f"{prefix}.{tk}"])
+    _set(params, ("fc",), "kernel", sd["fc.weight"].T.copy())
+    if "lookahead.weight" in sd:
+        _set(params, ("lookahead",), "weight", sd["lookahead.weight"])
+    return params, stats

@@ -1,0 +1,281 @@
+// GRU layer forward, input projection included, one or two directions.
+//
+// Replaces the Pallas TPU kernel deepspeech_tpu/ops/pallas/rnn_fused.py
+// (_gru_fused_fwd_kernel, launched by _gru_fused_fwd for bigru_layer_pallas
+// and gru_layer_pallas) in its inference variant (with_res=False): the
+// projection x @ W_ih into f32 scratch, then the r, z, n recurrence with f32
+// state and f32 gates, both biases added in f32 and b_hn inside the r *.
+// The operand type T is float or __nv_bfloat16; in bf16 the hidden dot
+// rounds h_prev to bf16 (as the TPU kernel does) and every product
+// accumulates in f32; the projection is never rounded to bf16.
+//
+// Bound on the H100 at the default shape (T 376, B 20, H 800, F 1312 or
+// 800, two directions): ~95 (layer 0) or 58 GFLOP of projection plus 58
+// GFLOP of recurrence, ~0.12-0.15 ms at the 989 TFLOP/s bf16 tensor-core
+// peak; ~90 MB of bytes, ~0.03 ms. So it is bound by operations.
+// Latency floor: the T steps depend on each other, and this design spends
+// one launch on each. A step cannot take less than the gap between two
+// launches from the host loop plus one dependent read of h_prev from L2,
+// one H-long dot and one reduction. chip_smoke.py measures both: an empty
+// launch every ~2.4-3.4 us, and this kernel at the least work (B 1, H 16)
+// ~3.6-4.4 us a step. So one layer's 376 steps take at least ~1.5 ms, and
+// the 2,256 steps of a 6 x BiGRU forward at least ~8-10 ms.
+//
+// Design, simple and right first:
+//  * proj_gemm: a tiled SIMT GEMM (128 x 128 x 8 tiles, 8 x 8 per thread,
+//    f32 FMA) writing the (D, T*B, 3H) f32 projection stream. It uses no
+//    tensor cores yet: a wgmma version is later work.
+//  * gru_step: one launch per time step covering both directions. A block
+//    owns TJ hidden units of one direction for RB batch rows, so its shared
+//    memory does not grow with B: it stages those rows of h_prev, splits
+//    the H-long dots over KS thread groups that read their W_hh rows from
+//    global memory (L2), reduces the partial sums through shared memory
+//    and applies the gate update. The backward direction indexes
+//    t = len_b - 1 - s directly; steps past a row's length keep its state
+//    and write zeros. h ping-pongs between two state buffers. A persistent
+//    kernel with W_hh resident in shared memory and a grid barrier per step
+//    is later work.
+// Against the bound: on an H100 SXM at 700 W a bf16 layer-0 call takes
+// ~10.4-10.7 ms, ~90x the bound; a step takes ~17 us of kernel time, ~4x
+// the least-work step, and the SIMT projection ~2.4 ms (chip_smoke.py;
+// PERF.md, "H100 port").
+#include "common.cuh"
+
+namespace {
+
+constexpr int GBM = 128, GBN = 128, GBK = 8;  // GEMM tile
+constexpr int TJ = 16;   // hidden units per recurrence block
+constexpr int KS = 16;   // thread groups splitting each H-long dot
+constexpr int RB = 8;    // batch rows per recurrence block
+constexpr int STEP_THREADS = TJ * KS;
+
+// C[d] (M x N, f32) = A (M x K) @ W[d] (K x N); grid (N/GBN, M/GBM, D).
+template <typename T>
+__global__ void __launch_bounds__(256)
+proj_gemm(const T* __restrict__ A, const T* __restrict__ W,
+          float* __restrict__ C, int M, int N, int K) {
+  __shared__ __align__(16) float As[GBK][GBM];
+  __shared__ __align__(16) float Bs[GBK][GBN];
+  const T* Wd = W + static_cast<size_t>(blockIdx.z) * K * N;
+  float* Cd = C + static_cast<size_t>(blockIdx.z) * M * N;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += GBK) {
+#pragma unroll
+    for (int i = tid; i < GBM * GBK; i += 256) {
+      const int r = i / GBK, c = i % GBK;
+      const int m = m0 + r, k = k0 + c;
+      As[c][r] = (m < M && k < K)
+                     ? ds_to_float(A[static_cast<size_t>(m) * K + k]) : 0.f;
+    }
+#pragma unroll
+    for (int i = tid; i < GBK * GBN; i += 256) {
+      const int r = i / GBN, c = i % GBN;
+      const int k = k0 + r, n = n0 + c;
+      Bs[r][c] = (k < K && n < N)
+                     ? ds_to_float(Wd[static_cast<size_t>(k) * N + n]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 8]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * 8 + 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8 + 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty * 8 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tx * 8 + j;
+      if (n < N) Cd[static_cast<size_t>(m) * N + n] = acc[i][j];
+    }
+  }
+}
+
+__device__ __forceinline__ float ds_sigmoid(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+// One time step s for both directions; grid (ceil(H/TJ), ceil(B/RB), D).
+// xp (D, T, B, 3H) f32; w_hh (D, H, 3H); b_ih, b_hh (D, 3H) f32;
+// lens (B) int32; h_in/h_out (D, B, H) f32; out (D, T, B, H) f32.
+template <typename T>
+__global__ void __launch_bounds__(STEP_THREADS)
+gru_step(const float* __restrict__ xp, const T* __restrict__ w_hh,
+         const float* __restrict__ b_ih, const float* __restrict__ b_hh,
+         const int* __restrict__ lens, const float* __restrict__ h_in,
+         float* __restrict__ h_out, float* __restrict__ out, int s, int Tn,
+         int B, int H) {
+  extern __shared__ float smem[];
+  const int G = 3 * H;
+  float* hs = smem;                  // (RB, H): h_prev rounded to T
+  float* red = smem + RB * H;        // (KS, 3, RB, TJ) partial sums
+  const int d = blockIdx.z;
+  const int j0 = blockIdx.x * TJ;
+  const int b0 = blockIdx.y * RB;
+  const float* hprev = h_in + static_cast<size_t>(d) * B * H;
+  float* hnew = h_out + static_cast<size_t>(d) * B * H;
+  const T* wd = w_hh + static_cast<size_t>(d) * H * G;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < RB * H; i += STEP_THREADS)
+    hs[i] = b0 + i / H < B ? ds_round_to<T>(hprev[b0 * H + i]) : 0.f;
+  __syncthreads();
+
+  const int jl = tid % TJ, ks = tid / TJ;
+  const int j = j0 + jl;
+  float acc[3][RB];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[g][r] = 0.f;
+  if (j < H) {
+    // unrolled so that several W_hh loads from L2 are in flight at once
+#pragma unroll 4
+    for (int k = ks; k < H; k += KS) {
+      const T* wk = wd + static_cast<size_t>(k) * G + j;
+      const float wr = ds_to_float(wk[0]);
+      const float wz = ds_to_float(wk[H]);
+      const float wn = ds_to_float(wk[2 * H]);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float hv = hs[r * H + k];
+        acc[0][r] = fmaf(hv, wr, acc[0][r]);
+        acc[1][r] = fmaf(hv, wz, acc[1][r]);
+        acc[2][r] = fmaf(hv, wn, acc[2][r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      red[((ks * 3 + g) * RB + r) * TJ + jl] = acc[g][r];
+  __syncthreads();
+
+  if (tid < RB * TJ) {
+    const int r = tid / TJ, jl2 = tid % TJ;
+    const int b = b0 + r, jj = j0 + jl2;
+    if (b < B && jj < H) {
+      float hr = 0.f, hz = 0.f, hn = 0.f;
+      for (int q = 0; q < KS; ++q) {
+        hr += red[((q * 3 + 0) * RB + r) * TJ + jl2];
+        hz += red[((q * 3 + 1) * RB + r) * TJ + jl2];
+        hn += red[((q * 3 + 2) * RB + r) * TJ + jl2];
+      }
+      const float* bh = b_hh + d * G;
+      hr += bh[jj];
+      hz += bh[H + jj];
+      hn += bh[2 * H + jj];
+      const int len = lens[b];
+      const bool valid = s < len;
+      const int t = (d == 0 || !valid) ? s : len - 1 - s;
+      const float hp = hprev[b * H + jj];
+      float* o = out + ((static_cast<size_t>(d) * Tn + t) * B + b) * H + jj;
+      if (valid) {
+        const float* xg = xp + ((static_cast<size_t>(d) * Tn + t) * B + b) * G;
+        const float* bi = b_ih + d * G;
+        const float xr = xg[jj] + bi[jj];
+        const float xz = xg[H + jj] + bi[H + jj];
+        const float xn = xg[2 * H + jj] + bi[2 * H + jj];
+        const float rg = ds_sigmoid(xr + hr);
+        const float zg = ds_sigmoid(xz + hz);
+        const float ng = tanhf(xn + rg * hn);
+        const float h = (1.f - zg) * ng + zg * hp;
+        hnew[b * H + jj] = h;
+        *o = h;
+      } else {
+        hnew[b * H + jj] = hp;
+        *o = 0.f;
+      }
+    }
+  }
+}
+
+__global__ void empty_kernel() {}
+
+template <typename T>
+int gru_fwd(const T* x, const T* w_ih, const float* b_ih, const T* w_hh,
+            const float* b_hh, const int* lens, float* xp, float* state,
+            float* out, int Tn, int B, int F, int H, int D,
+            cudaStream_t stream) {
+  const int M = Tn * B, N = 3 * H;
+  const dim3 ggrid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, D);
+  proj_gemm<T><<<ggrid, 256, 0, stream>>>(x, w_ih, xp, M, N, F);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t hsz = static_cast<size_t>(D) * B * H;
+  err = cudaMemsetAsync(state, 0, hsz * sizeof(float), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = (static_cast<size_t>(RB) * H + KS * 3 * RB * TJ) *
+                      sizeof(float);
+  err = cudaFuncSetAttribute(gru_step<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 sgrid((H + TJ - 1) / TJ, (B + RB - 1) / RB, D);
+  for (int s = 0; s < Tn; ++s) {
+    const float* h_in = state + (s & 1) * hsz;
+    float* h_out = state + ((s + 1) & 1) * hsz;
+    gru_step<T><<<sgrid, STEP_THREADS, smem, stream>>>(
+        xp, w_hh, b_ih, b_hh, lens, h_in, h_out, out, s, Tn, B, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+}  // namespace
+
+// x (T, B, F); w_ih (D, F, 3H); w_hh (D, H, 3H); b_ih, b_hh (D, 3H) f32;
+// lens (B) int32 <= T; scratch xp (D, T, B, 3H) f32 and state (2, D, B, H)
+// f32; out (D, T, B, H) f32, zero at steps past each row's length.
+DS_EXPORT int gru_fwd_f32(const float* x, const float* w_ih,
+                          const float* b_ih, const float* w_hh,
+                          const float* b_hh, const int* lens, float* xp,
+                          float* state, float* out, int Tn, int B, int F,
+                          int H, int D, void* stream) {
+  return gru_fwd<float>(x, w_ih, b_ih, w_hh, b_hh, lens, xp, state, out, Tn,
+                        B, F, H, D, static_cast<cudaStream_t>(stream));
+}
+
+DS_EXPORT int gru_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w_ih,
+                           const float* b_ih, const __nv_bfloat16* w_hh,
+                           const float* b_hh, const int* lens, float* xp,
+                           float* state, float* out, int Tn, int B, int F,
+                           int H, int D, void* stream) {
+  return gru_fwd<__nv_bfloat16>(x, w_ih, b_ih, w_hh, b_hh, lens, xp, state,
+                                out, Tn, B, F, H, D,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// n launches of an empty kernel from a host loop, as gru_fwd issues its
+// steps: the launch gap under every step of the recurrence (chip_smoke.py
+// times it for the K2 latency floor).
+DS_EXPORT int empty_launches(int n, void* stream) {
+  for (int i = 0; i < n; ++i) {
+    empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}

@@ -1,0 +1,67 @@
+"""Model factory keyed by the reference's ``rnn_type`` strings.
+
+``build_model`` returns (module, meta), where ``meta`` is the
+self-description embedded into checkpoints; ``model_from_meta`` rebuilds
+the module from it. The port has the DS2 GRU model so far: the other keys
+raise and name ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from deepspeech_tpu_torch.device import resolve_device
+from deepspeech_tpu_torch.models.ds2 import DeepSpeech2
+
+RNN_KEYS = ("rnn", "gru", "lstm")
+CNN_KEYS = ("cnn", "cnn_residual", "glu_small", "glu_large", "large_cnn",
+            "cnn_jasper")
+SUPPORTED = RNN_KEYS + CNN_KEYS
+PORTED = ("gru",)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float32": None, "f32": None, None: None}
+
+
+def build_model(rnn_type: str = "gru", num_classes: int = 29,
+                hidden_size: int = 800, hidden_layers: int = 6,
+                bidirectional: bool = True, bnm: float = 0.1,
+                cnn_width: int = 256, dropout: float = 0.0,
+                context: int = 20, compute_dtype=None,
+                device: str | torch.device = "cuda"):
+    """-> (torch module on ``device``, meta dict for checkpoints).
+
+    ``compute_dtype``: matmul operand type ("bfloat16" / torch.bfloat16, or
+    None for float32). A runtime choice: the weights are always float32 and
+    the dtype is not part of the checkpoint meta."""
+    dev = resolve_device(device)
+    if isinstance(compute_dtype, str) or compute_dtype is None:
+        compute_dtype = _DTYPES[compute_dtype]
+    rnn_type = rnn_type.lower()
+    meta = {
+        "rnn_type": rnn_type, "num_classes": num_classes,
+        "hidden_size": hidden_size, "hidden_layers": hidden_layers,
+        "bidirectional": bidirectional, "bnm": bnm, "cnn_width": cnn_width,
+        "dropout": dropout, "context": context,
+    }
+    if rnn_type not in SUPPORTED:
+        raise ValueError(
+            f"unsupported rnn_type {rnn_type!r}; choose from {SUPPORTED}")
+    if rnn_type not in PORTED:
+        raise NotImplementedError(
+            f"rnn_type {rnn_type!r} is not ported to PyTorch yet (see "
+            "ROADMAP.md); the port has: " + ", ".join(PORTED))
+    model = DeepSpeech2(num_classes=num_classes, hidden_size=hidden_size,
+                        hidden_layers=hidden_layers, cell=rnn_type,
+                        bidirectional=bidirectional, context=context,
+                        bnm=bnm, compute_dtype=compute_dtype)
+    return model.to(dev), meta
+
+
+def model_from_meta(meta: dict, device: str | torch.device = "cuda"):
+    """Rebuild the f32 module from a checkpoint's meta fields."""
+    kw = {k: meta[k] for k in
+          ("rnn_type", "num_classes", "hidden_size", "hidden_layers",
+           "bidirectional", "bnm", "cnn_width", "dropout", "context")
+          if k in meta}
+    return build_model(**kw, device=device)[0]

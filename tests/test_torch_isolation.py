@@ -1,0 +1,121 @@
+"""PyTorch port: it stands alone.
+
+* Every module of deepspeech_tpu_torch imports with ``jax`` blocked, and
+  none of them pulls in deepspeech_tpu.
+* No source of the port, nor chip_smoke.py, imports deepspeech_tpu.
+* A kernel wrapper given CPU tensors runs the plain version.
+* An entry point called without ``device`` asks for the card and raises
+  where there is none, rather than running on the CPU.
+"""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import deepspeech_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "deepspeech_tpu_torch")
+
+
+def _modules():
+    names = ["deepspeech_tpu_torch"]
+    for info in pkgutil.walk_packages([PKG], "deepspeech_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_imports_without_jax_or_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"for name in {_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m == 'deepspeech_tpu'\n"
+        "       or m.startswith('deepspeech_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+
+
+def _sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_imports_the_jax_package(path):
+    with open(path) as f:
+        text = f.read()
+    pat = re.compile(r"^\s*(from|import)\s+(deepspeech_tpu|jax|flax|optax)"
+                     r"(\.|\s|$)", re.M)
+    assert not pat.findall(text), path
+
+
+def test_kernel_wrappers_use_plain_versions_on_cpu(monkeypatch):
+    """CPU tensors go to the plain versions and count no launch; a tensor
+    on any other device that is not CUDA raises."""
+    from deepspeech_tpu_torch.ops.cuda import gru, stft
+
+    calls = []
+
+    def recorded(name, fn):
+        def run(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(stft, "plain", recorded("stft", stft.plain))
+    monkeypatch.setattr(gru, "plain", recorded("gru", gru.plain))
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy(rng.standard_normal((2, 3200)).astype(np.float32))
+    win = np.hamming(320).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((5, 2, 4)).astype(np.float32))
+    w_ih = torch.randn(2, 4, 9)
+    w_hh = torch.randn(2, 3, 9)
+    b = torch.zeros(2, 9)
+    lens = torch.tensor([5, 3])
+    n_stft, n_gru = stft.launches, gru.launches
+    assert stft.stft_mag(y, 320, 160, win).shape == (2, 161, 21)
+    assert gru.gru_layer(x, w_ih, b, w_hh, b, lens).shape == (2, 5, 2, 3)
+    assert calls == ["stft", "gru"]
+    assert (stft.launches, gru.launches) == (n_stft, n_gru)
+    with pytest.raises(ValueError, match="unsupported device"):
+        stft.stft_mag(y.to("meta"), 320, 160, win)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gru.gru_layer(x.to("meta"), w_ih, b, w_hh, b, lens)
+    assert calls == ["stft", "gru"]
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from deepspeech_tpu_torch.cli.common import load_inference_model
+    from deepspeech_tpu_torch.cli.transcribe import main
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.train import checkpoint as ckpt
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model("gru", 30, 8, 1)
+    model, meta = build_model("gru", 30, 8, 1, device="cpu")
+    path = str(tmp_path / "m.ckpt")
+    ckpt.save(path, ckpt.package_from_model(
+        model, meta, "_'ABCDEFGHIJKLMNOPQRSTUVWXYZ2 ", {"sample_rate": 16000}))
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_inference_model(path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--model-path", path, "--audio-path", "unused.wav"])
+    assert deepspeech_tpu_torch.resolve_device("cpu").type == "cpu"
