@@ -6,21 +6,39 @@
 Needs one CUDA card and nvcc; exits non-zero without them. In order:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds both CUDA kernels from csrc/ (one nvcc each, in parallel);
+2. builds every CUDA kernel from csrc/ (one nvcc each, in parallel);
 3. K1 (stft_mag) against its plain version at the main-path shape,
    20 x 120,000 samples: errors, kernel/plain/library ms, bound;
-4. K2 (gru_fwd) against its plain version at full width, T 376, B 20,
-   H 800, F 1312 and 800, unequal lengths, bf16 and f32; then the latency
-   floor of its one-launch-per-step recurrence (an empty launch from a host
-   loop, and the step kernel at the least work);
-5. the main path: the default DS2 (6 x BiGRU-800, 30 classes) in bf16 from
-   seeded random weights on 20 synthetic 7.5 s waveforms, featurize ->
-   forward -> greedy ids, with both kernels' launch counts read around it
-   and the logits held to the same model run through the plain versions;
-   one forward under torch.profiler gives the device's busy and idle time
-   from its trace timeline;
-6. the transcribe CLI answers 3 requests (f32, as the JAX CLI runs);
-7. prints one JSON line of kernel results, then the device line last.
+4. K2 (gru_fwd), both variants, against its plain version at full width,
+   T 376, B 20, H 800, F 1312 and 800, unequal lengths, bf16 and f32 (the
+   training variant's residuals g and hn too); then the latency floor of
+   its one-launch-per-step recurrence (an empty launch from a host loop,
+   and the step kernel at the least work);
+5. K5 (gru_bwd) against its plain version at the same shapes: dg, dnh and
+   the bias grads, then dx, dW_ih and dW_hh through the layer's autograd
+   Function against the same Function on the plain versions; its time
+   beside cuDNN's bidirectional GRU backward with the same weights, its
+   bound and its per-step floor;
+6. K8/K9 (ctc_alpha, ctc_beta) against their plain versions at B 20,
+   T 376, C 30, L 150 with unequal lengths and one impossible row:
+   alphas, betas, loss and dlogits; times beside F.ctc_loss;
+7. the inference path: the default DS2 (6 x BiGRU-800, 30 classes) in bf16
+   from seeded random weights on 20 synthetic 7.5 s waveforms, featurize
+   -> forward -> greedy ids, launch counts read around it, the logits held
+   to the plain versions, one profiled forward's busy and idle time;
+8. the train path, this slice's main path: the same model trained on 20
+   synthetic 7.5 s waveforms with random transcripts on the int16 wire,
+   SGD-Nesterov (lr 3e-4, momentum 0.9, clip 100). The launch counts of
+   every kernel are read around one step; that step's loss, grad norm and
+   every parameter's gradient are held to the same step through the plain
+   versions; 5 steps give finite losses with none skipped, a CUDA-event
+   median step time in audio-s/s, and one more, profiled, step its busy
+   and idle time;
+9. the transcribe CLI answers 3 requests (f32, as the JAX CLI runs);
+10. the train CLI trains 1 epoch at full width on a synthetic manifest in a
+   temporary directory, and its checkpoint answers one transcribe request;
+11. prints one JSON line of kernel results (launches from one train step),
+   then the device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
 non-zero. Times are CUDA-event medians with warm L2.
@@ -44,19 +62,37 @@ SEED = 0
 PEAK_F32 = 67e12        # H100 SXM, non-tensor f32 FLOP/s
 PEAK_BF16 = 989e12      # H100 SXM, dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
+KERNELS = ("stft_mag", "gru_fwd", "gru_bwd", "ctc_alpha", "ctc_beta")
 REPLACES = {
     "stft_mag": "deepspeech_tpu/ops/pallas/stft_kernel.py:57",
     "gru_fwd": "deepspeech_tpu/ops/pallas/rnn_fused.py:95",
+    "gru_bwd": "deepspeech_tpu/ops/pallas/rnn_kernel.py:220",
+    "ctc_alpha": "deepspeech_tpu/ops/pallas/ctc_kernel.py:59",
+    "ctc_beta": "deepspeech_tpu/ops/pallas/ctc_kernel.py:101",
 }
 SOURCES = {
     "stft_mag": "deepspeech_tpu_torch/csrc/stft_mag.cu",
     "gru_fwd": "deepspeech_tpu_torch/csrc/gru_fwd.cu",
+    "gru_bwd": "deepspeech_tpu_torch/csrc/gru_bwd.cu",
+    "ctc_alpha": "deepspeech_tpu_torch/csrc/ctc.cu",
+    "ctc_beta": "deepspeech_tpu_torch/csrc/ctc.cu",
 }
 # Stated tolerances (kernel vs plain version, same inputs, on the card):
 STFT_TOL = dict(rtol=1e-4, atol=1e-4)   # both true f32 FMA sums
 GRU_TOL = {"float32": 1e-4,             # |h| <= 1; f32 sums in other orders
            "bfloat16": 5e-3}            # + bf16 rounding flips of h_prev
+# K5 and the layer's grads, x max(1, max|reference|): f32 sums in other
+# orders; in bf16 a one-ulp flip of a rounded operand moves the carried dh
+GRU_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+CTC_TOL = dict(rtol=1e-4, atol=1e-4)    # log-space sums, f32 exp/log
 LOGIT_TOL = 2e-2                        # x max(1, max|logits|), bf16 forward
+# the train step in bf16, kernels against plain versions: the loss and the
+# grad norm relative; each parameter's gradient x max(1, max|its grad|)
+STEP_LOSS_TOL, STEP_GRAD_TOL = 2e-3, 5e-2
+# the default model and batch (BASELINE.md config 2): 6 x BiGRU-800,
+# 30 labels, 20 x 7.5 s of 16 kHz audio = 376 frames after the convs
+SR, AUDIO_S, BATCH, FRAMES = 16000, 120_000, 20, 376
+HIDDEN, LAYERS, FEATURES, CLASSES, CTC_L = 800, 6, 1312, 30, 150
 
 
 def log(*a):
@@ -136,29 +172,12 @@ def random_weights(model, rng) -> dict:
     return params, stats
 
 
-@contextlib.contextmanager
-def plain_path():
-    """Route the model's two kernel calls to their plain versions."""
-    from deepspeech_tpu_torch.ops.cuda import gru, stft
-
-    saved = stft.stft_mag, gru.gru_layer
-
-    def stft_plain(y, n_fft, hop, window, center=True):
-        return stft.plain(y, n_fft, hop, window, center=center)
-
-    stft.stft_mag, gru.gru_layer = stft_plain, gru.plain
-    try:
-        yield
-    finally:
-        stft.stft_mag, gru.gru_layer = saved
-
-
 def phase_stft(torch, results):
     from deepspeech_tpu_torch.audio.features import make_window
     from deepspeech_tpu_torch.ops.cuda import stft
 
     rng = np.random.default_rng(SEED)
-    b, s, n_fft, hop = 20, 120_000, 320, 160
+    b, s, n_fft, hop = BATCH, AUDIO_S, 320, 160
     y = torch.from_numpy(np.stack([synthetic_audio(rng, s)
                                    for _ in range(b)])).cuda()
     win = make_window("hamming", n_fft)
@@ -192,74 +211,100 @@ def phase_stft(torch, results):
                                bound_by=by, library_ms=lib_ms)
 
 
+def gru_inputs(torch, rng, t, b, h, f_in, ndir=2):
+    """Full-width GRU layer inputs in f32 on the card, unequal lengths."""
+    s = 1.0 / np.sqrt(h)
+
+    def u(*shape, lo=-s, hi=s):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32)).cuda()
+
+    lens = torch.from_numpy(np.linspace(t, t // 2 + 2, b).astype(
+        np.int64)).cuda()
+    return (u(t, b, f_in, lo=0, hi=1), u(ndir, f_in, 3 * h), u(ndir, 3 * h),
+            u(ndir, h, 3 * h), u(ndir, 3 * h), lens)
+
+
+def cudnn_gru(torch, args, dt):
+    """torch.nn.GRU (cuDNN) carrying the same weights as ``args``."""
+    x, w_ih, b_ih, w_hh, b_hh, _ = args
+    f_in, h = x.shape[-1], w_hh.shape[1]
+    net = torch.nn.GRU(f_in, h, bidirectional=True, device="cuda", dtype=dt)
+    with torch.no_grad():
+        for d, sfx in enumerate(("", "_reverse")):
+            getattr(net, "weight_ih_l0" + sfx).copy_(w_ih[d].t())
+            getattr(net, "weight_hh_l0" + sfx).copy_(w_hh[d].t())
+            getattr(net, "bias_ih_l0" + sfx).copy_(b_ih[d])
+            getattr(net, "bias_hh_l0" + sfx).copy_(b_hh[d])
+    # torch flattens cuDNN weights in f16/f32/f64 only: the bf16 call also
+    # copies its weights into one buffer (and warns once)
+    net.flatten_parameters()
+    return net
+
+
 def phase_gru(torch, results):
     from deepspeech_tpu_torch.ops.cuda import gru
 
     rng = np.random.default_rng(SEED + 1)
-    t, b, h = 376, 20, 800
-    lens = torch.from_numpy(np.linspace(t, 190, b).astype(np.int64)).cuda()
-    for f_in in (1312, 800):
-        s = 1.0 / np.sqrt(h)
-        x32 = torch.from_numpy(rng.uniform(0, 1, (t, b, f_in)).astype(
-            np.float32)).cuda()
-        w_ih32 = torch.from_numpy(rng.uniform(-s, s, (2, f_in, 3 * h)).astype(
-            np.float32)).cuda()
-        w_hh32 = torch.from_numpy(rng.uniform(-s, s, (2, h, 3 * h)).astype(
-            np.float32)).cuda()
-        b_ih = torch.from_numpy(rng.uniform(-s, s, (2, 3 * h)).astype(
-            np.float32)).cuda()
-        b_hh = torch.from_numpy(rng.uniform(-s, s, (2, 3 * h)).astype(
-            np.float32)).cuda()
+    t, b, h = FRAMES, BATCH, HIDDEN
+    for f_in in (FEATURES, HIDDEN):
+        x32, w_ih32, b_ih, w_hh32, b_hh, lens = gru_inputs(torch, rng, t, b,
+                                                           h, f_in)
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).split(".")[-1]
             args = (x32.to(dt), w_ih32.to(dt), b_ih, w_hh32.to(dt), b_hh,
                     lens)
             got = gru.gru_layer(*args)
-            ref = gru.plain(*args)
+            res = gru.gru_layer(*args, residuals=True)
+            ref = gru.plain(*args, residuals=True)
             torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            log(f"K2 gru_fwd {name} F={f_in}: max_abs_err {err:.3e} "
-                f"(tolerance {GRU_TOL[name]})")
-            if not err <= GRU_TOL[name]:
+            err = (got - ref[0]).abs().max().item()
+            errs = [(a.float() - r.float()).abs().max().item()
+                    for a, r in zip(res, ref)]
+            log(f"K2 gru_fwd {name} F={f_in}: max_abs_err {err:.3e}; "
+                f"with residuals h {errs[0]:.3e} g {errs[1]:.3e} hn "
+                f"{errs[2]:.3e} (tolerance {GRU_TOL[name]})")
+            if not max([err] + errs) <= GRU_TOL[name]:
                 raise AssertionError(f"gru_fwd {name} F={f_in} disagrees "
-                                     f"with its plain version: {err}")
+                                     f"with its plain version: {err} {errs}")
             ms = time_ms(lambda: gru.gru_layer(*args), reps=5)
-            plain_ms = time_ms(lambda: gru.plain(*args), reps=3, warmup=1)
-            cudnn = torch.nn.GRU(f_in, h, bidirectional=True,
-                                 device="cuda", dtype=dt)
-            for d, sfx in enumerate(("", "_reverse")):
-                getattr(cudnn, "weight_ih_l0" + sfx).copy_(args[1][d].t())
-                getattr(cudnn, "weight_hh_l0" + sfx).copy_(args[3][d].t())
-                getattr(cudnn, "bias_ih_l0" + sfx).copy_(b_ih[d])
-                getattr(cudnn, "bias_hh_l0" + sfx).copy_(b_hh[d])
-            # torch flattens cuDNN weights in f16/f32/f64 only: the bf16
-            # call also copies its weights into one buffer (and warns once)
-            cudnn.flatten_parameters()
-            lib_ms = time_ms(lambda: cudnn(args[0]), reps=5)
+            ms_res = time_ms(lambda: gru.gru_layer(*args, residuals=True),
+                             reps=5)
+            plain_ms = time_ms(lambda: gru.plain(*args, residuals=True),
+                               reps=3, warmup=1)
+            net = cudnn_gru(torch, args, dt)
+            with torch.no_grad():
+                lib_ms = time_ms(lambda: net(args[0]), reps=5)
             n_valid = float(lens.sum().item())
             esize = 2 if dt == torch.bfloat16 else 4
             flops = 2.0 * 2 * n_valid * (f_in + h) * 3 * h
             nbytes = (esize * (t * b * f_in + 2 * (f_in + h) * 3 * h)
                       + 4 * (4 * 3 * h + 2 * t * b * h) + 8 * b)
+            res_bytes = esize * 2 * t * b * 4 * h  # g and hn, both ways
             peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
             bound_ms, by = bound(flops, peak, nbytes)
-            log(f"K2 gru_fwd {name} F={f_in}: {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, cuDNN GRU {lib_ms:.3f} ms, bound "
-                f"{bound_ms:.4f} ms ({by})")
-            if f_in == 1312 and dt == torch.bfloat16:
+            bound_res_ms, by_res = bound(flops, peak, nbytes + res_bytes)
+            log(f"K2 gru_fwd {name} F={f_in}: {ms:.3f} ms, with residuals "
+                f"{ms_res:.3f} ms, plain (with residuals) {plain_ms:.3f} ms, "
+                f"cuDNN GRU "
+                f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}), with "
+                f"residuals {bound_res_ms:.4f} ms ({by_res})")
+            if f_in == FEATURES and dt == torch.bfloat16:
+                # the train path runs the residual variant
                 results["gru_fwd"] = dict(
-                    route="cuda", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
-            del cudnn
+                    route="cuda", max_abs_err=max([err] + errs), ms=ms_res,
+                    ms_inference=ms, plain_ms=plain_ms, bound_ms=bound_res_ms,
+                    bound_by=by_res, library_ms=lib_ms)
+            del net
     results["gru_fwd"]["floor"] = step_floor(torch)
 
 
 def step_floor(torch) -> dict:
-    """Latency floor of one recurrence step as gru_fwd issues them (one
-    launch per step from a host loop): the gap between empty launches, and
-    the step kernel at the least work (B 1, H 16: one block per direction,
-    one dependent read of h_prev, one reduction), per step from the
-    difference of T 376 and T 188 so the projection and set-up cancel."""
+    """Latency floor of one recurrence step as gru_fwd and gru_bwd issue
+    them (one launch per step from a host loop): the gap between empty
+    launches, and each step kernel at the least work (B 1, H 16: one block
+    per direction), per step from the difference of T 376 and T 188 so the
+    set-up cancels."""
     from deepspeech_tpu_torch.ops.cuda import build, gru
 
     lib = build.load("gru_fwd")
@@ -270,34 +315,260 @@ def step_floor(torch) -> dict:
     gap_ms = time_ms(lambda: build.check(
         lib, lib.empty_launches(n, stream), "empty launches"), reps=5) / n
 
-    def tiny(t):  # the kernel's time does not depend on the values
+    def tiny(t, backward):  # the kernels' time does not depend on the values
         x = torch.full((t, 1, 16), 0.5, device="cuda")
         w_ih = torch.full((2, 16, 48), 0.01, device="cuda")
         w_hh = torch.full((2, 16, 48), 0.01, device="cuda")
         bias = torch.zeros(2, 48, device="cuda")
         lens = torch.full((1,), t, dtype=torch.int64, device="cuda")
-        return time_ms(lambda: gru.gru_layer(x, w_ih, bias, w_hh, bias, lens),
+        if not backward:
+            return time_ms(lambda: gru.gru_layer(x, w_ih, bias, w_hh, bias,
+                                                 lens), reps=7)
+        out, g, hn = gru.gru_layer(x, w_ih, bias, w_hh, bias, lens,
+                                   residuals=True)
+        return time_ms(lambda: gru.gru_bwd(out, g, hn, out, w_hh, lens),
                        reps=7)
 
-    step_ms = (tiny(376) - tiny(188)) / 188
-    log(f"K2 latency floor per step: empty launch {gap_ms * 1e3:.3f} us, "
-        f"least-work step {step_ms * 1e3:.3f} us; x 2,256 steps of a "
-        f"6 x BiGRU forward = {2256 * step_ms:.3f} ms")
-    return dict(gap_ms=gap_ms, step_ms=step_ms)
+    step_ms = (tiny(376, False) - tiny(188, False)) / 188
+    bwd_step_ms = (tiny(376, True) - tiny(188, True)) / 188
+    log(f"latency floor per step: empty launch {gap_ms * 1e3:.3f} us; "
+        f"least-work step K2 {step_ms * 1e3:.3f} us, K5 "
+        f"{bwd_step_ms * 1e3:.3f} us; x 2,256 steps of a 6 x BiGRU layer "
+        f"stack = {2256 * step_ms:.3f} ms forward, "
+        f"{2256 * bwd_step_ms:.3f} ms backward")
+    return dict(gap_ms=gap_ms, step_ms=step_ms, bwd_step_ms=bwd_step_ms)
+
+
+def max_err(a, ref) -> tuple[float, float]:
+    """(max abs error, max(1, max|ref|)) of two tensors."""
+    return ((a.float() - ref.float()).abs().max().item(),
+            max(1.0, ref.float().abs().max().item()))
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Route every kernel call of the model and the loss to its plain
+    version."""
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
+
+    saved = (stft.stft_mag, gru.gru_layer, gru.gru_bwd, ctc.ctc_alpha,
+             ctc.ctc_beta)
+
+    def stft_plain(y, n_fft, hop, window, center=True):
+        return stft.plain(y, n_fft, hop, window, center=center)
+
+    (stft.stft_mag, gru.gru_layer, gru.gru_bwd, ctc.ctc_alpha,
+     ctc.ctc_beta) = (stft_plain, gru.plain, gru.plain_bwd, ctc.plain_alpha,
+                      ctc.plain_beta)
+    try:
+        yield
+    finally:
+        (stft.stft_mag, gru.gru_layer, gru.gru_bwd, ctc.ctc_alpha,
+         ctc.ctc_beta) = saved
+
+
+def phase_gru_bwd(torch, results):
+    """K5 at full width, alone and through the layer's autograd Function."""
+    from deepspeech_tpu_torch.ops.cuda import gru
+
+    rng = np.random.default_rng(SEED + 4)
+    t, b, h = FRAMES, BATCH, HIDDEN
+    for f_in in (FEATURES, HIDDEN):
+        x32, w_ih32, b_ih, w_hh32, b_hh, lens = gru_inputs(torch, rng, t, b,
+                                                           h, f_in)
+        dout = torch.from_numpy(rng.standard_normal((t, b, h)).astype(
+            np.float32)).cuda() * 0.1
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            tol = GRU_BWD_TOL[name]
+            x, w_ih, w_hh = x32.to(dt), w_ih32.to(dt), w_hh32.to(dt)
+            out, g, hn = gru.plain(x, w_ih, b_ih, w_hh, b_hh, lens,
+                                   residuals=True)
+            d2 = dout[None].expand(2, -1, -1, -1).contiguous()
+            bwd_args = (d2, g, hn, out, w_hh, lens)
+            got = gru.gru_bwd(*bwd_args)
+            ref = gru.plain_bwd(*bwd_args)
+            errs = {k: max_err(a, r) for k, a, r in
+                    zip(("dg", "dnh", "dbi", "dbh"), got, ref)}
+
+            def layer_grads():
+                ins = [a.clone().requires_grad_(True)
+                       for a in (x, w_ih, b_ih, w_hh32, b_hh)]
+                o = gru.GRULayer.apply(*ins, lens)
+                return torch.autograd.grad((o[0] + o[1]), ins, dout)
+
+            lg = layer_grads()
+            with plain_path():
+                lref = layer_grads()
+            for k, a, r in zip(("dx", "dW_ih", "db_ih", "dW_hh", "db_hh"),
+                               lg, lref):
+                errs[k] = max_err(a, r)
+            torch.cuda.synchronize()
+            log(f"K5 gru_bwd {name} F={f_in}: "
+                + ", ".join(f"{k} {e:.3e} (scale {sc:.2f})"
+                            for k, (e, sc) in errs.items())
+                + f"; tolerance {tol} x scale")
+            bad = {k: e for k, (e, sc) in errs.items() if not e <= tol * sc}
+            if bad:
+                raise AssertionError(f"gru_bwd {name} F={f_in} disagrees "
+                                     f"with its plain version: {bad}")
+            if f_in != FEATURES:
+                continue
+            ms = time_ms(lambda: gru.gru_bwd(*bwd_args), reps=5)
+            plain_ms = time_ms(lambda: gru.plain_bwd(*bwd_args), reps=2,
+                               warmup=1)
+            ins = [a.clone().requires_grad_(True)
+                   for a in (x, w_ih, b_ih, w_hh32, b_hh)]
+            o = gru.GRULayer.apply(*ins, lens)
+            layer_ms = time_ms(lambda: torch.autograd.grad(
+                o[0] + o[1], ins, dout, retain_graph=True), reps=5)
+            net = cudnn_gru(torch, (x, w_ih, b_ih, w_hh, b_hh, lens), dt)
+            xin = x.clone().requires_grad_(True)
+            y, _ = net(xin)
+            dy = torch.cat([dout, dout], -1).to(dt)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                y, [xin] + list(net.parameters()), dy, retain_graph=True),
+                reps=5)
+            n_valid = float(lens.sum().item())
+            esize = 2 if dt == torch.bfloat16 else 4
+            flops = 2.0 * 2 * n_valid * 3 * h * h
+            # read dout, h (f32), g, hn, W_hh; write dg, dnh, dbi, dbh
+            nbytes = (4 * 2 * 2 * t * b * h + esize * 2 * t * b * 4 * h
+                      + esize * 2 * h * 3 * h + esize * 2 * t * b * 4 * h
+                      + 4 * 2 * 2 * 3 * h)
+            peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
+            bound_ms, by = bound(flops, peak, nbytes)
+            log(f"K5 gru_bwd {name} F={f_in}: {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}); the "
+                f"layer's whole backward (K5 + dx, dW_ih, dW_hh on cuBLAS) "
+                f"{layer_ms:.3f} ms; cuDNN bidirectional GRU backward "
+                f"(dx and all weight grads) {lib_ms:.3f} ms")
+            if dt == torch.bfloat16:
+                results["gru_bwd"] = dict(
+                    route="cuda",
+                    max_abs_err=max(errs[k][0] for k in ("dg", "dnh", "dbi",
+                                                         "dbh")),
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                    library_ms=lib_ms, layer_ms=layer_ms)
+            del net, y, o
+
+
+def ctc_inputs(torch, rng):
+    """Logits, logit lengths, targets, target lengths at the train shape:
+    unequal lengths, row 0 at full length, row 1 impossible."""
+    b, t, c, lmax = BATCH, FRAMES, CLASSES, CTC_L
+    logits = torch.from_numpy(rng.standard_normal((b, t, c)).astype(
+        np.float32)).cuda()
+    ll = torch.from_numpy(np.linspace(t, t // 2 + 12, b).astype(
+        np.int64)).cuda()
+    targets = torch.from_numpy(rng.integers(1, c, (b, lmax))).cuda()
+    tl = torch.from_numpy(rng.integers(lmax // 4, lmax + 1, b)).cuda()
+    tl[0] = lmax
+    ll[1], tl[1] = lmax // 2, lmax  # L labels cannot fit L / 2 frames
+    return logits, ll, targets, tl
+
+
+def phase_ctc(torch, results):
+    from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
+    from deepspeech_tpu_torch.ops.cuda import ctc
+
+    rng = np.random.default_rng(SEED + 5)
+    logits, ll, targets, tl = ctc_inputs(torch, rng)
+    b, t, c = logits.shape
+    _, _, skip, valid, end, emit = ctc_loss_mod._prep(logits, targets, tl, 0)
+    s = emit.shape[-1]
+    alphas = ctc.ctc_alpha(emit, skip, valid, ll)
+    betas = ctc.ctc_beta(emit, skip, valid, end, ll)
+    ref_a = ctc.plain_alpha(emit, skip, valid, ll)
+    ref_b = ctc.plain_beta(emit, skip, valid, end, ll)
+    torch.testing.assert_close(alphas, ref_a, **CTC_TOL)
+    torch.testing.assert_close(betas, ref_b, **CTC_TOL)
+
+    def loss_and_grad():
+        lg = logits.clone().requires_grad_(True)
+        per = ctc_loss_mod.ctc_loss(lg, ll, targets, tl)
+        (g,) = torch.autograd.grad(
+            torch.where(torch.isfinite(per), per, 0.0).sum(), lg)
+        return per, g
+
+    per, grad = loss_and_grad()
+    with plain_path():
+        ref_per, ref_grad = loss_and_grad()
+    if torch.isfinite(per[1]) or not torch.isfinite(per[[0] + list(
+            range(2, b))]).all():
+        raise AssertionError(f"CTC losses: {per.tolist()}")
+    if grad[1].abs().max().item() != 0.0:
+        raise AssertionError("the impossible row's gradient is not 0")
+    torch.testing.assert_close(per, ref_per, **CTC_TOL)
+    torch.testing.assert_close(grad, ref_grad, **CTC_TOL)
+    err_a, err_b = max_err(alphas, ref_a)[0], max_err(betas, ref_b)[0]
+    err_g = max_err(grad, ref_grad)[0]
+    log(f"K8/K9 ctc (B {b}, T {t}, C {c}, S {s}): alphas max_abs_err "
+        f"{err_a:.3e}, betas {err_b:.3e}, loss "
+        f"{max_err(per[torch.isfinite(per)], ref_per[torch.isfinite(per)])[0]:.3e}"
+        f", dlogits {err_g:.3e}; impossible row: loss inf, grad 0")
+
+    a_ms = time_ms(lambda: ctc.ctc_alpha(emit, skip, valid, ll), reps=20)
+    b_ms = time_ms(lambda: ctc.ctc_beta(emit, skip, valid, end, ll), reps=20)
+    pa_ms = time_ms(lambda: ctc.plain_alpha(emit, skip, valid, ll), reps=3,
+                    warmup=1)
+    pb_ms = time_ms(lambda: ctc.plain_beta(emit, skip, valid, end, ll),
+                    reps=3, warmup=1)
+    port_ms = time_ms(loss_and_grad, reps=10)
+    # F.ctc_loss on the same log-probs, a leaf: its forward, its backward
+    # (the gradient w.r.t. the log-probs), and both
+    lp = torch.log_softmax(logits, -1).transpose(0, 1).detach()
+    lp.requires_grad_(True)
+
+    def torch_fwd():
+        return torch.nn.functional.ctc_loss(lp, targets, ll, tl,
+                                            reduction="none")
+
+    lib_fwd_ms = time_ms(torch_fwd, reps=10)
+    ref_loss = torch_fwd().sum()
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        ref_loss, lp, retain_graph=True), reps=10)
+    lib_ms = time_ms(lambda: torch.autograd.grad(torch_fwd().sum(), lp),
+                     reps=10)
+    n_valid = float(ll.clamp(max=t).sum().item())
+    ops = 12.0 * n_valid * s  # 3 exp, 1 log, ~8 adds and compares a state
+    a_bytes = 4.0 * (n_valid * s + b * t * s + 2 * b * s) + 8 * b
+    b_bytes = 4.0 * (n_valid * s + b * t * s + 3 * b * s) + 8 * b
+    a_bound, a_by = bound(ops, PEAK_F32, a_bytes)
+    b_bound, b_by = bound(ops, PEAK_F32, b_bytes)
+    log(f"K8 ctc_alpha: {a_ms:.4f} ms, plain {pa_ms:.3f} ms, bound "
+        f"{a_bound:.4f} ms ({a_by}), F.ctc_loss forward {lib_fwd_ms:.4f} ms")
+    log(f"K9 ctc_beta: {b_ms:.4f} ms, plain {pb_ms:.3f} ms, bound "
+        f"{b_bound:.4f} ms ({b_by}), F.ctc_loss backward {lib_bwd_ms:.4f} ms")
+    log(f"CTC loss + dlogits through the port (K8, K9, gather, scatter): "
+        f"{port_ms:.4f} ms; F.ctc_loss forward + backward {lib_ms:.4f} ms")
+    results["ctc_alpha"] = dict(route="cuda", max_abs_err=err_a, ms=a_ms,
+                                plain_ms=pa_ms, bound_ms=a_bound,
+                                bound_by=a_by, library_ms=lib_fwd_ms)
+    results["ctc_beta"] = dict(route="cuda", max_abs_err=err_b, ms=b_ms,
+                               plain_ms=pb_ms, bound_ms=b_bound, bound_by=b_by,
+                               library_ms=lib_bwd_ms)
+
+
+def default_model(torch, seed):
+    from deepspeech_tpu_torch.models import build_model
+
+    model, meta = build_model("gru", CLASSES, HIDDEN, LAYERS,
+                              bidirectional=True,
+                              compute_dtype="bfloat16", device="cuda")
+    random_weights(model, np.random.default_rng(seed))
+    return model, meta
 
 
 def phase_forward(torch, counts, floor):
     from deepspeech_tpu_torch.audio.features import AudioConf, featurize_batch
     from deepspeech_tpu_torch.decoders import greedy_ids
-    from deepspeech_tpu_torch.models import build_model
     from deepspeech_tpu_torch.ops.cuda import gru, stft
 
     rng = np.random.default_rng(SEED + 2)
-    model, meta = build_model("gru", 30, 800, 6, bidirectional=True,
-                              compute_dtype="bfloat16", device="cuda")
-    random_weights(model, rng)
+    model, meta = default_model(torch, SEED + 2)
     model.eval()
-    b, s = 20, 120_000
+    b, s = BATCH, AUDIO_S
     audio = torch.from_numpy(np.stack([synthetic_audio(rng, s)
                                        for _ in range(b)])).cuda()
     lengths = torch.full((b,), s, dtype=torch.int64).cuda()
@@ -309,19 +580,22 @@ def phase_forward(torch, counts, floor):
         return logits, probs, out_lens, greedy_ids(probs)
 
     with torch.inference_mode():
-        stft.launches = gru.launches = 0
+        stft.launches = gru.launches = gru.res_launches = 0
         logits, probs, out_lens, ids = forward()
         torch.cuda.synchronize()
-        counts.update(stft_mag=stft.launches, gru_fwd=gru.launches)
-        log(f"main path (bf16 forward): launches {counts}")
-        if counts["stft_mag"] < 1 or counts["gru_fwd"] != 6:
-            raise AssertionError(f"main path missed a kernel: {counts}")
+        counts.update(stft_mag=stft.launches, gru_fwd=gru.launches,
+                      gru_fwd_res=gru.res_launches)
+        log(f"inference path (bf16 forward): launches {counts}")
+        if (counts["stft_mag"] < 1 or counts["gru_fwd"] != LAYERS
+                or counts["gru_fwd_res"] != 0):
+            raise AssertionError(f"inference path: wrong launches {counts}")
         with plain_path():
             ref_logits, _, ref_lens, ref_ids = forward()
         torch.cuda.synchronize()
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite logits")
-        if logits.shape != (b, 376, 30) or not (out_lens == 376).all():
+        if (logits.shape != (b, FRAMES, CLASSES)
+                or not (out_lens == FRAMES).all()):
             raise AssertionError(f"logits {tuple(logits.shape)}, "
                                  f"lengths {out_lens.tolist()}")
         if not torch.equal(out_lens, ref_lens):
@@ -331,7 +605,7 @@ def phase_forward(torch, counts, floor):
         scale = max(1.0, ref_logits.abs().max().item())
         err = (logits - ref_logits).abs().max().item()
         agree = (ids == ref_ids).float().mean().item()
-        log(f"main path: logits max_abs_err vs plain {err:.3e} (scale "
+        log(f"inference path: logits max_abs_err vs plain {err:.3e} (scale "
             f"{scale:.2f}, tolerance {LOGIT_TOL * scale:.3e}); greedy ids "
             f"agree on {agree:.4%} of frames")
         if not err <= LOGIT_TOL * scale:
@@ -339,26 +613,26 @@ def phase_forward(torch, counts, floor):
         ms = time_ms(forward, reps=5, warmup=1)
         with plain_path():
             plain_ms = time_ms(forward, reps=1, warmup=0)
-        profile_forward(torch, forward, ms, floor)
+        profile_run(torch, "forward", forward, ms, floor)
     audio_s = b * s / conf.sample_rate
-    log(f"main path: {ms:.3f} ms per forward of {b} x {s / 16000} s "
+    log(f"inference path: {ms:.3f} ms per forward of {b} x {s / SR} s "
         f"(featurize + 6 x BiGRU-800 bf16 + greedy) = "
         f"{audio_s / (ms / 1e3):.1f} audio-s/s; through the plain versions "
         f"{plain_ms:.3f} ms")
     return model, meta
 
 
-def profile_forward(torch, forward, ms: float, floor: dict):
-    """One forward under torch.profiler: device time by kernel, and the
-    device's busy and idle time on its trace timeline (the union of kernel,
-    memcpy and memset intervals between the first device op and the
+def profile_run(torch, label, fn, ms: float, floor: dict):
+    """One call of ``fn`` under torch.profiler: device time by kernel, and
+    the device's busy and idle time on its trace timeline (the union of
+    kernel, memcpy and memset intervals between the first device op and the
     last)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        forward()
+        fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
@@ -369,7 +643,7 @@ def profile_forward(torch, forward, ms: float, floor: dict):
                  for e in events if e.get("ph") == "X" and e.get("cat") in
                  ("kernel", "gpu_memcpy", "gpu_memset"))
     if not ops:
-        log("profile of one forward: the trace holds no device op; busy "
+        log(f"profile of one {label}: the trace holds no device op; busy "
             "and idle time not measured")
         return
     busy, (lo, hi) = 0.0, ops[0][:2]
@@ -379,7 +653,7 @@ def profile_forward(torch, forward, ms: float, floor: dict):
         hi = max(hi, end)
     busy += hi - lo
     span = max(end for _, end, _ in ops) - ops[0][0]
-    log(f"profile of one forward ({ms:.3f} ms unprofiled, CUDA events): "
+    log(f"profile of one {label} ({ms:.3f} ms unprofiled, CUDA events): "
         f"{len(ops)} device ops over {span / 1e3:.3f} ms of trace timeline, "
         f"busy {busy / 1e3:.3f} ms, idle {(span - busy) / 1e3:.3f} ms "
         f"({(span - busy) / span:.2%})")
@@ -387,14 +661,146 @@ def profile_forward(torch, forward, ms: float, floor: dict):
     for start, end, name in ops:
         n, t = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, t + end - start)
-    for name, (n, t) in sorted(by_name.items(), key=lambda r: -r[1][1])[:8]:
+    for name, (n, t) in sorted(by_name.items(), key=lambda r: -r[1][1])[:12]:
         log(f"  {t / 1e3:9.3f} ms {n:6d} x {name[:90]}")
-    steps = [(n, t) for name, (n, t) in by_name.items() if "gru_step" in name]
-    if steps:
-        n, t = map(sum, zip(*steps))
-        log(f"K2 step at full width: {t / n:.3f} us of kernel time per step "
-            f"({n} steps), {t / n / (floor['step_ms'] * 1e3):.1f}x the "
-            f"least-work step of {floor['step_ms'] * 1e3:.3f} us")
+    for kernel, key, what in (("gru_step", "step_ms", "K2"),
+                              ("bwd_step", "bwd_step_ms", "K5")):
+        steps = [(n, t) for name, (n, t) in by_name.items() if kernel in name]
+        if steps:
+            n, t = map(sum, zip(*steps))
+            log(f"{what} step at full width: {t / n:.3f} us of kernel time "
+                f"per step ({n} steps), {t / n / (floor[key] * 1e3):.1f}x "
+                f"the least-work step of {floor[key] * 1e3:.3f} us")
+
+
+def train_batch(torch, rng, labels: str):
+    """20 synthetic 7.5 s waveforms with random transcripts, collated on
+    the int16 wire as the train CLI does, on the card."""
+    from deepspeech_tpu_torch.data import BucketSpec, collate_batch
+
+    samples = []
+    for i in range(BATCH):
+        n = AUDIO_S - AUDIO_S // 30 * (i % 5)  # unequal, the longest full
+        words = ["".join(rng.choice(list(labels[2:28]), rng.integers(2, 8)))
+                 for _ in range(rng.integers(FRAMES // 40 + 1,
+                                             FRAMES // 27 + 2))]
+        ids = [labels.index(ch) for ch in " ".join(words)]
+        samples.append({"audio": synthetic_audio(rng, n),
+                        "target": np.asarray(ids, np.int32),
+                        "path": f"synthetic{i}"})
+    batch = collate_batch(samples, BATCH, BucketSpec(
+        reflect_tail=160, audio_step=8000, wire_dtype="int16"))
+    batch.pop("paths")
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def step_grads(torch, model, batch, jitter):
+    """Loss, per-parameter gradients and grad norm of one train step's
+    forward and backward, with TF32 off throughout as the step runs it;
+    a hook on the first conv's weight records cuDNN's TF32 flag at the
+    moment its gradient is made."""
+    from deepspeech_tpu_torch.ops import fp32_matmul
+    from deepspeech_tpu_torch.train.optim import global_norm
+    from deepspeech_tpu_torch.train.step import StepConfig, _loss, featurize
+
+    flags = []
+    hook = model.conv.conv0.weight.register_hook(
+        lambda g: flags.append(torch.backends.cudnn.allow_tf32))
+    model.train()
+    names, params = zip(*model.named_parameters())
+    with fp32_matmul():
+        spect, lengths = featurize(batch, StepConfig(), jitter)
+        logits, _, out_lens = model(spect, lengths)
+        loss, _ = _loss(logits, out_lens, batch)
+        grads = torch.autograd.grad(loss, params)
+    hook.remove()
+    if flags != [False]:
+        raise AssertionError(f"cuDNN TF32 during the backward: {flags}")
+    return loss.detach(), dict(zip(names, grads)), global_norm(grads)
+
+
+def phase_train(torch, counts, floor):
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_train_step)
+
+    rng = np.random.default_rng(SEED + 6)
+    labels = "_'ABCDEFGHIJKLMNOPQRSTUVWXYZ2 "
+    model, _ = default_model(torch, SEED + 6)
+    batch = train_batch(torch, rng, labels)
+    jitter = torch.from_numpy(rng.uniform(-0.5, 0.5, BATCH).astype(
+        np.float32)).cuda()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def reset_counts():
+        stft.launches = gru.launches = gru.res_launches = 0
+        gru.bwd_launches = ctc.alpha_launches = ctc.beta_launches = 0
+
+    loss, grads, norm = step_grads(torch, model, batch, jitter)
+    model.load_state_dict(init)
+    with plain_path():
+        ref_loss, ref_grads, ref_norm = step_grads(torch, model, batch,
+                                                   jitter)
+    model.load_state_dict(init)
+    torch.cuda.synchronize()
+    rel_loss = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    rel_norm = abs(norm.item() - ref_norm.item()) / ref_norm.item()
+    worst = max(((max_err(grads[k], ref_grads[k])[0]
+                  / max_err(grads[k], ref_grads[k])[1], k) for k in grads))
+    log(f"train step vs plain path: loss {loss.item():.4f} / "
+        f"{ref_loss.item():.4f} (rel {rel_loss:.2e}), grad norm "
+        f"{norm.item():.4f} / {ref_norm.item():.4f} (rel {rel_norm:.2e}); "
+        f"{len(grads)} parameter grads, worst {worst[1]} at "
+        f"{worst[0]:.2e} x scale (tolerances {STEP_LOSS_TOL}, "
+        f"{STEP_GRAD_TOL} x scale)")
+    if not (rel_loss <= STEP_LOSS_TOL and rel_norm <= STEP_LOSS_TOL
+            and worst[0] <= STEP_GRAD_TOL):
+        raise AssertionError("train step disagrees with the plain path")
+    zero = [k for k, g in grads.items() if not g.abs().max().item() > 0]
+    if zero:
+        raise AssertionError(f"parameters without a gradient: {zero}")
+
+    optimizer = build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
+    state = TrainState.create(model, optimizer)
+    step = make_train_step(model, optimizer, StepConfig())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times, losses = [], []
+    for i in range(5):
+        if i == 0:
+            reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch, generator=gen)
+        end.record()
+        end.synchronize()
+        if i == 0:
+            counts.update(stft_mag=stft.launches, gru_fwd=gru.launches,
+                          gru_fwd_res=gru.res_launches,
+                          gru_bwd=gru.bwd_launches,
+                          ctc_alpha=ctc.alpha_launches,
+                          ctc_beta=ctc.beta_launches)
+            log(f"train path, one step: launches {counts}")
+            want = dict(stft_mag=1, gru_fwd=LAYERS, gru_fwd_res=LAYERS,
+                        gru_bwd=LAYERS, ctc_alpha=1, ctc_beta=1)
+            if counts != want:
+                raise AssertionError(f"train step launches {counts}, "
+                                     f"expected {want}")
+        times.append(start.elapsed_time(end))
+        losses.append(m["loss"].item())
+        if not np.isfinite(losses[-1]) or bool(m["step_skipped"]):
+            raise AssertionError(f"step {i}: loss {losses[-1]}, skipped "
+                                 f"{bool(m['step_skipped'])}")
+        log(f"train step {i + 1}: loss {losses[-1]:.4f}, grad norm "
+            f"{m['grad_norm'].item():.3f}, {times[-1]:.3f} ms")
+    ms = float(np.median(times[1:]))
+    audio_s = float(batch["audio_lengths"].sum().item()) / SR
+    log(f"train path: {ms:.3f} ms per step (median of steps 2-5, CUDA "
+        f"events) for {audio_s:.2f} s of audio = {audio_s / (ms / 1e3):.1f} "
+        f"audio-s/s (bf16, 6 x BiGRU-800, batch {BATCH})")
+    profile_run(torch, "train step",
+                lambda: step(state, batch, generator=gen), ms, floor)
 
 
 def phase_cli(torch, model, meta, counts):
@@ -413,28 +819,94 @@ def phase_cli(torch, model, meta, counts):
         wavs = []
         for i, seconds in enumerate((2.0, 3.5, 5.0)):
             wavs.append(os.path.join(d, f"req{i}.wav"))
-            save_wav(wavs[-1], synthetic_audio(rng, int(seconds * 16000)),
-                     16000)
+            save_wav(wavs[-1], synthetic_audio(rng, int(seconds * SR)), SR)
         stft.launches = gru.launches = 0
         for wav in wavs:
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = main(["--model-path", path, "--audio-path", wav,
-                           "--offsets"])
-            dt = time.perf_counter() - t0
-            if rc != 0:
-                raise AssertionError(f"transcribe exited {rc}")
-            out = json.loads(buf.getvalue().strip().splitlines()[-1])
-            text = out["output"][0]["transcription"]
+            text, dt = transcribe_once(main, path, wav)
             log(f"transcribe {os.path.basename(wav)}: {len(text)} chars in "
                 f"{dt:.3f} s (host clock, checkpoint load included): "
                 f"{text[:60]!r}")
         torch.cuda.synchronize()
         counts.update(stft_mag=stft.launches, gru_fwd=gru.launches)
         log(f"transcribe CLI (f32): launches {counts}")
-        if counts["stft_mag"] != 3 or counts["gru_fwd"] != 18:
+        if counts["stft_mag"] != 3 or counts["gru_fwd"] != 3 * LAYERS:
             raise AssertionError(f"CLI path missed a kernel: {counts}")
+
+
+def transcribe_once(main, path: str, wav: str) -> tuple[str, float]:
+    """One transcribe CLI request -> (transcription, host seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["--model-path", path, "--audio-path", wav, "--offsets"])
+    dt = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"transcribe exited {rc}")
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    return out["output"][0]["transcription"], dt
+
+
+def phase_train_cli(torch):
+    """The train CLI, 1 epoch at full width on a synthetic manifest, then
+    one transcribe request on its final checkpoint."""
+    from deepspeech_tpu_torch.audio.io import save_wav
+    from deepspeech_tpu_torch.cli.train import main as train_main
+    from deepspeech_tpu_torch.cli.transcribe import main as transcribe_main
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
+
+    rng = np.random.default_rng(SEED + 7)
+    texts = ["HELLO WORLD", "THE QUICK BROWN FOX", "A DOG RAN HOME",
+             "GOOD DAY TO YOU", "SPEECH ON THE CARD", "TRAIN AND TEST"]
+    labels_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "labels.json")
+    with tempfile.TemporaryDirectory() as d:
+        rows = []
+        for i, text in enumerate(texts):
+            n = int(SR * (1.5 + 0.5 * i))
+            wav, txt = os.path.join(d, f"u{i}.wav"), os.path.join(d,
+                                                                 f"u{i}.txt")
+            save_wav(wav, synthetic_audio(rng, n), SR)
+            with open(txt, "w") as f:
+                f.write(text)
+            rows.append(f"{wav},{txt},{n / SR}")
+        manifest = os.path.join(d, "manifest.csv")
+        with open(manifest, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        stft.launches = gru.launches = gru.res_launches = 0
+        gru.bwd_launches = ctc.alpha_launches = ctc.beta_launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train_main(["--train-manifest", manifest, "--val-manifest",
+                             manifest, "--labels-path", labels_path,
+                             "--epochs", "1", "--batch-size", "3",
+                             "--val-batch-size", "3", "--num-workers", "2",
+                             "--hidden-size", str(HIDDEN),
+                             "--hidden-layers", str(LAYERS),
+                             "--save-folder", os.path.join(d, "models")])
+        dt = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            log(f"  train CLI: {line}")
+        if rc != 0:
+            raise AssertionError(f"train CLI exited {rc}")
+        torch.cuda.synchronize()
+        counts = dict(stft_mag=stft.launches, gru_fwd=gru.launches,
+                      gru_fwd_res=gru.res_launches, gru_bwd=gru.bwd_launches,
+                      ctc_alpha=ctc.alpha_launches,
+                      ctc_beta=ctc.beta_launches)
+        log(f"train CLI (6 x BiGRU-800 bf16, 2 steps + validation): "
+            f"{dt:.3f} s host clock, launches {counts}")
+        # 2 train steps, then 2 validation batches (forward and loss only)
+        want = dict(stft_mag=4, gru_fwd=4 * LAYERS, gru_fwd_res=2 * LAYERS,
+                    gru_bwd=2 * LAYERS, ctc_alpha=4, ctc_beta=2)
+        if counts != want:
+            raise AssertionError(f"train CLI launches {counts}, expected "
+                                 f"{want}")
+        final = os.path.join(d, "models", "deepspeech_final.ckpt")
+        text, dt = transcribe_once(transcribe_main, final,
+                                   os.path.join(d, "u0.wav"))
+        log(f"transcribe on the trained checkpoint: {len(text)} chars in "
+            f"{dt:.3f} s: {text[:60]!r}")
 
 
 def main() -> int:
@@ -464,20 +936,24 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     results: dict = {}
-    main_counts: dict = {}
-    with torch.inference_mode():
-        phase_stft(torch, results)
-        phase_gru(torch, results)
-        model, meta = phase_forward(torch, main_counts,
-                                    results["gru_fwd"]["floor"])
+    train_counts: dict = {}
+    phase_stft(torch, results)
+    phase_gru(torch, results)
+    phase_gru_bwd(torch, results)
+    phase_ctc(torch, results)
+    floor = results["gru_fwd"]["floor"]
+    model, meta = phase_forward(torch, {}, floor)
     phase_cli(torch, model, meta, {})
+    del model
+    phase_train(torch, train_counts, floor)
+    phase_train_cli(torch)
 
     kernels = []
-    for name in ("stft_mag", "gru_fwd"):
+    for name in KERNELS:
         r = results[name]
         kernels.append({"name": name, "route": r["route"],
                         "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": main_counts[name],
+                        "launches": train_counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -113,13 +113,16 @@ def normalize_spectrogram_batch(spect: torch.Tensor,
 
 
 def featurize_batch(audio: torch.Tensor, audio_lengths: torch.Tensor,
-                    conf: AudioConf, normalize: str = "max_frame"):
+                    conf: AudioConf, normalize: str = "max_frame",
+                    jitter: torch.Tensor | None = None):
     """Padded waveforms -> normalized spectrograms on the waveforms' device.
 
     audio: (B, S) f32, zero-padded; audio_lengths: (B,) valid sample counts.
     Returns (spect (B, 161, T), frame_lengths (B,)). The STFT reflect-pads
     the whole padded row, so a short utterance's last frame reflects into
     its zero padding, as the JAX package does for raw padded input.
+    ``jitter`` (B,), with ``max_frame``: the train-time offset added to
+    every valid frame (reference data_loader_aug.py:213-214).
     """
     if conf.aug_prob_spect > 0 or conf.aug_prob_8khz > 0:
         raise NotImplementedError(
@@ -137,5 +140,8 @@ def featurize_batch(audio: torch.Tensor, audio_lengths: torch.Tensor,
     else:
         mag = mag[..., :N_BINS, :]
     frame_lengths = 1 + audio_lengths.to(mag.device) // conf.hop
-    return normalize_spectrogram_batch(mag, frame_lengths, normalize), \
-        frame_lengths
+    spect = normalize_spectrogram_batch(mag, frame_lengths, normalize)
+    if jitter is not None and normalize == "max_frame":
+        mask = length_mask(frame_lengths, spect.shape[-1])
+        spect = spect + jitter.to(spect.device)[:, None, None] * mask[:, None]
+    return spect, frame_lengths

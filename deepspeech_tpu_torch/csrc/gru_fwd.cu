@@ -2,9 +2,14 @@
 //
 // Replaces the Pallas TPU kernel deepspeech_tpu/ops/pallas/rnn_fused.py
 // (_gru_fused_fwd_kernel, launched by _gru_fused_fwd for bigru_layer_pallas
-// and gru_layer_pallas) in its inference variant (with_res=False): the
-// projection x @ W_ih into f32 scratch, then the r, z, n recurrence with f32
-// state and f32 gates, both biases added in f32 and b_hn inside the r *.
+// and gru_layer_pallas), both variants: the projection x @ W_ih into f32
+// scratch, then the r, z, n recurrence with f32 state and f32 gates, both
+// biases added in f32 and b_hn inside the r *. The training variant
+// (with_res=True there; g and hn not null here) also writes, per direction,
+// the gate stream g = (r, z, n) (T, B, 3H) and hn, the hidden n-term before
+// the r * (T, B, H), in the operand type, as the TPU kernel stashes them for
+// the backward (csrc/gru_bwd.cu); both are zero at steps past a row's
+// length. Inference passes null and writes neither.
 // The operand type T is float or __nv_bfloat16; in bf16 the hidden dot
 // rounds h_prev to bf16 (as the TPU kernel does) and every product
 // accumulates in f32; the projection is never rounded to bf16.
@@ -12,7 +17,8 @@
 // Bound on the H100 at the default shape (T 376, B 20, H 800, F 1312 or
 // 800, two directions): ~95 (layer 0) or 58 GFLOP of projection plus 58
 // GFLOP of recurrence, ~0.12-0.15 ms at the 989 TFLOP/s bf16 tensor-core
-// peak; ~90 MB of bytes, ~0.03 ms. So it is bound by operations.
+// peak; ~90 MB of bytes, ~0.03 ms (the training variant adds ~96 MB of g
+// and hn, ~0.06 ms in all). So it is bound by operations.
 // Latency floor: the T steps depend on each other, and this design spends
 // one launch on each. A step cannot take less than the gap between two
 // launches from the host loop plus one dependent read of h_prev from L2,
@@ -27,18 +33,18 @@
 //    tensor cores yet: a wgmma version is later work.
 //  * gru_step: one launch per time step covering both directions. A block
 //    owns TJ hidden units of one direction for RB batch rows, so its shared
-//    memory does not grow with B: it stages those rows of h_prev, splits
-//    the H-long dots over KS thread groups that read their W_hh rows from
-//    global memory (L2), reduces the partial sums through shared memory
-//    and applies the gate update. The backward direction indexes
-//    t = len_b - 1 - s directly; steps past a row's length keep its state
-//    and write zeros. h ping-pongs between two state buffers. A persistent
-//    kernel with W_hh resident in shared memory and a grid barrier per step
-//    is later work.
+//    memory does not grow with B: it stages those rows of h_prev (a thread
+//    a column, with no division in the loop), splits the H-long dots over
+//    KS thread groups that read their W_hh rows from global memory (L2),
+//    reduces the partial sums through shared memory and applies the gate
+//    update. The backward direction indexes t = len_b - 1 - s directly;
+//    steps past a row's length keep its state and write zeros. h
+//    ping-pongs between two state buffers. A persistent kernel with W_hh
+//    resident in shared memory and a grid barrier per step is later work.
 // Against the bound: on an H100 SXM at 700 W a bf16 layer-0 call takes
-// ~10.4-10.7 ms, ~90x the bound; a step takes ~17 us of kernel time, ~4x
-// the least-work step, and the SIMT projection ~2.4 ms (chip_smoke.py;
-// PERF.md, "H100 port").
+// ~9.7-9.9 ms, ~85x the bound, with or without the residuals; a step takes
+// ~15 us of kernel time, ~4x the least-work step, and the SIMT projection
+// ~2.4-2.6 ms a layer (chip_smoke.py; PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -116,13 +122,15 @@ __device__ __forceinline__ float ds_sigmoid(float x) {
 
 // One time step s for both directions; grid (ceil(H/TJ), ceil(B/RB), D).
 // xp (D, T, B, 3H) f32; w_hh (D, H, 3H); b_ih, b_hh (D, 3H) f32;
-// lens (B) int32; h_in/h_out (D, B, H) f32; out (D, T, B, H) f32.
+// lens (B) int32; h_in/h_out (D, B, H) f32; out (D, T, B, H) f32;
+// g_out (D, T, B, 3H) and hn_out (D, T, B, H) in T, or both null.
 template <typename T>
 __global__ void __launch_bounds__(STEP_THREADS)
 gru_step(const float* __restrict__ xp, const T* __restrict__ w_hh,
          const float* __restrict__ b_ih, const float* __restrict__ b_hh,
          const int* __restrict__ lens, const float* __restrict__ h_in,
-         float* __restrict__ h_out, float* __restrict__ out, int s, int Tn,
+         float* __restrict__ h_out, float* __restrict__ out,
+         T* __restrict__ g_out, T* __restrict__ hn_out, int s, int Tn,
          int B, int H) {
   extern __shared__ float smem[];
   const int G = 3 * H;
@@ -136,8 +144,16 @@ gru_step(const float* __restrict__ xp, const T* __restrict__ w_hh,
   const T* wd = w_hh + static_cast<size_t>(d) * H * G;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < RB * H; i += STEP_THREADS)
-    hs[i] = b0 + i / H < B ? ds_round_to<T>(hprev[b0 * H + i]) : 0.f;
+  // a thread stages one column a pass: RB independent row loads, no division
+  const int nrows = min(RB, B - b0);
+  for (int k = tid; k < H; k += STEP_THREADS) {
+    float v[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      v[r] = r < nrows ? hprev[(b0 + r) * H + k] : 0.f;
+#pragma unroll
+    for (int r = 0; r < RB; ++r) hs[r * H + k] = ds_round_to<T>(v[r]);
+  }
   __syncthreads();
 
   const int jl = tid % TJ, ks = tid / TJ;
@@ -189,22 +205,32 @@ gru_step(const float* __restrict__ xp, const T* __restrict__ w_hh,
       const bool valid = s < len;
       const int t = (d == 0 || !valid) ? s : len - 1 - s;
       const float hp = hprev[b * H + jj];
-      float* o = out + ((static_cast<size_t>(d) * Tn + t) * B + b) * H + jj;
+      const size_t row = (static_cast<size_t>(d) * Tn + t) * B + b;
+      float* o = out + row * H + jj;
+      float rg = 0.f, zg = 0.f, ng = 0.f;
       if (valid) {
-        const float* xg = xp + ((static_cast<size_t>(d) * Tn + t) * B + b) * G;
+        const float* xg = xp + row * G;
         const float* bi = b_ih + d * G;
         const float xr = xg[jj] + bi[jj];
         const float xz = xg[H + jj] + bi[H + jj];
         const float xn = xg[2 * H + jj] + bi[2 * H + jj];
-        const float rg = ds_sigmoid(xr + hr);
-        const float zg = ds_sigmoid(xz + hz);
-        const float ng = tanhf(xn + rg * hn);
+        rg = ds_sigmoid(xr + hr);
+        zg = ds_sigmoid(xz + hz);
+        ng = tanhf(xn + rg * hn);
         const float h = (1.f - zg) * ng + zg * hp;
         hnew[b * H + jj] = h;
         *o = h;
       } else {
         hnew[b * H + jj] = hp;
         *o = 0.f;
+        hn = 0.f;
+      }
+      if (g_out != nullptr) {
+        T* gr = g_out + row * G + jj;
+        gr[0] = ds_from_float<T>(rg);
+        gr[H] = ds_from_float<T>(zg);
+        gr[2 * H] = ds_from_float<T>(ng);
+        hn_out[row * H + jj] = ds_from_float<T>(hn);
       }
     }
   }
@@ -215,8 +241,8 @@ __global__ void empty_kernel() {}
 template <typename T>
 int gru_fwd(const T* x, const T* w_ih, const float* b_ih, const T* w_hh,
             const float* b_hh, const int* lens, float* xp, float* state,
-            float* out, int Tn, int B, int F, int H, int D,
-            cudaStream_t stream) {
+            float* out, T* g_out, T* hn_out, int Tn, int B, int F, int H,
+            int D, cudaStream_t stream) {
   const int M = Tn * B, N = 3 * H;
   const dim3 ggrid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, D);
   proj_gemm<T><<<ggrid, 256, 0, stream>>>(x, w_ih, xp, M, N, F);
@@ -237,7 +263,8 @@ int gru_fwd(const T* x, const T* w_ih, const float* b_ih, const T* w_hh,
     const float* h_in = state + (s & 1) * hsz;
     float* h_out = state + ((s + 1) & 1) * hsz;
     gru_step<T><<<sgrid, STEP_THREADS, smem, stream>>>(
-        xp, w_hh, b_ih, b_hh, lens, h_in, h_out, out, s, Tn, B, H);
+        xp, w_hh, b_ih, b_hh, lens, h_in, h_out, out, g_out, hn_out, s, Tn,
+        B, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -248,23 +275,25 @@ int gru_fwd(const T* x, const T* w_ih, const float* b_ih, const T* w_hh,
 
 // x (T, B, F); w_ih (D, F, 3H); w_hh (D, H, 3H); b_ih, b_hh (D, 3H) f32;
 // lens (B) int32 <= T; scratch xp (D, T, B, 3H) f32 and state (2, D, B, H)
-// f32; out (D, T, B, H) f32, zero at steps past each row's length.
+// f32; out (D, T, B, H) f32, zero at steps past each row's length; g
+// (D, T, B, 3H) and hn (D, T, B, H) in the operand type, or both null.
 DS_EXPORT int gru_fwd_f32(const float* x, const float* w_ih,
                           const float* b_ih, const float* w_hh,
                           const float* b_hh, const int* lens, float* xp,
-                          float* state, float* out, int Tn, int B, int F,
-                          int H, int D, void* stream) {
-  return gru_fwd<float>(x, w_ih, b_ih, w_hh, b_hh, lens, xp, state, out, Tn,
-                        B, F, H, D, static_cast<cudaStream_t>(stream));
+                          float* state, float* out, float* g, float* hn,
+                          int Tn, int B, int F, int H, int D, void* stream) {
+  return gru_fwd<float>(x, w_ih, b_ih, w_hh, b_hh, lens, xp, state, out, g,
+                        hn, Tn, B, F, H, D, static_cast<cudaStream_t>(stream));
 }
 
 DS_EXPORT int gru_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w_ih,
                            const float* b_ih, const __nv_bfloat16* w_hh,
                            const float* b_hh, const int* lens, float* xp,
-                           float* state, float* out, int Tn, int B, int F,
-                           int H, int D, void* stream) {
+                           float* state, float* out, __nv_bfloat16* g,
+                           __nv_bfloat16* hn, int Tn, int B, int F, int H,
+                           int D, void* stream) {
   return gru_fwd<__nv_bfloat16>(x, w_ih, b_ih, w_hh, b_hh, lens, xp, state,
-                                out, Tn, B, F, H, D,
+                                out, g, hn, Tn, B, F, H, D,
                                 static_cast<cudaStream_t>(stream));
 }
 

@@ -51,6 +51,17 @@ class GreedyDecoder(Decoder):
             prev = idx
         return "".join(chars), np.array(offs, dtype=np.int32)
 
+    def decode_ids(self, ids, sizes=None):
+        """Decode argmax ids computed on the device (the train and eval
+        steps return them) -> (strings, offsets), repeats collapsed."""
+        if isinstance(ids, torch.Tensor):
+            ids = ids.cpu().numpy()
+        if isinstance(sizes, torch.Tensor):
+            sizes = sizes.cpu().numpy()
+        return self.convert_to_strings(np.asarray(ids), sizes,
+                                       remove_repetitions=True,
+                                       return_offsets=True)
+
     def decode(self, probs, sizes=None):
         """probs: (B, T, C) tensor. -> (strings, offsets), repeats
         collapsed."""

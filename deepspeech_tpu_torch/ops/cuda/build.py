@@ -22,10 +22,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("stft_mag", "gru_fwd")
+SOURCES = ("stft_mag", "gru_fwd", "gru_bwd", "ctc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-               "-Xptxas=-v")
+              "-Xptxas=-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

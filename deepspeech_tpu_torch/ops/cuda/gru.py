@@ -1,16 +1,27 @@
-"""Wrapper of the GRU layer-forward kernel (``csrc/gru_fwd.cu``).
+"""Wrappers of the GRU layer kernels (``csrc/gru_fwd.cu``, ``csrc/gru_bwd.cu``)
+and the autograd Function that ties them together.
 
-Replaces ``deepspeech_tpu/ops/pallas/rnn_fused.py`` (``_gru_fused_fwd_kernel``
-via ``bigru_layer_pallas`` / ``gru_layer_pallas``) in its inference variant,
-input projection included. For CPU tensors the wrapper runs ``plain``, the
-plain PyTorch loop beside it; for CUDA tensors it launches the kernel or
-raises.
+``gru_layer`` replaces ``deepspeech_tpu/ops/pallas/rnn_fused.py``
+(``_gru_fused_fwd_kernel`` via ``bigru_layer_pallas`` / ``gru_layer_pallas``),
+input projection included, in both variants: inference, and training
+(``residuals=True``), which also returns the gate stream g = (r, z, n) and hn,
+the hidden n-term before the r *, in the operand type. ``gru_bwd`` replaces
+``deepspeech_tpu/ops/pallas/rnn_kernel.py`` (``_gru_bwd_kernel`` via
+``_gru_bwd``). For CPU tensors each wrapper runs its plain PyTorch twin
+beside it (``plain``, ``plain_bwd``); for CUDA tensors it launches the
+kernel or raises.
 
-Semantics of both: time-major (T, B, F) layout, torch gate order r, z, n,
-f32 state and f32 gates. With bf16 operands every product accumulates in
-f32, the input projection stays f32, and the hidden dot rounds h_prev to
-bf16. The backward direction reads each sequence reversed within its valid
-length (pack_padded_sequence semantics); outputs at padded steps are zero.
+Semantics: time-major (T, B, F) layout, torch gate order r, z, n, f32 state
+and f32 gates. With bf16 operands every product accumulates in f32, the
+input projection stays f32, and the hidden dot rounds h_prev to bf16. The
+backward direction reads each sequence reversed within its valid length
+(pack_padded_sequence semantics); outputs and residuals at padded steps are
+zero, and the backward ignores the output grads there.
+
+``GRULayer`` is the layer's ``torch.autograd.Function``: the training
+forward, then K5 for the recurrence's gradient and cuBLAS for the large
+products dW_hh, dW_ih and dx (``rnn_kernel.py:475-486``,
+``rnn_fused.py:_proj_grads``), as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -23,18 +34,30 @@ import torch
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import build
 
-launches = 0  # wrapper calls that launched the kernel (one per layer)
+launches = 0      # gru_fwd launches (one per layer call), both variants
+res_launches = 0  # of those, the training variant's (residuals written)
+bwd_launches = 0  # gru_bwd launches (one per layer backward)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ENTRY = {torch.float32: "gru_fwd_f32", torch.bfloat16: "gru_fwd_bf16"}
+_FWD = {torch.float32: "gru_fwd_f32", torch.bfloat16: "gru_fwd_bf16"}
+_BWD = {torch.float32: "gru_bwd_f32", torch.bfloat16: "gru_bwd_bf16"}
 
 
 @functools.cache
-def _kernel():
+def _fwd_kernel():
     lib = build.load("gru_fwd")
-    for name in _ENTRY.values():
-        getattr(lib, name).argtypes = [_P] * 9 + [_I] * 5 + [_P]
+    for name in _FWD.values():
+        getattr(lib, name).argtypes = [_P] * 11 + [_I] * 5 + [_P]
+        getattr(lib, name).restype = _I
+    return lib
+
+
+@functools.cache
+def _bwd_kernel():
+    lib = build.load("gru_bwd")
+    for name in _BWD.values():
+        getattr(lib, name).argtypes = [_P] * 11 + [_I] * 4 + [_P]
         getattr(lib, name).restype = _I
     return lib
 
@@ -48,11 +71,20 @@ def walk_index(lengths: torch.Tensor, t: int) -> torch.Tensor:
     return torch.where(s < lens, lens - 1 - s, s)
 
 
+def _to_time_order(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(D, T, B, N) in walk order -> time order (direction 1 regathered)."""
+    if a.shape[0] == 1:
+        return a
+    gather = idx[:, :, None].expand(-1, -1, a.shape[-1])
+    return torch.stack([a[0], torch.gather(a[1], 0, gather)])
+
+
 def plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
-          w_hh: torch.Tensor, b_hh: torch.Tensor,
-          lengths: torch.Tensor) -> torch.Tensor:
+          w_hh: torch.Tensor, b_hh: torch.Tensor, lengths: torch.Tensor,
+          residuals: bool = False):
     """GRU layer, one or two directions -> (D, T, B, H) f32, zero at steps
-    past each row's length.
+    past each row's length; with ``residuals`` also g (D, T, B, 3H) and hn
+    (D, T, B, H) in x's type, zero there too.
 
     x: (T, B, F); w_ih: (D, F, 3H); w_hh: (D, H, 3H), all in the operand
     type (float32 or bfloat16); b_ih, b_hh: (D, 3H); lengths: (B,).
@@ -64,15 +96,13 @@ def plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
         xp = torch.einsum("tbf,dfg->dtbg", x.float(), w_ih.float())
     xp = xp + b_ih.float()[:, None, None, :]
     idx = walk_index(lengths, t)
-    if ndir == 2:
-        gather = idx[:, :, None].expand(t, b, 3 * hidden)
-        xp = torch.stack([xp[0], torch.gather(xp[1], 0, gather)])
+    xp = _to_time_order(xp, idx)  # the gather is its own inverse
     valid = (torch.arange(t, device=x.device)[:, None]
              < lengths[None, :])[None, :, :, None]  # (1, T, B, 1)
     w32 = w_hh.float()
     bh = b_hh.float()[:, None, :]
     h = torch.zeros((ndir, b, hidden), dtype=torch.float32, device=x.device)
-    outs = []
+    outs, gates, hns = [], [], []
     for s in range(t):
         with fp32_matmul():
             hp = torch.bmm(h.to(w_hh.dtype).float(), w32) + bh
@@ -80,31 +110,43 @@ def plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
         r = torch.sigmoid(xs[..., :hidden] + hp[..., :hidden])
         z = torch.sigmoid(xs[..., hidden:2 * hidden]
                           + hp[..., hidden:2 * hidden])
-        n = torch.tanh(xs[..., 2 * hidden:] + r * hp[..., 2 * hidden:])
+        hn = hp[..., 2 * hidden:]
+        n = torch.tanh(xs[..., 2 * hidden:] + r * hn)
         h_new = (1.0 - z) * n + z * h
         keep = valid[:, s]
         h = torch.where(keep, h_new, h)
-        outs.append(torch.where(keep, h_new, torch.zeros_like(h_new)))
-    out = torch.stack(outs, dim=1)  # (D, T, B, H) in walk order
-    if ndir == 2:
-        gather = idx[:, :, None].expand(t, b, hidden)
-        out = torch.stack([out[0], torch.gather(out[1], 0, gather)])
-    return out
+        outs.append(torch.where(keep, h_new, 0.0))
+        if residuals:
+            gates.append(torch.where(keep, torch.cat([r, z, n], -1), 0.0))
+            hns.append(torch.where(keep, hn, 0.0))
+    out = _to_time_order(torch.stack(outs, dim=1), idx)
+    if not residuals:
+        return out
+    g = _to_time_order(torch.stack(gates, dim=1), idx).to(x.dtype)
+    hn = _to_time_order(torch.stack(hns, dim=1), idx).to(x.dtype)
+    return out, g, hn
+
+
+def _same_device(where: str, dev: torch.device, **tensors) -> None:
+    for name, a in tensors.items():
+        if a.device != dev:
+            raise ValueError(f"{where}: {name} on {a.device}, expected {dev}")
 
 
 def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
-              w_hh: torch.Tensor, b_hh: torch.Tensor,
-              lengths: torch.Tensor) -> torch.Tensor:
-    """GRU layer forward -> (D, T, B, H) f32, zero past each row's length.
+              w_hh: torch.Tensor, b_hh: torch.Tensor, lengths: torch.Tensor,
+              residuals: bool = False):
+    """GRU layer forward -> (D, T, B, H) f32, zero past each row's length;
+    with ``residuals`` -> (out, g, hn) for the backward.
 
     x (T, B, F), w_ih (D, F, 3H) and w_hh (D, H, 3H) share the operand type
     (float32 or bfloat16); b_ih, b_hh (D, 3H) f32; lengths (B,)."""
     if x.device.type == "cpu":
-        return plain(x, w_ih, b_ih, w_hh, b_hh, lengths)
+        return plain(x, w_ih, b_ih, w_hh, b_hh, lengths, residuals)
     if x.device.type != "cuda":
         raise ValueError(f"gru_layer: unsupported device {x.device}")
     dt = x.dtype
-    if dt not in _ENTRY or w_ih.dtype != dt or w_hh.dtype != dt:
+    if dt not in _FWD or w_ih.dtype != dt or w_hh.dtype != dt:
         raise TypeError(f"gru_layer kernel takes x, w_ih, w_hh all float32 "
                         f"or all bfloat16, got {x.dtype}, {w_ih.dtype}, "
                         f"{w_hh.dtype}")
@@ -119,11 +161,9 @@ def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
                          f"b_hh {tuple(b_hh.shape)} lengths "
                          f"{tuple(lengths.shape)}")
     dev = x.device
-    for name, a in (("w_ih", w_ih), ("b_ih", b_ih), ("w_hh", w_hh),
-                    ("b_hh", b_hh), ("lengths", lengths)):
-        if a.device != dev:
-            raise ValueError(f"gru_layer: {name} on {a.device}, x on {dev}")
-    lib = _kernel()
+    _same_device("gru_layer", dev, w_ih=w_ih, b_ih=b_ih, w_hh=w_hh,
+                 b_hh=b_hh, lengths=lengths)
+    lib = _fwd_kernel()
     x = x.contiguous()
     w_ih, w_hh = w_ih.contiguous(), w_hh.contiguous()
     b_ih = b_ih.float().contiguous()
@@ -132,14 +172,182 @@ def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     xp = torch.empty((ndir, t, b, g), dtype=torch.float32, device=dev)
     state = torch.empty((2, ndir, b, hidden), dtype=torch.float32, device=dev)
     out = torch.empty((ndir, t, b, hidden), dtype=torch.float32, device=dev)
-    fn = getattr(lib, _ENTRY[dt])
+    gates = hn = None
+    if residuals:
+        gates = torch.empty((ndir, t, b, g), dtype=dt, device=dev)
+        hn = torch.empty((ndir, t, b, hidden), dtype=dt, device=dev)
+    fn = getattr(lib, _FWD[dt])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         code = fn(x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
                   w_hh.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
                   xp.data_ptr(), state.data_ptr(), out.data_ptr(),
+                  gates.data_ptr() if residuals else None,
+                  hn.data_ptr() if residuals else None,
                   t, b, f_in, hidden, ndir, stream)
     build.check(lib, code, "gru_fwd kernel")
-    global launches
+    global launches, res_launches
     launches += 1
-    return out
+    if not residuals:
+        return out
+    res_launches += 1
+    return out, gates, hn
+
+
+def h_prev_stream(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(D, T, B, H) layer outputs -> h_prev of each step in time order:
+    h[t-1] for direction 0 (0 at t = 0), h[t+1] for direction 1 (0 where
+    t + 1 is past the row's length)."""
+    zero = torch.zeros_like(h[:1, :1])
+    prev = [torch.cat([zero[0], h[0, :-1]])]
+    if h.shape[0] == 2:
+        t = h.shape[1]
+        nxt = torch.cat([h[1, 1:], zero[0]])
+        keep = (torch.arange(t, device=h.device)[:, None] + 1
+                < lengths.to(h.device)[None, :])[:, :, None]
+        prev.append(torch.where(keep, nxt, 0.0))
+    return torch.stack(prev)
+
+
+def plain_bwd(dout: torch.Tensor, g: torch.Tensor, hn: torch.Tensor,
+              h: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
+    """Backward through time of the GRU recurrence -> (dg (D, T, B, 3H) and
+    dnh (D, T, B, H) in g's type, dbi and dbh (D, 3H) f32).
+
+    dout, h (D, T, B, H) f32: the grads and values of the layer outputs;
+    g, hn: the forward's residuals; w_hh (D, H, 3H) in g's type. Direction
+    0 walks t = T-1 .. 0, direction 1 t = 0 .. T-1; steps past a row's
+    length give dg = 0 and keep the carried dh."""
+    ndir, t, b, hidden = h.shape
+    dt = g.dtype
+    dev = h.device
+    lengths = lengths.to(dev)
+    hp_all = h_prev_stream(h, lengths)
+    wt = w_hh.float().transpose(1, 2)  # (D, 3H, H)
+    dirs = torch.arange(ndir, device=dev)
+    dg = torch.zeros((ndir, t, b, 3 * hidden), dtype=dt, device=dev)
+    dnh = torch.zeros((ndir, t, b, hidden), dtype=dt, device=dev)
+    acc_i = torch.zeros((ndir, b, 3 * hidden), device=dev)
+    acc_h = torch.zeros_like(acc_i)
+    dh = torch.zeros((ndir, b, hidden), device=dev)
+    for s in range(t):
+        ts = torch.tensor([t - 1 - s, s][:ndir], device=dev)
+        valid = (ts[:, None] < lengths[None, :])[:, :, None]  # (D, B, 1)
+        dh_tot = dout[dirs, ts] + dh
+        gv = g[dirs, ts].float()
+        r, z, n = gv[..., :hidden], gv[..., hidden:2 * hidden], \
+            gv[..., 2 * hidden:]
+        hnv = hn[dirs, ts].float()
+        hp = hp_all[dirs, ts]
+        dn = dh_tot * (1.0 - z) * (1.0 - n * n)
+        dz = dh_tot * (hp - n) * z * (1.0 - z)
+        dr = dn * hnv * r * (1.0 - r)
+        dnhv = dn * r
+        dgv = torch.where(valid, torch.cat([dr, dz, dn], -1), 0.0)
+        dhp = torch.where(valid, torch.cat([dr, dz, dnhv], -1), 0.0)
+        dg[dirs, ts] = dgv.to(dt)
+        dnh[dirs, ts] = dhp[..., 2 * hidden:].to(dt)
+        acc_i += dgv
+        acc_h += dhp
+        with fp32_matmul():
+            rec = torch.bmm(dhp.to(dt).float(), wt)
+        dh = torch.where(valid, dh_tot * z + rec, dh)
+    return dg, dnh, acc_i.sum(1), acc_h.sum(1)
+
+
+def gru_bwd(dout: torch.Tensor, g: torch.Tensor, hn: torch.Tensor,
+            h: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
+    """K5: the GRU recurrence's backward; arguments and results as
+    ``plain_bwd``."""
+    if h.device.type == "cpu":
+        return plain_bwd(dout, g, hn, h, w_hh, lengths)
+    if h.device.type != "cuda":
+        raise ValueError(f"gru_bwd: unsupported device {h.device}")
+    dt = g.dtype
+    if dt not in _BWD or hn.dtype != dt or w_hh.dtype != dt:
+        raise TypeError(f"gru_bwd kernel takes g, hn, w_hh all float32 or "
+                        f"all bfloat16, got {g.dtype}, {hn.dtype}, "
+                        f"{w_hh.dtype}")
+    if dout.dtype != torch.float32 or h.dtype != torch.float32:
+        raise TypeError("gru_bwd kernel takes dout and h in float32")
+    ndir, t, b, hidden = h.shape
+    gh = 3 * hidden
+    if (dout.shape != h.shape or g.shape != (ndir, t, b, gh)
+            or hn.shape != h.shape or w_hh.shape != (ndir, hidden, gh)
+            or lengths.shape != (b,) or ndir not in (1, 2)):
+        raise ValueError("gru_bwd: inconsistent shapes "
+                         f"dout {tuple(dout.shape)} g {tuple(g.shape)} hn "
+                         f"{tuple(hn.shape)} h {tuple(h.shape)} w_hh "
+                         f"{tuple(w_hh.shape)} lengths {tuple(lengths.shape)}")
+    dev = h.device
+    _same_device("gru_bwd", dev, dout=dout, g=g, hn=hn, w_hh=w_hh,
+                 lengths=lengths)
+    lib = _bwd_kernel()
+    dout, g, hn, h = (a.contiguous() for a in (dout, g, hn, h))
+    wt = w_hh.transpose(1, 2).contiguous()
+    lens = lengths.to(torch.int32).clamp(max=t).contiguous()
+    dg = torch.empty((ndir, t, b, gh), dtype=dt, device=dev)
+    dnh = torch.empty((ndir, t, b, hidden), dtype=dt, device=dev)
+    scratch = torch.empty(2 * ndir * b * gh + 2 * ndir * b * hidden,
+                          dtype=torch.float32, device=dev)
+    dbi = torch.empty((ndir, gh), dtype=torch.float32, device=dev)
+    dbh = torch.empty_like(dbi)
+    fn = getattr(lib, _BWD[dt])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = fn(dout.data_ptr(), g.data_ptr(), hn.data_ptr(), h.data_ptr(),
+                  wt.data_ptr(), lens.data_ptr(), dg.data_ptr(),
+                  dnh.data_ptr(), scratch.data_ptr(), dbi.data_ptr(),
+                  dbh.data_ptr(), t, b, hidden, ndir, stream)
+    build.check(lib, code, "gru_bwd kernel")
+    global bwd_launches
+    bwd_launches += 1
+    return dg, dnh, dbi, dbh
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with f32 sums and an f32 result, operands in their own type
+    (bf16 products are exact in f32)."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class GRULayer(torch.autograd.Function):
+    """Differentiable GRU layer: K2 with residuals forward, K5 backward.
+
+    forward(x, w_ih, b_ih, w_hh, b_hh, lengths) -> (D, T, B, H) f32. x and
+    w_ih are in the operand type; w_hh, b_ih and b_hh in f32 (the kernel
+    takes w_hh rounded to the operand type, and its gradient stays f32, as
+    the JAX package's does). dx and dW_ih come back in the operand type."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih, b_ih, w_hh, b_hh, lengths):
+        w_op = w_hh.to(x.dtype)
+        out, g, hn = gru_layer(x, w_ih, b_ih, w_op, b_hh, lengths,
+                               residuals=True)
+        ctx.save_for_backward(x, w_ih, w_op, out, g, hn, lengths)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w_ih, w_op, out, g, hn, lengths = ctx.saved_tensors
+        ndir, t, b, hidden = out.shape
+        dt = x.dtype
+        dg, dnh, dbi, dbh = gru_bwd(dout.float().contiguous(), g, hn, out,
+                                    w_op, lengths)
+        hp = h_prev_stream(out, lengths).to(dt)
+        x2 = x.reshape(t * b, -1)
+        dx = 0.0
+        dw_hh, dw_ih = [], []
+        with fp32_matmul():
+            for d in range(ndir):
+                dg2 = dg[d].reshape(t * b, 3 * hidden)
+                dhp = torch.cat([dg[d][..., :2 * hidden], dnh[d]], -1)
+                dw_hh.append(_mm_f32(hp[d].reshape(t * b, hidden).t(),
+                                     dhp.reshape(t * b, 3 * hidden)))
+                dx = dx + _mm_f32(dg2, w_ih[d].t())
+                dw_ih.append(_mm_f32(x2.t(), dg2))
+        dx = dx.reshape(x.shape).to(dt)
+        return (dx, torch.stack(dw_ih).to(w_ih.dtype), dbi,
+                torch.stack(dw_hh), dbh, None)

@@ -1,8 +1,11 @@
 """Recurrent layers: ``rnn_scan`` with the JAX package's semantics.
 
-``rnn_scan`` runs each layer through the kernel wrapper
-``ops/cuda/gru.py:gru_layer``: the plain PyTorch loop beside it for CPU
-tensors, the CUDA kernel (``csrc/gru_fwd.cu``) for CUDA tensors.
+``rnn_scan`` runs each layer through the kernel wrappers of
+``ops/cuda/gru.py``: the plain PyTorch versions for CPU tensors, the CUDA
+kernels for CUDA tensors. When a gradient is needed (grad mode on and any
+input requires grad) it goes through ``GRULayer``, the autograd Function of
+the training forward (``csrc/gru_fwd.cu`` with residuals) and the backward
+(``csrc/gru_bwd.cu``); otherwise it calls the residual-free forward.
 """
 
 from __future__ import annotations
@@ -37,7 +40,12 @@ def rnn_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
         raise ValueError(f"w_ih has {w_ih.shape[0]} directions, "
                          f"expected {ndir}")
     dt = torch.float32 if compute_dtype is None else compute_dtype
-    out = gru_kernel.gru_layer(x.to(dt), w_ih.to(dt), b_ih.float(),
-                               w_hh.to(dt), b_hh.float(),
-                               lengths)  # zero at padded steps
+    params = (x, w_ih, b_ih, w_hh, b_hh)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        out = gru_kernel.GRULayer.apply(x.to(dt), w_ih.to(dt), b_ih.float(),
+                                        w_hh.float(), b_hh.float(), lengths)
+    else:
+        out = gru_kernel.gru_layer(x.to(dt), w_ih.to(dt), b_ih.float(),
+                                   w_hh.to(dt), b_hh.float(), lengths)
+    # zero at padded steps
     return out[0] + out[1] if bidirectional else out[0]

@@ -1,1 +1,1 @@
-"""Training-side modules of the port; so far only the checkpoint container."""
+"""Training: optimizer, train/eval steps, evaluation loop, checkpoints."""

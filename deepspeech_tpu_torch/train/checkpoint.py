@@ -21,17 +21,31 @@ _ARRAY_KEY = "__array__"
 _META_ENTRY = "__meta__.json"
 
 
-def package_from_model(model, meta: dict, labels: str,
-                       audio_conf: dict) -> dict:
-    """A checkpoint package of the port's model for inference: the JAX
-    trees of its weights, no optimizer state."""
+def package_from_model(model, meta: dict, labels: str, audio_conf: dict,
+                       step: int = 0, epoch: int | None = None,
+                       iteration: int | None = None,
+                       avg_loss: float | None = None,
+                       history: dict | None = None) -> dict:
+    """A checkpoint package of the port's model: the JAX trees of its
+    weights and BatchNorm stats, with the JAX package's bookkeeping keys
+    (``epoch`` is stored 1-based, as there). The optimizer state is not
+    written: resuming it is a later slice."""
     from deepspeech_tpu_torch.convert import torch_to_jax
 
     params, batch_stats = torch_to_jax(model.state_dict())
-    return {"version": FORMAT_VERSION, "labels": labels,
-            "audio_conf": dict(audio_conf), **meta, "params": params,
-            "batch_stats": batch_stats, "optim_state": None, "step": 0,
-            "checkpoint": None}
+    package = {"version": FORMAT_VERSION, "labels": labels,
+               "audio_conf": dict(audio_conf), **meta, "params": params,
+               "batch_stats": batch_stats, "optim_state": None,
+               "step": int(step), "checkpoint": None}
+    if epoch is not None:
+        package["epoch"] = epoch + 1
+    if iteration is not None:
+        package["iteration"] = iteration
+    if avg_loss is not None:
+        package["avg_loss"] = float(avg_loss)
+    if history:
+        package.update({k: [float(x) for x in v] for k, v in history.items()})
+    return package
 
 
 def _extract_arrays(obj, arrays: list):

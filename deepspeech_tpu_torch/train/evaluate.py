@@ -1,0 +1,65 @@
+"""Evaluation loop: greedy loss, WER and CER over a loader (the JAX
+package's ``train/evaluate.py``, single device, no curriculum).
+
+Per-utterance WER/CER via ``get_cer_wer``, aggregated two ways
+(reference test.py:197-209): token-weighted (sum of distances / sum of
+reference lengths) and averaged over utterances; the loss is the mean of
+the batch losses weighted by their real rows (train.py:400), with the
+reporting clamp of a non-finite loss to 1000 (train.py:359-362).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from deepspeech_tpu_torch.metrics import get_cer_wer
+
+
+def decode_batch_greedy(decoder, metrics: dict, batch: dict, labels):
+    """Greedy ids (argmaxed on the device) -> one (transcript, reference,
+    wer, cer, wer_ref, cer_ref) per real row."""
+    hyps, _ = decoder.decode_ids(metrics["greedy"], metrics["out_lens"])
+    targets = np.asarray(batch["targets"])
+    target_lengths = np.asarray(batch["target_lengths"])
+    valid = np.asarray(batch.get("valid", np.ones(len(hyps))))
+    results = []
+    for i in range(len(hyps)):
+        if valid[i] <= 0:
+            continue
+        transcript = hyps[i][0]
+        reference = labels.render_transcript(
+            targets[i, :int(target_lengths[i])])
+        results.append((transcript, reference,
+                        *get_cer_wer(transcript, reference)))
+    return results
+
+
+def evaluate(loader, eval_step, decoder, labels, to_device) -> dict:
+    """Run ``eval_step`` over ``loader`` (host numpy batches, moved with
+    ``to_device``) -> loss, wer, cer, utt_wer, utt_cer, num_utterances."""
+    loss_sum = loss_count = 0.0
+    total = np.zeros(4)  # wer, cer, wer_ref, cer_ref
+    utt_wer = utt_cer = 0.0
+    n_utts = 0
+    for batch in loader:
+        metrics = eval_step(to_device(batch))
+        n_valid = float(np.asarray(batch["valid"]).sum())
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss):
+            loss = 1000.0
+        loss_sum += loss * n_valid
+        loss_count += n_valid
+        for _, _, w, c, wr, cr in decode_batch_greedy(decoder, metrics,
+                                                      batch, labels):
+            total += (w, c, wr, cr)
+            utt_wer += w / wr
+            utt_cer += c / cr
+            n_utts += 1
+    return {
+        "loss": loss_sum / max(loss_count, 1),
+        "wer": 100.0 * total[0] / max(total[2], 1.0),
+        "cer": 100.0 * total[1] / max(total[3], 1.0),
+        "utt_wer": 100.0 * utt_wer / max(n_utts, 1),
+        "utt_cer": 100.0 * utt_cer / max(n_utts, 1),
+        "num_utterances": n_utts,
+    }

@@ -1,0 +1,115 @@
+"""Optimizers with the JAX package's semantics (``train/optim.py``, optax).
+
+``build_optimizer`` gives clip-by-global-norm (optax's: the grads are
+scaled by ``max_norm / norm`` only when the norm reaches ``max_norm``, with
+no eps) followed by SGD with Nesterov momentum (decayed weights added first
+when ``weight_decay`` > 0) or Adam (optax's eps outside the square root). The
+update is functional: ``update(grads, state, params)`` returns new
+parameter tensors and a new state and changes nothing in place, so the
+train step can keep the old ones on a skipped step (``select``, a
+per-tensor where that needs no host sync). The learning rate lives in the
+state (``get_lr`` / ``set_lr``), as optax's injected hyperparameter does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over all tensors (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+
+
+def clip_by_global_norm(grads: list, max_norm: float):
+    """-> (clipped grads, the norm before clipping)."""
+    norm = global_norm(grads)
+    clip = norm >= max_norm  # optax keeps the grads when norm < max_norm
+    return [torch.where(clip, g / norm * max_norm, g) for g in grads], norm
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """Clip + SGD-Nesterov or Adam over a list of parameter tensors."""
+
+    kind: str = "sgd"
+    lr: float = 3e-4
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    max_norm: float = 100.0
+
+    def init(self, params: list) -> dict:
+        state = {"lr": self.lr}
+        if self.kind == "sgd":
+            state["trace"] = [torch.zeros_like(p) for p in params]
+        else:
+            state["count"] = torch.zeros((), dtype=torch.int64,
+                                         device=params[0].device)
+            state["mu"] = [torch.zeros_like(p) for p in params]
+            state["nu"] = [torch.zeros_like(p) for p in params]
+        return state
+
+    def update(self, grads: list, state: dict, params: list):
+        """-> (new params, new state); nothing is changed in place."""
+        if self.max_norm and self.max_norm > 0:
+            grads, _ = clip_by_global_norm(grads, self.max_norm)
+        lr = state["lr"]
+        new = {"lr": lr}
+        if self.kind == "sgd":
+            if self.weight_decay > 0:
+                grads = [g + self.weight_decay * p
+                         for g, p in zip(grads, params)]
+            # optax.trace(nesterov=True): t = g + m t; update = g + m t
+            trace = [g + self.momentum * t
+                     for g, t in zip(grads, state["trace"])]
+            updates = [g + self.momentum * t for g, t in zip(grads, trace)]
+            new["trace"] = trace
+        else:
+            count = state["count"] + 1
+            mu = [(1 - ADAM_B1) * g + ADAM_B1 * m
+                  for g, m in zip(grads, state["mu"])]
+            nu = [(1 - ADAM_B2) * g * g + ADAM_B2 * v
+                  for g, v in zip(grads, state["nu"])]
+            c1 = 1 - ADAM_B1 ** count.float()  # f32, as optax's bias
+            c2 = 1 - ADAM_B2 ** count.float()  # correction
+            updates = [(m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
+                       for m, v in zip(mu, nu)]
+            new.update(count=count, mu=mu, nu=nu)
+        return [p - lr * u for p, u in zip(params, updates)], new
+
+
+def select(ok: torch.Tensor, new, old):
+    """``new`` where the 0-d bool ``ok`` holds, else ``old``, tensor by
+    tensor through lists and dicts; other leaves (the learning rate) are
+    taken from ``new``."""
+    if isinstance(new, dict):
+        return {k: select(ok, new[k], old[k]) for k in new}
+    if isinstance(new, list):
+        return [select(ok, n, o) for n, o in zip(new, old)]
+    if isinstance(new, torch.Tensor):
+        return torch.where(ok, new, old)
+    return new
+
+
+def build_optimizer(optimizer: str = "sgd", lr: float = 3e-4,
+                    momentum: float = 0.9, weight_decay: float = 0.0,
+                    max_norm: float = 100.0) -> Optimizer:
+    """Gradient clip (reference train.py:622-623) + SGD/Adam."""
+    if optimizer not in ("sgd", "adam"):
+        raise ValueError(f"unknown optimizer: {optimizer}")
+    return Optimizer(optimizer, lr, momentum, weight_decay, max_norm)
+
+
+def get_lr(opt_state: dict) -> float:
+    """Current learning rate (reference train.py:317-319)."""
+    return float(opt_state["lr"])
+
+
+def set_lr(opt_state: dict, lr: float) -> dict:
+    """opt_state with a new learning rate (reference train.py:322-326)."""
+    opt_state["lr"] = float(lr)
+    return opt_state

@@ -1,0 +1,157 @@
+"""The train and eval steps (``train/step.py`` of the JAX package).
+
+One call of ``train_step`` runs the reference loop body (reference
+train.py:555-647) on the model's device: wire descale -> featurize (K1) ->
+forward (K2 with residuals) -> CTC (K8) -> backward (K9, K5, cuBLAS and
+cuDNN) -> clip -> NaN guard -> SGD/Adam update, plus the greedy ids the
+loop reports. Everything from the featurize to the update runs with TF32
+off (``ops.fp32_matmul``), the backward included: cuDNN's convolution
+gradients would otherwise run in TF32.
+
+NaN semantics follow the reference and the JAX package:
+
+* NaN logits are zeroed before the loss (train.py:595-598);
+* loss = sum of the finite per-sample losses / max(valid rows, 1);
+* the optimizer step is skipped when any logit is NaN or the grad norm is
+  not finite (train.py:625-630, extended to the grads): the parameters and
+  the optimizer state keep their values; the BatchNorm running stats and
+  the step counter still move, as ``step.py:150-164`` does.
+
+Unlike the JAX step, this one updates the model's parameters and the
+BatchNorm buffers in place (no second copy of the weights); the guard
+selects per tensor, on the device, with no host sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+from deepspeech_tpu_torch.audio.features import AudioConf, featurize_batch
+from deepspeech_tpu_torch.ops import fp32_matmul
+from deepspeech_tpu_torch.ops.ctc import ctc_loss
+from deepspeech_tpu_torch.train.optim import Optimizer, global_norm, select
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters and BatchNorm stats), the optimizer state
+    and the step counter (a 0-d int64 on the model's device)."""
+    model: torch.nn.Module
+    opt_state: dict
+    step: torch.Tensor
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, optimizer: Optimizer):
+        params = list(model.parameters())
+        return cls(model, optimizer.init(params),
+                   torch.zeros((), dtype=torch.int64,
+                               device=params[0].device))
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    audio_conf: AudioConf = AudioConf()
+    normalize: str = "max_frame"
+    max_frame_jitter: bool = True  # reference data_loader_aug.py:213-214
+
+
+def descale_audio(batch: dict) -> torch.Tensor:
+    """The batch's waveforms in f32: the int16 wire is scaled back
+    linearly, the mulaw8 wire mu-law expanded (data/loader.py wire_dtype)."""
+    audio = batch["audio"]
+    if "audio_scale" not in batch:
+        return audio.float()
+    scale = batch["audio_scale"].float()[:, None]
+    if audio.dtype == torch.int8:
+        v = audio.float() * (1.0 / 127.0)
+        return (torch.sign(v) * torch.expm1(v.abs() * math.log(256.0))
+                * (1.0 / 255.0)) * scale
+    return audio.float() * scale
+
+
+def featurize(batch: dict, cfg: StepConfig,
+              jitter: torch.Tensor | None = None):
+    """Wire batch -> (spect (B, 161, T), frame lengths (B,))."""
+    return featurize_batch(descale_audio(batch), batch["audio_lengths"],
+                           cfg.audio_conf, cfg.normalize, jitter=jitter)
+
+
+def _loss(logits, out_lens, batch):
+    per_sample = ctc_loss(logits, out_lens, batch["targets"],
+                          batch["target_lengths"])
+    valid = batch.get("valid")
+    if valid is None:
+        valid = torch.ones_like(per_sample)
+    # `valid` masks bucket-padding rows; the mean divides by the real rows
+    finite = torch.isfinite(per_sample) & (valid > 0)
+    loss = (torch.where(finite, per_sample, 0.0).sum()
+            / valid.float().sum().clamp(min=1.0))
+    return loss, per_sample
+
+
+def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
+                    cfg: StepConfig = StepConfig()) -> Callable:
+    """-> train_step(state, batch, jitter=None, generator=None) -> metrics.
+
+    batch: dict of tensors on the model's device: audio (B, S) f32 (or the
+    int16 / int8 wire with audio_scale (B,)), audio_lengths, targets
+    (B, L), target_lengths, optional valid (B,). The max-frame jitter (B,)
+    is ``jitter`` when given, else drawn from ``generator`` when given
+    (U(-0.5, 0.5) per row), else none. metrics: loss, per_sample, greedy
+    ids, out_lens, grad_norm, step_skipped, all on the device."""
+
+    def train_step(state: TrainState, batch: dict,
+                   jitter: torch.Tensor | None = None,
+                   generator: torch.Generator | None = None) -> dict:
+        model.train()
+        params = list(model.parameters())
+        if (jitter is None and generator is not None
+                and cfg.max_frame_jitter):
+            b = batch["audio"].shape[0]
+            jitter = torch.rand(b, generator=generator,
+                                device=generator.device) - 0.5
+        with fp32_matmul():
+            spect, lengths = featurize(batch, cfg, jitter)
+            logits, _, out_lens = model(spect, lengths)
+            has_nan = torch.isnan(logits).any()
+            logits = torch.where(torch.isnan(logits), 0.0, logits)
+            loss, per_sample = _loss(logits, out_lens, batch)
+            grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            grad_norm = global_norm(grads)
+            ok = ~has_nan & torch.isfinite(grad_norm)
+            current = [p.detach() for p in params]
+            new_params, new_opt = optimizer.update(list(grads),
+                                                   state.opt_state, current)
+            for p, n in zip(current, select(ok, new_params, current)):
+                p.copy_(n)
+            state.opt_state = select(ok, new_opt, state.opt_state)
+            state.step += 1
+        return dict(loss=loss.detach(), per_sample=per_sample.detach(),
+                    greedy=logits.detach().argmax(-1).to(torch.int32),
+                    out_lens=out_lens, grad_norm=grad_norm,
+                    step_skipped=~ok)
+
+    return train_step
+
+
+def make_eval_step(model: torch.nn.Module,
+                   cfg: StepConfig = StepConfig()) -> Callable:
+    """-> eval_step(batch) -> metrics with loss, per_sample, greedy ids,
+    out_lens and probs; the model in eval mode, no gradient."""
+
+    def eval_step(batch: dict) -> dict:
+        model.eval()
+        with torch.no_grad(), fp32_matmul():
+            spect, lengths = featurize(batch, cfg)
+            logits, probs, out_lens = model(spect, lengths)
+            loss, per_sample = _loss(logits, out_lens, batch)
+        return dict(loss=loss, per_sample=per_sample,
+                    greedy=logits.argmax(-1).to(torch.int32),
+                    out_lens=out_lens, probs=probs)
+
+    return eval_step

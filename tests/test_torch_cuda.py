@@ -2,15 +2,20 @@
 
 These tests need a CUDA card and nvcc; elsewhere they skip. They cover the
 edge shapes chip_smoke.py does not: 8 kHz framing, ``center=False``, one
-direction, one row, hidden sizes that do not fill a block, and a batch
-of 70 rows (the step kernel's shared memory does not grow with B). Run
-them on the card with
+direction, one row, hidden sizes that do not fill a block, a batch of 70
+rows (the step kernels' shared memory does not grow with B), CTC rows with
+no labels or an impossible alignment, and odd T. Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: the STFT as tests/test_pallas_stft.py (1e-4); the GRU layer
-1e-4 in f32 (sums in another order) and 5e-3 in bf16 (a state on a bf16
-rounding boundary may round the other way); small-model logits 2e-2.
+and its residuals 1e-4 in f32 (sums in another order) and 5e-3 in bf16 (a
+state on a bf16 rounding boundary may round the other way); the GRU
+backward's dg, dnh 1e-4 in f32 and 2e-2 relative to the largest in bf16
+(a one-ulp flip of a bf16 operand moves the carried dh), its bias grads
+1e-3 relative in f32 and 2e-2 in bf16 (sums over T x B in other orders);
+CTC alphas/betas and loss 1e-4 relative, dlogits 1e-4; small-model logits
+2e-2.
 """
 
 import numpy as np
@@ -99,3 +104,108 @@ def test_small_model_forward_kernel_matches_plain(dev, bidirectional):
     for i, n in enumerate(ref[2].tolist()):
         torch.testing.assert_close(got[0][i, :n].cpu(), ref[0][i, :n],
                                    rtol=0, atol=2e-2 * scale)
+
+
+def _gru_case(dev, dtype, ndir, t, b, f, h, seed):
+    rng = np.random.default_rng(seed)
+    s = 1.0 / np.sqrt(h)
+
+    def u(*shape, lo=-s, hi=s):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32)).to(dev)
+
+    x, w_ih, w_hh = u(t, b, f, lo=0, hi=1), u(ndir, f, 3 * h), \
+        u(ndir, h, 3 * h)
+    b_ih, b_hh = u(ndir, 3 * h), u(ndir, 3 * h)
+    lens = torch.from_numpy(np.linspace(t, max(1, t // 3), b).astype(
+        np.int64)).to(dev)
+    return (x.to(dtype), w_ih.to(dtype), b_ih, w_hh.to(dtype), b_hh, lens)
+
+
+GRU_SHAPES = [(7, 1, 40, 32), (29, 3, 96, 50), (33, 70, 64, 800),
+              (64, 20, 1312, 800)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("t,b,f,h", GRU_SHAPES)
+def test_gru_residual_kernel_matches_plain(dev, dtype, tol, ndir, t, b, f,
+                                           h):
+    from deepspeech_tpu_torch.ops.cuda import gru
+
+    args = _gru_case(dev, dtype, ndir, t, b, f, h, t + b + 1)
+    before = (gru.launches, gru.res_launches)
+    out, g, hn = gru.gru_layer(*args, residuals=True)
+    assert (gru.launches, gru.res_launches) == (before[0] + 1, before[1] + 1)
+    ref = gru.plain(*args, residuals=True)
+    assert g.dtype == hn.dtype == dtype
+    for got, want in zip((out, g, hn), ref):
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("t,b,f,h", GRU_SHAPES)
+def test_gru_bwd_kernel_matches_plain(dev, dtype, ndir, t, b, f, h):
+    from deepspeech_tpu_torch.ops.cuda import gru
+
+    x, w_ih, b_ih, w_hh, b_hh, lens = _gru_case(dev, dtype, ndir, t, b, f, h,
+                                                t + b + 2)
+    out, g, hn = gru.plain(x, w_ih, b_ih, w_hh, b_hh, lens, residuals=True)
+    rng = np.random.default_rng(t)
+    dout = torch.from_numpy(rng.standard_normal(out.shape).astype(
+        np.float32)).to(dev)
+    before = gru.bwd_launches
+    got = gru.gru_bwd(dout, g, hn, out, w_hh, lens)
+    assert gru.bwd_launches == before + 1
+    want = gru.plain_bwd(dout, g, hn, out, w_hh, lens)
+    f32 = dtype == torch.float32
+    for name, a, w in zip(("dg", "dnh", "dbi", "dbh"), got, want):
+        scale = max(1.0, w.abs().max().item())
+        tol = (1e-4 if name in ("dg", "dnh") else 1e-3) if f32 else 2e-2
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+    pad = torch.arange(t, device=dev)[:, None] >= lens[None, :]
+    assert not got[0][:, pad].any() and not got[1][:, pad].any()
+
+
+@pytest.mark.parametrize("t", [1, 17, 101])
+def test_ctc_kernels_match_plain(dev, t):
+    from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
+    from deepspeech_tpu_torch.ops.cuda import ctc
+
+    rng = np.random.default_rng(t)
+    b, c, lmax = 6, 30, max(2, t // 3)
+    logits = torch.from_numpy(rng.standard_normal((b, t, c)).astype(
+        np.float32)).to(dev)
+    ll = torch.from_numpy(rng.integers(1, t + 1, b)).to(dev)
+    ll[0] = t
+    targets = torch.from_numpy(rng.integers(1, c, (b, lmax))).to(dev)
+    tl = torch.from_numpy(rng.integers(0, lmax + 1, b)).to(dev)
+    tl[1] = 0               # no labels
+    tl[2], ll[2] = lmax, 1  # impossible: two or more labels in one frame
+    _, _, skip, valid, end, emit = ctc_loss_mod._prep(logits, targets, tl, 0)
+    before = (ctc.alpha_launches, ctc.beta_launches)
+    alphas = ctc.ctc_alpha(emit, skip, valid, ll)
+    betas = ctc.ctc_beta(emit, skip, valid, end, ll)
+    assert (ctc.alpha_launches, ctc.beta_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    torch.testing.assert_close(alphas, ctc.plain_alpha(emit, skip, valid, ll),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(
+        betas, ctc.plain_beta(emit, skip, valid, end, ll), rtol=1e-4,
+        atol=1e-4)
+
+    lg = logits.clone().requires_grad_(True)
+    per = ctc_loss_mod.ctc_loss(lg, ll, targets, tl)
+    torch.where(torch.isfinite(per), per, 0.0).sum().backward()
+    lg_cpu = logits.cpu().requires_grad_(True)
+    per_cpu = ctc_loss_mod.ctc_loss(lg_cpu, ll.cpu(), targets.cpu(), tl.cpu())
+    torch.where(torch.isfinite(per_cpu), per_cpu, 0.0).sum().backward()
+    assert not torch.isfinite(per[2]) and torch.isfinite(per[1])
+    assert torch.equal(lg.grad[2], torch.zeros_like(lg.grad[2]))
+    torch.testing.assert_close(per.cpu(), per_cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lg.grad.cpu(), lg_cpu.grad, rtol=1e-4,
+                               atol=1e-4)

@@ -119,3 +119,41 @@ def test_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--model-path", path, "--audio-path", "unused.wav"])
     assert deepspeech_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_training_kernel_wrappers_use_plain_versions_on_cpu(monkeypatch):
+    """K5, K8 and K9 take their plain versions for CPU tensors, count no
+    launch there, and raise on a device that is neither CPU nor CUDA."""
+    from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru
+
+    calls = []
+    for mod, name in ((gru, "plain_bwd"), (ctc, "plain_alpha"),
+                      (ctc, "plain_beta")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, (lambda n, f: lambda *a, **k: (
+            calls.append(n), f(*a, **k))[1])(name, fn))
+    t, b, h = 5, 2, 3
+    x, w_ih = torch.randn(t, b, 4), torch.randn(2, 4, 3 * h)
+    w_hh, bias = torch.randn(2, h, 3 * h), torch.zeros(2, 3 * h)
+    lens = torch.tensor([5, 3])
+    out, g, hn = gru.gru_layer(x, w_ih, bias, w_hh, bias, lens,
+                               residuals=True)
+    logits = torch.randn(b, t, 6)
+    targets, tl = torch.tensor([[1, 2], [3, 0]]), torch.tensor([2, 1])
+    _, _, skip, valid, end, emit = ctc_loss_mod._prep(logits, targets, tl, 0)
+    before = (gru.bwd_launches, ctc.alpha_launches, ctc.beta_launches)
+    gru.gru_bwd(out, g, hn, out, w_hh, lens)
+    ctc.ctc_alpha(emit, skip, valid, lens)
+    ctc.ctc_beta(emit, skip, valid, end, lens)
+    assert calls == ["plain_bwd", "plain_alpha", "plain_beta"]
+    assert (gru.bwd_launches, ctc.alpha_launches,
+            ctc.beta_launches) == before
+    meta = [a.to("meta") for a in (out, g, hn, w_hh)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        gru.gru_bwd(meta[0], meta[1], meta[2], meta[0], meta[3], lens)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ctc.ctc_alpha(emit.to("meta"), skip, valid, lens)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ctc.ctc_beta(emit.to("meta"), skip, valid, end, lens)
+    assert len(calls) == 3

@@ -1,0 +1,174 @@
+"""PyTorch port: the ``train`` CLI end to end, and the data path against the
+JAX package.
+
+``python -m deepspeech_tpu_torch.cli.train --device cpu`` trains a tiny
+DS2 (1 x BiGRU-16, f32) for one epoch on a 4-utterance synthetic manifest
+and writes ``deepspeech_final.ckpt`` and ``best_model.ckpt``. The final
+checkpoint answers a ``transcribe`` request through both packages' CLIs
+with the same JSON. ``collate_batch`` gives the JAX package's arrays on
+each wire, the step's featurize from each wire the JAX step's
+spectrogram, the sampler the JAX bins and ``get_cer_wer`` its WER/CER;
+unported flags exit naming ROADMAP.md.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import torch
+
+from deepspeech_tpu.cli.transcribe import main as jax_transcribe
+from deepspeech_tpu.data.loader import BucketSpec as JaxBucketSpec
+from deepspeech_tpu.data.loader import collate_batch as jax_collate
+from deepspeech_tpu.data.sampler import BucketingSampler as JaxSampler
+from deepspeech_tpu.metrics import get_cer_wer as jax_get_cer_wer
+from deepspeech_tpu_torch.audio.io import save_wav
+from deepspeech_tpu_torch.cli.train import main as train_main
+from deepspeech_tpu_torch.cli.transcribe import main as port_transcribe
+from deepspeech_tpu_torch.data import BucketingSampler, BucketSpec, \
+    collate_batch
+from deepspeech_tpu_torch.metrics import get_cer_wer
+from deepspeech_tpu_torch.train import checkpoint as ckpt
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TEXTS = ("HELLO WORLD", "THE CAT", "A DOG RAN", "GOOD DAY")
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_train_cli")
+    rng = np.random.default_rng(0)
+    rows = []
+    for i, text in enumerate(TEXTS):
+        n = int(16000 * (0.5 + 0.15 * i))
+        t = np.arange(n) / 16000
+        y = (np.sin(2 * np.pi * (200 + 50 * i) * t)
+             + 0.1 * rng.standard_normal(n))
+        wav, txt = str(d / f"u{i}.wav"), str(d / f"u{i}.txt")
+        save_wav(wav, (y / np.abs(y).max()).astype(np.float32), 16000)
+        with open(txt, "w") as f:
+            f.write(text)
+        rows.append(f"{wav},{txt},{n / 16000}")
+    manifest = d / "manifest.csv"
+    manifest.write_text("\n".join(rows) + "\n")
+    save = d / "models"
+    cmd = [sys.executable, "-m", "deepspeech_tpu_torch.cli.train",
+           "--device", "cpu", "--train-manifest", str(manifest),
+           "--val-manifest", str(manifest), "--epochs", "1",
+           "--batch-size", "2", "--val-batch-size", "2",
+           "--hidden-size", "16", "--hidden-layers", "1",
+           "--compute-dtype", "float32", "--num-workers", "1",
+           "--lr", "1e-3", "--save-folder", str(save)]
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=300, env=env)
+    assert r.returncode == 0, r.stderr
+    return save, r.stdout, str(d / "u0.wav")
+
+
+def test_train_cli_runs_one_epoch(trained):
+    save, out, _ = trained
+    assert "epoch 1 iter 1/2 loss" in out
+    assert "[val] epoch 1: loss" in out
+    for name in ("deepspeech_final.ckpt", "best_model.ckpt"):
+        assert (save / name).exists(), name
+    package = ckpt.load(str(save / "deepspeech_final.ckpt"))
+    assert package["step"] == 2 and package["epoch"] == 1
+    assert package["hidden_size"] == 16 and package["optim_state"] is None
+    assert len(package["loss_results"]) == 1
+
+
+def test_both_transcribe_clis_read_the_trained_checkpoint(trained, capsys):
+    save, _, wav = trained
+    args = ["--model-path", str(save / "deepspeech_final.ckpt"),
+            "--audio-path", wav]
+    assert jax_transcribe(args) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert port_transcribe(args + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got == ref
+
+
+@pytest.mark.parametrize("wire", ["int16", "mulaw8", "float32"])
+def test_collate_matches_jax(wire):
+    rng = np.random.default_rng(1)
+    samples = [{"audio": rng.uniform(-1, 1, n).astype(np.float32),
+                "target": rng.integers(1, 29, m).astype(np.int32),
+                "path": f"p{n}"} for n, m in ((7000, 5), (12345, 61))]
+    got = collate_batch(samples, 3, BucketSpec(wire_dtype=wire))
+    ref = jax_collate(samples, 3, JaxBucketSpec(wire_dtype=wire))
+    assert sorted(got) == sorted(ref)
+    for key in ref:
+        if key == "paths":
+            assert got[key] == ref[key]
+        else:
+            assert got[key].dtype == ref[key].dtype, key
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+
+
+def test_sampler_matches_jax():
+    ours, theirs = BucketingSampler(23, 4), JaxSampler(23, 4)
+    assert list(ours) == list(theirs)
+    ours.shuffle(3)
+    theirs.shuffle(3)
+    assert list(ours) == list(theirs)
+
+
+@pytest.mark.parametrize("hyp,ref", [("THE CAT SAT", "THE CAT SAT"),
+                                     ("THE CAT", "A CAT SAT"),
+                                     ("", "HELLO"), ("HELO WRLD", " ")])
+def test_cer_wer_match_jax(hyp, ref):
+    assert get_cer_wer(hyp, ref) == jax_get_cer_wer(hyp, ref)
+
+
+@pytest.mark.parametrize("flags", [["--augment"], ["--use-curriculum"],
+                                   ["--curriculum", "c.csv"],
+                                   ["--noise-dir", "n/"],
+                                   ["--steps-per-dispatch", "2"],
+                                   ["--mesh-model", "2"],
+                                   ["--continue-from", "m.ckpt"],
+                                   ["--profile-dir", "p/"],
+                                   ["--tensorboard"], ["--visdom"]])
+def test_unported_flags_exit(flags):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        train_main(["--device", "cpu", *flags])
+
+
+def test_train_defaults_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_main(["--train-manifest", str(tmp_path / "none.csv")])
+
+
+@pytest.mark.parametrize("wire", ["int16", "mulaw8", "float32"])
+def test_featurize_from_the_wire_matches_jax(wire):
+    """The step's wire descale and featurize against the JAX step's, at
+    atol 1e-3 on the log-spectrogram (log1p(|STFT| * 2^20) magnifies the
+    ~1e-7 relative differences of two f32 DFTs)."""
+    import jax.numpy as jnp
+
+    from deepspeech_tpu.train.step import StepConfig as JaxStepConfig
+    from deepspeech_tpu.train.step import _featurize as jax_featurize
+    from deepspeech_tpu_torch.train.step import StepConfig, featurize
+
+    rng = np.random.default_rng(2)
+    t = np.arange(9000) / 16000
+    samples = [{"audio": (np.sin(2 * np.pi * f * t[:n]) + 0.1
+                          * rng.standard_normal(n)).astype(np.float32),
+                "target": np.array([3, 4], np.int32), "path": "p"}
+               for f, n in ((300, 9000), (450, 6100))]
+    batch = collate_batch(samples, 2, BucketSpec(wire_dtype=wire))
+    batch.pop("paths")
+    want, want_lens = jax_featurize({k: jnp.asarray(v) for k, v in
+                                     batch.items()}, JaxStepConfig(), None,
+                                    train=False)
+    got, got_lens = featurize({k: torch.from_numpy(v) for k, v in
+                               batch.items()}, StepConfig())
+    np.testing.assert_array_equal(got_lens.numpy(), np.asarray(want_lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-3)
