@@ -12,8 +12,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
 4. K2 (gru_fwd), both variants, against its plain version at full width,
    T 376, B 20, H 800, F 1312 and 800, unequal lengths, bf16 and f32 (the
    training variant's residuals g and hn too); then the latency floor of
-   its one-launch-per-step recurrence (an empty launch from a host loop,
-   and the step kernel at the least work);
+   the one-launch-per-step recurrences (an empty launch from a host loop,
+   and the step kernels of K2, K5, K3 and K7 at the least work);
 5. K5 (gru_bwd) against its plain version at the same shapes: dg, dnh and
    the bias grads, then dx, dW_ih and dW_hh through the layer's autograd
    Function against the same Function on the plain versions; its time
@@ -26,7 +26,7 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    from seeded random weights on 20 synthetic 7.5 s waveforms, featurize
    -> forward -> greedy ids, launch counts read around it, the logits held
    to the plain versions, one profiled forward's busy and idle time;
-8. the train path, this slice's main path: the same model trained on 20
+8. the train path: the same model trained on 20
    synthetic 7.5 s waveforms with random transcripts on the int16 wire,
    SGD-Nesterov (lr 3e-4, momentum 0.9, clip 100). The launch counts of
    every kernel are read around one step; that step's loss, grad norm and
@@ -37,8 +37,23 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
 9. the transcribe CLI answers 3 requests (f32, as the JAX CLI runs);
 10. the train CLI trains 1 epoch at full width on a synthetic manifest in a
    temporary directory, and its checkpoint answers one transcribe request;
-11. prints one JSON line of kernel results (launches from one train step),
-   then the device line last.
+11. K3 (lstm_fwd), both variants, against its plain version at the K2
+   shapes (the training variant's residuals c and g too), beside cuDNN's
+   bidirectional nn.LSTM with the same weights;
+12. K7 (lstm_bwd) against its plain version at the same shapes: dg and the
+   bias grad, then dx, dW_ih and dW_hh through LSTMLayer against the same
+   Function on the plain versions; its time beside cuDNN's LSTM backward;
+13. the LSTM inference path: 6 x BiLSTM-800 bf16 from seeded weights,
+   featurize -> forward -> greedy, as phase 7;
+14. the LSTM train path, as phase 8: one step's loss, grad norm and every
+   gradient against the plain path, its launches (stft_mag 1, lstm_fwd 6,
+   all with residuals, lstm_bwd 6, ctc_alpha 1, ctc_beta 1, no GRU
+   kernel), 5 steps and a profiled one;
+15. the train CLI with --rnn-type lstm, 1 epoch at full width, and one
+   transcribe request on its checkpoint;
+16. prints one JSON line of kernel results (launches from one train step of
+   the path each kernel is on: the GRU step for K1, K2, K5, K8 and K9, the
+   LSTM step for K3 and K7), then the device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
 non-zero. Times are CUDA-event medians with warm L2.
@@ -51,6 +66,7 @@ import ctypes
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -62,11 +78,15 @@ SEED = 0
 PEAK_F32 = 67e12        # H100 SXM, non-tensor f32 FLOP/s
 PEAK_BF16 = 989e12      # H100 SXM, dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
-KERNELS = ("stft_mag", "gru_fwd", "gru_bwd", "ctc_alpha", "ctc_beta")
+KERNELS = ("stft_mag", "gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
+           "ctc_alpha", "ctc_beta")
+LSTM_KERNELS = ("lstm_fwd", "lstm_bwd")
 REPLACES = {
     "stft_mag": "deepspeech_tpu/ops/pallas/stft_kernel.py:57",
     "gru_fwd": "deepspeech_tpu/ops/pallas/rnn_fused.py:95",
     "gru_bwd": "deepspeech_tpu/ops/pallas/rnn_kernel.py:220",
+    "lstm_fwd": "deepspeech_tpu/ops/pallas/rnn_fused.py:344",
+    "lstm_bwd": "deepspeech_tpu/ops/pallas/rnn_kernel.py:628",
     "ctc_alpha": "deepspeech_tpu/ops/pallas/ctc_kernel.py:59",
     "ctc_beta": "deepspeech_tpu/ops/pallas/ctc_kernel.py:101",
 }
@@ -74,6 +94,8 @@ SOURCES = {
     "stft_mag": "deepspeech_tpu_torch/csrc/stft_mag.cu",
     "gru_fwd": "deepspeech_tpu_torch/csrc/gru_fwd.cu",
     "gru_bwd": "deepspeech_tpu_torch/csrc/gru_bwd.cu",
+    "lstm_fwd": "deepspeech_tpu_torch/csrc/lstm_fwd.cu",
+    "lstm_bwd": "deepspeech_tpu_torch/csrc/lstm_bwd.cu",
     "ctc_alpha": "deepspeech_tpu_torch/csrc/ctc.cu",
     "ctc_beta": "deepspeech_tpu_torch/csrc/ctc.cu",
 }
@@ -84,13 +106,17 @@ GRU_TOL = {"float32": 1e-4,             # |h| <= 1; f32 sums in other orders
 # K5 and the layer's grads, x max(1, max|reference|): f32 sums in other
 # orders; in bf16 a one-ulp flip of a rounded operand moves the carried dh
 GRU_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# K3 and K7 hold the GRU's tolerances, for the same reasons; c, which is
+# not bounded by 1, is held x max(1, max|c|)
+LSTM_TOL, LSTM_BWD_TOL = GRU_TOL, GRU_BWD_TOL
 CTC_TOL = dict(rtol=1e-4, atol=1e-4)    # log-space sums, f32 exp/log
 LOGIT_TOL = 2e-2                        # x max(1, max|logits|), bf16 forward
 # the train step in bf16, kernels against plain versions: the loss and the
 # grad norm relative; each parameter's gradient x max(1, max|its grad|)
 STEP_LOSS_TOL, STEP_GRAD_TOL = 2e-3, 5e-2
-# the default model and batch (BASELINE.md config 2): 6 x BiGRU-800,
-# 30 labels, 20 x 7.5 s of 16 kHz audio = 376 frames after the convs
+# the default model and batch (BASELINE.md config 2): 6 x BiGRU-800 (or,
+# with the cell changed, 6 x BiLSTM-800), 30 labels, 20 x 7.5 s of 16 kHz
+# audio = 376 frames after the convs
 SR, AUDIO_S, BATCH, FRAMES = 16000, 120_000, 20, 376
 HIDDEN, LAYERS, FEATURES, CLASSES, CTC_L = 800, 6, 1312, 30, 150
 
@@ -137,8 +163,10 @@ def random_weights(model, rng) -> dict:
     """Seeded numpy weights in the JAX layout, then into the port's model
     through convert.py."""
     from deepspeech_tpu_torch.convert import jax_to_torch, torch_to_jax
+    from deepspeech_tpu_torch.ops.rnn import CELL_GATES
 
     params, stats = torch_to_jax(model.state_dict())
+    gates = CELL_GATES[model.rnns[0].cell]
 
     def fill(tree, path=()):
         for k, v in tree.items():
@@ -152,7 +180,7 @@ def random_weights(model, rng) -> dict:
             elif k == "kernel":
                 tree[k] = rng.standard_normal(v.shape) / np.sqrt(v.shape[0])
             elif k in ("w_ih", "b_ih", "w_hh", "b_hh"):
-                s = 1.0 / np.sqrt(v.shape[-1] // 3)
+                s = 1.0 / np.sqrt(v.shape[-1] // gates)
                 tree[k] = rng.uniform(-s, s, v.shape)
             elif k == "scale":
                 tree[k] = rng.uniform(0.8, 1.2, v.shape)
@@ -211,8 +239,21 @@ def phase_stft(torch, results):
                                bound_by=by, library_ms=lib_ms)
 
 
-def gru_inputs(torch, rng, t, b, h, f_in, ndir=2):
-    """Full-width GRU layer inputs in f32 on the card, unequal lengths."""
+CELLS = {"gru": dict(gates=3, fwd="gru_fwd", bwd="gru_bwd", name="K2",
+                    bname="K5"),
+         "lstm": dict(gates=4, fwd="lstm_fwd", bwd="lstm_bwd", name="K3",
+                     bname="K7")}
+
+
+def cell_kernels(cell):
+    """The wrapper module of a cell's kernels and its layer Function."""
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+
+    return (gru, gru.GRULayer) if cell == "gru" else (lstm, lstm.LSTMLayer)
+
+
+def layer_inputs(torch, rng, t, b, h, f_in, gates, ndir=2):
+    """Full-width layer inputs in f32 on the card, unequal lengths."""
     s = 1.0 / np.sqrt(h)
 
     def u(*shape, lo=-s, hi=s):
@@ -221,15 +262,18 @@ def gru_inputs(torch, rng, t, b, h, f_in, ndir=2):
 
     lens = torch.from_numpy(np.linspace(t, t // 2 + 2, b).astype(
         np.int64)).cuda()
-    return (u(t, b, f_in, lo=0, hi=1), u(ndir, f_in, 3 * h), u(ndir, 3 * h),
-            u(ndir, h, 3 * h), u(ndir, 3 * h), lens)
+    g = gates * h
+    return (u(t, b, f_in, lo=0, hi=1), u(ndir, f_in, g), u(ndir, g),
+            u(ndir, h, g), u(ndir, g), lens)
 
 
-def cudnn_gru(torch, args, dt):
-    """torch.nn.GRU (cuDNN) carrying the same weights as ``args``."""
+def cudnn_layer(torch, args, dt, cell):
+    """torch.nn.GRU or nn.LSTM (cuDNN) carrying the same weights as
+    ``args``; both use the port's gate order."""
     x, w_ih, b_ih, w_hh, b_hh, _ = args
     f_in, h = x.shape[-1], w_hh.shape[1]
-    net = torch.nn.GRU(f_in, h, bidirectional=True, device="cuda", dtype=dt)
+    cls = torch.nn.GRU if cell == "gru" else torch.nn.LSTM
+    net = cls(f_in, h, bidirectional=True, device="cuda", dtype=dt)
     with torch.no_grad():
         for d, sfx in enumerate(("", "_reverse")):
             getattr(net, "weight_ih_l0" + sfx).copy_(w_ih[d].t())
@@ -242,70 +286,85 @@ def cudnn_gru(torch, args, dt):
     return net
 
 
-def phase_gru(torch, results):
-    from deepspeech_tpu_torch.ops.cuda import gru
-
-    rng = np.random.default_rng(SEED + 1)
+def phase_layer_fwd(torch, results, cell):
+    """K2 or K3, both variants, against the plain version at full width,
+    with times, bounds and cuDNN's layer as the yardstick."""
+    mod, _ = cell_kernels(cell)
+    spec = CELLS[cell]
+    tol_of = GRU_TOL if cell == "gru" else LSTM_TOL
+    layer = mod.gru_layer if cell == "gru" else mod.lstm_layer
+    names = ("h", "g", "hn") if cell == "gru" else ("h", "c", "g")
+    rng = np.random.default_rng(SEED + (1 if cell == "gru" else 8))
     t, b, h = FRAMES, BATCH, HIDDEN
+    gh = spec["gates"] * h
     for f_in in (FEATURES, HIDDEN):
-        x32, w_ih32, b_ih, w_hh32, b_hh, lens = gru_inputs(torch, rng, t, b,
-                                                           h, f_in)
+        x32, w_ih32, b_ih, w_hh32, b_hh, lens = layer_inputs(
+            torch, rng, t, b, h, f_in, spec["gates"])
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).split(".")[-1]
+            tol = tol_of[name]
             args = (x32.to(dt), w_ih32.to(dt), b_ih, w_hh32.to(dt), b_hh,
                     lens)
-            got = gru.gru_layer(*args)
-            res = gru.gru_layer(*args, residuals=True)
-            ref = gru.plain(*args, residuals=True)
+            got = layer(*args)
+            res = layer(*args, residuals=True)
+            ref = mod.plain(*args, residuals=True)
             torch.cuda.synchronize()
             err = (got - ref[0]).abs().max().item()
-            errs = [(a.float() - r.float()).abs().max().item()
-                    for a, r in zip(res, ref)]
-            log(f"K2 gru_fwd {name} F={f_in}: max_abs_err {err:.3e}; "
-                f"with residuals h {errs[0]:.3e} g {errs[1]:.3e} hn "
-                f"{errs[2]:.3e} (tolerance {GRU_TOL[name]})")
-            if not max([err] + errs) <= GRU_TOL[name]:
-                raise AssertionError(f"gru_fwd {name} F={f_in} disagrees "
-                                     f"with its plain version: {err} {errs}")
-            ms = time_ms(lambda: gru.gru_layer(*args), reps=5)
-            ms_res = time_ms(lambda: gru.gru_layer(*args, residuals=True),
-                             reps=5)
-            plain_ms = time_ms(lambda: gru.plain(*args, residuals=True),
+            # every stream against tol, c against tol x max(1, max|c|)
+            errs = [max_err(a, r) for a, r in zip(res, ref)]
+            errs = [(e, sc if k == "c" else 1.0)
+                    for k, (e, sc) in zip(names, errs)]
+            log(f"{spec['name']} {spec['fwd']} {name} F={f_in}: max_abs_err "
+                f"{err:.3e}; with residuals "
+                + " ".join(f"{k} {e:.3e}" for k, (e, _) in zip(names, errs))
+                + f" (tolerance {tol}"
+                + (", c x max(1, max|c|))" if cell == "lstm" else ")"))
+            if not (err <= tol and all(e <= tol * sc for e, sc in errs)):
+                raise AssertionError(f"{spec['fwd']} {name} F={f_in} "
+                                     f"disagrees with its plain version: "
+                                     f"{err} {errs}")
+            ms = time_ms(lambda: layer(*args), reps=5)
+            ms_res = time_ms(lambda: layer(*args, residuals=True), reps=5)
+            plain_ms = time_ms(lambda: mod.plain(*args, residuals=True),
                                reps=3, warmup=1)
-            net = cudnn_gru(torch, args, dt)
+            net = cudnn_layer(torch, args, dt, cell)
             with torch.no_grad():
                 lib_ms = time_ms(lambda: net(args[0]), reps=5)
             n_valid = float(lens.sum().item())
             esize = 2 if dt == torch.bfloat16 else 4
-            flops = 2.0 * 2 * n_valid * (f_in + h) * 3 * h
-            nbytes = (esize * (t * b * f_in + 2 * (f_in + h) * 3 * h)
-                      + 4 * (4 * 3 * h + 2 * t * b * h) + 8 * b)
-            res_bytes = esize * 2 * t * b * 4 * h  # g and hn, both ways
+            flops = 2.0 * 2 * n_valid * (f_in + h) * gh
+            nbytes = (esize * (t * b * f_in + 2 * (f_in + h) * gh)
+                      + 4 * (4 * gh + 2 * t * b * h) + 8 * b)
+            if cell == "gru":  # g and hn in the operand type, both ways
+                res_bytes = esize * 2 * t * b * 4 * h
+            else:  # c in f32 and g in the operand type, both ways
+                res_bytes = 4 * 2 * t * b * h + esize * 2 * t * b * gh
             peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
             bound_ms, by = bound(flops, peak, nbytes)
             bound_res_ms, by_res = bound(flops, peak, nbytes + res_bytes)
-            log(f"K2 gru_fwd {name} F={f_in}: {ms:.3f} ms, with residuals "
-                f"{ms_res:.3f} ms, plain (with residuals) {plain_ms:.3f} ms, "
-                f"cuDNN GRU "
-                f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}), with "
-                f"residuals {bound_res_ms:.4f} ms ({by_res})")
+            log(f"{spec['name']} {spec['fwd']} {name} F={f_in}: {ms:.3f} ms, "
+                f"with residuals {ms_res:.3f} ms, plain (with residuals) "
+                f"{plain_ms:.3f} ms, cuDNN {cell.upper()} {lib_ms:.3f} ms, "
+                f"bound {bound_ms:.4f} ms ({by}), with residuals "
+                f"{bound_res_ms:.4f} ms ({by_res})")
             if f_in == FEATURES and dt == torch.bfloat16:
                 # the train path runs the residual variant
-                results["gru_fwd"] = dict(
-                    route="cuda", max_abs_err=max([err] + errs), ms=ms_res,
-                    ms_inference=ms, plain_ms=plain_ms, bound_ms=bound_res_ms,
-                    bound_by=by_res, library_ms=lib_ms)
+                results[spec["fwd"]] = dict(
+                    route="cuda", max_abs_err=max([err] + [e for e, _ in
+                                                           errs]),
+                    ms=ms_res, ms_inference=ms, plain_ms=plain_ms,
+                    bound_ms=bound_res_ms, bound_by=by_res,
+                    library_ms=lib_ms)
             del net
-    results["gru_fwd"]["floor"] = step_floor(torch)
 
 
 def step_floor(torch) -> dict:
-    """Latency floor of one recurrence step as gru_fwd and gru_bwd issue
-    them (one launch per step from a host loop): the gap between empty
-    launches, and each step kernel at the least work (B 1, H 16: one block
-    per direction), per step from the difference of T 376 and T 188 so the
-    set-up cancels."""
-    from deepspeech_tpu_torch.ops.cuda import build, gru
+    """Latency floor of one recurrence step as the layer kernels launch them
+    (one launch per step from a host loop): the gap between empty launches,
+    and each step kernel (K2, K5, K3, K7) at the least work (B 1, H 16: one
+    block per direction), per step from the difference of T 376 and T 188
+    so the set-up cancels."""
+    from deepspeech_tpu_torch.ops.cuda import build, gru, lstm
 
     lib = build.load("gru_fwd")
     lib.empty_launches.argtypes = [ctypes.c_int, ctypes.c_void_p]
@@ -315,28 +374,39 @@ def step_floor(torch) -> dict:
     gap_ms = time_ms(lambda: build.check(
         lib, lib.empty_launches(n, stream), "empty launches"), reps=5) / n
 
-    def tiny(t, backward):  # the kernels' time does not depend on the values
+    def tiny(t, cell, backward):  # the time does not depend on the values
+        g = 16 * CELLS[cell]["gates"]
         x = torch.full((t, 1, 16), 0.5, device="cuda")
-        w_ih = torch.full((2, 16, 48), 0.01, device="cuda")
-        w_hh = torch.full((2, 16, 48), 0.01, device="cuda")
-        bias = torch.zeros(2, 48, device="cuda")
+        w_ih = torch.full((2, 16, g), 0.01, device="cuda")
+        w_hh = torch.full((2, 16, g), 0.01, device="cuda")
+        bias = torch.zeros(2, g, device="cuda")
         lens = torch.full((1,), t, dtype=torch.int64, device="cuda")
+        layer = gru.gru_layer if cell == "gru" else lstm.lstm_layer
         if not backward:
-            return time_ms(lambda: gru.gru_layer(x, w_ih, bias, w_hh, bias,
-                                                 lens), reps=7)
-        out, g, hn = gru.gru_layer(x, w_ih, bias, w_hh, bias, lens,
-                                   residuals=True)
-        return time_ms(lambda: gru.gru_bwd(out, g, hn, out, w_hh, lens),
+            return time_ms(lambda: layer(x, w_ih, bias, w_hh, bias, lens),
+                           reps=7)
+        out, r1, r2 = layer(x, w_ih, bias, w_hh, bias, lens, residuals=True)
+        if cell == "gru":
+            return time_ms(lambda: gru.gru_bwd(out, r1, r2, out, w_hh, lens),
+                           reps=7)
+        return time_ms(lambda: lstm.lstm_bwd(out, r2, r1, w_hh, lens),
                        reps=7)
 
-    step_ms = (tiny(376, False) - tiny(188, False)) / 188
-    bwd_step_ms = (tiny(376, True) - tiny(188, True)) / 188
+    floor = dict(gap_ms=gap_ms)
+    for cell, key in (("gru", ""), ("lstm", "lstm_")):
+        for backward, what in ((False, "step_ms"), (True, "bwd_step_ms")):
+            floor[key + what] = (tiny(376, cell, backward)
+                                 - tiny(188, cell, backward)) / 188
     log(f"latency floor per step: empty launch {gap_ms * 1e3:.3f} us; "
-        f"least-work step K2 {step_ms * 1e3:.3f} us, K5 "
-        f"{bwd_step_ms * 1e3:.3f} us; x 2,256 steps of a 6 x BiGRU layer "
-        f"stack = {2256 * step_ms:.3f} ms forward, "
-        f"{2256 * bwd_step_ms:.3f} ms backward")
-    return dict(gap_ms=gap_ms, step_ms=step_ms, bwd_step_ms=bwd_step_ms)
+        f"least-work step K2 {floor['step_ms'] * 1e3:.3f} us, K5 "
+        f"{floor['bwd_step_ms'] * 1e3:.3f} us, K3 "
+        f"{floor['lstm_step_ms'] * 1e3:.3f} us, K7 "
+        f"{floor['lstm_bwd_step_ms'] * 1e3:.3f} us; x 2,256 steps of a "
+        f"6 x BiGRU layer stack = {2256 * floor['step_ms']:.3f} ms forward, "
+        f"{2256 * floor['bwd_step_ms']:.3f} ms backward; of a 6 x BiLSTM "
+        f"stack {2256 * floor['lstm_step_ms']:.3f} ms forward, "
+        f"{2256 * floor['lstm_bwd_step_ms']:.3f} ms backward")
+    return floor
 
 
 def max_err(a, ref) -> tuple[float, float]:
@@ -349,52 +419,89 @@ def max_err(a, ref) -> tuple[float, float]:
 def plain_path():
     """Route every kernel call of the model and the loss to its plain
     version."""
-    from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
-
-    saved = (stft.stft_mag, gru.gru_layer, gru.gru_bwd, ctc.ctc_alpha,
-             ctc.ctc_beta)
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft
 
     def stft_plain(y, n_fft, hop, window, center=True):
         return stft.plain(y, n_fft, hop, window, center=center)
 
-    (stft.stft_mag, gru.gru_layer, gru.gru_bwd, ctc.ctc_alpha,
-     ctc.ctc_beta) = (stft_plain, gru.plain, gru.plain_bwd, ctc.plain_alpha,
-                      ctc.plain_beta)
+    swaps = ((stft, "stft_mag", stft_plain), (gru, "gru_layer", gru.plain),
+             (gru, "gru_bwd", gru.plain_bwd), (lstm, "lstm_layer", lstm.plain),
+             (lstm, "lstm_bwd", lstm.plain_bwd),
+             (ctc, "ctc_alpha", ctc.plain_alpha),
+             (ctc, "ctc_beta", ctc.plain_beta))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        (stft.stft_mag, gru.gru_layer, gru.gru_bwd, ctc.ctc_alpha,
-         ctc.ctc_beta) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
-def phase_gru_bwd(torch, results):
-    """K5 at full width, alone and through the layer's autograd Function."""
-    from deepspeech_tpu_torch.ops.cuda import gru
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft
 
-    rng = np.random.default_rng(SEED + 4)
+    stft.launches = ctc.alpha_launches = ctc.beta_launches = 0
+    for mod in (gru, lstm):
+        mod.launches = mod.res_launches = mod.bwd_launches = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count; ``<cell>_fwd_res`` counts the training
+    variant's launches among ``<cell>_fwd``'s."""
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft
+
+    counts = dict(stft_mag=stft.launches, ctc_alpha=ctc.alpha_launches,
+                  ctc_beta=ctc.beta_launches)
+    for cell, mod in (("gru", gru), ("lstm", lstm)):
+        counts.update({f"{cell}_fwd": mod.launches,
+                       f"{cell}_fwd_res": mod.res_launches,
+                       f"{cell}_bwd": mod.bwd_launches})
+    return counts
+
+
+def expect_counts(**nonzero) -> dict:
+    """The launch counts of a run that launches only the named kernels."""
+    return {**{k: 0 for k in read_counts()}, **nonzero}
+
+
+def phase_layer_bwd(torch, results, cell):
+    """K5 or K7 at full width, alone and through the layer's autograd
+    Function."""
+    mod, function = cell_kernels(cell)
+    spec = CELLS[cell]
+    tol_of = GRU_BWD_TOL if cell == "gru" else LSTM_BWD_TOL
+    bwd = mod.gru_bwd if cell == "gru" else mod.lstm_bwd
+    names = ("dg", "dnh", "dbi", "dbh") if cell == "gru" else ("dg", "db")
+    rng = np.random.default_rng(SEED + (4 if cell == "gru" else 9))
     t, b, h = FRAMES, BATCH, HIDDEN
+    gh = spec["gates"] * h
     for f_in in (FEATURES, HIDDEN):
-        x32, w_ih32, b_ih, w_hh32, b_hh, lens = gru_inputs(torch, rng, t, b,
-                                                           h, f_in)
+        x32, w_ih32, b_ih, w_hh32, b_hh, lens = layer_inputs(
+            torch, rng, t, b, h, f_in, spec["gates"])
         dout = torch.from_numpy(rng.standard_normal((t, b, h)).astype(
             np.float32)).cuda() * 0.1
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).split(".")[-1]
-            tol = GRU_BWD_TOL[name]
+            tol = tol_of[name]
             x, w_ih, w_hh = x32.to(dt), w_ih32.to(dt), w_hh32.to(dt)
-            out, g, hn = gru.plain(x, w_ih, b_ih, w_hh, b_hh, lens,
-                                   residuals=True)
+            out, r1, r2 = mod.plain(x, w_ih, b_ih, w_hh, b_hh, lens,
+                                    residuals=True)
             d2 = dout[None].expand(2, -1, -1, -1).contiguous()
-            bwd_args = (d2, g, hn, out, w_hh, lens)
-            got = gru.gru_bwd(*bwd_args)
-            ref = gru.plain_bwd(*bwd_args)
-            errs = {k: max_err(a, r) for k, a, r in
-                    zip(("dg", "dnh", "dbi", "dbh"), got, ref)}
+            if cell == "gru":  # r1, r2 = g, hn
+                bwd_args = (d2, r1, r2, out, w_hh, lens)
+            else:  # r1, r2 = c, g
+                bwd_args = (d2, r2, r1, w_hh, lens)
+            got = bwd(*bwd_args)
+            ref = mod.plain_bwd(*bwd_args)
+            errs = {k: max_err(a, r) for k, a, r in zip(names, got, ref)}
 
             def layer_grads():
                 ins = [a.clone().requires_grad_(True)
                        for a in (x, w_ih, b_ih, w_hh32, b_hh)]
-                o = gru.GRULayer.apply(*ins, lens)
+                o = function.apply(*ins, lens)
                 return torch.autograd.grad((o[0] + o[1]), ins, dout)
 
             lg = layer_grads()
@@ -404,25 +511,27 @@ def phase_gru_bwd(torch, results):
                                lg, lref):
                 errs[k] = max_err(a, r)
             torch.cuda.synchronize()
-            log(f"K5 gru_bwd {name} F={f_in}: "
+            log(f"{spec['bname']} {spec['bwd']} {name} F={f_in}: "
                 + ", ".join(f"{k} {e:.3e} (scale {sc:.2f})"
                             for k, (e, sc) in errs.items())
                 + f"; tolerance {tol} x scale")
             bad = {k: e for k, (e, sc) in errs.items() if not e <= tol * sc}
             if bad:
-                raise AssertionError(f"gru_bwd {name} F={f_in} disagrees "
-                                     f"with its plain version: {bad}")
+                raise AssertionError(f"{spec['bwd']} {name} F={f_in} "
+                                     f"disagrees with its plain version: "
+                                     f"{bad}")
             if f_in != FEATURES:
                 continue
-            ms = time_ms(lambda: gru.gru_bwd(*bwd_args), reps=5)
-            plain_ms = time_ms(lambda: gru.plain_bwd(*bwd_args), reps=2,
+            ms = time_ms(lambda: bwd(*bwd_args), reps=5)
+            plain_ms = time_ms(lambda: mod.plain_bwd(*bwd_args), reps=2,
                                warmup=1)
             ins = [a.clone().requires_grad_(True)
                    for a in (x, w_ih, b_ih, w_hh32, b_hh)]
-            o = gru.GRULayer.apply(*ins, lens)
+            o = function.apply(*ins, lens)
             layer_ms = time_ms(lambda: torch.autograd.grad(
                 o[0] + o[1], ins, dout, retain_graph=True), reps=5)
-            net = cudnn_gru(torch, (x, w_ih, b_ih, w_hh, b_hh, lens), dt)
+            net = cudnn_layer(torch, (x, w_ih, b_ih, w_hh, b_hh, lens), dt,
+                              cell)
             xin = x.clone().requires_grad_(True)
             y, _ = net(xin)
             dy = torch.cat([dout, dout], -1).to(dt)
@@ -431,23 +540,29 @@ def phase_gru_bwd(torch, results):
                 reps=5)
             n_valid = float(lens.sum().item())
             esize = 2 if dt == torch.bfloat16 else 4
-            flops = 2.0 * 2 * n_valid * 3 * h * h
-            # read dout, h (f32), g, hn, W_hh; write dg, dnh, dbi, dbh
-            nbytes = (4 * 2 * 2 * t * b * h + esize * 2 * t * b * 4 * h
-                      + esize * 2 * h * 3 * h + esize * 2 * t * b * 4 * h
-                      + 4 * 2 * 2 * 3 * h)
+            flops = 2.0 * 2 * n_valid * gh * h
+            if cell == "gru":
+                # read dout, h (f32), g, hn, W_hh; write dg, dnh, dbi, dbh
+                nbytes = (4 * 2 * 2 * t * b * h + esize * 2 * t * b * 4 * h
+                          + esize * 2 * h * gh + esize * 2 * t * b * 4 * h
+                          + 4 * 2 * 2 * gh)
+            else:
+                # read dout, c (f32), g, W_hh; write dg, db
+                nbytes = (4 * 2 * 2 * t * b * h + esize * 2 * t * b * gh
+                          + esize * 2 * h * gh + esize * 2 * t * b * gh
+                          + 4 * 2 * gh)
             peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
             bound_ms, by = bound(flops, peak, nbytes)
-            log(f"K5 gru_bwd {name} F={f_in}: {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}); the "
-                f"layer's whole backward (K5 + dx, dW_ih, dW_hh on cuBLAS) "
-                f"{layer_ms:.3f} ms; cuDNN bidirectional GRU backward "
-                f"(dx and all weight grads) {lib_ms:.3f} ms")
+            log(f"{spec['bname']} {spec['bwd']} {name} F={f_in}: {ms:.3f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}); "
+                f"the layer's whole backward ({spec['bname']} + dx, dW_ih, "
+                f"dW_hh on cuBLAS) {layer_ms:.3f} ms; cuDNN bidirectional "
+                f"{cell.upper()} backward (dx and all weight grads) "
+                f"{lib_ms:.3f} ms")
             if dt == torch.bfloat16:
-                results["gru_bwd"] = dict(
+                results[spec["bwd"]] = dict(
                     route="cuda",
-                    max_abs_err=max(errs[k][0] for k in ("dg", "dnh", "dbi",
-                                                         "dbh")),
+                    max_abs_err=max(errs[k][0] for k in names),
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                     library_ms=lib_ms, layer_ms=layer_ms)
             del net, y, o
@@ -550,23 +665,23 @@ def phase_ctc(torch, results):
                                library_ms=lib_bwd_ms)
 
 
-def default_model(torch, seed):
+def default_model(torch, seed, cell="gru"):
     from deepspeech_tpu_torch.models import build_model
 
-    model, meta = build_model("gru", CLASSES, HIDDEN, LAYERS,
+    model, meta = build_model(cell, CLASSES, HIDDEN, LAYERS,
                               bidirectional=True,
                               compute_dtype="bfloat16", device="cuda")
     random_weights(model, np.random.default_rng(seed))
     return model, meta
 
 
-def phase_forward(torch, counts, floor):
+def phase_forward(torch, counts, floor, cell="gru"):
     from deepspeech_tpu_torch.audio.features import AudioConf, featurize_batch
     from deepspeech_tpu_torch.decoders import greedy_ids
-    from deepspeech_tpu_torch.ops.cuda import gru, stft
 
-    rng = np.random.default_rng(SEED + 2)
-    model, meta = default_model(torch, SEED + 2)
+    seed = SEED + (2 if cell == "gru" else 10)
+    rng = np.random.default_rng(seed)
+    model, meta = default_model(torch, seed, cell)
     model.eval()
     b, s = BATCH, AUDIO_S
     audio = torch.from_numpy(np.stack([synthetic_audio(rng, s)
@@ -580,15 +695,15 @@ def phase_forward(torch, counts, floor):
         return logits, probs, out_lens, greedy_ids(probs)
 
     with torch.inference_mode():
-        stft.launches = gru.launches = gru.res_launches = 0
+        reset_counts()
         logits, probs, out_lens, ids = forward()
         torch.cuda.synchronize()
-        counts.update(stft_mag=stft.launches, gru_fwd=gru.launches,
-                      gru_fwd_res=gru.res_launches)
-        log(f"inference path (bf16 forward): launches {counts}")
-        if (counts["stft_mag"] < 1 or counts["gru_fwd"] != LAYERS
-                or counts["gru_fwd_res"] != 0):
-            raise AssertionError(f"inference path: wrong launches {counts}")
+        counts.update(read_counts())
+        log(f"{cell} inference path (bf16 forward): launches {counts}")
+        want = expect_counts(stft_mag=1, **{f"{cell}_fwd": LAYERS})
+        if counts != want:
+            raise AssertionError(f"inference path: launches {counts}, "
+                                 f"expected {want}")
         with plain_path():
             ref_logits, _, ref_lens, ref_ids = forward()
         torch.cuda.synchronize()
@@ -605,7 +720,8 @@ def phase_forward(torch, counts, floor):
         scale = max(1.0, ref_logits.abs().max().item())
         err = (logits - ref_logits).abs().max().item()
         agree = (ids == ref_ids).float().mean().item()
-        log(f"inference path: logits max_abs_err vs plain {err:.3e} (scale "
+        log(f"{cell} inference path: logits max_abs_err vs plain {err:.3e} "
+            f"(scale "
             f"{scale:.2f}, tolerance {LOGIT_TOL * scale:.3e}); greedy ids "
             f"agree on {agree:.4%} of frames")
         if not err <= LOGIT_TOL * scale:
@@ -613,10 +729,10 @@ def phase_forward(torch, counts, floor):
         ms = time_ms(forward, reps=5, warmup=1)
         with plain_path():
             plain_ms = time_ms(forward, reps=1, warmup=0)
-        profile_run(torch, "forward", forward, ms, floor)
+        profile_run(torch, f"{cell} forward", forward, ms, floor)
     audio_s = b * s / conf.sample_rate
-    log(f"inference path: {ms:.3f} ms per forward of {b} x {s / SR} s "
-        f"(featurize + 6 x BiGRU-800 bf16 + greedy) = "
+    log(f"{cell} inference path: {ms:.3f} ms per forward of {b} x {s / SR} s "
+        f"(featurize + 6 x Bi{cell.upper()}-800 bf16 + greedy) = "
         f"{audio_s / (ms / 1e3):.1f} audio-s/s; through the plain versions "
         f"{plain_ms:.3f} ms")
     return model, meta
@@ -661,11 +777,15 @@ def profile_run(torch, label, fn, ms: float, floor: dict):
     for start, end, name in ops:
         n, t = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, t + end - start)
-    for name, (n, t) in sorted(by_name.items(), key=lambda r: -r[1][1])[:12]:
+    for name, (n, t) in sorted(by_name.items(), key=lambda r: -r[1][1])[:16]:
         log(f"  {t / 1e3:9.3f} ms {n:6d} x {name[:90]}")
     for kernel, key, what in (("gru_step", "step_ms", "K2"),
-                              ("bwd_step", "bwd_step_ms", "K5")):
-        steps = [(n, t) for name, (n, t) in by_name.items() if kernel in name]
+                              ("bwd_step", "bwd_step_ms", "K5"),
+                              ("lstm_step", "lstm_step_ms", "K3"),
+                              ("lstm_bwd_step", "lstm_bwd_step_ms", "K7")):
+        # whole words: K5's bwd_step is not K7's lstm_bwd_step
+        steps = [(n, t) for name, (n, t) in by_name.items()
+                 if re.search(rf"\b{kernel}\b", name)]
         if steps:
             n, t = map(sum, zip(*steps))
             log(f"{what} step at full width: {t / n:.3f} us of kernel time "
@@ -719,23 +839,19 @@ def step_grads(torch, model, batch, jitter):
     return loss.detach(), dict(zip(names, grads)), global_norm(grads)
 
 
-def phase_train(torch, counts, floor):
-    from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
+def phase_train(torch, counts, floor, cell="gru"):
     from deepspeech_tpu_torch.train.optim import build_optimizer
     from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
                                                  make_train_step)
 
-    rng = np.random.default_rng(SEED + 6)
+    seed = SEED + (6 if cell == "gru" else 11)
+    rng = np.random.default_rng(seed)
     labels = "_'ABCDEFGHIJKLMNOPQRSTUVWXYZ2 "
-    model, _ = default_model(torch, SEED + 6)
+    model, _ = default_model(torch, seed, cell)
     batch = train_batch(torch, rng, labels)
     jitter = torch.from_numpy(rng.uniform(-0.5, 0.5, BATCH).astype(
         np.float32)).cuda()
     init = {k: v.clone() for k, v in model.state_dict().items()}
-
-    def reset_counts():
-        stft.launches = gru.launches = gru.res_launches = 0
-        gru.bwd_launches = ctc.alpha_launches = ctc.beta_launches = 0
 
     loss, grads, norm = step_grads(torch, model, batch, jitter)
     model.load_state_dict(init)
@@ -748,7 +864,7 @@ def phase_train(torch, counts, floor):
     rel_norm = abs(norm.item() - ref_norm.item()) / ref_norm.item()
     worst = max(((max_err(grads[k], ref_grads[k])[0]
                   / max_err(grads[k], ref_grads[k])[1], k) for k in grads))
-    log(f"train step vs plain path: loss {loss.item():.4f} / "
+    log(f"{cell} train step vs plain path: loss {loss.item():.4f} / "
         f"{ref_loss.item():.4f} (rel {rel_loss:.2e}), grad norm "
         f"{norm.item():.4f} / {ref_norm.item():.4f} (rel {rel_norm:.2e}); "
         f"{len(grads)} parameter grads, worst {worst[1]} at "
@@ -776,14 +892,11 @@ def phase_train(torch, counts, floor):
         end.record()
         end.synchronize()
         if i == 0:
-            counts.update(stft_mag=stft.launches, gru_fwd=gru.launches,
-                          gru_fwd_res=gru.res_launches,
-                          gru_bwd=gru.bwd_launches,
-                          ctc_alpha=ctc.alpha_launches,
-                          ctc_beta=ctc.beta_launches)
-            log(f"train path, one step: launches {counts}")
-            want = dict(stft_mag=1, gru_fwd=LAYERS, gru_fwd_res=LAYERS,
-                        gru_bwd=LAYERS, ctc_alpha=1, ctc_beta=1)
+            counts.update(read_counts())
+            log(f"{cell} train path, one step: launches {counts}")
+            want = expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1,
+                                 **{f"{cell}_{k}": LAYERS
+                                    for k in ("fwd", "fwd_res", "bwd")})
             if counts != want:
                 raise AssertionError(f"train step launches {counts}, "
                                      f"expected {want}")
@@ -796,10 +909,11 @@ def phase_train(torch, counts, floor):
             f"{m['grad_norm'].item():.3f}, {times[-1]:.3f} ms")
     ms = float(np.median(times[1:]))
     audio_s = float(batch["audio_lengths"].sum().item()) / SR
-    log(f"train path: {ms:.3f} ms per step (median of steps 2-5, CUDA "
-        f"events) for {audio_s:.2f} s of audio = {audio_s / (ms / 1e3):.1f} "
-        f"audio-s/s (bf16, 6 x BiGRU-800, batch {BATCH})")
-    profile_run(torch, "train step",
+    log(f"{cell} train path: {ms:.3f} ms per step (median of steps 2-5, "
+        f"CUDA events) for {audio_s:.2f} s of audio = "
+        f"{audio_s / (ms / 1e3):.1f} audio-s/s (bf16, 6 x Bi{cell.upper()}"
+        f"-800, batch {BATCH})")
+    profile_run(torch, f"{cell} train step",
                 lambda: step(state, batch, generator=gen), ms, floor)
 
 
@@ -807,7 +921,6 @@ def phase_cli(torch, model, meta, counts):
     from deepspeech_tpu_torch.audio.features import AudioConf
     from deepspeech_tpu_torch.audio.io import save_wav
     from deepspeech_tpu_torch.cli.transcribe import main
-    from deepspeech_tpu_torch.ops.cuda import gru, stft
     from deepspeech_tpu_torch.train import checkpoint as ckpt
 
     rng = np.random.default_rng(SEED + 3)
@@ -820,16 +933,16 @@ def phase_cli(torch, model, meta, counts):
         for i, seconds in enumerate((2.0, 3.5, 5.0)):
             wavs.append(os.path.join(d, f"req{i}.wav"))
             save_wav(wavs[-1], synthetic_audio(rng, int(seconds * SR)), SR)
-        stft.launches = gru.launches = 0
+        reset_counts()
         for wav in wavs:
             text, dt = transcribe_once(main, path, wav)
             log(f"transcribe {os.path.basename(wav)}: {len(text)} chars in "
                 f"{dt:.3f} s (host clock, checkpoint load included): "
                 f"{text[:60]!r}")
         torch.cuda.synchronize()
-        counts.update(stft_mag=stft.launches, gru_fwd=gru.launches)
+        counts.update(read_counts())
         log(f"transcribe CLI (f32): launches {counts}")
-        if counts["stft_mag"] != 3 or counts["gru_fwd"] != 3 * LAYERS:
+        if counts != expect_counts(stft_mag=3, gru_fwd=3 * LAYERS):
             raise AssertionError(f"CLI path missed a kernel: {counts}")
 
 
@@ -846,13 +959,12 @@ def transcribe_once(main, path: str, wav: str) -> tuple[str, float]:
     return out["output"][0]["transcription"], dt
 
 
-def phase_train_cli(torch):
+def phase_train_cli(torch, cell="gru"):
     """The train CLI, 1 epoch at full width on a synthetic manifest, then
     one transcribe request on its final checkpoint."""
     from deepspeech_tpu_torch.audio.io import save_wav
     from deepspeech_tpu_torch.cli.train import main as train_main
     from deepspeech_tpu_torch.cli.transcribe import main as transcribe_main
-    from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
 
     rng = np.random.default_rng(SEED + 7)
     texts = ["HELLO WORLD", "THE QUICK BROWN FOX", "A DOG RAN HOME",
@@ -872,8 +984,7 @@ def phase_train_cli(torch):
         manifest = os.path.join(d, "manifest.csv")
         with open(manifest, "w") as f:
             f.write("\n".join(rows) + "\n")
-        stft.launches = gru.launches = gru.res_launches = 0
-        gru.bwd_launches = ctc.alpha_launches = ctc.beta_launches = 0
+        reset_counts()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -883,6 +994,7 @@ def phase_train_cli(torch):
                              "--val-batch-size", "3", "--num-workers", "2",
                              "--hidden-size", str(HIDDEN),
                              "--hidden-layers", str(LAYERS),
+                             "--rnn-type", cell,
                              "--save-folder", os.path.join(d, "models")])
         dt = time.perf_counter() - t0
         for line in buf.getvalue().splitlines():
@@ -890,22 +1002,22 @@ def phase_train_cli(torch):
         if rc != 0:
             raise AssertionError(f"train CLI exited {rc}")
         torch.cuda.synchronize()
-        counts = dict(stft_mag=stft.launches, gru_fwd=gru.launches,
-                      gru_fwd_res=gru.res_launches, gru_bwd=gru.bwd_launches,
-                      ctc_alpha=ctc.alpha_launches,
-                      ctc_beta=ctc.beta_launches)
-        log(f"train CLI (6 x BiGRU-800 bf16, 2 steps + validation): "
-            f"{dt:.3f} s host clock, launches {counts}")
+        counts = read_counts()
+        log(f"train CLI --rnn-type {cell} (6 x Bi{cell.upper()}-800 bf16, 2 "
+            f"steps + validation): {dt:.3f} s host clock, launches {counts}")
         # 2 train steps, then 2 validation batches (forward and loss only)
-        want = dict(stft_mag=4, gru_fwd=4 * LAYERS, gru_fwd_res=2 * LAYERS,
-                    gru_bwd=2 * LAYERS, ctc_alpha=4, ctc_beta=2)
+        want = expect_counts(stft_mag=4, ctc_alpha=4, ctc_beta=2,
+                             **{f"{cell}_fwd": 4 * LAYERS,
+                                f"{cell}_fwd_res": 2 * LAYERS,
+                                f"{cell}_bwd": 2 * LAYERS})
         if counts != want:
             raise AssertionError(f"train CLI launches {counts}, expected "
                                  f"{want}")
         final = os.path.join(d, "models", "deepspeech_final.ckpt")
         text, dt = transcribe_once(transcribe_main, final,
                                    os.path.join(d, "u0.wav"))
-        log(f"transcribe on the trained checkpoint: {len(text)} chars in "
+        log(f"transcribe on the trained {cell} checkpoint: {len(text)} "
+            f"chars in "
             f"{dt:.3f} s: {text[:60]!r}")
 
 
@@ -937,23 +1049,31 @@ def main() -> int:
 
     results: dict = {}
     train_counts: dict = {}
+    lstm_train_counts: dict = {}
     phase_stft(torch, results)
-    phase_gru(torch, results)
-    phase_gru_bwd(torch, results)
+    phase_layer_fwd(torch, results, "gru")
+    floor = step_floor(torch)
+    phase_layer_bwd(torch, results, "gru")
     phase_ctc(torch, results)
-    floor = results["gru_fwd"]["floor"]
     model, meta = phase_forward(torch, {}, floor)
     phase_cli(torch, model, meta, {})
     del model
     phase_train(torch, train_counts, floor)
     phase_train_cli(torch)
+    # the LSTM cell: K3 and K7, then its inference, train and CLI paths
+    phase_layer_fwd(torch, results, "lstm")
+    phase_layer_bwd(torch, results, "lstm")
+    phase_forward(torch, {}, floor, "lstm")
+    phase_train(torch, lstm_train_counts, floor, "lstm")
+    phase_train_cli(torch, "lstm")
 
     kernels = []
     for name in KERNELS:
         r = results[name]
+        counts = lstm_train_counts if name in LSTM_KERNELS else train_counts
         kernels.append({"name": name, "route": r["route"],
                         "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": train_counts[name],
+                        "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

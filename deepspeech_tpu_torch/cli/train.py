@@ -57,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden-size", default=800, type=int)
     p.add_argument("--hidden-layers", default=6, type=int)
     p.add_argument("--rnn-type", default="gru",
-                   help="gru (the port's other types come later)")
+                   help="gru, lstm or rnn (the CNN models are not ported "
+                        "yet)")
     p.add_argument("--cnn-width", default=256, type=int)
     p.add_argument("--dropout", default=0, type=float)
     p.add_argument("--no-bidirectional", dest="bidirectional",

@@ -52,7 +52,7 @@
 // Against the bound: on an H100 SXM at 700 W a bf16 call at the default
 // shape takes ~9.3-9.7 ms, ~110x the bound; a step takes ~24 us of kernel
 // time, ~5x the least-work step and 1.6x K2's (chip_smoke.py; PERF.md).
-#include "common.cuh"
+#include "rnn_common.cuh"
 
 namespace {
 
@@ -60,7 +60,7 @@ constexpr int TJ = 16;   // hidden units per step block
 constexpr int KS = 16;   // thread groups splitting each 3H-long dot
 constexpr int RB = 8;    // batch rows per step block
 constexpr int STEP_THREADS = TJ * KS;
-static_assert(RB == 8, "load_column reads 8 rows");
+static_assert(RB == STAGE_ROWS, "load_column reads RB rows");
 
 struct BwdArgs {
   const float* dout;  // (D, T, B, H) f32
@@ -130,42 +130,6 @@ __device__ __forceinline__ void bwd_point(const BwdArgs& a, int d, int b,
   a.acc_h[ae + H] += dz_pre;
   a.acc_h[ae + 2 * H] += dnhv;
   a.dhz[e] = dh_tot * z;
-}
-
-// The RB staged values of one column, as f32.
-__device__ __forceinline__ void load_column(const float* p, float v[RB]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-__device__ __forceinline__ void load_column(const __nv_bfloat16* p,
-                                            float v[RB]) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-  for (int i = 0; i < RB / 2; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-// Stores the RB values of one column side by side (16-byte aligned).
-__device__ __forceinline__ void store_column(float* p, const float v[RB]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store_column(__nv_bfloat16* p,
-                                             const __nv_bfloat16 v[RB]) {
-  uint4 q;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-  for (int i = 0; i < RB / 2; ++i)
-    h[i] = __halves2bfloat162(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = q;
 }
 
 // The first step (s = 0) with nothing carried; grid (ceil(H/256), B, D).

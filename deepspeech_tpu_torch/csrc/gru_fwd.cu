@@ -28,9 +28,9 @@
 // the 2,256 steps of a 6 x BiGRU forward at least ~8-10 ms.
 //
 // Design, simple and right first:
-//  * proj_gemm: a tiled SIMT GEMM (128 x 128 x 8 tiles, 8 x 8 per thread,
-//    f32 FMA) writing the (D, T*B, 3H) f32 projection stream. It uses no
-//    tensor cores yet: a wgmma version is later work.
+//  * proj_gemm (rnn_common.cuh): a tiled SIMT GEMM (128 x 128 x 8 tiles,
+//    8 x 8 per thread, f32 FMA) writing the (D, T*B, 3H) f32 projection
+//    stream. It uses no tensor cores yet: a wgmma version is later work.
 //  * gru_step: one launch per time step covering both directions. A block
 //    owns TJ hidden units of one direction for RB batch rows, so its shared
 //    memory does not grow with B: it stages those rows of h_prev (a thread
@@ -45,80 +45,14 @@
 // ~9.7-9.9 ms, ~85x the bound, with or without the residuals; a step takes
 // ~15 us of kernel time, ~4x the least-work step, and the SIMT projection
 // ~2.4-2.6 ms a layer (chip_smoke.py; PERF.md).
-#include "common.cuh"
+#include "rnn_common.cuh"
 
 namespace {
 
-constexpr int GBM = 128, GBN = 128, GBK = 8;  // GEMM tile
 constexpr int TJ = 16;   // hidden units per recurrence block
 constexpr int KS = 16;   // thread groups splitting each H-long dot
 constexpr int RB = 8;    // batch rows per recurrence block
 constexpr int STEP_THREADS = TJ * KS;
-
-// C[d] (M x N, f32) = A (M x K) @ W[d] (K x N); grid (N/GBN, M/GBM, D).
-template <typename T>
-__global__ void __launch_bounds__(256)
-proj_gemm(const T* __restrict__ A, const T* __restrict__ W,
-          float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[GBK][GBM];
-  __shared__ __align__(16) float Bs[GBK][GBN];
-  const T* Wd = W + static_cast<size_t>(blockIdx.z) * K * N;
-  float* Cd = C + static_cast<size_t>(blockIdx.z) * M * N;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-#pragma unroll
-    for (int i = tid; i < GBM * GBK; i += 256) {
-      const int r = i / GBK, c = i % GBK;
-      const int m = m0 + r, k = k0 + c;
-      As[c][r] = (m < M && k < K)
-                     ? ds_to_float(A[static_cast<size_t>(m) * K + k]) : 0.f;
-    }
-#pragma unroll
-    for (int i = tid; i < GBK * GBN; i += 256) {
-      const int r = i / GBN, c = i % GBN;
-      const int k = k0 + r, n = n0 + c;
-      Bs[r][c] = (k < K && n < N)
-                     ? ds_to_float(Wd[static_cast<size_t>(k) * N + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * 8 + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 8 + 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty * 8 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx * 8 + j;
-      if (n < N) Cd[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
-  }
-}
-
-__device__ __forceinline__ float ds_sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
 
 // One time step s for both directions; grid (ceil(H/TJ), ceil(B/RB), D).
 // xp (D, T, B, 3H) f32; w_hh (D, H, 3H); b_ih, b_hh (D, 3H) f32;
@@ -243,10 +177,8 @@ int gru_fwd(const T* x, const T* w_ih, const float* b_ih, const T* w_hh,
             const float* b_hh, const int* lens, float* xp, float* state,
             float* out, T* g_out, T* hn_out, int Tn, int B, int F, int H,
             int D, cudaStream_t stream) {
-  const int M = Tn * B, N = 3 * H;
-  const dim3 ggrid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, D);
-  proj_gemm<T><<<ggrid, 256, 0, stream>>>(x, w_ih, xp, M, N, F);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_proj_gemm<T>(x, w_ih, xp, Tn * B, 3 * H, F, D,
+                                        stream);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const size_t hsz = static_cast<size_t>(D) * B * H;

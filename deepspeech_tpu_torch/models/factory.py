@@ -17,7 +17,7 @@ RNN_KEYS = ("rnn", "gru", "lstm")
 CNN_KEYS = ("cnn", "cnn_residual", "glu_small", "glu_large", "large_cnn",
             "cnn_jasper")
 SUPPORTED = RNN_KEYS + CNN_KEYS
-PORTED = ("gru",)
+PORTED = RNN_KEYS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": None, "f32": None, None: None}

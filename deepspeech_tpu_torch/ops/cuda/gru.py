@@ -33,6 +33,12 @@ import torch
 
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import build
+from deepspeech_tpu_torch.ops.cuda.recurrence import (check_layer,
+                                                      h_prev_stream,
+                                                      mm_f32, same_device,
+                                                      to_time_order,
+                                                      valid_mask,
+                                                      walk_index)
 
 launches = 0      # gru_fwd launches (one per layer call), both variants
 res_launches = 0  # of those, the training variant's (residuals written)
@@ -62,23 +68,6 @@ def _bwd_kernel():
     return lib
 
 
-def walk_index(lengths: torch.Tensor, t: int) -> torch.Tensor:
-    """(T, B) time index of step s for each row of the backward direction:
-    ``len - 1 - s`` inside the valid prefix, ``s`` past it. It is its own
-    inverse, so it maps the walk back to time order as well."""
-    s = torch.arange(t, device=lengths.device)[:, None]
-    lens = lengths.to(s.dtype)[None, :]
-    return torch.where(s < lens, lens - 1 - s, s)
-
-
-def _to_time_order(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(D, T, B, N) in walk order -> time order (direction 1 regathered)."""
-    if a.shape[0] == 1:
-        return a
-    gather = idx[:, :, None].expand(-1, -1, a.shape[-1])
-    return torch.stack([a[0], torch.gather(a[1], 0, gather)])
-
-
 def plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
           w_hh: torch.Tensor, b_hh: torch.Tensor, lengths: torch.Tensor,
           residuals: bool = False):
@@ -96,9 +85,8 @@ def plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
         xp = torch.einsum("tbf,dfg->dtbg", x.float(), w_ih.float())
     xp = xp + b_ih.float()[:, None, None, :]
     idx = walk_index(lengths, t)
-    xp = _to_time_order(xp, idx)  # the gather is its own inverse
-    valid = (torch.arange(t, device=x.device)[:, None]
-             < lengths[None, :])[None, :, :, None]  # (1, T, B, 1)
+    xp = to_time_order(xp, idx)  # the gather is its own inverse
+    valid = valid_mask(lengths, t)
     w32 = w_hh.float()
     bh = b_hh.float()[:, None, :]
     h = torch.zeros((ndir, b, hidden), dtype=torch.float32, device=x.device)
@@ -119,18 +107,12 @@ def plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
         if residuals:
             gates.append(torch.where(keep, torch.cat([r, z, n], -1), 0.0))
             hns.append(torch.where(keep, hn, 0.0))
-    out = _to_time_order(torch.stack(outs, dim=1), idx)
+    out = to_time_order(torch.stack(outs, dim=1), idx)
     if not residuals:
         return out
-    g = _to_time_order(torch.stack(gates, dim=1), idx).to(x.dtype)
-    hn = _to_time_order(torch.stack(hns, dim=1), idx).to(x.dtype)
+    g = to_time_order(torch.stack(gates, dim=1), idx).to(x.dtype)
+    hn = to_time_order(torch.stack(hns, dim=1), idx).to(x.dtype)
     return out, g, hn
-
-
-def _same_device(where: str, dev: torch.device, **tensors) -> None:
-    for name, a in tensors.items():
-        if a.device != dev:
-            raise ValueError(f"{where}: {name} on {a.device}, expected {dev}")
 
 
 def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
@@ -145,24 +127,10 @@ def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
         return plain(x, w_ih, b_ih, w_hh, b_hh, lengths, residuals)
     if x.device.type != "cuda":
         raise ValueError(f"gru_layer: unsupported device {x.device}")
-    dt = x.dtype
-    if dt not in _FWD or w_ih.dtype != dt or w_hh.dtype != dt:
-        raise TypeError(f"gru_layer kernel takes x, w_ih, w_hh all float32 "
-                        f"or all bfloat16, got {x.dtype}, {w_ih.dtype}, "
-                        f"{w_hh.dtype}")
-    t, b, f_in = x.shape
-    ndir, hidden, g = w_hh.shape
-    if (g != 3 * hidden or w_ih.shape != (ndir, f_in, g)
-            or b_ih.shape != (ndir, g) or b_hh.shape != (ndir, g)
-            or lengths.shape != (b,) or ndir not in (1, 2)):
-        raise ValueError("gru_layer: inconsistent shapes "
-                         f"x {tuple(x.shape)} w_ih {tuple(w_ih.shape)} "
-                         f"w_hh {tuple(w_hh.shape)} b_ih {tuple(b_ih.shape)} "
-                         f"b_hh {tuple(b_hh.shape)} lengths "
-                         f"{tuple(lengths.shape)}")
-    dev = x.device
-    _same_device("gru_layer", dev, w_ih=w_ih, b_ih=b_ih, w_hh=w_hh,
-                 b_hh=b_hh, lengths=lengths)
+    dt, dev = x.dtype, x.device
+    t, b, f_in, ndir, hidden = check_layer("gru_layer", 3, tuple(_FWD), x,
+                                           w_ih, b_ih, w_hh, b_hh, lengths)
+    g = 3 * hidden
     lib = _fwd_kernel()
     x = x.contiguous()
     w_ih, w_hh = w_ih.contiguous(), w_hh.contiguous()
@@ -192,21 +160,6 @@ def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
         return out
     res_launches += 1
     return out, gates, hn
-
-
-def h_prev_stream(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """(D, T, B, H) layer outputs -> h_prev of each step in time order:
-    h[t-1] for direction 0 (0 at t = 0), h[t+1] for direction 1 (0 where
-    t + 1 is past the row's length)."""
-    zero = torch.zeros_like(h[:1, :1])
-    prev = [torch.cat([zero[0], h[0, :-1]])]
-    if h.shape[0] == 2:
-        t = h.shape[1]
-        nxt = torch.cat([h[1, 1:], zero[0]])
-        keep = (torch.arange(t, device=h.device)[:, None] + 1
-                < lengths.to(h.device)[None, :])[:, :, None]
-        prev.append(torch.where(keep, nxt, 0.0))
-    return torch.stack(prev)
 
 
 def plain_bwd(dout: torch.Tensor, g: torch.Tensor, hn: torch.Tensor,
@@ -280,7 +233,7 @@ def gru_bwd(dout: torch.Tensor, g: torch.Tensor, hn: torch.Tensor,
                          f"{tuple(hn.shape)} h {tuple(h.shape)} w_hh "
                          f"{tuple(w_hh.shape)} lengths {tuple(lengths.shape)}")
     dev = h.device
-    _same_device("gru_bwd", dev, dout=dout, g=g, hn=hn, w_hh=w_hh,
+    same_device("gru_bwd", dev, dout=dout, g=g, hn=hn, w_hh=w_hh,
                  lengths=lengths)
     lib = _bwd_kernel()
     dout, g, hn, h = (a.contiguous() for a in (dout, g, hn, h))
@@ -303,14 +256,6 @@ def gru_bwd(dout: torch.Tensor, g: torch.Tensor, hn: torch.Tensor,
     global bwd_launches
     bwd_launches += 1
     return dg, dnh, dbi, dbh
-
-
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with f32 sums and an f32 result, operands in their own type
-    (bf16 products are exact in f32)."""
-    if a.is_cuda and a.dtype == torch.bfloat16:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
 
 
 class GRULayer(torch.autograd.Function):
@@ -344,10 +289,10 @@ class GRULayer(torch.autograd.Function):
             for d in range(ndir):
                 dg2 = dg[d].reshape(t * b, 3 * hidden)
                 dhp = torch.cat([dg[d][..., :2 * hidden], dnh[d]], -1)
-                dw_hh.append(_mm_f32(hp[d].reshape(t * b, hidden).t(),
+                dw_hh.append(mm_f32(hp[d].reshape(t * b, hidden).t(),
                                      dhp.reshape(t * b, 3 * hidden)))
-                dx = dx + _mm_f32(dg2, w_ih[d].t())
-                dw_ih.append(_mm_f32(x2.t(), dg2))
+                dx = dx + mm_f32(dg2, w_ih[d].t())
+                dw_ih.append(mm_f32(x2.t(), dg2))
         dx = dx.reshape(x.shape).to(dt)
         return (dx, torch.stack(dw_ih).to(w_ih.dtype), dbi,
                 torch.stack(dw_hh), dbh, None)

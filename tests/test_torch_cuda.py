@@ -15,7 +15,8 @@ backward's dg, dnh 1e-4 in f32 and 2e-2 relative to the largest in bf16
 (a one-ulp flip of a bf16 operand moves the carried dh), its bias grads
 1e-3 relative in f32 and 2e-2 in bf16 (sums over T x B in other orders);
 CTC alphas/betas and loss 1e-4 relative, dlogits 1e-4; small-model logits
-2e-2.
+2e-2. The LSTM kernels (K3, K7) hold the GRU's tolerances, the cell
+stream c relative to its largest value, since |c| is not bounded by 1.
 """
 
 import numpy as np
@@ -209,3 +210,103 @@ def test_ctc_kernels_match_plain(dev, t):
     torch.testing.assert_close(per.cpu(), per_cpu, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(lg.grad.cpu(), lg_cpu.grad, rtol=1e-4,
                                atol=1e-4)
+
+
+def _lstm_case(dev, dtype, ndir, t, b, f, h, seed):
+    rng = np.random.default_rng(seed)
+    s = 1.0 / np.sqrt(h)
+
+    def u(*shape, lo=-s, hi=s):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32)).to(dev)
+
+    x, w_ih, w_hh = u(t, b, f, lo=0, hi=1), u(ndir, f, 4 * h), \
+        u(ndir, h, 4 * h)
+    b_ih, b_hh = u(ndir, 4 * h), u(ndir, 4 * h)
+    lens = torch.from_numpy(np.linspace(t, max(1, t // 3), b).astype(
+        np.int64)).to(dev)
+    return (x.to(dtype), w_ih.to(dtype), b_ih, w_hh.to(dtype), b_hh, lens)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("t,b,f,h", GRU_SHAPES)
+def test_lstm_kernel_matches_plain(dev, dtype, tol, ndir, t, b, f, h):
+    """K3, both variants, with the LSTM's tolerances: as the GRU's (|h| and
+    the gates <= 1; |c| grows, so c is held relative to its largest)."""
+    from deepspeech_tpu_torch.ops.cuda import lstm
+
+    args = _lstm_case(dev, dtype, ndir, t, b, f, h, t + b + 3)
+    before = (lstm.launches, lstm.res_launches)
+    got = lstm.lstm_layer(*args)
+    out, c, g = lstm.lstm_layer(*args, residuals=True)
+    assert (lstm.launches, lstm.res_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    ref, ref_c, ref_g = lstm.plain(*args, residuals=True)
+    assert c.dtype == torch.float32 and g.dtype == dtype
+    for a, w in ((got, ref), (out, ref), (g, ref_g)):
+        torch.testing.assert_close(a.float(), w.float(), rtol=0, atol=tol)
+    scale = max(1.0, ref_c.abs().max().item())
+    torch.testing.assert_close(c, ref_c, rtol=0, atol=tol * scale)
+    pad = torch.arange(t, device=dev)[:, None] >= args[-1][None, :]
+    for a in (got, c, g):
+        assert not a[:, pad].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("t,b,f,h", GRU_SHAPES)
+def test_lstm_bwd_kernel_matches_plain(dev, dtype, ndir, t, b, f, h):
+    """K7 against plain_bwd, with the GRU backward's tolerances."""
+    from deepspeech_tpu_torch.ops.cuda import lstm
+
+    x, w_ih, b_ih, w_hh, b_hh, lens = _lstm_case(dev, dtype, ndir, t, b, f,
+                                                 h, t + b + 4)
+    out, c, g = lstm.plain(x, w_ih, b_ih, w_hh, b_hh, lens, residuals=True)
+    rng = np.random.default_rng(t)
+    dout = torch.from_numpy(rng.standard_normal(out.shape).astype(
+        np.float32)).to(dev)
+    before = lstm.bwd_launches
+    got = lstm.lstm_bwd(dout, g, c, w_hh, lens)
+    assert lstm.bwd_launches == before + 1
+    want = lstm.plain_bwd(dout, g, c, w_hh, lens)
+    f32 = dtype == torch.float32
+    for name, a, w in zip(("dg", "db"), got, want):
+        scale = max(1.0, w.abs().max().item())
+        tol = (1e-4 if name == "dg" else 1e-3) if f32 else 2e-2
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+    pad = torch.arange(t, device=dev)[:, None] >= lens[None, :]
+    assert not got[0][:, pad].any()
+
+
+@pytest.mark.parametrize("cell", ["lstm", "rnn"])
+def test_small_lstm_and_rnn_models_match_plain(dev, cell):
+    """A 3 x BiLSTM-64 (K3) or vanilla-RNN DS2 in bf16 on the card against
+    the same model on the CPU, at the small GRU model's tolerance."""
+    from deepspeech_tpu_torch.audio.features import AudioConf, featurize_batch
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.ops.cuda import lstm
+
+    model, _ = build_model(cell, 30, 64, 3, compute_dtype="bfloat16",
+                           device=dev)
+    model.eval()
+    rng = np.random.default_rng(2)
+    audio = torch.from_numpy(rng.uniform(-1, 1, (2, 16000)).astype(
+        np.float32))
+    audio[1, 9000:] = 0
+    lens = torch.tensor([16000, 9000])
+    before = lstm.launches
+    with torch.inference_mode():
+        spect, frames = featurize_batch(audio.to(dev), lens.to(dev),
+                                        AudioConf())
+        got = model(spect, frames)
+        assert lstm.launches == before + (3 if cell == "lstm" else 0)
+        model.cpu()
+        ref = model(*featurize_batch(audio, lens, AudioConf()))
+    torch.testing.assert_close(got[2].cpu(), ref[2])
+    scale = max(1.0, ref[0].abs().max().item())
+    for i, n in enumerate(ref[2].tolist()):
+        torch.testing.assert_close(got[0][i, :n].cpu(), ref[0][i, :n],
+                                   rtol=0, atol=2e-2 * scale)

@@ -95,5 +95,5 @@ def test_rnn_scan_matches_xla_bf16(bidir):
 
 def test_other_cells_raise():
     x, lens, w_ih, b_ih, w_hh, b_hh = _mk(7, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rnn_scan(*_t(x, lens, w_ih, b_ih, w_hh, b_hh), cell="lstm")
+    with pytest.raises(ValueError, match="unknown cell"):
+        rnn_scan(*_t(x, lens, w_ih, b_ih, w_hh, b_hh), cell="mgu")

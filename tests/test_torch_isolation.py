@@ -157,3 +157,34 @@ def test_training_kernel_wrappers_use_plain_versions_on_cpu(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         ctc.ctc_beta(emit.to("meta"), skip, valid, end, lens)
     assert len(calls) == 3
+
+
+def test_lstm_kernel_wrappers_use_plain_versions_on_cpu(monkeypatch):
+    """K3 (both variants) and K7 take their plain versions for CPU tensors,
+    count no launch there, and raise on a device that is neither CPU nor
+    CUDA."""
+    from deepspeech_tpu_torch.ops.cuda import lstm
+
+    calls = []
+    for name in ("plain", "plain_bwd"):
+        fn = getattr(lstm, name)
+        monkeypatch.setattr(lstm, name, (lambda n, f: lambda *a, **k: (
+            calls.append(n), f(*a, **k))[1])(name, fn))
+    t, b, h = 5, 2, 3
+    x, w_ih = torch.randn(t, b, 4), torch.randn(2, 4, 4 * h)
+    w_hh, bias = torch.randn(2, h, 4 * h), torch.zeros(2, 4 * h)
+    lens = torch.tensor([5, 3])
+    before = (lstm.launches, lstm.res_launches, lstm.bwd_launches)
+    assert lstm.lstm_layer(x, w_ih, bias, w_hh, bias, lens).shape == (
+        2, t, b, h)
+    out, c, g = lstm.lstm_layer(x, w_ih, bias, w_hh, bias, lens,
+                                residuals=True)
+    dg, db = lstm.lstm_bwd(out, g, c, w_hh, lens)
+    assert dg.shape == g.shape and db.shape == (2, 4 * h)
+    assert calls == ["plain", "plain", "plain_bwd"]
+    assert (lstm.launches, lstm.res_launches, lstm.bwd_launches) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm.lstm_layer(x.to("meta"), w_ih, bias, w_hh, bias, lens)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lstm.lstm_bwd(out, g, c.to("meta"), w_hh, lens)
+    assert len(calls) == 3
