@@ -22,11 +22,27 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
 6. K8/K9 (ctc_alpha, ctc_beta) against their plain versions at B 20,
    T 376, C 30, L 150 with unequal lengths and one impossible row:
    alphas, betas, loss and dlogits; times beside F.ctc_loss;
-7. the inference path: the default DS2 (6 x BiGRU-800, 30 classes) in bf16
+7. K10 (topk) against its plain version bit for bit at the beam's shapes,
+   (20, 310) k 10 and (20, 3968) k 128, and on stress rows (ties, signed
+   zeros, infinities, NaNs); its device time beside its bound, the plain
+   version, torch.topk and torch.sort;
+8. the inference path: the default DS2 (6 x BiGRU-800, 30 classes) in bf16
    from seeded random weights on 20 synthetic 7.5 s waveforms, featurize
    -> forward -> greedy ids, launch counts read around it, the logits held
    to the plain versions, one profiled forward's busy and idle time;
-8. the train path: the same model trained on 20
+9. the transcribe CLI answers 3 requests (f32, as the JAX CLI runs);
+10. the beam path: 20 x 7.5 s -> featurize -> the same model -> the device
+   beam search (width 10) through DeviceBeamCTCDecoder, its launch counts
+   read around it (K10 once a time step); then the device beam at width
+   10, at width 128 and at width 10 with a synthetic trigram LM (3,000
+   words over the label alphabet, written from a seed, converted to DSLM)
+   on those posteriors, each bit-equal to the same search with the plain
+   top-k on the card, held against the search on the CPU, each timed;
+11. transcribe with --decoder device_beam and --decoder beam, each with
+   --lm-path; the test CLI on a synthetic manifest of 20 x 7.5 s with
+   --decoder device_beam --lm-path, its summary equal to an in-process
+   decode of the same batch;
+12. the train path: the same model trained on 20
    synthetic 7.5 s waveforms with random transcripts on the int16 wire,
    SGD-Nesterov (lr 3e-4, momentum 0.9, clip 100). The launch counts of
    every kernel are read around one step; that step's loss, grad norm and
@@ -34,29 +50,30 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    versions; 5 steps give finite losses with none skipped, a CUDA-event
    median step time in audio-s/s, and one more, profiled, step its busy
    and idle time;
-9. the transcribe CLI answers 3 requests (f32, as the JAX CLI runs);
-10. the train CLI trains 1 epoch at full width on a synthetic manifest in a
+13. the train CLI trains 1 epoch at full width on a synthetic manifest in a
    temporary directory, and its checkpoint answers one transcribe request;
-11. K3 (lstm_fwd), both variants, against its plain version at the K2
+14. K3 (lstm_fwd), both variants, against its plain version at the K2
    shapes (the training variant's residuals c and g too), beside cuDNN's
    bidirectional nn.LSTM with the same weights;
-12. K7 (lstm_bwd) against its plain version at the same shapes: dg and the
+15. K7 (lstm_bwd) against its plain version at the same shapes: dg and the
    bias grad, then dx, dW_ih and dW_hh through LSTMLayer against the same
    Function on the plain versions; its time beside cuDNN's LSTM backward;
-13. the LSTM inference path: 6 x BiLSTM-800 bf16 from seeded weights,
-   featurize -> forward -> greedy, as phase 7;
-14. the LSTM train path, as phase 8: one step's loss, grad norm and every
+16. the LSTM inference path: 6 x BiLSTM-800 bf16 from seeded weights,
+   featurize -> forward -> greedy, as phase 8;
+17. the LSTM train path, as phase 12: one step's loss, grad norm and every
    gradient against the plain path, its launches (stft_mag 1, lstm_fwd 6,
    all with residuals, lstm_bwd 6, ctc_alpha 1, ctc_beta 1, no GRU
    kernel), 5 steps and a profiled one;
-15. the train CLI with --rnn-type lstm, 1 epoch at full width, and one
+18. the train CLI with --rnn-type lstm, 1 epoch at full width, and one
    transcribe request on its checkpoint;
-16. prints one JSON line of kernel results (launches from one train step of
+19. prints one JSON line of kernel results (launches from one train step of
    the path each kernel is on: the GRU step for K1, K2, K5, K8 and K9, the
-   LSTM step for K3 and K7), then the device line last.
+   LSTM step for K3 and K7; for K10 the beam path of phase 10), then the
+   device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
-non-zero. Times are CUDA-event medians with warm L2.
+non-zero. Times are CUDA-event medians with warm L2; K10's are device time
+per call of 50 calls queued behind a sleeping kernel (``device_ms``).
 """
 
 from __future__ import annotations
@@ -79,7 +96,7 @@ PEAK_F32 = 67e12        # H100 SXM, non-tensor f32 FLOP/s
 PEAK_BF16 = 989e12      # H100 SXM, dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 KERNELS = ("stft_mag", "gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
-           "ctc_alpha", "ctc_beta")
+           "ctc_alpha", "ctc_beta", "topk")
 LSTM_KERNELS = ("lstm_fwd", "lstm_bwd")
 REPLACES = {
     "stft_mag": "deepspeech_tpu/ops/pallas/stft_kernel.py:57",
@@ -89,6 +106,7 @@ REPLACES = {
     "lstm_bwd": "deepspeech_tpu/ops/pallas/rnn_kernel.py:628",
     "ctc_alpha": "deepspeech_tpu/ops/pallas/ctc_kernel.py:59",
     "ctc_beta": "deepspeech_tpu/ops/pallas/ctc_kernel.py:101",
+    "topk": "deepspeech_tpu/ops/pallas/topk_kernel.py:73",
 }
 SOURCES = {
     "stft_mag": "deepspeech_tpu_torch/csrc/stft_mag.cu",
@@ -98,6 +116,7 @@ SOURCES = {
     "lstm_bwd": "deepspeech_tpu_torch/csrc/lstm_bwd.cu",
     "ctc_alpha": "deepspeech_tpu_torch/csrc/ctc.cu",
     "ctc_beta": "deepspeech_tpu_torch/csrc/ctc.cu",
+    "topk": "deepspeech_tpu_torch/csrc/topk.cu",
 }
 # Stated tolerances (kernel vs plain version, same inputs, on the card):
 STFT_TOL = dict(rtol=1e-4, atol=1e-4)   # both true f32 FMA sums
@@ -119,6 +138,14 @@ STEP_LOSS_TOL, STEP_GRAD_TOL = 2e-3, 5e-2
 # audio = 376 frames after the convs
 SR, AUDIO_S, BATCH, FRAMES = 16000, 120_000, 20, 376
 HIDDEN, LAYERS, FEATURES, CLASSES, CTC_L = 800, 6, 1312, 30, 150
+LABELS = "_'ABCDEFGHIJKLMNOPQRSTUVWXYZ2 "  # labels.json, 30 classes
+# the beam searches: (name, beam width, with the LM, utterances also
+# searched on the CPU: that search at width 128 takes ~130 ms a step there)
+SEARCHES = (("width 10", 10, False, BATCH), ("width 128", 128, False, 2),
+            ("width 10 + LM", 10, True, BATCH))
+# the synthetic LM's weights (the CLIs' defaults) and size
+LM_ALPHA, LM_BETA, LM_WORDS = 0.8, 1.0, 3000
+PROFILE_STEPS = 40  # beam steps under the profiler, per search
 
 
 def log(*a):
@@ -141,6 +168,26 @@ def time_ms(fn, reps=10, warmup=2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps=50) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls enqueued behind a
+    sleeping kernel (so that the host's enqueue time is hidden), between
+    two CUDA events, over ``reps``. For kernels shorter than their launch
+    from Python."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms of clock cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(flops: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -417,9 +464,9 @@ def max_err(a, ref) -> tuple[float, float]:
 
 @contextlib.contextmanager
 def plain_path():
-    """Route every kernel call of the model and the loss to its plain
-    version."""
-    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft
+    """Route every kernel call of the model, the loss and the beam search
+    to its plain version."""
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft, topk
 
     def stft_plain(y, n_fft, hop, window, center=True):
         return stft.plain(y, n_fft, hop, window, center=center)
@@ -428,7 +475,8 @@ def plain_path():
              (gru, "gru_bwd", gru.plain_bwd), (lstm, "lstm_layer", lstm.plain),
              (lstm, "lstm_bwd", lstm.plain_bwd),
              (ctc, "ctc_alpha", ctc.plain_alpha),
-             (ctc, "ctc_beta", ctc.plain_beta))
+             (ctc, "ctc_beta", ctc.plain_beta),
+             (topk, "topk_total_order", topk.plain))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -441,9 +489,10 @@ def plain_path():
 
 def reset_counts():
     """Every kernel's launch count to 0."""
-    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft, topk
 
     stft.launches = ctc.alpha_launches = ctc.beta_launches = 0
+    topk.launches = 0
     for mod in (gru, lstm):
         mod.launches = mod.res_launches = mod.bwd_launches = 0
 
@@ -451,10 +500,10 @@ def reset_counts():
 def read_counts() -> dict:
     """Every kernel's launch count; ``<cell>_fwd_res`` counts the training
     variant's launches among ``<cell>_fwd``'s."""
-    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft, topk
 
     counts = dict(stft_mag=stft.launches, ctc_alpha=ctc.alpha_launches,
-                  ctc_beta=ctc.beta_launches)
+                  ctc_beta=ctc.beta_launches, topk=topk.launches)
     for cell, mod in (("gru", gru), ("lstm", lstm)):
         counts.update({f"{cell}_fwd": mod.launches,
                        f"{cell}_fwd_res": mod.res_launches,
@@ -946,12 +995,14 @@ def phase_cli(torch, model, meta, counts):
             raise AssertionError(f"CLI path missed a kernel: {counts}")
 
 
-def transcribe_once(main, path: str, wav: str) -> tuple[str, float]:
+def transcribe_once(main, path: str, wav: str,
+                    *flags: str) -> tuple[str, float]:
     """One transcribe CLI request -> (transcription, host seconds)."""
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = main(["--model-path", path, "--audio-path", wav, "--offsets"])
+        rc = main(["--model-path", path, "--audio-path", wav, "--offsets",
+                   *flags])
     dt = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"transcribe exited {rc}")
@@ -1021,6 +1072,307 @@ def phase_train_cli(torch, cell="gru"):
             f"{dt:.3f} s: {text[:60]!r}")
 
 
+def topk_rows(rng, r: int, n: int, stress: bool) -> np.ndarray:
+    """Beam-like candidate scores (R, n): log masses around -40 with a
+    third of each row -inf (invalid or absorbed candidates); ``stress``
+    rows add exact ties, signed zeros, infinities, NaNs of both signs with
+    payloads, and one row of -0.0 alone."""
+    x = (rng.standard_normal((r, n)) * 8 - 40).astype(np.float32)
+    x[rng.random((r, n)) < 0.33] = -np.inf
+    if stress:
+        nans = np.array([0x7FC00011, 0xFFC00022], np.uint32).view(np.float32)
+        specials = np.concatenate(
+            [np.array([0.0, -0.0, np.inf, -np.inf, -40.0], np.float32), nans])
+        pick = rng.random((r, n)) < 0.3
+        x[pick] = rng.choice(specials, int(pick.sum()))
+        x[0] = np.float32(-0.0)
+    return x
+
+
+def phase_topk(torch, results):
+    """K10 against its plain version, bit for bit (values as int32 bits,
+    and indices; the top k and, on 4 rows, the whole order), at the beam's
+    shapes n = K (C + 1) for K 10 and 128 and on stress rows; its device
+    time beside its bound, the plain version, torch.topk and torch.sort."""
+    from deepspeech_tpu_torch.ops.cuda import topk
+
+    rng = np.random.default_rng(SEED + 12)
+    for width in (10, 128):
+        r, n, k = BATCH, width * (CLASSES + 1), width
+        for stress in (False, True):
+            x = torch.from_numpy(topk_rows(rng, r, n, stress)).cuda()
+            pairs = [(topk.topk_total_order(x, k), topk.plain(x, k)),
+                     (topk.topk_total_order(x[:4], n), topk.plain(x[:4], n))]
+            torch.cuda.synchronize()
+            same = all(torch.equal(v.view(torch.int32), rv.view(torch.int32))
+                       and torch.equal(i, ri)
+                       for (v, i), (rv, ri) in pairs)
+            log(f"K10 topk ({r}, {n}) k={k}{' stress rows' if stress else ''}"
+                f": bit-equal to plain {same} (and the whole order of 4 rows)")
+            if not same:
+                raise AssertionError(f"topk ({r}, {n}) k={k} stress={stress} "
+                                     "differs from its plain version")
+        x = torch.from_numpy(topk_rows(rng, r, n, False)).cuda()
+        ms = device_ms(lambda: topk.topk_total_order(x, k))
+        call_ms = time_ms(lambda: topk.topk_total_order(x, k), reps=20)
+        plain_ms = device_ms(lambda: topk.plain(x, k))
+        lib_ms = device_ms(lambda: torch.topk(x, k, dim=1))
+        sort_ms = device_ms(lambda: torch.sort(x, dim=1, descending=True,
+                                               stable=True))
+        tv, ti = torch.topk(x, k, dim=1)
+        rv, ri = topk.plain(x, k)
+        matched = (torch.equal(ti.to(torch.int32), ri)
+                   and torch.equal(tv.view(torch.int32), rv.view(torch.int32)))
+        # bytes: the scores read once, values and indices written once;
+        # operations: at least one comparison a candidate
+        bound_ms, by = bound(float(r * n), PEAK_F32, 4.0 * r * n + 8.0 * r * k)
+        log(f"K10 topk ({r}, {n}) k={k}: {ms * 1e3:.2f} us device time a "
+            f"call ({call_ms * 1e3:.2f} us host-visible, CUDA events around "
+            f"one call), plain {plain_ms * 1e3:.2f} us, torch.topk "
+            f"{lib_ms * 1e3:.2f} us (order matched: {matched}), torch.sort "
+            f"{sort_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.4f} us ({by})")
+        if width == 10:  # the default beam's shape
+            results["topk"] = dict(route="cuda", max_abs_err=0.0, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=by, library_ms=lib_ms)
+
+
+def write_synthetic_arpa(path: str, rng, n_words: int = LM_WORDS) -> None:
+    """A trigram ARPA over the label alphabet, from ``rng``: ``n_words``
+    random words of 1-7 letters, 2.5 bigrams and 2 trigrams a word (each
+    trigram extends a bigram), random log10 probabilities and backoffs."""
+    letters = list(LABELS[2:28])
+    words: set = set()
+    while len(words) < n_words:
+        words.add("".join(rng.choice(letters, int(rng.integers(1, 8)))))
+    vocab = sorted(words)
+    bigrams = {(str(rng.choice(["<s>"] + vocab)),
+                str(rng.choice(vocab + ["</s>"])))
+               for _ in range(int(2.5 * n_words))}
+    heads = sorted(g for g in bigrams if g[1] != "</s>")
+    trigrams = {heads[int(rng.integers(len(heads)))]
+                + (str(rng.choice(vocab)),) for _ in range(2 * n_words)}
+    lines = ["\\data\\", f"ngram 1={len(vocab) + 3}",
+             f"ngram 2={len(bigrams)}", f"ngram 3={len(trigrams)}", "",
+             "\\1-grams:", f"-99.0000\t<s>\t{rng.uniform(-1, 0):.4f}",
+             "-1.0000\t</s>\t0.0000", "-4.0000\t<unk>\t0.0000"]
+    lines += [f"{rng.uniform(-6, -1.5):.4f}\t{w}\t{rng.uniform(-1, 0):.4f}"
+              for w in vocab]
+    lines += ["", "\\2-grams:"]
+    lines += [f"{rng.uniform(-4, -0.3):.4f}\t{a} {b}\t"
+              f"{rng.uniform(-0.8, 0):.4f}" for a, b in sorted(bigrams)]
+    lines += ["", "\\3-grams:"]
+    lines += [f"{rng.uniform(-3, -0.1):.4f}\t{' '.join(g)}"
+              for g in sorted(trigrams)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines + ["", "\\end\\", ""]))
+
+
+def phase_beam(torch, model, counts, floor: dict, dslm: str) -> None:
+    """The slice's main path at full width: 20 x 7.5 s -> featurize (K1)
+    -> the bf16 6 x BiGRU-800 (K2) -> softmax -> the device beam search
+    (K10 once a time step) -> strings, through DeviceBeamCTCDecoder.decode,
+    its launch counts read around it. Then each search of SEARCHES on those
+    posteriors: through K10 (T launches), against the same search with the
+    plain top-k on the card (bit-equal prefixes, lengths, offsets and
+    scores) and on the CPU (agreement reported), each timed, and its first
+    steps profiled."""
+    from deepspeech_tpu_torch.audio.features import AudioConf, featurize_batch
+    from deepspeech_tpu_torch.decoders import DeviceBeamCTCDecoder
+    from deepspeech_tpu_torch.decoders.beam_device import (
+        ctc_beam_search_device)
+    from deepspeech_tpu_torch.decoders.lm_device import load_device_lm
+
+    rng = np.random.default_rng(SEED + 14)
+    audio = torch.from_numpy(np.stack([synthetic_audio(rng, AUDIO_S)
+                                       for _ in range(BATCH)])).cuda()
+    lengths = torch.full((BATCH,), AUDIO_S, dtype=torch.int64).cuda()
+    decoder = DeviceBeamCTCDecoder(LABELS, beam_width=10, device="cuda")
+    model.eval()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        spect, frames = featurize_batch(audio, lengths, AudioConf())
+        _, probs, out_lens = model(spect, frames)
+        strings, offsets = decoder.decode(probs, out_lens)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts.update(read_counts())
+    t = probs.shape[1]
+    log(f"beam path (featurize -> bf16 6 x BiGRU-800 -> device beam width "
+        f"10, {BATCH} x {AUDIO_S / SR} s, T {t}): {dt:.3f} s host clock, "
+        f"launches {counts}; {strings[0][0][:50]!r}")
+    want = expect_counts(stft_mag=1, gru_fwd=LAYERS, topk=t)
+    if counts != want:
+        raise AssertionError(f"beam path launches {counts}, expected {want}")
+    lens = out_lens.tolist()
+    for s, o, n in zip(strings, offsets, lens):
+        if len(s[0]) != len(o[0]) or not all(0 <= f < n for f in o[0]):
+            raise AssertionError(f"malformed hypothesis {s[0]!r} {o[0]}")
+
+    log_probs = torch.log(torch.clamp(probs.float(), 1e-30, 1.0))
+    lms = {False: (None, None),
+           True: (load_device_lm(dslm, LABELS, "cuda"),
+                  load_device_lm(dslm, LABELS, "cpu"))}
+    for name, width, with_lm, n_cpu in SEARCHES:
+        lm_card, lm_cpu = lms[with_lm]
+        kw = dict(beam_width=width, alpha=LM_ALPHA, beta=LM_BETA,
+                  space=LABELS.index(" ") if with_lm else -1)
+
+        def run(lp, lens, lm):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ctc_beam_search_device(lp, lens, lm=lm, **kw)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        reset_counts()
+        got, ms = run(log_probs, out_lens, lm_card)
+        launches = read_counts()["topk"]
+        with plain_path():
+            ref, plain_ms = run(log_probs, out_lens, lm_card)
+        cpu, cpu_ms = run(log_probs[:n_cpu].cpu(), out_lens[:n_cpu].cpu(),
+                          lm_cpu)
+        exact = all(torch.equal(a, b) for a, b in zip(got, ref))
+        g = [x[:n_cpu].cpu() for x in got]
+        same = [all(torch.equal(a[i], c[i]) for a, c in zip(g[:3], cpu[:3]))
+                for i in range(n_cpu)]
+        rel = ((g[3] - cpu[3]).abs() / cpu[3].abs()).max().item()
+        log(f"device beam {name}: {ms:.1f} ms through K10 ({launches} "
+            f"launches, {ms / t * 1e3:.1f} us a step), {plain_ms:.1f} ms "
+            f"with the plain top-k on the card (bit-equal: {exact}); the "
+            f"CPU search of {n_cpu} utterances {cpu_ms:.1f} ms: top "
+            f"hypothesis and offsets equal on {sum(same)}/{n_cpu}, scores "
+            f"within {rel:.2e} relative; mean length "
+            f"{got[1].float().mean().item():.1f} chars")
+        if not exact or launches != t:
+            raise AssertionError(f"device beam {name}: bit-equal {exact}, "
+                                 f"K10 launches {launches} (want {t})")
+        # where a step's time goes: the first PROFILE_STEPS steps, profiled
+        head = (log_probs[:, :PROFILE_STEPS], out_lens.clamp(
+            max=PROFILE_STEPS), lm_card)
+        _, head_ms = run(*head)
+        profile_run(torch, f"device beam {name}, {PROFILE_STEPS} steps",
+                    lambda: run(*head), head_ms, floor)
+
+
+def phase_beam_cli(torch, model, meta, arpa: str, dslm: str) -> None:
+    """transcribe with --decoder device_beam and --decoder beam, each with
+    --lm-path (the synthetic ARPA), on one 7.5 s request; the test CLI on a
+    synthetic manifest of 20 x 7.5 s utterances with --decoder device_beam
+    --lm-path (its DSLM), its summary held to an in-process decode of the
+    same batch."""
+    from deepspeech_tpu_torch.audio.features import AudioConf
+    from deepspeech_tpu_torch.audio.io import save_wav
+    from deepspeech_tpu_torch.cli.common import load_inference_model
+    from deepspeech_tpu_torch.cli.test import main as test_main
+    from deepspeech_tpu_torch.cli.transcribe import main as transcribe_main
+    from deepspeech_tpu_torch.data import (AudioDataLoader, AudioDataset,
+                                           BucketingSampler)
+    from deepspeech_tpu_torch.decoders import DeviceBeamCTCDecoder
+    from deepspeech_tpu_torch.metrics import get_cer_wer
+    from deepspeech_tpu_torch.train import checkpoint as ckpt
+    from deepspeech_tpu_torch.train.step import StepConfig, make_eval_step
+
+    rng = np.random.default_rng(SEED + 15)
+    lm_flags = ("--lm-path", arpa, "--alpha", str(LM_ALPHA), "--beta",
+                str(LM_BETA))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ds2.ckpt")
+        ckpt.save(path, ckpt.package_from_model(model, meta, LABELS,
+                                                AudioConf().to_dict()))
+        rows = []
+        for i in range(BATCH):
+            wav, txt = (os.path.join(d, f"u{i}.wav"),
+                        os.path.join(d, f"u{i}.txt"))
+            save_wav(wav, synthetic_audio(rng, AUDIO_S), SR)
+            with open(txt, "w") as f:
+                f.write(" ".join("".join(rng.choice(list(LABELS[2:28]),
+                                                    int(rng.integers(1, 7))))
+                                 for _ in range(int(rng.integers(6, 14)))))
+            rows.append(f"{wav},{txt},{AUDIO_S / SR}")
+        manifest = os.path.join(d, "manifest.csv")
+        with open(manifest, "w") as f:
+            f.write("\n".join(rows) + "\n")
+
+        for decoder in ("device_beam", "beam"):
+            reset_counts()
+            text, dt = transcribe_once(transcribe_main, path,
+                                       rows[0].split(",")[0], "--decoder",
+                                       decoder, *lm_flags)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            log(f"transcribe --decoder {decoder} --lm-path (f32, one "
+                f"{AUDIO_S / SR} s request): {len(text)} chars in {dt:.3f} s "
+                f"(host clock, checkpoint and LM load included), launches "
+                f"{counts}: {text[:50]!r}")
+            want = expect_counts(stft_mag=1, gru_fwd=LAYERS,
+                                 topk=FRAMES if decoder == "device_beam"
+                                 else 0)
+            if counts != want:
+                raise AssertionError(f"transcribe {decoder}: launches "
+                                     f"{counts}, expected {want}")
+
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = test_main(["--model-path", path, "--test-manifest",
+                            manifest, "--batch-size", str(BATCH),
+                            "--num-workers", "4", "--decoder", "device_beam",
+                            "--lm-path", dslm, "--alpha", str(LM_ALPHA),
+                            "--beta", str(LM_BETA), "--report-file",
+                            os.path.join(d, "report.csv")])
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if rc != 0:
+            raise AssertionError(f"test CLI exited {rc}")
+        summary = buf.getvalue().strip().splitlines()[-2:]
+        for line in summary:
+            log(f"  test CLI: {line}")
+
+        # the same batch decoded in-process, the summary by the same sums
+        model32, labels, conf, _ = load_inference_model(path, device="cuda")
+        dataset = AudioDataset(conf, manifest, labels)
+        loader = AudioDataLoader(dataset, BucketingSampler(len(dataset),
+                                                           BATCH), BATCH)
+        step = make_eval_step(model32, StepConfig(audio_conf=conf))
+        decoder = DeviceBeamCTCDecoder(LABELS, beam_width=10, lm_path=dslm,
+                                       alpha=LM_ALPHA, beta=LM_BETA,
+                                       device="cuda")
+        tot = np.zeros(4)
+        utt = np.zeros(2)
+        for batch in loader:
+            batch.pop("paths")
+            m = step({k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+            hyps, _ = decoder.decode(m["probs"], m["out_lens"])
+            frames = m["probs"].shape[1]
+            for x in range(BATCH):
+                ref = labels.render_transcript(
+                    batch["targets"][x, :int(batch["target_lengths"][x])])
+                w, c, wr, cr = get_cer_wer(hyps[x][0][:2000], ref[:2000])
+                tot += (w, c, wr, cr)
+                utt += (w / wr, c / cr)
+        mine = [f"Summary (token-weighted)    WER "
+                f"{100.0 * tot[0] / max(tot[2], 1.0):.3f}  CER "
+                f"{100.0 * tot[1] / max(tot[3], 1.0):.3f}",
+                f"Summary (per-utt averaged)  WER "
+                f"{100.0 * utt[0] / BATCH:.3f}  CER "
+                f"{100.0 * utt[1] / BATCH:.3f}  ({BATCH} utterances)"]
+        log(f"test CLI --decoder device_beam --lm-path ({BATCH} x "
+            f"{AUDIO_S / SR} s, T {frames} after bucket padding): {dt:.3f} s "
+            f"host clock (checkpoint, LM and audio load included), launches "
+            f"{counts}; the in-process decode of the same batch gives the "
+            f"same summary: {mine == summary}")
+        want = expect_counts(stft_mag=1, gru_fwd=LAYERS, ctc_alpha=1,
+                             topk=frames)
+        if counts != want or mine != summary:
+            raise AssertionError(f"test CLI: launches {counts} (expected "
+                                 f"{want}); summary {summary} vs {mine}")
+
+
 def main() -> int:
     import torch
 
@@ -1050,27 +1402,52 @@ def main() -> int:
     results: dict = {}
     train_counts: dict = {}
     lstm_train_counts: dict = {}
+    beam_counts: dict = {}
+    def mark(what):
+        log(f"[{time.perf_counter() - t0:.1f} s] {what}")
+
     phase_stft(torch, results)
     phase_layer_fwd(torch, results, "gru")
     floor = step_floor(torch)
     phase_layer_bwd(torch, results, "gru")
     phase_ctc(torch, results)
+    mark("K1, K2, K5, K8/K9 held to their plain versions")
+    phase_topk(torch, results)
     model, meta = phase_forward(torch, {}, floor)
     phase_cli(torch, model, meta, {})
+    mark("K10, the GRU forward and the transcribe CLI")
+    # the beam slice: the device beam on the forward's posteriors, then the
+    # transcribe and test CLIs with the beam decoders and a synthetic LM
+    with tempfile.TemporaryDirectory() as lm_dir:
+        from deepspeech_tpu_torch.decoders.lm_binary import convert_arpa
+
+        arpa = os.path.join(lm_dir, "synthetic.arpa")
+        dslm = os.path.join(lm_dir, "synthetic.dslm")
+        write_synthetic_arpa(arpa, np.random.default_rng(SEED + 13))
+        header = convert_arpa(arpa, dslm)
+        log(f"synthetic LM: order {header['order']}, n-grams "
+            f"{header['counts']}, {header['vocab_size']} words")
+        phase_beam(torch, model, beam_counts, floor, dslm)
+        mark("the device beam searches")
+        phase_beam_cli(torch, model, meta, arpa, dslm)
+        mark("the beam decoders through the transcribe and test CLIs")
     del model
     phase_train(torch, train_counts, floor)
     phase_train_cli(torch)
+    mark("the GRU train step and train CLI")
     # the LSTM cell: K3 and K7, then its inference, train and CLI paths
     phase_layer_fwd(torch, results, "lstm")
     phase_layer_bwd(torch, results, "lstm")
     phase_forward(torch, {}, floor, "lstm")
     phase_train(torch, lstm_train_counts, floor, "lstm")
     phase_train_cli(torch, "lstm")
+    mark("the LSTM phases")
 
     kernels = []
     for name in KERNELS:
         r = results[name]
-        counts = lstm_train_counts if name in LSTM_KERNELS else train_counts
+        counts = (lstm_train_counts if name in LSTM_KERNELS
+                  else beam_counts if name == "topk" else train_counts)
         kernels.append({"name": name, "route": r["route"],
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": counts[name],

@@ -24,7 +24,10 @@ def add_decoder_args(parser: argparse.ArgumentParser):
     beam_args.add_argument("--cutoff-prob", default=1.0, type=float,
                            help="Cumulative probability cutoff in beam search")
     beam_args.add_argument("--lm-workers", default=1, type=int,
-                           help="Parallel beam-search workers over the batch")
+                           help="Parallel beam-search workers over the "
+                                "batch: spawned processes for --decoder "
+                                "beam; no effect on device_beam (already "
+                                "batch-parallel on the device)")
     beam_args.add_argument("--blank-collapse", default=1.0, type=float,
                            help="Drop frames with p(blank) >= this before "
                                 "beam search (arXiv:2210.17017); 1.0 = off")
@@ -49,7 +52,10 @@ def add_reference_noop_args(parser: argparse.ArgumentParser):
 def add_inference_args(parser: argparse.ArgumentParser):
     parser.add_argument("--decoder", default="greedy",
                         choices=["greedy", "beam", "device_beam"],
-                        help="Decoder to use (the PyTorch port has greedy)")
+                        help="Decoder to use: greedy, beam (the host prefix "
+                             "search) or device_beam (the search on "
+                             "--device; with --lm-path the n-gram LM is "
+                             "fused there too)")
     parser.add_argument("--continue-from", "--model-path",
                         dest="continue_from", required=True,
                         help="Path to model checkpoint")

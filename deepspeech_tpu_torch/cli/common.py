@@ -6,7 +6,9 @@ import torch
 
 from deepspeech_tpu_torch.audio.features import AudioConf
 from deepspeech_tpu_torch.convert import jax_to_torch
-from deepspeech_tpu_torch.decoders import GreedyDecoder
+from deepspeech_tpu_torch.decoders import (BeamCTCDecoder,
+                                           DeviceBeamCTCDecoder,
+                                           GreedyDecoder)
 from deepspeech_tpu_torch.models import model_from_meta
 from deepspeech_tpu_torch.text.labels import Labels
 from deepspeech_tpu_torch.train import checkpoint as ckpt
@@ -31,11 +33,35 @@ def load_inference_model(path: str, device: str | torch.device = "cuda"):
 
 
 def build_decoder(args, labels):
-    """The greedy decoder; the beam decoders come in a later slice."""
+    """Greedy, host beam, or beam on ``args.device`` per CLI flags
+    (reference test.py:73-83)."""
     decoder = getattr(args, "decoder", "greedy")
-    if decoder != "greedy":
-        raise SystemExit(
-            f"--decoder {decoder}: the PyTorch port has the greedy decoder "
-            "only; the host and device beam decoders are a later slice "
-            "(see ROADMAP.md)")
+    if decoder == "device_beam":
+        try:
+            return DeviceBeamCTCDecoder(
+                labels.labels, beam_width=args.beam_width,
+                cutoff_top_n=args.cutoff_top_n, cutoff_prob=args.cutoff_prob,
+                top_paths=args.top_paths, blank_index=labels.blank_index,
+                lm_path=getattr(args, "lm_path", None),
+                alpha=args.alpha, beta=args.beta,
+                device=getattr(args, "device", "cuda"))
+        except ValueError as e:
+            raise SystemExit(
+                f"--decoder device_beam: {e}\n"
+                "KenLM .binary files are not read by the PyTorch port; "
+                "convert the textual ARPA to a DSLM file "
+                "(python -m deepspeech_tpu_torch.decoders.lm_binary) for "
+                "the LM-fused device search.") from e
+    if decoder == "beam":
+        try:
+            return BeamCTCDecoder(
+                labels.labels, lm_path=args.lm_path, alpha=args.alpha,
+                beta=args.beta, cutoff_top_n=args.cutoff_top_n,
+                cutoff_prob=args.cutoff_prob, beam_width=args.beam_width,
+                num_processes=args.lm_workers, top_paths=args.top_paths,
+                blank_index=labels.blank_index,
+                blank_collapse_threshold=getattr(args, "blank_collapse",
+                                                 1.0))
+        except ValueError as e:
+            raise SystemExit(f"--decoder beam: {e}") from e
     return GreedyDecoder(labels.labels, blank_index=labels.blank_index)

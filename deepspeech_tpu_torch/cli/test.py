@@ -1,0 +1,186 @@
+"""Batch evaluation CLI (the JAX package's ``cli/test.py``; reference
+test.py:16-214), on one device.
+
+    python -m deepspeech_tpu_torch.cli.test --model-path m.ckpt \\
+        --test-manifest test.csv [--decoder greedy|beam|device_beam] \\
+        [--lm-path lm.arpa] [--device cuda]
+
+Loads a checkpoint (model + labels + front-end config all self-described),
+runs a manifest through the eval step, decodes greedy, host beam or device
+beam, prints per-utterance triage (--verbose/--errors/--best), writes a CSV
+report and optional per-utterance posterior dumps, and prints both summary
+averaging modes (reference test.py:197-209). The posteriors leave the
+device only for the host beam or ``--output-path``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import pickle
+
+import numpy as np
+import torch
+
+from deepspeech_tpu_torch.cli.args import (add_decoder_args,
+                                           add_inference_args,
+                                           add_reference_noop_args)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="DeepSpeech evaluation "
+                                            "(PyTorch/CUDA port)")
+    add_inference_args(p)
+    p.add_argument("--test-manifest", default="data/test_manifest.csv")
+    p.add_argument("--cache-dir", default="data/cache/",
+                   help="accepted for flag parity; the reference's npy "
+                        "spectrogram cache is disabled there too "
+                        "(data_loader_aug.py:140-161)")
+    p.add_argument("--batch-size", default=20, type=int)
+    p.add_argument("--num-workers", default=4, type=int)
+    p.add_argument("--verbose", action="store_true",
+                   help="print decoded output and error of each sample")
+    p.add_argument("--errors", action="store_true",
+                   help="print samples with CER > 50%%")
+    p.add_argument("--best", action="store_true",
+                   help="print samples with CER < 15%%")
+    p.add_argument("--norm", default="max_frame")
+    p.add_argument("--report-file", default=None,
+                   help="write a per-utterance CSV report to this path")
+    p.add_argument("--output-path", default=None, type=str,
+                   help="dump per-utterance probs pickles next to wavs")
+    p.add_argument("--max-items", default=0, type=int)
+    add_decoder_args(p)
+    add_reference_noop_args(p)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    from deepspeech_tpu_torch.cli.common import (build_decoder,
+                                                 load_inference_model)
+    from deepspeech_tpu_torch.data import (AudioDataLoader, AudioDataset,
+                                           BucketingSampler)
+    from deepspeech_tpu_torch.decoders import BeamCTCDecoder, GreedyDecoder
+    from deepspeech_tpu_torch.device import resolve_device
+    from deepspeech_tpu_torch.metrics import get_cer_wer
+    from deepspeech_tpu_torch.train.step import StepConfig, make_eval_step
+
+    dev = resolve_device(args.device)
+    model, labels, audio_conf, _ = load_inference_model(args.continue_from,
+                                                        device=dev)
+    decoder = build_decoder(args, labels)
+    dataset = AudioDataset(audio_conf, args.test_manifest, labels,
+                           max_items=args.max_items or None)
+    sampler = BucketingSampler(len(dataset), args.batch_size)
+    loader = AudioDataLoader(dataset, sampler, args.batch_size,
+                             num_workers=args.num_workers)
+    eval_step = make_eval_step(
+        model, StepConfig(audio_conf=audio_conf, normalize=args.norm))
+
+    need_probs = bool(args.output_path) or isinstance(decoder, BeamCTCDecoder)
+    report_rows = []
+    total_wer = total_cer = total_wer_ref = total_cer_ref = 0.0
+    utt_wer_sum = utt_cer_sum = 0.0
+    n_utts = 0
+    processed_files = []
+
+    def process(metrics, batch, paths):
+        nonlocal total_wer, total_cer, total_wer_ref, total_cer_ref
+        nonlocal utt_wer_sum, utt_cer_sum, n_utts
+        out_lens = metrics["out_lens"].cpu().numpy()
+        targets, target_lengths = batch["targets"], batch["target_lengths"]
+        valid = batch["valid"]
+        # the (B, T, C) posteriors come to the host only when a consumer
+        # needs them (host beam decode or --output-path dumps)
+        probs = metrics["probs"].float().cpu().numpy() if need_probs else None
+
+        if isinstance(decoder, GreedyDecoder):
+            decoded, _ = decoder.decode_ids(metrics["greedy"], out_lens)
+        elif isinstance(decoder, BeamCTCDecoder):
+            decoded, _ = decoder.decode(probs, out_lens)
+        else:  # the device beam reads the posteriors where they are
+            decoded, _ = decoder.decode(metrics["probs"], metrics["out_lens"])
+
+        for x in range(len(paths)):
+            if valid[x] <= 0:
+                continue
+            transcript = decoded[x][0]
+            reference = labels.render_transcript(
+                targets[x, : int(target_lengths[x])])
+            # decode-time truncation guard (reference test.py:129)
+            w, c, wr, cr = get_cer_wer(transcript[:2000], reference[:2000])
+            total_wer += w
+            total_cer += c
+            total_wer_ref += wr
+            total_cer_ref += cr
+            utt_wer_sum += w / wr
+            utt_cer_sum += c / cr
+            n_utts += 1
+
+            if args.output_path:
+                with open(paths[x] + ".ts", "wb") as f:
+                    pickle.dump({
+                        "probs": probs[x, : out_lens[x]],
+                        "len": int(out_lens[x]),
+                        "transcript": transcript,
+                        "reference": reference,
+                        "filename": paths[x],
+                        "wer": w / wr, "cer": c / cr,
+                    }, f, protocol=4)
+                processed_files.append(paths[x] + ".ts")
+
+            show = (args.verbose
+                    or (args.errors and c / cr > 0.5 and transcript.strip())
+                    or (args.best and c / cr < 0.15))
+            if show:
+                print("Ref:", reference)
+                print("Hyp:", transcript)
+                print("Wav:", paths[x])
+                print(f"WER: {100 * w / wr:.2f} CER: {100 * c / cr:.2f}\n")
+
+            report_rows.append([paths[x], reference, transcript,
+                                round(100 * c / cr, 2), round(100 * w / wr, 2)])
+
+    # pipelined eval: batch N+1's step is queued on the device before batch
+    # N's host-side decode, so the device does not wait on the host
+    pending = None
+    for batch in loader:
+        paths = batch.pop("paths")
+        metrics = eval_step({k: torch.from_numpy(v).to(dev)
+                             for k, v in batch.items()})
+        if pending is not None:
+            process(*pending)
+        pending = (metrics, batch, paths)
+    if pending is not None:
+        process(*pending)
+    if isinstance(decoder, BeamCTCDecoder):
+        decoder.close()
+
+    if args.report_file:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report_file)),
+                    exist_ok=True)
+        with open(args.report_file, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["wav", "text", "transcript", "CER", "WER"])
+            writer.writerows(report_rows)
+
+    if args.output_path:
+        with open(args.output_path, "wb") as f:
+            pickle.dump(processed_files, f, protocol=4)
+
+    # both averaging modes (reference test.py:197-209)
+    wer_avg = 100.0 * total_wer / max(total_wer_ref, 1.0)
+    cer_avg = 100.0 * total_cer / max(total_cer_ref, 1.0)
+    print("Summary (token-weighted)    "
+          f"WER {wer_avg:.3f}  CER {cer_avg:.3f}")
+    print("Summary (per-utt averaged)  "
+          f"WER {100.0 * utt_wer_sum / max(n_utts, 1):.3f}  "
+          f"CER {100.0 * utt_cer_sum / max(n_utts, 1):.3f}  "
+          f"({n_utts} utterances)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

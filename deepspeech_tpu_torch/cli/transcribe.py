@@ -3,9 +3,11 @@
     python -m deepspeech_tpu_torch.cli.transcribe --model-path m.ckpt \\
         --audio-path a.wav [--device cuda]
 
-Same flags and JSON as the JAX package's ``transcribe``. Not ported yet
-(each raises SystemExit naming the later slice): ``--decoder beam`` and
-``device_beam``, ``--chunk-seconds > 0`` (streaming) and ``--lm-path``.
+Same flags and JSON as the JAX package's ``transcribe``: ``--decoder
+greedy``, ``beam`` (host search) or ``device_beam`` (the search on
+``--device``, reading the posteriors where the model left them), each
+with ``--lm-path`` (ARPA or DSLM). Not ported yet (raises SystemExit naming
+the later slice): ``--chunk-seconds > 0`` (streaming).
 """
 
 from __future__ import annotations
@@ -50,10 +52,6 @@ def check_ported(args) -> None:
     if args.chunk_seconds > 0:
         raise SystemExit("--chunk-seconds: streaming is not ported to "
                          "PyTorch yet (the streaming/serve slice, "
-                         "ROADMAP.md)")
-    if args.lm_path is not None:
-        raise SystemExit("--lm-path: language-model decoding is not ported "
-                         "to PyTorch yet (the beam-decoder slice, "
                          "ROADMAP.md)")
 
 

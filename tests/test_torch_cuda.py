@@ -17,6 +17,9 @@ backward's dg, dnh 1e-4 in f32 and 2e-2 relative to the largest in bf16
 CTC alphas/betas and loss 1e-4 relative, dlogits 1e-4; small-model logits
 2e-2. The LSTM kernels (K3, K7) hold the GRU's tolerances, the cell
 stream c relative to its largest value, since |c| is not bounded by 1.
+The top-k (K10) and the device beam search through it are exact: bit for
+bit against the plain top-k, on rows of ties, signed zeros, infinities and
+NaNs of both signs.
 """
 
 import numpy as np
@@ -310,3 +313,78 @@ def test_small_lstm_and_rnn_models_match_plain(dev, cell):
     for i, n in enumerate(ref[2].tolist()):
         torch.testing.assert_close(got[0][i, :n].cpu(), ref[0][i, :n],
                                    rtol=0, atol=2e-2 * scale)
+
+
+def _topk_rows(rng, r, n):
+    """Rows with exact ties, signed zeros, infinities and NaNs of both
+    signs (payloads set), beside plain normal rows."""
+    x = rng.standard_normal((r, n)).astype(np.float32)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, 1.5], np.float32)
+    nans = np.array([0x7FC00011, 0xFFC00022], np.uint32).view(np.float32)
+    for row in range(1, r, 2):
+        pick = rng.integers(0, n, n // 3)
+        x[row, pick] = rng.choice(np.concatenate([specials, nans]),
+                                  len(pick))
+    if r > 2:
+        x[2] = np.float32(-0.0)  # a row of one value
+    return x
+
+
+@pytest.mark.parametrize("r,n,k", [(20, 310, 10), (20, 3968, 128),
+                                   (1, 2, 1), (3, 5, 5), (7, 1000, 1000),
+                                   (2, 16384, 300)])
+def test_topk_kernel_matches_plain(dev, r, n, k):
+    """K10 bit for bit (values as int32 bits, and indices) against its
+    plain version, one launch per call."""
+    from deepspeech_tpu_torch.ops.cuda import topk
+
+    x = torch.from_numpy(_topk_rows(np.random.default_rng(n + k), r, n))
+    before = topk.launches
+    v, i = topk.topk_total_order(x.to(dev), k)
+    torch.cuda.synchronize()
+    assert topk.launches == before + 1
+    rv, ri = topk.plain(x, k)
+    assert torch.equal(v.cpu().view(torch.int32), rv.view(torch.int32))
+    assert torch.equal(i.cpu(), ri)
+
+
+def test_topk_kernel_refuses_oversize_rows(dev):
+    from deepspeech_tpu_torch.ops.cuda import topk
+
+    with pytest.raises(ValueError, match="shared memory"):
+        topk.topk_total_order(torch.zeros(1, 16385, device=dev), 4)
+
+
+@pytest.mark.parametrize("lm", [False, True])
+def test_device_beam_through_k10_matches_plain(dev, lm, tmp_path):
+    """The device beam search on the card through K10 equals the same
+    search with the plain top-k swapped in, bit for bit, with one K10
+    launch a time step."""
+    from deepspeech_tpu_torch.decoders import beam_device, lm_device
+    from deepspeech_tpu_torch.ops.cuda import topk
+
+    labels = "_'ABCDEFGHIJKLMNOPQRSTUVWXYZ2 "
+    rng = np.random.default_rng(4)
+    lp = torch.log_softmax(torch.from_numpy(
+        rng.standard_normal((3, 57, 30)).astype(np.float32) * 3), -1).to(dev)
+    lengths = torch.tensor([57, 40, 9], device=dev)
+    kw = dict(beam_width=12, top_paths=3)
+    if lm:
+        arpa = tmp_path / "lm.arpa"
+        arpa.write_text("\\data\\\nngram 1=4\nngram 2=1\n\n\\1-grams:\n"
+                        "-0.5\t<s>\t-0.1\n-0.6\tHI\t-0.2\n-0.7\tME\t0\n"
+                        "-2.0\t<unk>\t0\n\n\\2-grams:\n-0.2\tHI ME\n\n"
+                        "\\end\\\n")
+        kw.update(lm=lm_device.load_device_lm(str(arpa), labels, dev),
+                  space=labels.index(" "), alpha=1.2, beta=0.5)
+    before = topk.launches
+    got = beam_device.ctc_beam_search_device(lp, lengths, **kw)
+    assert topk.launches == before + 57
+    kernel = topk.topk_total_order
+    topk.topk_total_order = topk.plain
+    try:
+        ref = beam_device.ctc_beam_search_device(lp, lengths, **kw)
+    finally:
+        topk.topk_total_order = kernel
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

@@ -118,6 +118,12 @@ def test_entry_points_default_to_the_card(tmp_path):
         load_inference_model(path)
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--model-path", path, "--audio-path", "unused.wav"])
+    from deepspeech_tpu_torch.cli.test import main as test_main
+    from deepspeech_tpu_torch.decoders import DeviceBeamCTCDecoder
+    with pytest.raises(RuntimeError, match="cuda"):
+        test_main(["--model-path", path, "--test-manifest", "unused.csv"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceBeamCTCDecoder("_AB ")
     assert deepspeech_tpu_torch.resolve_device("cpu").type == "cpu"
 
 
@@ -188,3 +194,26 @@ def test_lstm_kernel_wrappers_use_plain_versions_on_cpu(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         lstm.lstm_bwd(out, g, c.to("meta"), w_hh, lens)
     assert len(calls) == 3
+
+
+def test_topk_wrapper_uses_plain_version_on_cpu(monkeypatch):
+    """K10 takes its plain version for CPU tensors, counts no launch
+    there, and raises on a device that is neither CPU nor CUDA; the device
+    beam search selects through the wrapper."""
+    from deepspeech_tpu_torch.decoders import beam_device
+    from deepspeech_tpu_torch.ops.cuda import topk
+
+    calls = []
+    fn = topk.plain
+    monkeypatch.setattr(topk, "plain", lambda *a: (calls.append(1),
+                                                   fn(*a))[1])
+    before = topk.launches
+    v, i = topk.topk_total_order(torch.tensor([[0.5, 2.0, -1.0]]), 2)
+    assert v.tolist() == [[2.0, 0.5]] and i.tolist() == [[1, 0]]
+    assert i.dtype == torch.int32
+    lp = torch.log_softmax(torch.randn(2, 6, 5), -1)
+    beam_device.ctc_beam_search_device(lp, torch.tensor([6, 4]),
+                                       beam_width=3)
+    assert len(calls) == 1 + 6 and topk.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        topk.topk_total_order(torch.zeros(2, 3, device="meta"), 2)

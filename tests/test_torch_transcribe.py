@@ -136,8 +136,19 @@ def test_transcribe_cli_matches_jax(files, capsys):
                                    ["--decoder", "device_beam"],
                                    ["--chunk-seconds", "0.5"],
                                    ["--lm-path", "lm.arpa"]])
-def test_unported_cli_flags_exit(files, flags):
+def test_unported_cli_flags_exit(files, flags, capsys):
+    """Streaming is the one flag still unported and exits naming
+    ROADMAP.md; the beam decoders and --lm-path (unread by greedy) print
+    the JAX CLI's JSON."""
     _, jax_path, wav = files
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        torch_main(["--model-path", jax_path, "--audio-path", wav,
-                    "--device", "cpu", *flags])
+    argv = ["--model-path", jax_path, "--audio-path", wav, "--offsets",
+            "--meta", *flags]
+    if "--chunk-seconds" in flags:
+        with pytest.raises(SystemExit, match="ROADMAP"):
+            torch_main(argv + ["--device", "cpu"])
+        return
+    assert jax_main(argv) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert torch_main(argv + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got == ref
