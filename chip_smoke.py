@@ -66,9 +66,30 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    kernel), 5 steps and a profiled one;
 18. the train CLI with --rnn-type lstm, 1 epoch at full width, and one
    transcribe request on its checkpoint;
-19. prints one JSON line of kernel results (launches from one train step of
-   the path each kernel is on: the GRU step for K1, K2, K5, K8 and K9, the
-   LSTM step for K3 and K7; for K10 the beam path of phase 10), then the
+19. K4 (gru_scan), both variants, against its plain version at the wide
+   model's width: T 376, B 64, H 1600, on the wide route's projection of
+   1600-wide inputs rounded to the operand type, unequal lengths, bf16 and
+   f32, D 2 and D 1; its time beside its bound, the plain version, the
+   wide route's whole layer (cuBLAS projection + K4) and cuDNN's nn.GRU;
+20. the 6 x BiGRU-1600 model (DeepSpeech2-large, BASELINE.md config 4) at
+   batch 64: the route of every layer (layer 0 on K2, layers 1-5 on K4),
+   the bf16 forward's launches and logits against the plain versions, then
+   the train step as phase 12 (stft_mag 1, gru_fwd 1 and gru_scan 5, all
+   with residuals, gru_bwd 6, ctc_alpha 1, ctc_beta 1), 5 steps and a
+   profiled one;
+21. K6 (lstm_scan) as phase 19 at B 20, on projections of 1312- and
+   1600-wide inputs, beside nn.LSTM; then 6 x BiLSTM-1600 at batch 20 as
+   phase 20: every layer on K6 (lstm_scan 6, lstm_bwd 6, no lstm_fwd);
+22. config 4's train CLI: --hidden-size 1600 --batch-size 64
+   --use-curriculum --checkpoint --epochs 2 on 128 synthetic utterances of
+   6.8-7.5 s; its launches, both curriculum sidecars of every checkpoint
+   (one row per wav), the drawn utterances' CERs moved from 0.999, epoch
+   1's draw equal to Curriculum.sample recomputed from epoch 0's sidecar;
+   one f32 transcribe request on its checkpoint (K4 in all 6 layers);
+23. prints one JSON line of kernel results (launches from one train step of
+   the path each kernel is on: the GRU-800 step for K1, K2, K5, K8 and K9,
+   the LSTM-800 step for K3 and K7, the BiGRU-1600 step for K4, the
+   BiLSTM-1600 step for K6; for K10 the beam path of phase 10), then the
    device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
@@ -95,12 +116,13 @@ SEED = 0
 PEAK_F32 = 67e12        # H100 SXM, non-tensor f32 FLOP/s
 PEAK_BF16 = 989e12      # H100 SXM, dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
-KERNELS = ("stft_mag", "gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd",
-           "ctc_alpha", "ctc_beta", "topk")
-LSTM_KERNELS = ("lstm_fwd", "lstm_bwd")
+KERNELS = ("stft_mag", "gru_fwd", "gru_scan", "gru_bwd", "lstm_fwd",
+           "lstm_scan", "lstm_bwd", "ctc_alpha", "ctc_beta", "topk")
 REPLACES = {
     "stft_mag": "deepspeech_tpu/ops/pallas/stft_kernel.py:57",
     "gru_fwd": "deepspeech_tpu/ops/pallas/rnn_fused.py:95",
+    "gru_scan": "deepspeech_tpu/ops/pallas/rnn_kernel.py:123",
+    "lstm_scan": "deepspeech_tpu/ops/pallas/rnn_kernel.py:551",
     "gru_bwd": "deepspeech_tpu/ops/pallas/rnn_kernel.py:220",
     "lstm_fwd": "deepspeech_tpu/ops/pallas/rnn_fused.py:344",
     "lstm_bwd": "deepspeech_tpu/ops/pallas/rnn_kernel.py:628",
@@ -111,6 +133,8 @@ REPLACES = {
 SOURCES = {
     "stft_mag": "deepspeech_tpu_torch/csrc/stft_mag.cu",
     "gru_fwd": "deepspeech_tpu_torch/csrc/gru_fwd.cu",
+    "gru_scan": "deepspeech_tpu_torch/csrc/gru_scan.cu",
+    "lstm_scan": "deepspeech_tpu_torch/csrc/lstm_scan.cu",
     "gru_bwd": "deepspeech_tpu_torch/csrc/gru_bwd.cu",
     "lstm_fwd": "deepspeech_tpu_torch/csrc/lstm_fwd.cu",
     "lstm_bwd": "deepspeech_tpu_torch/csrc/lstm_bwd.cu",
@@ -141,6 +165,13 @@ HIDDEN, LAYERS, FEATURES, CLASSES, CTC_L = 800, 6, 1312, 30, 150
 LABELS = "_'ABCDEFGHIJKLMNOPQRSTUVWXYZ2 "  # labels.json, 30 classes
 # the beam searches: (name, beam width, with the LM, utterances also
 # searched on the CPU: that search at width 128 takes ~130 ms a step there)
+# the wide models (BASELINE.md config 4): 6 x BiGRU-1600 trained at batch
+# 64, where layer 0 takes K2 and layers 1-5 K4; 6 x BiLSTM-1600 at batch
+# 20, where every layer takes K6 (ops/cuda/route.py)
+WIDE, WIDE_BATCH = 1600, {"gru": 64, "lstm": 20}
+# the config-4 train CLI: utterances of 6.8-7.5 s, validation on the first
+# half
+CLI_UTTS = 128
 SEARCHES = (("width 10", 10, False, BATCH), ("width 128", 128, False, 2),
             ("width 10 + LM", 10, True, BATCH))
 # the synthetic LM's weights (the CLIs' defaults) and size
@@ -472,7 +503,9 @@ def plain_path():
         return stft.plain(y, n_fft, hop, window, center=center)
 
     swaps = ((stft, "stft_mag", stft_plain), (gru, "gru_layer", gru.plain),
+             (gru, "gru_scan", gru.plain_scan),
              (gru, "gru_bwd", gru.plain_bwd), (lstm, "lstm_layer", lstm.plain),
+             (lstm, "lstm_scan", lstm.plain_scan),
              (lstm, "lstm_bwd", lstm.plain_bwd),
              (ctc, "ctc_alpha", ctc.plain_alpha),
              (ctc, "ctc_beta", ctc.plain_beta),
@@ -495,11 +528,13 @@ def reset_counts():
     topk.launches = 0
     for mod in (gru, lstm):
         mod.launches = mod.res_launches = mod.bwd_launches = 0
+        mod.scan_launches = mod.scan_res_launches = 0
 
 
 def read_counts() -> dict:
     """Every kernel's launch count; ``<cell>_fwd_res`` counts the training
-    variant's launches among ``<cell>_fwd``'s."""
+    variant's launches among ``<cell>_fwd``'s, ``<cell>_scan_res`` among
+    ``<cell>_scan``'s (K4, K6)."""
     from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft, topk
 
     counts = dict(stft_mag=stft.launches, ctc_alpha=ctc.alpha_launches,
@@ -507,6 +542,8 @@ def read_counts() -> dict:
     for cell, mod in (("gru", gru), ("lstm", lstm)):
         counts.update({f"{cell}_fwd": mod.launches,
                        f"{cell}_fwd_res": mod.res_launches,
+                       f"{cell}_scan": mod.scan_launches,
+                       f"{cell}_scan_res": mod.scan_res_launches,
                        f"{cell}_bwd": mod.bwd_launches})
     return counts
 
@@ -617,6 +654,115 @@ def phase_layer_bwd(torch, results, cell):
             del net, y, o
 
 
+SCAN = {"gru": dict(name="K4", kernel="gru_scan", f_ins=(WIDE,)),
+        "lstm": dict(name="K6", kernel="lstm_scan", f_ins=(FEATURES, WIDE))}
+
+
+def route_log(torch, cell, hidden, batch):
+    """Print the route each layer of 6 x Bi<cell>-<hidden> takes in bf16
+    at ``batch`` (layer 0 reads the conv's FEATURES, the rest H)."""
+    from deepspeech_tpu_torch.ops.cuda.route import fused_route
+
+    gates = CELLS[cell]["gates"]
+    fused, wide = CELLS[cell]["name"], SCAN[cell]["name"]
+    routes = [f"layer {i}: " + (f"{fused} (fused)" if fused_route(
+        f_in, hidden, gates, batch, 2, torch.bfloat16) else f"{wide} (wide)")
+        for i, f_in in enumerate([FEATURES] + [hidden] * (LAYERS - 1))]
+    log(f"route of 6 x Bi{cell.upper()}-{hidden} in bf16 at batch {batch}: "
+        + ", ".join(routes))
+
+
+def phase_scan(torch, results, cell):
+    """K4 or K6, both variants, against plain_scan at the wide model's
+    width (T 376, H 1600; B 64 for the GRU, 20 for the LSTM; unequal
+    lengths) on the wide route's projection of F-wide inputs, rounded to
+    the operand type; bf16 and f32, D 2 and D 1. Its time beside its bound,
+    the plain version and cuDNN's bidirectional layer with the same weights
+    (a yardstick that includes the projection, so the wide route's whole
+    layer, projection + kernel, is timed too)."""
+    from deepspeech_tpu_torch.ops.rnn import project
+
+    mod, _ = cell_kernels(cell)
+    spec = SCAN[cell]
+    scan = getattr(mod, spec["kernel"])
+    gates = CELLS[cell]["gates"]
+    tol_of = GRU_TOL if cell == "gru" else LSTM_TOL
+    names = ("h", "g", "hn") if cell == "gru" else ("h", "c", "g")
+    rng = np.random.default_rng(SEED + (16 if cell == "gru" else 17))
+    t, b, h = FRAMES, WIDE_BATCH[cell], WIDE
+    gh = gates * h
+    for f_in in spec["f_ins"]:
+        x32, w_ih32, b_ih, w_hh32, b_hh, lens = layer_inputs(
+            torch, rng, t, b, h, f_in, gates)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            tol = tol_of[name]
+            x, w_ih, w_hh = x32.to(dt), w_ih32.to(dt), w_hh32.to(dt)
+            for ndir in (1, 2):
+                args = (project(x, w_ih[:ndir]), b_ih[:ndir], w_hh[:ndir],
+                        b_hh[:ndir], lens)
+                got = scan(*args)
+                res = scan(*args, residuals=True)
+                ref = mod.plain_scan(*args, residuals=True)
+                torch.cuda.synchronize()
+                err = (got - ref[0]).abs().max().item()
+                errs = [(e, sc if k == "c" else 1.0) for k, (e, sc) in
+                        zip(names, (max_err(a, r) for a, r in zip(res, ref)))]
+                log(f"{spec['name']} {spec['kernel']} {name} D={ndir} "
+                    f"F={f_in}: max_abs_err {err:.3e}; with residuals "
+                    + " ".join(f"{k} {e:.3e}" for k, (e, _) in
+                               zip(names, errs))
+                    + f" (tolerance {tol}"
+                    + (", c x max(1, max|c|))" if cell == "lstm" else ")"))
+                if not (err <= tol and all(e <= tol * sc for e, sc in errs)):
+                    raise AssertionError(f"{spec['kernel']} {name} D={ndir} "
+                                         f"F={f_in} disagrees with its plain "
+                                         f"version: {err} {errs}")
+            if f_in != WIDE:
+                continue
+            # D = 2 from here on (the last args of the loop above)
+            ms = time_ms(lambda: scan(*args), reps=5)
+            ms_res = time_ms(lambda: scan(*args, residuals=True), reps=5)
+            plain_ms = time_ms(lambda: mod.plain_scan(*args, residuals=True),
+                               reps=2, warmup=1)
+            layer_ms = time_ms(lambda: scan(project(x, w_ih), *args[1:]),
+                               reps=5)
+            net = cudnn_layer(torch, (x, w_ih, b_ih, w_hh, b_hh, lens), dt,
+                              cell)
+            with torch.no_grad():
+                lib_ms = time_ms(lambda: net(x), reps=5)
+            del net
+            n_valid = float(lens.sum().item())
+            esize = 2 if dt == torch.bfloat16 else 4
+            # the recurrence's products; xp and W_hh in, h out; the
+            # training variant adds its residuals
+            flops = 2.0 * 2 * n_valid * h * gh
+            nbytes = (esize * 2 * (t * b * gh + h * gh) + 4 * (4 * gh
+                      + 2 * t * b * h) + 8 * b)
+            if cell == "gru":  # g and hn in the operand type
+                res_bytes = esize * 2 * t * b * (gh + h)
+            else:  # c in f32 and the gates in the operand type
+                res_bytes = 4 * 2 * t * b * h + esize * 2 * t * b * gh
+            peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
+            bound_ms, by = bound(flops, peak, nbytes)
+            bound_res_ms, by_res = bound(flops, peak, nbytes + res_bytes)
+            log(f"{spec['name']} {spec['kernel']} {name} D=2 (T {t}, B {b}, "
+                f"H {h}): {ms:.3f} ms ({ms / t * 1e3:.1f} us a step), with "
+                f"residuals {ms_res:.3f} ms, plain (with residuals) "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}), with "
+                f"residuals {bound_res_ms:.4f} ms ({by_res}); the wide "
+                f"route's layer (projection F={f_in} on cuBLAS + "
+                f"{spec['name']}) {layer_ms:.3f} ms; cuDNN {cell.upper()} "
+                f"(bidirectional, projection included) {lib_ms:.3f} ms")
+            if dt == torch.bfloat16:  # the train path runs this variant
+                results[spec["kernel"]] = dict(
+                    route="cuda", max_abs_err=max([err] + [e for e, _ in
+                                                           errs]),
+                    ms=ms_res, ms_inference=ms, plain_ms=plain_ms,
+                    bound_ms=bound_res_ms, bound_by=by_res,
+                    library_ms=lib_ms, layer_ms=layer_ms)
+
+
 def ctc_inputs(torch, rng):
     """Logits, logit lengths, targets, target lengths at the train shape:
     unequal lengths, row 0 at full length, row 1 impossible."""
@@ -714,25 +860,30 @@ def phase_ctc(torch, results):
                                library_ms=lib_bwd_ms)
 
 
-def default_model(torch, seed, cell="gru"):
+def default_model(torch, seed, cell="gru", hidden=HIDDEN):
     from deepspeech_tpu_torch.models import build_model
 
-    model, meta = build_model(cell, CLASSES, HIDDEN, LAYERS,
+    model, meta = build_model(cell, CLASSES, hidden, LAYERS,
                               bidirectional=True,
                               compute_dtype="bfloat16", device="cuda")
     random_weights(model, np.random.default_rng(seed))
     return model, meta
 
 
-def phase_forward(torch, counts, floor, cell="gru"):
+def phase_forward(torch, counts, floor, cell="gru", hidden=HIDDEN,
+                  batch=BATCH, want=None):
+    """The bf16 forward of 6 x Bi<cell>-<hidden> on ``batch`` x 7.5 s:
+    featurize -> forward -> greedy ids, its launches against ``want`` (by
+    default K1 and the fused layer kernel in every layer), the logits held
+    to the plain versions, timed and profiled."""
     from deepspeech_tpu_torch.audio.features import AudioConf, featurize_batch
     from deepspeech_tpu_torch.decoders import greedy_ids
 
-    seed = SEED + (2 if cell == "gru" else 10)
+    seed = SEED + (2 if cell == "gru" else 10) + (hidden != HIDDEN) * 20
     rng = np.random.default_rng(seed)
-    model, meta = default_model(torch, seed, cell)
+    model, meta = default_model(torch, seed, cell, hidden)
     model.eval()
-    b, s = BATCH, AUDIO_S
+    b, s = batch, AUDIO_S
     audio = torch.from_numpy(np.stack([synthetic_audio(rng, s)
                                        for _ in range(b)])).cuda()
     lengths = torch.full((b,), s, dtype=torch.int64).cuda()
@@ -748,8 +899,9 @@ def phase_forward(torch, counts, floor, cell="gru"):
         logits, probs, out_lens, ids = forward()
         torch.cuda.synchronize()
         counts.update(read_counts())
-        log(f"{cell} inference path (bf16 forward): launches {counts}")
-        want = expect_counts(stft_mag=1, **{f"{cell}_fwd": LAYERS})
+        log(f"{cell}-{hidden} inference path (bf16 forward, batch {b}): "
+            f"launches {counts}")
+        want = want or expect_counts(stft_mag=1, **{f"{cell}_fwd": LAYERS})
         if counts != want:
             raise AssertionError(f"inference path: launches {counts}, "
                                  f"expected {want}")
@@ -769,7 +921,8 @@ def phase_forward(torch, counts, floor, cell="gru"):
         scale = max(1.0, ref_logits.abs().max().item())
         err = (logits - ref_logits).abs().max().item()
         agree = (ids == ref_ids).float().mean().item()
-        log(f"{cell} inference path: logits max_abs_err vs plain {err:.3e} "
+        log(f"{cell}-{hidden} inference path: logits max_abs_err vs plain "
+            f"{err:.3e} "
             f"(scale "
             f"{scale:.2f}, tolerance {LOGIT_TOL * scale:.3e}); greedy ids "
             f"agree on {agree:.4%} of frames")
@@ -778,10 +931,11 @@ def phase_forward(torch, counts, floor, cell="gru"):
         ms = time_ms(forward, reps=5, warmup=1)
         with plain_path():
             plain_ms = time_ms(forward, reps=1, warmup=0)
-        profile_run(torch, f"{cell} forward", forward, ms, floor)
+        profile_run(torch, f"{cell}-{hidden} forward", forward, ms, floor)
     audio_s = b * s / conf.sample_rate
-    log(f"{cell} inference path: {ms:.3f} ms per forward of {b} x {s / SR} s "
-        f"(featurize + 6 x Bi{cell.upper()}-800 bf16 + greedy) = "
+    log(f"{cell}-{hidden} inference path: {ms:.3f} ms per forward of {b} x "
+        f"{s / SR} s (featurize + 6 x Bi{cell.upper()}-{hidden} bf16 + "
+        f"greedy) = "
         f"{audio_s / (ms / 1e3):.1f} audio-s/s; through the plain versions "
         f"{plain_ms:.3f} ms")
     return model, meta
@@ -828,9 +982,9 @@ def profile_run(torch, label, fn, ms: float, floor: dict):
         by_name[name] = (n + 1, t + end - start)
     for name, (n, t) in sorted(by_name.items(), key=lambda r: -r[1][1])[:16]:
         log(f"  {t / 1e3:9.3f} ms {n:6d} x {name[:90]}")
-    for kernel, key, what in (("gru_step", "step_ms", "K2"),
+    for kernel, key, what in (("gru_step", "step_ms", "K2/K4"),
                               ("bwd_step", "bwd_step_ms", "K5"),
-                              ("lstm_step", "lstm_step_ms", "K3"),
+                              ("lstm_step", "lstm_step_ms", "K3/K6"),
                               ("lstm_bwd_step", "lstm_bwd_step_ms", "K7")):
         # whole words: K5's bwd_step is not K7's lstm_bwd_step
         steps = [(n, t) for name, (n, t) in by_name.items()
@@ -842,13 +996,14 @@ def profile_run(torch, label, fn, ms: float, floor: dict):
                 f"the least-work step of {floor[key] * 1e3:.3f} us")
 
 
-def train_batch(torch, rng, labels: str):
-    """20 synthetic 7.5 s waveforms with random transcripts, collated on
-    the int16 wire as the train CLI does, on the card."""
+def train_batch(torch, rng, labels: str, batch=BATCH):
+    """``batch`` synthetic waveforms of 7.5 s down to 6.8 s with random
+    transcripts, collated on the int16 wire as the train CLI does, on the
+    card."""
     from deepspeech_tpu_torch.data import BucketSpec, collate_batch
 
     samples = []
-    for i in range(BATCH):
+    for i in range(batch):
         n = AUDIO_S - AUDIO_S // 30 * (i % 5)  # unequal, the longest full
         words = ["".join(rng.choice(list(labels[2:28]), rng.integers(2, 8)))
                  for _ in range(rng.integers(FRAMES // 40 + 1,
@@ -857,10 +1012,10 @@ def train_batch(torch, rng, labels: str):
         samples.append({"audio": synthetic_audio(rng, n),
                         "target": np.asarray(ids, np.int32),
                         "path": f"synthetic{i}"})
-    batch = collate_batch(samples, BATCH, BucketSpec(
+    out = collate_batch(samples, batch, BucketSpec(
         reflect_tail=160, audio_step=8000, wire_dtype="int16"))
-    batch.pop("paths")
-    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    out.pop("paths")
+    return {k: torch.from_numpy(v).cuda() for k, v in out.items()}
 
 
 def step_grads(torch, model, batch, jitter):
@@ -888,17 +1043,25 @@ def step_grads(torch, model, batch, jitter):
     return loss.detach(), dict(zip(names, grads)), global_norm(grads)
 
 
-def phase_train(torch, counts, floor, cell="gru"):
+def phase_train(torch, counts, floor, cell="gru", hidden=HIDDEN,
+                batch_size=BATCH, want=None):
+    """One bf16 train step of 6 x Bi<cell>-<hidden> at ``batch_size`` x
+    7.5 s:
+    its loss, grad norm and every gradient against the plain path, its
+    launches against ``want`` (by default K1, the fused layer kernel with
+    residuals and the backward kernel in every layer, K8 and K9), then 5
+    steps and a profiled one."""
     from deepspeech_tpu_torch.train.optim import build_optimizer
     from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
                                                  make_train_step)
 
-    seed = SEED + (6 if cell == "gru" else 11)
+    seed = SEED + (6 if cell == "gru" else 11) + (hidden != HIDDEN) * 20
     rng = np.random.default_rng(seed)
     labels = "_'ABCDEFGHIJKLMNOPQRSTUVWXYZ2 "
-    model, _ = default_model(torch, seed, cell)
-    batch = train_batch(torch, rng, labels)
-    jitter = torch.from_numpy(rng.uniform(-0.5, 0.5, BATCH).astype(
+    model, _ = default_model(torch, seed, cell, hidden)
+    route_log(torch, cell, hidden, batch_size)
+    batch = train_batch(torch, rng, labels, batch_size)
+    jitter = torch.from_numpy(rng.uniform(-0.5, 0.5, batch_size).astype(
         np.float32)).cuda()
     init = {k: v.clone() for k, v in model.state_dict().items()}
 
@@ -913,7 +1076,8 @@ def phase_train(torch, counts, floor, cell="gru"):
     rel_norm = abs(norm.item() - ref_norm.item()) / ref_norm.item()
     worst = max(((max_err(grads[k], ref_grads[k])[0]
                   / max_err(grads[k], ref_grads[k])[1], k) for k in grads))
-    log(f"{cell} train step vs plain path: loss {loss.item():.4f} / "
+    log(f"{cell}-{hidden} train step vs plain path: loss "
+        f"{loss.item():.4f} / "
         f"{ref_loss.item():.4f} (rel {rel_loss:.2e}), grad norm "
         f"{norm.item():.4f} / {ref_norm.item():.4f} (rel {rel_norm:.2e}); "
         f"{len(grads)} parameter grads, worst {worst[1]} at "
@@ -942,10 +1106,10 @@ def phase_train(torch, counts, floor, cell="gru"):
         end.synchronize()
         if i == 0:
             counts.update(read_counts())
-            log(f"{cell} train path, one step: launches {counts}")
-            want = expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1,
-                                 **{f"{cell}_{k}": LAYERS
-                                    for k in ("fwd", "fwd_res", "bwd")})
+            log(f"{cell}-{hidden} train path, one step: launches {counts}")
+            want = want or expect_counts(
+                stft_mag=1, ctc_alpha=1, ctc_beta=1,
+                **{f"{cell}_{k}": LAYERS for k in ("fwd", "fwd_res", "bwd")})
             if counts != want:
                 raise AssertionError(f"train step launches {counts}, "
                                      f"expected {want}")
@@ -958,11 +1122,11 @@ def phase_train(torch, counts, floor, cell="gru"):
             f"{m['grad_norm'].item():.3f}, {times[-1]:.3f} ms")
     ms = float(np.median(times[1:]))
     audio_s = float(batch["audio_lengths"].sum().item()) / SR
-    log(f"{cell} train path: {ms:.3f} ms per step (median of steps 2-5, "
-        f"CUDA events) for {audio_s:.2f} s of audio = "
+    log(f"{cell}-{hidden} train path: {ms:.3f} ms per step (median of "
+        f"steps 2-5, CUDA events) for {audio_s:.2f} s of audio = "
         f"{audio_s / (ms / 1e3):.1f} audio-s/s (bf16, 6 x Bi{cell.upper()}"
-        f"-800, batch {BATCH})")
-    profile_run(torch, f"{cell} train step",
+        f"-{hidden}, batch {batch_size})")
+    profile_run(torch, f"{cell}-{hidden} train step",
                 lambda: step(state, batch, generator=gen), ms, floor)
 
 
@@ -1070,6 +1234,134 @@ def phase_train_cli(torch, cell="gru"):
         log(f"transcribe on the trained {cell} checkpoint: {len(text)} "
             f"chars in "
             f"{dt:.3f} s: {text[:60]!r}")
+
+
+def phase_wide_cli(torch):
+    """BASELINE.md config 4 on one card: the train CLI with --hidden-size
+    1600 --batch-size 64 --use-curriculum --checkpoint --epochs 2 on a
+    synthetic manifest of 128 utterances of 6.8-7.5 s (validation on the
+    first 64), in a temporary directory. Its launches (layer 0 on K2,
+    layers 1-5 on K4 in every step and validation batch); both curriculum
+    sidecars beside every checkpoint with one row per wav; the drawn
+    utterances' CERs moved from 0.999; epoch 1's list equal to
+    Curriculum.sample recomputed from the store epoch 0 left (its sidecar),
+    shuffled by the epoch. Then one f32 transcribe request on the final
+    checkpoint, which runs K4 in all 6 layers."""
+    from deepspeech_tpu_torch.audio.io import save_wav
+    from deepspeech_tpu_torch.cli.train import main as train_main
+    from deepspeech_tpu_torch.cli.transcribe import main as transcribe_main
+    from deepspeech_tpu_torch.data import AudioDataset, read_manifest
+    from deepspeech_tpu_torch.data.curriculum import (Curriculum,
+                                                      CurriculumStore)
+
+    rng = np.random.default_rng(SEED + 18)
+    batch = WIDE_BATCH["gru"]
+    labels_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "labels.json")
+    drawn: dict = {}
+    original = AudioDataset.set_curriculum_epoch
+
+    def recorded(self, epoch, sample=False, sample_size=0.5):
+        original(self, epoch, sample, sample_size)
+        drawn[epoch] = list(self.ids)
+
+    with tempfile.TemporaryDirectory() as d:
+        rows = []
+        for i in range(CLI_UTTS):
+            n = int(SR * rng.uniform(6.8, 7.5))
+            wav, txt = (os.path.join(d, f"u{i}.wav"),
+                        os.path.join(d, f"u{i}.txt"))
+            save_wav(wav, synthetic_audio(rng, n), SR)
+            with open(txt, "w") as f:
+                f.write(" ".join("".join(rng.choice(list(LABELS[2:28]),
+                                                    int(rng.integers(2, 8))))
+                                 for _ in range(int(rng.integers(10, 16)))))
+            rows.append(f"{wav},{txt},{n / SR}")
+        manifest, val = (os.path.join(d, "train.csv"),
+                         os.path.join(d, "val.csv"))
+        with open(manifest, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        with open(val, "w") as f:
+            f.write("\n".join(rows[:batch]) + "\n")
+        save = os.path.join(d, "models")
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        AudioDataset.set_curriculum_epoch = recorded
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = train_main([
+                    "--train-manifest", manifest, "--val-manifest", val,
+                    "--labels-path", labels_path, "--epochs", "2",
+                    "--batch-size", str(batch), "--val-batch-size",
+                    str(batch), "--num-workers", "8", "--hidden-size",
+                    str(WIDE), "--hidden-layers", str(LAYERS),
+                    "--use-curriculum", "--checkpoint", "--save-folder",
+                    save])
+        finally:
+            AudioDataset.set_curriculum_epoch = original
+        dt = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            log(f"  train CLI: {line}")
+        if rc != 0:
+            raise AssertionError(f"train CLI exited {rc}")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        steps = sum(-(-len(ids) // batch) for ids in drawn.values())
+        evals = 2  # one validation batch an epoch
+        log(f"train CLI, config 4 (6 x BiGRU-{WIDE} bf16, batch {batch}, "
+            f"--use-curriculum, 2 epochs drawing "
+            f"{[len(drawn[e]) for e in sorted(drawn)]} of {CLI_UTTS} "
+            f"utterances: {steps} steps + {evals} validation batches): "
+            f"{dt:.3f} s host clock, launches {counts}")
+        want = expect_counts(
+            stft_mag=steps + evals, gru_fwd=steps + evals, gru_fwd_res=steps,
+            gru_scan=(LAYERS - 1) * (steps + evals),
+            gru_scan_res=(LAYERS - 1) * steps, gru_bwd=LAYERS * steps,
+            ctc_alpha=steps + evals, ctc_beta=steps)
+        if sorted(drawn) != [0, 1] or counts != want:
+            raise AssertionError(f"config-4 train CLI: epochs {sorted(drawn)}"
+                                 f", launches {counts}, expected {want}")
+
+        wavs = [r.split(",")[0] for r in rows]
+        for ck in ("deepspeech_epoch_001.ckpt", "deepspeech_epoch_002.ckpt",
+                   "best_model.ckpt", "deepspeech_final.ckpt"):
+            for sidecar, n in ((".curriculum.csv", CLI_UTTS),
+                               (".val.curriculum.csv", batch)):
+                store = CurriculumStore.load(os.path.join(save, ck + sidecar))
+                if sorted(store.rows) != sorted(wavs[:n]):
+                    raise AssertionError(f"{ck}{sidecar}: {len(store)} rows, "
+                                         f"expected one per wav ({n})")
+        after0 = CurriculumStore.load(os.path.join(
+            save, "deepspeech_epoch_001.ckpt.curriculum.csv"))
+        used = [r for r in after0.rows.values() if r["times_used"]]
+        moved = [r for r in used if r["cer"] != 0.999]
+        ids = read_manifest(manifest)
+        want_ids = list(Curriculum.sample(
+            ids, lambda item: (after0.get(item[0])["text"],
+                               after0.get(item[0])["cer"]),
+            epoch=1, min=len(ids) * 0.5))
+        np.random.default_rng(1).shuffle(want_ids)
+        cers = sorted(r["cer"] for r in used)
+        log(f"curriculum after epoch 0: {len(used)} of {CLI_UTTS} utterances "
+            f"decoded, {len(moved)} CERs moved from 0.999 (median "
+            f"{cers[len(cers) // 2] if cers else float('nan'):.3f}); epoch 1 "
+            f"drew {len(drawn[1])}, the draw recomputed from the sidecar "
+            f"{len(want_ids)}, equal: {drawn[1] == want_ids}")
+        if not used or len(moved) != len(used) or drawn[1] != want_ids:
+            raise AssertionError("config-4 curriculum: the store or epoch "
+                                 "1's draw is not what the sidecar gives")
+
+        reset_counts()
+        text, sec = transcribe_once(transcribe_main, os.path.join(
+            save, "deepspeech_final.ckpt"), wavs[0])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"transcribe on the config-4 checkpoint (f32, one request): "
+            f"{len(text)} chars in {sec:.3f} s (host clock, checkpoint load "
+            f"included), launches {counts}: {text[:50]!r}")
+        if counts != expect_counts(stft_mag=1, gru_scan=LAYERS):
+            raise AssertionError(f"config-4 transcribe launches {counts}")
 
 
 def topk_rows(rng, r: int, n: int, stress: bool) -> np.ndarray:
@@ -1402,6 +1694,7 @@ def main() -> int:
     results: dict = {}
     train_counts: dict = {}
     lstm_train_counts: dict = {}
+    wide_counts: dict = {"gru": {}, "lstm": {}}
     beam_counts: dict = {}
     def mark(what):
         log(f"[{time.perf_counter() - t0:.1f} s] {what}")
@@ -1442,12 +1735,33 @@ def main() -> int:
     phase_train(torch, lstm_train_counts, floor, "lstm")
     phase_train_cli(torch, "lstm")
     mark("the LSTM phases")
+    # the wide models: K4 and K6 alone, then each model's forward and train
+    # step, then the config-4 train CLI with curriculum sampling
+    for cell, fused, wide in (("gru", 1, LAYERS - 1), ("lstm", 0, LAYERS)):
+        phase_scan(torch, results, cell)
+        b = WIDE_BATCH[cell]
+        fwd = {f"{cell}_fwd": fused, f"{cell}_scan": wide}
+        phase_forward(torch, {}, floor, cell, WIDE, b,
+                      want=expect_counts(stft_mag=1, **fwd))
+        phase_train(torch, wide_counts[cell], floor, cell, WIDE, b,
+                    want=expect_counts(
+                        stft_mag=1, ctc_alpha=1, ctc_beta=1, **fwd,
+                        **{f"{cell}_fwd_res": fused,
+                           f"{cell}_scan_res": wide,
+                           f"{cell}_bwd": LAYERS}))
+        mark(f"the 6 x Bi{cell.upper()}-{WIDE} phases")
+    phase_wide_cli(torch)
+    mark("the config-4 train CLI with curriculum sampling")
 
+    # launches from one pass of each kernel's path: the GRU-800 train step,
+    # the LSTM-800 train step, the wide models' train steps, the beam
+    counts_of = {"lstm_fwd": lstm_train_counts, "lstm_bwd": lstm_train_counts,
+                 "gru_scan": wide_counts["gru"],
+                 "lstm_scan": wide_counts["lstm"], "topk": beam_counts}
     kernels = []
     for name in KERNELS:
         r = results[name]
-        counts = (lstm_train_counts if name in LSTM_KERNELS
-                  else beam_counts if name == "topk" else train_counts)
+        counts = counts_of.get(name, train_counts)
         kernels.append({"name": name, "route": r["route"],
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": counts[name],

@@ -4,17 +4,25 @@
     python -m deepspeech_tpu_torch.cli.train --train-manifest train.csv \\
         --val-manifest val.csv [--epochs 70 --batch-size 20 --device cuda]
 
-Epochs over the train manifest (SortaGrad order on epoch 0, then shuffled
-bins), one ``train_step`` per batch (featurize -> forward -> CTC ->
-backward -> clip -> NaN guard -> SGD/Adam), a log line every 10
-iterations, greedy validation loss/WER/CER at each epoch's end, the LR
-annealed by ``--learning-anneal``, ``best_model.ckpt`` by WER + CER and
-``deepspeech_final.ckpt`` in ``--save-folder``. Checkpoints are the JAX
-package's zip container: both packages' ``transcribe`` load them.
+Epochs over the train manifest: before each, the dataset's epoch list is
+set (all rows, or with ``--use-curriculum`` the rows drawn by curriculum
+probability, at least ``--curriculum-ratio`` of the manifest) and
+shuffled by the epoch, as the JAX CLI does; then SortaGrad order on epoch
+0 and shuffled bins after. One ``train_step`` per batch (featurize ->
+forward -> CTC -> backward -> clip -> NaN guard -> SGD/Adam); every
+batch's greedy ids are decoded on the host and their CER and WER go into
+the train curriculum store (``--curriculum`` preloads it from a CSV
+sidecar). A log line every 10 iterations, greedy validation loss/WER/CER
+at each epoch's end (which updates the val store), the LR annealed by
+``--learning-anneal``, ``best_model.ckpt`` by WER + CER and
+``deepspeech_final.ckpt`` in ``--save-folder``; every checkpoint writes
+the ``<ckpt>.curriculum.csv`` and ``<ckpt>.val.curriculum.csv`` sidecars.
+Checkpoints are the JAX package's zip container: both packages'
+``transcribe`` load them.
 
-Not ported yet (each raises SystemExit naming ROADMAP.md): curriculum
-sampling, augmentation, ``--steps-per-dispatch`` > 1, ``--mesh-model`` > 1
-and multi-host runs, resuming (``--continue-from``), ``--profile-dir``,
+Not ported yet (each raises SystemExit naming ROADMAP.md): augmentation,
+``--steps-per-dispatch`` > 1, ``--mesh-model`` > 1 and multi-host runs,
+resuming (``--continue-from``, ``--finetune``), ``--profile-dir``,
 ``--tensorboard``, ``--visdom``, ``--train-val-manifest`` and
 ``--checkpoint-per-samples``.
 """
@@ -40,9 +48,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported yet")
     p.add_argument("--cache-dir", default="data/cache/",
                    help="accepted for flag parity; unused")
-    p.add_argument("--curriculum", default="", help="not ported yet")
+    p.add_argument("--curriculum", default="",
+                   help="curriculum CSV sidecar to preload the train "
+                        "store from")
     p.add_argument("--use-curriculum", action="store_true",
-                   help="not ported yet")
+                   help="draw each epoch's utterances by curriculum "
+                        "probability")
+    p.add_argument("--curriculum-ratio", default=0.5, type=float,
+                   help="least share of the manifest an epoch draws")
     p.add_argument("--sample-rate", default=16000, type=int)
     p.add_argument("--batch-size", default=20, type=int)
     p.add_argument("--val-batch-size", default=20, type=int)
@@ -124,8 +137,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _NOT_PORTED = (
-    ("curriculum", "--curriculum", "curriculum sampling"),
-    ("use_curriculum", "--use-curriculum", "curriculum sampling"),
     ("augment", "--augment", "augmentation"),
     ("noise_dir", "--noise-dir", "augmentation"),
     ("device_noise", "--device-noise", "augmentation"),
@@ -164,6 +175,23 @@ def _labels_path(path: str) -> str:
         if os.path.exists(shipped):
             return shipped
     return path
+
+
+def epoch_loader(dataset, epoch: int, args, bucket):
+    """The train loader of one epoch (JAX ``cli/train.py:612-633``): the
+    dataset's epoch list first, then SortaGrad (no shuffle on epoch 0,
+    reference train.py:89-94) or the bins shuffled by the epoch."""
+    from deepspeech_tpu_torch.data import AudioDataLoader, BucketingSampler
+
+    dataset.set_curriculum_epoch(epoch, sample=args.use_curriculum,
+                                 sample_size=args.curriculum_ratio)
+    sampler = BucketingSampler(len(dataset), args.batch_size)
+    if not args.no_shuffle and (epoch > 0 or args.no_sorta_grad):
+        sampler.shuffle(epoch)
+    elif args.reverse_sort:
+        sampler.reverse()
+    return AudioDataLoader(dataset, sampler, args.batch_size, bucket,
+                           args.num_workers)
 
 
 def main(argv=None) -> int:
@@ -215,7 +243,7 @@ def main(argv=None) -> int:
 
     max_items = args.max_items or None
     train_dataset = AudioDataset(audio_conf, args.train_manifest, labels,
-                                 max_items)
+                                 max_items, args.curriculum or None)
     val_dataset = AudioDataset(audio_conf, args.val_manifest, labels,
                                max_items)
     bucket = BucketSpec(
@@ -239,17 +267,12 @@ def main(argv=None) -> int:
             model, meta, labels.labels, audio_conf.to_dict(),
             step=int(state.step), epoch=epoch, iteration=0,
             avg_loss=avg_loss, history=history))
+        train_dataset.save_curriculum(path + ".curriculum.csv")
+        val_dataset.save_curriculum(path + ".val.curriculum.csv")
         say(f"  saved {path}")
 
     for epoch in range(args.epochs):
-        sampler = BucketingSampler(len(train_dataset), args.batch_size)
-        # SortaGrad: no shuffle on epoch 0 (reference train.py:89-94)
-        if not args.no_shuffle and (epoch > 0 or args.no_sorta_grad):
-            sampler.shuffle(epoch)
-        elif args.reverse_sort:
-            sampler.reverse()
-        loader = AudioDataLoader(train_dataset, sampler, args.batch_size,
-                                 bucket, args.num_workers)
+        loader = epoch_loader(train_dataset, epoch, args, bucket)
         loss_sum = loss_count = 0.0
         t0 = time.perf_counter()
         for it, batch in enumerate(loader):
@@ -260,8 +283,13 @@ def main(argv=None) -> int:
             n_valid = float(batch["valid"].sum())
             loss_sum += loss * n_valid
             loss_count += n_valid
+            # every batch's greedy decode feeds the train curriculum store
+            # (JAX cli/train.py:581-589)
+            results = decode_batch_greedy(decoder, m, batch, labels)
+            for i, (tr, ref, w, c, wr, cr) in enumerate(results):
+                train_dataset.update_curriculum(batch["paths"][i], ref, tr,
+                                                None, c / cr, w / wr)
             if it % 10 == 0:
-                results = decode_batch_greedy(decoder, m, batch, labels)
                 wer = np.mean([w / wr for _, _, w, _, wr, _ in results])
                 say(f"epoch {epoch + 1} iter {it + 1}/{len(loader)} "
                     f"loss {loss:.3f} (avg {loss_sum / loss_count:.3f}) "
@@ -272,7 +300,8 @@ def main(argv=None) -> int:
         avg_loss = loss_sum / max(loss_count, 1.0)
         say(f"epoch {epoch + 1} done in {time.perf_counter() - t0:.1f}s "
             f"avg loss {avg_loss:.3f}")
-        summary = evaluate(val_loader, eval_step, decoder, labels, to_device)
+        summary = evaluate(val_loader, eval_step, decoder, labels, to_device,
+                           dataset=val_dataset, update_curriculum=True)
         say(f"[val] epoch {epoch + 1}: loss {summary['loss']:.3f} "
             f"WER {summary['wer']:.2f} CER {summary['cer']:.2f} "
             f"(utt-avg {summary['utt_wer']:.2f}/{summary['utt_cer']:.2f})")

@@ -31,144 +31,15 @@
 //  * proj_gemm (rnn_common.cuh): a tiled SIMT GEMM (128 x 128 x 8 tiles,
 //    8 x 8 per thread, f32 FMA) writing the (D, T*B, 3H) f32 projection
 //    stream. It uses no tensor cores yet: a wgmma version is later work.
-//  * gru_step: one launch per time step covering both directions. A block
-//    owns TJ hidden units of one direction for RB batch rows, so its shared
-//    memory does not grow with B: it stages those rows of h_prev (a thread
-//    a column, with no division in the loop), splits the H-long dots over
-//    KS thread groups that read their W_hh rows from global memory (L2),
-//    reduces the partial sums through shared memory and applies the gate
-//    update. The backward direction indexes t = len_b - 1 - s directly;
-//    steps past a row's length keep its state and write zeros. h
-//    ping-pongs between two state buffers. A persistent kernel with W_hh
-//    resident in shared memory and a grid barrier per step is later work.
+//  * gru_step (gru_step.cuh, shared with K4 in gru_scan.cu): one launch per
+//    time step covering both directions, on the f32 projection.
 // Against the bound: on an H100 SXM at 700 W a bf16 layer-0 call takes
 // ~9.7-9.9 ms, ~85x the bound, with or without the residuals; a step takes
 // ~15 us of kernel time, ~4x the least-work step, and the SIMT projection
 // ~2.4-2.6 ms a layer (chip_smoke.py; PERF.md).
-#include "rnn_common.cuh"
+#include "gru_step.cuh"
 
 namespace {
-
-constexpr int TJ = 16;   // hidden units per recurrence block
-constexpr int KS = 16;   // thread groups splitting each H-long dot
-constexpr int RB = 8;    // batch rows per recurrence block
-constexpr int STEP_THREADS = TJ * KS;
-
-// One time step s for both directions; grid (ceil(H/TJ), ceil(B/RB), D).
-// xp (D, T, B, 3H) f32; w_hh (D, H, 3H); b_ih, b_hh (D, 3H) f32;
-// lens (B) int32; h_in/h_out (D, B, H) f32; out (D, T, B, H) f32;
-// g_out (D, T, B, 3H) and hn_out (D, T, B, H) in T, or both null.
-template <typename T>
-__global__ void __launch_bounds__(STEP_THREADS)
-gru_step(const float* __restrict__ xp, const T* __restrict__ w_hh,
-         const float* __restrict__ b_ih, const float* __restrict__ b_hh,
-         const int* __restrict__ lens, const float* __restrict__ h_in,
-         float* __restrict__ h_out, float* __restrict__ out,
-         T* __restrict__ g_out, T* __restrict__ hn_out, int s, int Tn,
-         int B, int H) {
-  extern __shared__ float smem[];
-  const int G = 3 * H;
-  float* hs = smem;                  // (RB, H): h_prev rounded to T
-  float* red = smem + RB * H;        // (KS, 3, RB, TJ) partial sums
-  const int d = blockIdx.z;
-  const int j0 = blockIdx.x * TJ;
-  const int b0 = blockIdx.y * RB;
-  const float* hprev = h_in + static_cast<size_t>(d) * B * H;
-  float* hnew = h_out + static_cast<size_t>(d) * B * H;
-  const T* wd = w_hh + static_cast<size_t>(d) * H * G;
-  const int tid = threadIdx.x;
-
-  // a thread stages one column a pass: RB independent row loads, no division
-  const int nrows = min(RB, B - b0);
-  for (int k = tid; k < H; k += STEP_THREADS) {
-    float v[RB];
-#pragma unroll
-    for (int r = 0; r < RB; ++r)
-      v[r] = r < nrows ? hprev[(b0 + r) * H + k] : 0.f;
-#pragma unroll
-    for (int r = 0; r < RB; ++r) hs[r * H + k] = ds_round_to<T>(v[r]);
-  }
-  __syncthreads();
-
-  const int jl = tid % TJ, ks = tid / TJ;
-  const int j = j0 + jl;
-  float acc[3][RB];
-#pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int r = 0; r < RB; ++r) acc[g][r] = 0.f;
-  if (j < H) {
-    // unrolled so that several W_hh loads from L2 are in flight at once
-#pragma unroll 4
-    for (int k = ks; k < H; k += KS) {
-      const T* wk = wd + static_cast<size_t>(k) * G + j;
-      const float wr = ds_to_float(wk[0]);
-      const float wz = ds_to_float(wk[H]);
-      const float wn = ds_to_float(wk[2 * H]);
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float hv = hs[r * H + k];
-        acc[0][r] = fmaf(hv, wr, acc[0][r]);
-        acc[1][r] = fmaf(hv, wz, acc[1][r]);
-        acc[2][r] = fmaf(hv, wn, acc[2][r]);
-      }
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int r = 0; r < RB; ++r)
-      red[((ks * 3 + g) * RB + r) * TJ + jl] = acc[g][r];
-  __syncthreads();
-
-  if (tid < RB * TJ) {
-    const int r = tid / TJ, jl2 = tid % TJ;
-    const int b = b0 + r, jj = j0 + jl2;
-    if (b < B && jj < H) {
-      float hr = 0.f, hz = 0.f, hn = 0.f;
-      for (int q = 0; q < KS; ++q) {
-        hr += red[((q * 3 + 0) * RB + r) * TJ + jl2];
-        hz += red[((q * 3 + 1) * RB + r) * TJ + jl2];
-        hn += red[((q * 3 + 2) * RB + r) * TJ + jl2];
-      }
-      const float* bh = b_hh + d * G;
-      hr += bh[jj];
-      hz += bh[H + jj];
-      hn += bh[2 * H + jj];
-      const int len = lens[b];
-      const bool valid = s < len;
-      const int t = (d == 0 || !valid) ? s : len - 1 - s;
-      const float hp = hprev[b * H + jj];
-      const size_t row = (static_cast<size_t>(d) * Tn + t) * B + b;
-      float* o = out + row * H + jj;
-      float rg = 0.f, zg = 0.f, ng = 0.f;
-      if (valid) {
-        const float* xg = xp + row * G;
-        const float* bi = b_ih + d * G;
-        const float xr = xg[jj] + bi[jj];
-        const float xz = xg[H + jj] + bi[H + jj];
-        const float xn = xg[2 * H + jj] + bi[2 * H + jj];
-        rg = ds_sigmoid(xr + hr);
-        zg = ds_sigmoid(xz + hz);
-        ng = tanhf(xn + rg * hn);
-        const float h = (1.f - zg) * ng + zg * hp;
-        hnew[b * H + jj] = h;
-        *o = h;
-      } else {
-        hnew[b * H + jj] = hp;
-        *o = 0.f;
-        hn = 0.f;
-      }
-      if (g_out != nullptr) {
-        T* gr = g_out + row * G + jj;
-        gr[0] = ds_from_float<T>(rg);
-        gr[H] = ds_from_float<T>(zg);
-        gr[2 * H] = ds_from_float<T>(ng);
-        hn_out[row * H + jj] = ds_from_float<T>(hn);
-      }
-    }
-  }
-}
 
 __global__ void empty_kernel() {}
 
@@ -179,28 +50,10 @@ int gru_fwd(const T* x, const T* w_ih, const float* b_ih, const T* w_hh,
             int D, cudaStream_t stream) {
   cudaError_t err = launch_proj_gemm<T>(x, w_ih, xp, Tn * B, 3 * H, F, D,
                                         stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t hsz = static_cast<size_t>(D) * B * H;
-  err = cudaMemsetAsync(state, 0, hsz * sizeof(float), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = (static_cast<size_t>(RB) * H + KS * 3 * RB * TJ) *
-                      sizeof(float);
-  err = cudaFuncSetAttribute(gru_step<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 sgrid((H + TJ - 1) / TJ, (B + RB - 1) / RB, D);
-  for (int s = 0; s < Tn; ++s) {
-    const float* h_in = state + (s & 1) * hsz;
-    float* h_out = state + ((s + 1) & 1) * hsz;
-    gru_step<T><<<sgrid, STEP_THREADS, smem, stream>>>(
-        xp, w_hh, b_ih, b_hh, lens, h_in, h_out, out, g_out, hn_out, s, Tn,
-        B, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  if (err == cudaSuccess)
+    err = gru_recurrence<T, float>(xp, w_hh, b_ih, b_hh, lens, state, out,
+                                   g_out, hn_out, Tn, B, H, D, stream);
+  return static_cast<int>(err);
 }
 
 }  // namespace

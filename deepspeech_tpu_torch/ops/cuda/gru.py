@@ -1,5 +1,6 @@
-"""Wrappers of the GRU layer kernels (``csrc/gru_fwd.cu``, ``csrc/gru_bwd.cu``)
-and the autograd Function that ties them together.
+"""Wrappers of the GRU layer kernels (``csrc/gru_fwd.cu``,
+``csrc/gru_scan.cu``, ``csrc/gru_bwd.cu``) and the autograd Functions that
+tie them together.
 
 ``gru_layer`` replaces ``deepspeech_tpu/ops/pallas/rnn_fused.py``
 (``_gru_fused_fwd_kernel`` via ``bigru_layer_pallas`` / ``gru_layer_pallas``),
@@ -7,9 +8,13 @@ input projection included, in both variants: inference, and training
 (``residuals=True``), which also returns the gate stream g = (r, z, n) and hn,
 the hidden n-term before the r *, in the operand type. ``gru_bwd`` replaces
 ``deepspeech_tpu/ops/pallas/rnn_kernel.py`` (``_gru_bwd_kernel`` via
-``_gru_bwd``). For CPU tensors each wrapper runs its plain PyTorch twin
-beside it (``plain``, ``plain_bwd``); for CUDA tensors it launches the
-kernel or raises.
+``_gru_bwd``). ``gru_scan`` (K4) replaces ``rnn_kernel.py``
+(``_gru_fwd_kernel`` via ``bigru_scan_pallas`` / ``gru_scan_pallas``): the
+same recurrence on a projection computed outside and rounded to the
+operand type, for the layers ``route.fused_route`` sends there. For CPU
+tensors each wrapper runs its plain PyTorch twin beside it (``plain``,
+``plain_scan``, ``plain_bwd``); for CUDA tensors it launches the kernel or
+raises.
 
 Semantics: time-major (T, B, F) layout, torch gate order r, z, n, f32 state
 and f32 gates. With bf16 operands every product accumulates in f32, the
@@ -22,6 +27,10 @@ zero, and the backward ignores the output grads there.
 forward, then K5 for the recurrence's gradient and cuBLAS for the large
 products dW_hh, dW_ih and dx (``rnn_kernel.py:475-486``,
 ``rnn_fused.py:_proj_grads``), as the JAX package leaves them to XLA.
+``GRUScanLayer`` is K4's: K4 with residuals forward, K5 backward, and the
+gradients of xp, b_ih, W_hh and b_hh (``_bigru_bwd_rule``,
+``rnn_kernel.py:514-517``); dx and dW_ih come from autograd through the
+projection outside.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import build
 from deepspeech_tpu_torch.ops.cuda.recurrence import (check_layer,
+                                                      check_scan,
                                                       h_prev_stream,
                                                       mm_f32, same_device,
                                                       to_time_order,
@@ -42,11 +52,14 @@ from deepspeech_tpu_torch.ops.cuda.recurrence import (check_layer,
 
 launches = 0      # gru_fwd launches (one per layer call), both variants
 res_launches = 0  # of those, the training variant's (residuals written)
+scan_launches = 0      # gru_scan launches (K4, one per layer call)
+scan_res_launches = 0  # of those, the training variant's
 bwd_launches = 0  # gru_bwd launches (one per layer backward)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FWD = {torch.float32: "gru_fwd_f32", torch.bfloat16: "gru_fwd_bf16"}
+_SCAN = {torch.float32: "gru_scan_f32", torch.bfloat16: "gru_scan_bf16"}
 _BWD = {torch.float32: "gru_bwd_f32", torch.bfloat16: "gru_bwd_bf16"}
 
 
@@ -55,6 +68,15 @@ def _fwd_kernel():
     lib = build.load("gru_fwd")
     for name in _FWD.values():
         getattr(lib, name).argtypes = [_P] * 11 + [_I] * 5 + [_P]
+        getattr(lib, name).restype = _I
+    return lib
+
+
+@functools.cache
+def _scan_kernel():
+    lib = build.load("gru_scan")
+    for name in _SCAN.values():
+        getattr(lib, name).argtypes = [_P] * 9 + [_I] * 4 + [_P]
         getattr(lib, name).restype = _I
     return lib
 
@@ -77,19 +99,33 @@ def plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
 
     x: (T, B, F); w_ih: (D, F, 3H); w_hh: (D, H, 3H), all in the operand
     type (float32 or bfloat16); b_ih, b_hh: (D, 3H); lengths: (B,).
-    Direction 1, when present, runs backward in time."""
-    ndir, hidden = w_hh.shape[0], w_hh.shape[1]
-    t, b = x.shape[0], x.shape[1]
-    lengths = lengths.to(x.device).clamp(max=t)
+    Direction 1, when present, runs backward in time. The projection
+    stays f32."""
     with fp32_matmul():
         xp = torch.einsum("tbf,dfg->dtbg", x.float(), w_ih.float())
-    xp = xp + b_ih.float()[:, None, None, :]
+    return plain_scan(xp, b_ih, w_hh, b_hh, lengths, residuals)
+
+
+def plain_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
+               b_hh: torch.Tensor, lengths: torch.Tensor,
+               residuals: bool = False):
+    """GRU recurrence on a projection -> (D, T, B, H) f32, zero at steps
+    past each row's length; with ``residuals`` also g (D, T, B, 3H) and hn
+    (D, T, B, H) in w_hh's type, zero there too.
+
+    xp: (D, T, B, 3H), x @ W_ih without bias, in time order for both
+    directions; w_hh: (D, H, 3H) in the operand type; b_ih, b_hh: (D, 3H);
+    lengths: (B,). xp is widened to f32 and b_ih added there."""
+    ndir, t, b = xp.shape[:3]
+    hidden = w_hh.shape[1]
+    lengths = lengths.to(xp.device).clamp(max=t)
+    xp = xp.float() + b_ih.float()[:, None, None, :]
     idx = walk_index(lengths, t)
     xp = to_time_order(xp, idx)  # the gather is its own inverse
     valid = valid_mask(lengths, t)
     w32 = w_hh.float()
     bh = b_hh.float()[:, None, :]
-    h = torch.zeros((ndir, b, hidden), dtype=torch.float32, device=x.device)
+    h = torch.zeros((ndir, b, hidden), dtype=torch.float32, device=xp.device)
     outs, gates, hns = [], [], []
     for s in range(t):
         with fp32_matmul():
@@ -110,8 +146,8 @@ def plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     out = to_time_order(torch.stack(outs, dim=1), idx)
     if not residuals:
         return out
-    g = to_time_order(torch.stack(gates, dim=1), idx).to(x.dtype)
-    hn = to_time_order(torch.stack(hns, dim=1), idx).to(x.dtype)
+    g = to_time_order(torch.stack(gates, dim=1), idx).to(w_hh.dtype)
+    hn = to_time_order(torch.stack(hns, dim=1), idx).to(w_hh.dtype)
     return out, g, hn
 
 
@@ -159,6 +195,49 @@ def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     if not residuals:
         return out
     res_launches += 1
+    return out, gates, hn
+
+
+def gru_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
+             b_hh: torch.Tensor, lengths: torch.Tensor,
+             residuals: bool = False):
+    """K4: GRU recurrence on a projection -> (D, T, B, H) f32, zero past
+    each row's length; with ``residuals`` -> (out, g, hn) for K5.
+
+    xp (D, T, B, 3H) and w_hh (D, H, 3H) share the operand type (float32
+    or bfloat16); b_ih, b_hh (D, 3H) f32; lengths (B,)."""
+    if xp.device.type == "cpu":
+        return plain_scan(xp, b_ih, w_hh, b_hh, lengths, residuals)
+    if xp.device.type != "cuda":
+        raise ValueError(f"gru_scan: unsupported device {xp.device}")
+    dt, dev = xp.dtype, xp.device
+    ndir, t, b, hidden = check_scan("gru_scan", 3, tuple(_SCAN), xp, b_ih,
+                                    w_hh, b_hh, lengths)
+    lib = _scan_kernel()
+    xp, w_hh = xp.contiguous(), w_hh.contiguous()
+    b_ih = b_ih.float().contiguous()
+    b_hh = b_hh.float().contiguous()
+    lens = lengths.to(torch.int32).clamp(max=t).contiguous()
+    state = torch.empty((2, ndir, b, hidden), dtype=torch.float32, device=dev)
+    out = torch.empty((ndir, t, b, hidden), dtype=torch.float32, device=dev)
+    gates = hn = None
+    if residuals:
+        gates = torch.empty((ndir, t, b, 3 * hidden), dtype=dt, device=dev)
+        hn = torch.empty((ndir, t, b, hidden), dtype=dt, device=dev)
+    fn = getattr(lib, _SCAN[dt])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = fn(xp.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(),
+                  b_hh.data_ptr(), lens.data_ptr(), state.data_ptr(),
+                  out.data_ptr(), gates.data_ptr() if residuals else None,
+                  hn.data_ptr() if residuals else None, t, b, hidden, ndir,
+                  stream)
+    build.check(lib, code, "gru_scan kernel")
+    global scan_launches, scan_res_launches
+    scan_launches += 1
+    if not residuals:
+        return out
+    scan_res_launches += 1
     return out, gates, hn
 
 
@@ -281,18 +360,53 @@ class GRULayer(torch.autograd.Function):
         dt = x.dtype
         dg, dnh, dbi, dbh = gru_bwd(dout.float().contiguous(), g, hn, out,
                                     w_op, lengths)
-        hp = h_prev_stream(out, lengths).to(dt)
         x2 = x.reshape(t * b, -1)
         dx = 0.0
-        dw_hh, dw_ih = [], []
+        dw_ih = []
         with fp32_matmul():
             for d in range(ndir):
                 dg2 = dg[d].reshape(t * b, 3 * hidden)
-                dhp = torch.cat([dg[d][..., :2 * hidden], dnh[d]], -1)
-                dw_hh.append(mm_f32(hp[d].reshape(t * b, hidden).t(),
-                                     dhp.reshape(t * b, 3 * hidden)))
                 dx = dx + mm_f32(dg2, w_ih[d].t())
                 dw_ih.append(mm_f32(x2.t(), dg2))
         dx = dx.reshape(x.shape).to(dt)
         return (dx, torch.stack(dw_ih).to(w_ih.dtype), dbi,
-                torch.stack(dw_hh), dbh, None)
+                _dw_hh(out, dg, dnh, lengths), dbh, None)
+
+
+def _dw_hh(out: torch.Tensor, dg: torch.Tensor, dnh: torch.Tensor,
+           lengths: torch.Tensor) -> torch.Tensor:
+    """dW_hh (D, H, 3H) f32: h_prev against [dr, dz, dnh] summed over every
+    (t, b) on cuBLAS, the operands in dg's type."""
+    ndir, t, b, hidden = out.shape
+    hp = h_prev_stream(out, lengths).to(dg.dtype)
+    dw = []
+    with fp32_matmul():
+        for d in range(ndir):
+            dhp = torch.cat([dg[d][..., :2 * hidden], dnh[d]], -1)
+            dw.append(mm_f32(hp[d].reshape(t * b, hidden).t(),
+                             dhp.reshape(t * b, 3 * hidden)))
+    return torch.stack(dw)
+
+
+class GRUScanLayer(torch.autograd.Function):
+    """Differentiable GRU recurrence on a projection: K4 with residuals
+    forward, K5 backward.
+
+    forward(xp, b_ih, w_hh, b_hh, lengths) -> (D, T, B, H) f32. xp is in
+    the operand type; w_hh, b_ih and b_hh in f32 (the kernel takes w_hh
+    rounded to the operand type). The backward returns dxp = dg in the
+    operand type, db_ih, dW_hh (f32) and db_hh, as ``_bigru_bwd_rule``."""
+
+    @staticmethod
+    def forward(ctx, xp, b_ih, w_hh, b_hh, lengths):
+        w_op = w_hh.to(xp.dtype)
+        out, g, hn = gru_scan(xp, b_ih, w_op, b_hh, lengths, residuals=True)
+        ctx.save_for_backward(w_op, out, g, hn, lengths)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        w_op, out, g, hn, lengths = ctx.saved_tensors
+        dg, dnh, dbi, dbh = gru_bwd(dout.float().contiguous(), g, hn, out,
+                                    w_op, lengths)
+        return dg, dbi, _dw_hh(out, dg, dnh, lengths), dbh, None

@@ -1,5 +1,6 @@
 """Wrappers of the LSTM layer kernels (``csrc/lstm_fwd.cu``,
-``csrc/lstm_bwd.cu``) and the autograd Function that ties them together.
+``csrc/lstm_scan.cu``, ``csrc/lstm_bwd.cu``) and the autograd Functions
+that tie them together.
 
 ``lstm_layer`` replaces ``deepspeech_tpu/ops/pallas/rnn_fused.py``
 (``_lstm_fused_fwd_kernel`` via ``bilstm_layer_pallas`` /
@@ -8,9 +9,14 @@ inference, which writes only h, and training (``residuals=True``), which
 also returns the cell stream c in f32 and the activated gates (i, f, g, o)
 in the operand type. ``lstm_bwd`` replaces
 ``deepspeech_tpu/ops/pallas/rnn_kernel.py`` (``_lstm_bwd_kernel`` via
-``_lstm_bwd``). For CPU tensors each wrapper runs its plain PyTorch twin
-beside it (``plain``, ``plain_bwd``); for CUDA tensors it launches the
-kernel or raises.
+``_lstm_bwd``). ``lstm_scan`` (K6) replaces ``rnn_kernel.py``
+(``_lstm_fwd_kernel`` via ``bilstm_scan_pallas`` / ``lstm_scan_pallas``):
+the same recurrence on a projection computed outside and rounded to the
+operand type, for the layers ``route.fused_route`` sends there; its
+inference variant writes h only, where the TPU kernel also writes c. For
+CPU tensors each wrapper runs its plain PyTorch twin beside it (``plain``,
+``plain_scan``, ``plain_bwd``); for CUDA tensors it launches the kernel or
+raises.
 
 Semantics: time-major (T, B, F) layout, torch gate order i, f, g, o, f32
 state (h and c) and f32 gates. With bf16 operands every product
@@ -25,6 +31,10 @@ are zero, and the backward ignores the output grads there.
 forward, then K7 for the recurrence's gradient and cuBLAS for the large
 products dW_hh, dW_ih and dx (``rnn_kernel.py:834-846``,
 ``rnn_fused.py:_proj_grads``), as the JAX package leaves them to XLA.
+``LSTMScanLayer`` is K6's: K6 with residuals forward, K7 backward, and the
+gradients of xp, b_ih, W_hh and b_hh (``_bilstm_bwd_rule``,
+``rnn_kernel.py:864-867``); dx and dW_ih come from autograd through the
+projection outside.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import build
 from deepspeech_tpu_torch.ops.cuda.recurrence import (check_layer,
+                                                      check_scan,
                                                       h_prev_stream,
                                                       mm_f32, same_device,
                                                       to_time_order,
@@ -45,11 +56,14 @@ from deepspeech_tpu_torch.ops.cuda.recurrence import (check_layer,
 
 launches = 0      # lstm_fwd launches (one per layer call), both variants
 res_launches = 0  # of those, the training variant's (residuals written)
+scan_launches = 0      # lstm_scan launches (K6, one per layer call)
+scan_res_launches = 0  # of those, the training variant's
 bwd_launches = 0  # lstm_bwd launches (one per layer backward)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FWD = {torch.float32: "lstm_fwd_f32", torch.bfloat16: "lstm_fwd_bf16"}
+_SCAN = {torch.float32: "lstm_scan_f32", torch.bfloat16: "lstm_scan_bf16"}
 _BWD = {torch.float32: "lstm_bwd_f32", torch.bfloat16: "lstm_bwd_bf16"}
 
 
@@ -58,6 +72,15 @@ def _fwd_kernel():
     lib = build.load("lstm_fwd")
     for name in _FWD.values():
         getattr(lib, name).argtypes = [_P] * 11 + [_I] * 5 + [_P]
+        getattr(lib, name).restype = _I
+    return lib
+
+
+@functools.cache
+def _scan_kernel():
+    lib = build.load("lstm_scan")
+    for name in _SCAN.values():
+        getattr(lib, name).argtypes = [_P] * 9 + [_I] * 4 + [_P]
         getattr(lib, name).restype = _I
     return lib
 
@@ -81,19 +104,33 @@ def plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
 
     x: (T, B, F); w_ih: (D, F, 4H); w_hh: (D, H, 4H), all in the operand
     type (float32 or bfloat16); b_ih, b_hh: (D, 4H); lengths: (B,).
-    Direction 1, when present, runs backward in time."""
-    ndir, hidden = w_hh.shape[0], w_hh.shape[1]
-    t, b = x.shape[0], x.shape[1]
-    lengths = lengths.to(x.device).clamp(max=t)
+    Direction 1, when present, runs backward in time. The projection
+    stays f32."""
     with fp32_matmul():
         xp = torch.einsum("tbf,dfg->dtbg", x.float(), w_ih.float())
-    xp = xp + b_ih.float()[:, None, None, :]
+    return plain_scan(xp, b_ih, w_hh, b_hh, lengths, residuals)
+
+
+def plain_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
+               b_hh: torch.Tensor, lengths: torch.Tensor,
+               residuals: bool = False):
+    """LSTM recurrence on a projection -> (D, T, B, H) f32, zero at steps
+    past each row's length; with ``residuals`` also c (D, T, B, H) f32 and
+    the activated gates (D, T, B, 4H) in w_hh's type, zero there too.
+
+    xp: (D, T, B, 4H), x @ W_ih without bias, in time order for both
+    directions; w_hh: (D, H, 4H) in the operand type; b_ih, b_hh: (D, 4H);
+    lengths: (B,). xp is widened to f32 and b_ih added there."""
+    ndir, t, b = xp.shape[:3]
+    hidden = w_hh.shape[1]
+    lengths = lengths.to(xp.device).clamp(max=t)
+    xp = xp.float() + b_ih.float()[:, None, None, :]
     idx = walk_index(lengths, t)
     xp = to_time_order(xp, idx)  # the gather is its own inverse
     valid = valid_mask(lengths, t)
     w32 = w_hh.float()
     bh = b_hh.float()[:, None, :]
-    h = torch.zeros((ndir, b, hidden), dtype=torch.float32, device=x.device)
+    h = torch.zeros((ndir, b, hidden), dtype=torch.float32, device=xp.device)
     c = torch.zeros_like(h)
     outs, cells, gates = [], [], []
     for s in range(t):
@@ -117,7 +154,7 @@ def plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     if not residuals:
         return out
     cs = to_time_order(torch.stack(cells, dim=1), idx)
-    gs = to_time_order(torch.stack(gates, dim=1), idx).to(x.dtype)
+    gs = to_time_order(torch.stack(gates, dim=1), idx).to(w_hh.dtype)
     return out, cs, gs
 
 
@@ -167,6 +204,51 @@ def lstm_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     if not residuals:
         return out
     res_launches += 1
+    return out, cells, gates
+
+
+def lstm_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
+              b_hh: torch.Tensor, lengths: torch.Tensor,
+              residuals: bool = False):
+    """K6: LSTM recurrence on a projection -> (D, T, B, H) f32, zero past
+    each row's length; with ``residuals`` -> (out, c, g) for K7.
+
+    xp (D, T, B, 4H) and w_hh (D, H, 4H) share the operand type (float32
+    or bfloat16); b_ih, b_hh (D, 4H) f32; lengths (B,)."""
+    if xp.device.type == "cpu":
+        return plain_scan(xp, b_ih, w_hh, b_hh, lengths, residuals)
+    if xp.device.type != "cuda":
+        raise ValueError(f"lstm_scan: unsupported device {xp.device}")
+    dt, dev = xp.dtype, xp.device
+    ndir, t, b, hidden = check_scan("lstm_scan", 4, tuple(_SCAN), xp, b_ih,
+                                    w_hh, b_hh, lengths)
+    lib = _scan_kernel()
+    xp, w_hh = xp.contiguous(), w_hh.contiguous()
+    b_ih = b_ih.float().contiguous()
+    b_hh = b_hh.float().contiguous()
+    lens = lengths.to(torch.int32).clamp(max=t).contiguous()
+    # h ping-pongs between [0] and [1]; [2] holds c
+    state = torch.empty((3, ndir, b, hidden), dtype=torch.float32, device=dev)
+    out = torch.empty((ndir, t, b, hidden), dtype=torch.float32, device=dev)
+    cells = gates = None
+    if residuals:
+        cells = torch.empty((ndir, t, b, hidden), dtype=torch.float32,
+                            device=dev)
+        gates = torch.empty((ndir, t, b, 4 * hidden), dtype=dt, device=dev)
+    fn = getattr(lib, _SCAN[dt])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = fn(xp.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(),
+                  b_hh.data_ptr(), lens.data_ptr(), state.data_ptr(),
+                  out.data_ptr(), cells.data_ptr() if residuals else None,
+                  gates.data_ptr() if residuals else None, t, b, hidden,
+                  ndir, stream)
+    build.check(lib, code, "lstm_scan kernel")
+    global scan_launches, scan_res_launches
+    scan_launches += 1
+    if not residuals:
+        return out
+    scan_res_launches += 1
     return out, cells, gates
 
 
@@ -288,17 +370,50 @@ class LSTMLayer(torch.autograd.Function):
         ndir, t, b, hidden = out.shape
         dt = x.dtype
         dg, db = lstm_bwd(dout.float().contiguous(), g, c, w_op, lengths)
-        hp = h_prev_stream(out, lengths).to(dt)
         x2 = x.reshape(t * b, -1)
         dx = 0.0
-        dw_hh, dw_ih = [], []
+        dw_ih = []
         with fp32_matmul():
             for d in range(ndir):
                 dg2 = dg[d].reshape(t * b, 4 * hidden)
-                dw_hh.append(mm_f32(hp[d].reshape(t * b, hidden).t(), dg2))
                 dx = dx + mm_f32(dg2, w_ih[d].t())
                 dw_ih.append(mm_f32(x2.t(), dg2))
         dx = dx.reshape(x.shape).to(dt)
         # two tensors: autograd may keep each as a .grad and add into it
         return (dx, torch.stack(dw_ih).to(w_ih.dtype), db,
-                torch.stack(dw_hh), db.clone(), None)
+                _dw_hh(out, dg, lengths), db.clone(), None)
+
+
+def _dw_hh(out: torch.Tensor, dg: torch.Tensor,
+           lengths: torch.Tensor) -> torch.Tensor:
+    """dW_hh (D, H, 4H) f32: h_prev against dg summed over every (t, b) on
+    cuBLAS, the operands in dg's type."""
+    ndir, t, b, hidden = out.shape
+    hp = h_prev_stream(out, lengths).to(dg.dtype)
+    with fp32_matmul():
+        return torch.stack([mm_f32(hp[d].reshape(t * b, hidden).t(),
+                                   dg[d].reshape(t * b, 4 * hidden))
+                            for d in range(ndir)])
+
+
+class LSTMScanLayer(torch.autograd.Function):
+    """Differentiable LSTM recurrence on a projection: K6 with residuals
+    forward, K7 backward.
+
+    forward(xp, b_ih, w_hh, b_hh, lengths) -> (D, T, B, H) f32. xp is in
+    the operand type; w_hh, b_ih and b_hh in f32 (the kernel takes w_hh
+    rounded to the operand type). The backward returns dxp = dg in the
+    operand type, db_ih, dW_hh (f32) and db_hh, as ``_bilstm_bwd_rule``."""
+
+    @staticmethod
+    def forward(ctx, xp, b_ih, w_hh, b_hh, lengths):
+        w_op = w_hh.to(xp.dtype)
+        out, c, g = lstm_scan(xp, b_ih, w_op, b_hh, lengths, residuals=True)
+        ctx.save_for_backward(w_op, out, c, g, lengths)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        w_op, out, c, g, lengths = ctx.saved_tensors
+        dg, db = lstm_bwd(dout.float().contiguous(), g, c, w_op, lengths)
+        return dg, db, _dw_hh(out, dg, lengths), db.clone(), None

@@ -80,6 +80,32 @@ def check_layer(where: str, gates: int, dtypes: tuple, x: torch.Tensor,
     return t, b, f_in, ndir, hidden
 
 
+def check_scan(where: str, gates: int, dtypes: tuple, xp: torch.Tensor,
+               b_ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+               lengths: torch.Tensor) -> tuple[int, int, int, int]:
+    """Check a recurrence kernel's arguments -> (D, T, B, H).
+
+    xp (D, T, B, G*H) and w_hh (D, H, G*H) share one operand type out of
+    ``dtypes``; b_ih, b_hh (D, G*H); lengths (B,); D is 1 or 2; all on
+    xp's device."""
+    dt = xp.dtype
+    if dt not in dtypes or w_hh.dtype != dt:
+        raise TypeError(f"{where} kernel takes xp and w_hh both float32 or "
+                        f"both bfloat16, got {xp.dtype}, {w_hh.dtype}")
+    ndir, t, b, g = xp.shape
+    hidden = w_hh.shape[1]
+    if (g != gates * hidden or w_hh.shape != (ndir, hidden, g)
+            or b_ih.shape != (ndir, g) or b_hh.shape != (ndir, g)
+            or lengths.shape != (b,) or ndir not in (1, 2)):
+        raise ValueError(f"{where}: inconsistent shapes "
+                         f"xp {tuple(xp.shape)} w_hh {tuple(w_hh.shape)} "
+                         f"b_ih {tuple(b_ih.shape)} b_hh {tuple(b_hh.shape)} "
+                         f"lengths {tuple(lengths.shape)}")
+    same_device(where, xp.device, b_ih=b_ih, w_hh=w_hh, b_hh=b_hh,
+                lengths=lengths)
+    return ndir, t, b, hidden
+
+
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with f32 sums and an f32 result, operands in their own type
     (bf16 products are exact in f32)."""

@@ -2,13 +2,19 @@
 
 ``rnn_scan`` runs each GRU or LSTM layer through the kernel wrappers of
 ``ops/cuda/gru.py`` and ``ops/cuda/lstm.py``: the plain PyTorch versions for
-CPU tensors, the CUDA kernels for CUDA tensors. When a gradient is needed
-(grad mode on and any input requires grad) it goes through ``GRULayer`` or
-``LSTMLayer``, the autograd Functions of the training forward (with
-residuals) and the backward kernel; otherwise it calls the residual-free
-forward. The vanilla ``rnn`` cell has no TPU kernel in the JAX package (it
-runs there as an XLA scan), so ``rnn_cell_scan`` is plain PyTorch on every
-device, differentiated by autograd.
+CPU tensors, the CUDA kernels for CUDA tensors. The route is the JAX
+package's (``ops/cuda/route.py``): where ``fused_route`` holds, the
+projection-fused forward (K2, K3) with an f32 projection; elsewhere (the
+wide layers, or ``DEEPSPEECH_TPU_NO_FUSED`` set) the projection x @ W_ih
+per direction on cuBLAS, f32 sums rounded once to the operand type, then
+the recurrence on it (K4, K6). When a gradient is needed (grad mode on and
+any input requires grad) it goes through the layer's autograd Function
+(``GRULayer``, ``LSTMLayer``, ``GRUScanLayer``, ``LSTMScanLayer``) of the
+training forward (with residuals) and the backward kernel; otherwise it
+calls the residual-free forward. The vanilla ``rnn`` cell has no TPU
+kernel in the JAX package (it runs there as an XLA scan), so
+``rnn_cell_scan`` is plain PyTorch on every device, differentiated by
+autograd.
 """
 
 from __future__ import annotations
@@ -20,11 +26,27 @@ from deepspeech_tpu_torch.ops.cuda import gru as gru_kernel
 from deepspeech_tpu_torch.ops.cuda import lstm as lstm_kernel
 from deepspeech_tpu_torch.ops.cuda.recurrence import (to_time_order,
                                                       valid_mask, walk_index)
+from deepspeech_tpu_torch.ops.cuda.route import fused_route
 
 CELL_GATES = {"gru": 3, "lstm": 4, "rnn": 1}
-# cell -> (wrapper module, its autograd Function, its forward's name)
-_KERNELS = {"gru": (gru_kernel, gru_kernel.GRULayer, "gru_layer"),
-            "lstm": (lstm_kernel, lstm_kernel.LSTMLayer, "lstm_layer")}
+# cell -> (wrapper module, the fused layer's autograd Function and forward,
+# the recurrence's autograd Function and forward)
+_KERNELS = {"gru": (gru_kernel, gru_kernel.GRULayer, "gru_layer",
+                    gru_kernel.GRUScanLayer, "gru_scan"),
+            "lstm": (lstm_kernel, lstm_kernel.LSTMLayer, "lstm_layer",
+                     lstm_kernel.LSTMScanLayer, "lstm_scan")}
+
+
+def project(x: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
+    """(T, B, F) x (D, F, G) -> (D, T, B, G) in x's type: the wide route's
+    projection (JAX ``ops/rnn.py:168-170``), f32 sums rounded once. On the
+    card one cuBLAS product in the operand type; on the CPU in f32, then
+    rounded."""
+    with fp32_matmul():
+        if x.is_cuda:
+            return torch.einsum("tbf,dfg->dtbg", x, w_ih)
+        return torch.einsum("tbf,dfg->dtbg", x.float(),
+                            w_ih.float()).to(x.dtype)
 
 
 def rnn_cell_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
@@ -82,13 +104,25 @@ def rnn_scan(x: torch.Tensor, lengths: torch.Tensor, w_ih: torch.Tensor,
     if cell == "rnn":
         out = rnn_cell_scan(x, lengths, w_ih, b_ih, w_hh, b_hh, dt)
         return out[0] + out[1] if bidirectional else out[0]
-    module, function, forward = _KERNELS[cell]
+    module, layer_fn, layer, scan_fn, scan = _KERNELS[cell]
     params = (x, w_ih, b_ih, w_hh, b_hh)
-    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-        out = function.apply(x.to(dt), w_ih.to(dt), b_ih.float(),
-                             w_hh.float(), b_hh.float(), lengths)
+    grad = torch.is_grad_enabled() and any(p.requires_grad for p in params)
+    hidden = w_hh.shape[1]
+    if fused_route(x.shape[2], hidden, CELL_GATES[cell], x.shape[1], ndir,
+                   dt):
+        if grad:
+            out = layer_fn.apply(x.to(dt), w_ih.to(dt), b_ih.float(),
+                                 w_hh.float(), b_hh.float(), lengths)
+        else:
+            out = getattr(module, layer)(x.to(dt), w_ih.to(dt), b_ih.float(),
+                                         w_hh.to(dt), b_hh.float(), lengths)
     else:
-        out = getattr(module, forward)(x.to(dt), w_ih.to(dt), b_ih.float(),
-                                       w_hh.to(dt), b_hh.float(), lengths)
+        xp = project(x.to(dt), w_ih.to(dt))
+        if grad:
+            out = scan_fn.apply(xp, b_ih.float(), w_hh.float(),
+                                b_hh.float(), lengths)
+        else:
+            out = getattr(module, scan)(xp, b_ih.float(), w_hh.to(dt),
+                                        b_hh.float(), lengths)
     # zero at padded steps
     return out[0] + out[1] if bidirectional else out[0]

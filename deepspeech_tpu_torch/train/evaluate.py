@@ -1,11 +1,13 @@
 """Evaluation loop: greedy loss, WER and CER over a loader (the JAX
-package's ``train/evaluate.py``, single device, no curriculum).
+package's ``train/evaluate.py``, single device).
 
 Per-utterance WER/CER via ``get_cer_wer``, aggregated two ways
 (reference test.py:197-209): token-weighted (sum of distances / sum of
 reference lengths) and averaged over utterances; the loss is the mean of
 the batch losses weighted by their real rows (train.py:400), with the
-reporting clamp of a non-finite loss to 1000 (train.py:359-362).
+reporting clamp of a non-finite loss to 1000 (train.py:359-362). With
+``update_curriculum`` each scored utterance's CER and WER go into
+``dataset``'s curriculum store (reference train.py:376-381).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ def decode_batch_greedy(decoder, metrics: dict, batch: dict, labels):
     return results
 
 
-def evaluate(loader, eval_step, decoder, labels, to_device) -> dict:
+def evaluate(loader, eval_step, decoder, labels, to_device, dataset=None,
+             update_curriculum: bool = False) -> dict:
     """Run ``eval_step`` over ``loader`` (host numpy batches, moved with
     ``to_device``) -> loss, wer, cer, utt_wer, utt_cer, num_utterances."""
     loss_sum = loss_count = 0.0
@@ -49,8 +52,11 @@ def evaluate(loader, eval_step, decoder, labels, to_device) -> dict:
             loss = 1000.0
         loss_sum += loss * n_valid
         loss_count += n_valid
-        for _, _, w, c, wr, cr in decode_batch_greedy(decoder, metrics,
-                                                      batch, labels):
+        results = decode_batch_greedy(decoder, metrics, batch, labels)
+        for i, (transcript, reference, w, c, wr, cr) in enumerate(results):
+            if update_curriculum and dataset is not None:
+                dataset.update_curriculum(batch["paths"][i], reference,
+                                          transcript, None, c / cr, w / wr)
             total += (w, c, wr, cr)
             utt_wer += w / wr
             utt_cer += c / cr

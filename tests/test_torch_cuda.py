@@ -388,3 +388,119 @@ def test_device_beam_through_k10_matches_plain(dev, lm, tmp_path):
         topk.topk_total_order = kernel
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+SCAN_SHAPES = [(7, 1, 32), (29, 3, 50), (33, 70, 800), (17, 64, 1600)]
+
+
+def _scan_case(dev, dtype, ndir, t, b, h, gates, seed):
+    """xp rounded to the operand type, as the wide route's projection."""
+    rng = np.random.default_rng(seed)
+    s = 1.0 / np.sqrt(h)
+
+    def u(*shape, lo=-s, hi=s):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32)).to(dev)
+
+    xp = u(ndir, t, b, gates * h, lo=-1, hi=1)
+    w_hh, b_ih, b_hh = u(ndir, h, gates * h), u(ndir, gates * h), \
+        u(ndir, gates * h)
+    lens = torch.from_numpy(np.linspace(t, max(1, t // 3), b).astype(
+        np.int64)).to(dev)
+    return xp.to(dtype), b_ih, w_hh.to(dtype), b_hh, lens
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("t,b,h", SCAN_SHAPES)
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_scan_kernel_matches_plain(dev, cell, dtype, tol, ndir, t, b, h):
+    """K4 and K6, both variants, against plain_scan with the tolerances of
+    K2 and K3 (the LSTM's c relative to its largest value)."""
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+
+    mod = gru if cell == "gru" else lstm
+    scan = gru.gru_scan if cell == "gru" else lstm.lstm_scan
+    args = _scan_case(dev, dtype, ndir, t, b, h, 3 if cell == "gru" else 4,
+                      t + b + 5)
+    before = (mod.scan_launches, mod.scan_res_launches, mod.launches)
+    got = scan(*args)
+    res = scan(*args, residuals=True)
+    assert (mod.scan_launches, mod.scan_res_launches, mod.launches) == (
+        before[0] + 2, before[1] + 1, before[2])
+    ref = mod.plain_scan(*args, residuals=True)
+    torch.testing.assert_close(got, ref[0], rtol=0, atol=tol)
+    for name, a, w in zip(("h", "r1", "r2"), res, ref):
+        assert a.dtype == w.dtype, name
+        scale = (max(1.0, w.abs().max().item())
+                 if a.dtype == torch.float32 and name == "r1" else 1.0)
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                   atol=tol * scale)
+    pad = torch.arange(t, device=dev)[:, None] >= args[-1][None, :]
+    for a in (got, *res):
+        assert not a[:, pad].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_scan_layer_grads_match_plain(dev, cell, dtype):
+    """GRUScanLayer / LSTMScanLayer (K4 or K6 forward, K5 or K7 backward)
+    against the same Function on the plain twins: the grads of xp, b_ih,
+    W_hh and b_hh at the backward kernels' tolerances x max(1, max|ref|)."""
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+
+    mod = gru if cell == "gru" else lstm
+    fn = gru.GRUScanLayer if cell == "gru" else lstm.LSTMScanLayer
+    names = ("gru_scan", "gru_bwd") if cell == "gru" else ("lstm_scan",
+                                                           "lstm_bwd")
+    xp, b_ih, w_hh, b_hh, lens = _scan_case(dev, dtype, 2, 41, 20, 96,
+                                            3 if cell == "gru" else 4, 7)
+    dout = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 41, 20, 96)).astype(np.float32)).to(dev)
+
+    def grads():
+        ins = [a.clone().requires_grad_(True)
+               for a in (xp, b_ih, w_hh.float(), b_hh)]
+        out = fn.apply(*ins, lens)
+        return torch.autograd.grad(out, ins, dout)
+
+    got = grads()
+    saved = [getattr(mod, n) for n in names]
+    setattr(mod, names[0], mod.plain_scan)
+    setattr(mod, names[1], mod.plain_bwd)
+    try:
+        want = grads()
+    finally:
+        for n, f in zip(names, saved):
+            setattr(mod, n, f)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, w in zip(("xp", "b_ih", "w_hh", "b_hh"), got, want):
+        assert a.dtype == w.dtype, name
+        scale = max(1.0, w.float().abs().max().item())
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_wide_route_on_the_card(dev, cell, monkeypatch):
+    """rnn_scan on the wide route (DEEPSPEECH_TPU_NO_FUSED) launches K4 or
+    K6 and no fused kernel, and matches the same layer on the CPU."""
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+    from deepspeech_tpu_torch.ops.rnn import rnn_scan
+
+    monkeypatch.setenv("DEEPSPEECH_TPU_NO_FUSED", "1")
+    mod = gru if cell == "gru" else lstm
+    g = 3 if cell == "gru" else 4
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((23, 5, 40)).astype(np.float32))
+    lens = torch.tensor([23, 20, 11, 5, 1])
+    w = [torch.from_numpy(rng.uniform(-0.2, 0.2, s).astype(np.float32))
+         for s in ((2, 40, g * 64), (2, g * 64), (2, 64, g * 64),
+                   (2, g * 64))]
+    before = (mod.scan_launches, mod.launches)
+    got = rnn_scan(x.to(dev), lens.to(dev), *(a.to(dev) for a in w),
+                   cell=cell, compute_dtype=torch.bfloat16)
+    assert (mod.scan_launches, mod.launches) == (before[0] + 1, before[1])
+    ref = rnn_scan(x, lens, *w, cell=cell, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-2)

@@ -217,3 +217,28 @@ def test_topk_wrapper_uses_plain_version_on_cpu(monkeypatch):
     assert len(calls) == 1 + 6 and topk.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         topk.topk_total_order(torch.zeros(2, 3, device="meta"), 2)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_scan_wrappers_use_plain_versions_on_cpu(monkeypatch, cell):
+    """K4 and K6 (both variants) take plain_scan for CPU tensors, count no
+    launch there, and raise on a device that is neither CPU nor CUDA."""
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+
+    mod, g = (gru, 3) if cell == "gru" else (lstm, 4)
+    scan = gru.gru_scan if cell == "gru" else lstm.lstm_scan
+    calls = []
+    fn = mod.plain_scan
+    monkeypatch.setattr(mod, "plain_scan", lambda *a, **k: (
+        calls.append(1), fn(*a, **k))[1])
+    t, b, h = 5, 2, 3
+    xp, w_hh = torch.randn(2, t, b, g * h), torch.randn(2, h, g * h)
+    bias, lens = torch.zeros(2, g * h), torch.tensor([5, 3])
+    before = (mod.scan_launches, mod.scan_res_launches)
+    assert scan(xp, bias, w_hh, bias, lens).shape == (2, t, b, h)
+    assert len(scan(xp, bias, w_hh, bias, lens, residuals=True)) == 3
+    assert len(calls) == 2
+    assert (mod.scan_launches, mod.scan_res_launches) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        scan(xp.to("meta"), bias, w_hh, bias, lens)
+    assert len(calls) == 2

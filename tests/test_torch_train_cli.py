@@ -125,8 +125,10 @@ def test_cer_wer_match_jax(hyp, ref):
     assert get_cer_wer(hyp, ref) == jax_get_cer_wer(hyp, ref)
 
 
-@pytest.mark.parametrize("flags", [["--augment"], ["--use-curriculum"],
-                                   ["--curriculum", "c.csv"],
+@pytest.mark.parametrize("flags", [["--augment"], ["--finetune"],
+                                   ["--train-val-manifest", "v.csv"],
+                                   ["--checkpoint-per-samples", "10"],
+                                   ["--aug-prob-spect", "0.5"],
                                    ["--noise-dir", "n/"],
                                    ["--steps-per-dispatch", "2"],
                                    ["--mesh-model", "2"],
