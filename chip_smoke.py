@@ -66,11 +66,14 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    kernel), 5 steps and a profiled one;
 18. the train CLI with --rnn-type lstm, 1 epoch at full width, and one
    transcribe request on its checkpoint;
-19. K4 (gru_scan), both variants, against its plain version at the wide
-   model's width: T 376, B 64, H 1600, on the wide route's projection of
-   1600-wide inputs rounded to the operand type, unequal lengths, bf16 and
-   f32, D 2 and D 1; its time beside its bound, the plain version, the
-   wide route's whole layer (cuBLAS projection + K4) and cuDNN's nn.GRU;
+19. K4 (gru_scan), inference and training, against its plain version at
+   the wide model's width: T 376, B 64, H 1600, on the wide route's
+   projection of 1600-wide inputs rounded to the operand type, unequal
+   lengths, bf16 (one launch a step, persistent, and the rule's choice)
+   and f32, D 2 and D 1; its time a call and a step beside its bound, the
+   bf16 step's L2 floor (W_hh's and h's bytes a step over the warm W_hh's
+   read rate), each bf16 variant's time, the plain version, the wide
+   route's whole layer (cuBLAS projection + K4) and cuDNN's nn.GRU;
 20. the 6 x BiGRU-1600 model (DeepSpeech2-large, BASELINE.md config 4) at
    batch 64: the route of every layer (layer 0 on K2, layers 1-5 on K4),
    the bf16 forward's launches and logits against the plain versions, then
@@ -672,14 +675,38 @@ def route_log(torch, cell, hidden, batch):
         + ", ".join(routes))
 
 
+def l2_floor(torch, w_hh, gates: int, b: int) -> tuple[float, float]:
+    """The bf16 K4/K6 step's L2 floor: the bytes a step brings to the SMs
+    (W_hh packed once, and the bf16 h copy once for each block) over the
+    read rate of the warm packed W_hh (a cuBLAS matrix-vector product over
+    it, device time of 50 calls in a row), timed here -> (floor ms, rate
+    bytes/s)."""
+    from deepspeech_tpu_torch.ops.cuda.recurrence import (MMA_TJ,
+                                                          h_copy_shape,
+                                                          pack_w_hh)
+
+    ndir, h = w_hh.shape[:2]
+    w_pk = pack_w_hh(w_hh, gates)
+    rows = w_pk.view(-1, 1024)
+    ones = torch.ones(1024, dtype=w_pk.dtype, device=w_pk.device)
+    ms = device_ms(lambda: torch.mv(rows, ones))
+    rate = w_pk.numel() * 2 / (ms * 1e-3)
+    hb = h_copy_shape(ndir, b, h)
+    step_bytes = (w_pk.numel() * 2
+                  + ndir * -(-h // MMA_TJ) * hb[2] * hb[3] * 2)
+    return step_bytes / rate * 1e3, rate
+
+
 def phase_scan(torch, results, cell):
-    """K4 or K6, both variants, against plain_scan at the wide model's
-    width (T 376, H 1600; B 64 for the GRU, 20 for the LSTM; unequal
-    lengths) on the wide route's projection of F-wide inputs, rounded to
-    the operand type; bf16 and f32, D 2 and D 1. Its time beside its bound,
-    the plain version and cuDNN's bidirectional layer with the same weights
-    (a yardstick that includes the projection, so the wide route's whole
-    layer, projection + kernel, is timed too)."""
+    """K4 or K6 against plain_scan at the wide model's width (T 376,
+    H 1600; B 64 for the GRU, 20 for the LSTM; unequal lengths) on the wide
+    route's projection of F-wide inputs, rounded to the operand type; bf16
+    (one launch a step, persistent, and the rule's choice) and f32, D 2 and
+    D 1, inference and training. Its time a call and a step beside its
+    bound, the bf16 step's L2 floor, the plain version and cuDNN's
+    bidirectional layer with the same weights (a yardstick that includes
+    the projection, so the wide route's whole layer, projection + kernel,
+    is timed too)."""
     from deepspeech_tpu_torch.ops.rnn import project
 
     mod, _ = cell_kernels(cell)
@@ -698,31 +725,42 @@ def phase_scan(torch, results, cell):
             name = str(dt).split(".")[-1]
             tol = tol_of[name]
             x, w_ih, w_hh = x32.to(dt), w_ih32.to(dt), w_hh32.to(dt)
+            variants = (("step", "persistent", "auto")
+                        if dt == torch.bfloat16 else ("auto",))
             for ndir in (1, 2):
                 args = (project(x, w_ih[:ndir]), b_ih[:ndir], w_hh[:ndir],
                         b_hh[:ndir], lens)
-                got = scan(*args)
-                res = scan(*args, residuals=True)
                 ref = mod.plain_scan(*args, residuals=True)
-                torch.cuda.synchronize()
-                err = (got - ref[0]).abs().max().item()
-                errs = [(e, sc if k == "c" else 1.0) for k, (e, sc) in
-                        zip(names, (max_err(a, r) for a, r in zip(res, ref)))]
-                log(f"{spec['name']} {spec['kernel']} {name} D={ndir} "
-                    f"F={f_in}: max_abs_err {err:.3e}; with residuals "
-                    + " ".join(f"{k} {e:.3e}" for k, (e, _) in
-                               zip(names, errs))
-                    + f" (tolerance {tol}"
-                    + (", c x max(1, max|c|))" if cell == "lstm" else ")"))
-                if not (err <= tol and all(e <= tol * sc for e, sc in errs)):
-                    raise AssertionError(f"{spec['kernel']} {name} D={ndir} "
-                                         f"F={f_in} disagrees with its plain "
-                                         f"version: {err} {errs}")
+                for variant in variants:
+                    got = scan(*args, variant=variant)
+                    res = scan(*args, residuals=True, variant=variant)
+                    torch.cuda.synchronize()
+                    err = (got - ref[0]).abs().max().item()
+                    errs = [(e, sc if k == "c" else 1.0) for k, (e, sc) in
+                            zip(names, (max_err(a, r)
+                                        for a, r in zip(res, ref)))]
+                    log(f"{spec['name']} {spec['kernel']} {name} {variant} "
+                        f"D={ndir} F={f_in}: max_abs_err {err:.3e}; with "
+                        "residuals "
+                        + " ".join(f"{k} {e:.3e}" for k, (e, _) in
+                                   zip(names, errs))
+                        + f" (tolerance {tol}"
+                        + (", c x max(1, max|c|))" if cell == "lstm"
+                           else ")"))
+                    if not (err <= tol
+                            and all(e <= tol * sc for e, sc in errs)):
+                        raise AssertionError(
+                            f"{spec['kernel']} {name} {variant} D={ndir} "
+                            f"F={f_in} disagrees with its plain version: "
+                            f"{err} {errs}")
             if f_in != WIDE:
                 continue
             # D = 2 from here on (the last args of the loop above)
             ms = time_ms(lambda: scan(*args), reps=5)
             ms_res = time_ms(lambda: scan(*args, residuals=True), reps=5)
+            by_variant = {v: time_ms(lambda: scan(*args, residuals=True,
+                                                  variant=v), reps=5)
+                          for v in variants if v != "auto"}
             plain_ms = time_ms(lambda: mod.plain_scan(*args, residuals=True),
                                reps=2, warmup=1)
             layer_ms = time_ms(lambda: scan(project(x, w_ih), *args[1:]),
@@ -746,14 +784,25 @@ def phase_scan(torch, results, cell):
             peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
             bound_ms, by = bound(flops, peak, nbytes)
             bound_res_ms, by_res = bound(flops, peak, nbytes + res_bytes)
+            if dt == torch.bfloat16:
+                floor_ms, rate = l2_floor(torch, w_hh, gates, b)
+                log(f"{spec['name']} {spec['kernel']} bf16 variants (with "
+                    "residuals): "
+                    + ", ".join(f"{v} {m:.3f} ms ({m / t * 1e3:.2f} us a "
+                                f"step)" for v, m in by_variant.items())
+                    + f"; per-step L2 floor {floor_ms * 1e3:.2f} us (the "
+                    f"step's W_hh and h bytes at the warm W_hh's read rate "
+                    f"{rate / 1e12:.2f} TB/s), {floor_ms * t:.3f} ms a "
+                    "call")
             log(f"{spec['name']} {spec['kernel']} {name} D=2 (T {t}, B {b}, "
-                f"H {h}): {ms:.3f} ms ({ms / t * 1e3:.1f} us a step), with "
-                f"residuals {ms_res:.3f} ms, plain (with residuals) "
-                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}), with "
-                f"residuals {bound_res_ms:.4f} ms ({by_res}); the wide "
-                f"route's layer (projection F={f_in} on cuBLAS + "
-                f"{spec['name']}) {layer_ms:.3f} ms; cuDNN {cell.upper()} "
-                f"(bidirectional, projection included) {lib_ms:.3f} ms")
+                f"H {h}): {ms:.3f} ms ({ms / t * 1e3:.2f} us a step), with "
+                f"residuals {ms_res:.3f} ms ({ms_res / t * 1e3:.2f} us a "
+                f"step), plain (with residuals) {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({by}), with residuals "
+                f"{bound_res_ms:.4f} ms ({by_res}); the wide route's layer "
+                f"(projection F={f_in} on cuBLAS + {spec['name']}) "
+                f"{layer_ms:.3f} ms; cuDNN {cell.upper()} (bidirectional, "
+                f"projection included) {lib_ms:.3f} ms")
             if dt == torch.bfloat16:  # the train path runs this variant
                 results[spec["kernel"]] = dict(
                     route="cuda", max_abs_err=max([err] + [e for e, _ in

@@ -21,10 +21,15 @@ Checkpoints are the JAX package's zip container: both packages'
 ``transcribe`` load them.
 
 Not ported yet (each raises SystemExit naming ROADMAP.md): augmentation,
-``--steps-per-dispatch`` > 1, ``--mesh-model`` > 1 and multi-host runs,
+``--steps-per-dispatch`` > 1, ``--mesh-model`` > 1,
 resuming (``--continue-from``, ``--finetune``), ``--profile-dir``,
-``--tensorboard``, ``--visdom``, ``--train-val-manifest`` and
-``--checkpoint-per-samples``.
+``--tensorboard``, ``--visdom``, ``--log-params``, ``--train-val-manifest``,
+``--checkpoint-per-samples`` and the multi-host rendezvous (``--dist-url``,
+``--dist-init``, ``--dist-rank``, ``--dist-world-size``), each at any value
+but its default. Every other flag of the JAX CLI parses: ``--enorm`` is a
+no-op there too, the flags that act only with a refused one are accepted
+as they are, and ``--id``/``--log-dir`` name the JSONL metric log, which
+is not written yet.
 """
 
 from __future__ import annotations
@@ -89,6 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-norm", default=100, type=float,
                    help="gradient norm clip")
     p.add_argument("--learning-anneal", default=1.1, type=float)
+    p.add_argument("--checkpoint-anneal", default=1.0, type=float,
+                   help="LR anneal at each mid-epoch checkpoint (acts with "
+                        "--checkpoint-per-samples, not ported yet)")
     p.add_argument("--silent", action="store_true")
     # checkpointing
     p.add_argument("--checkpoint", action="store_true",
@@ -101,8 +109,17 @@ def build_parser() -> argparse.ArgumentParser:
     # augmentation (not ported yet)
     p.add_argument("--augment", action="store_true")
     p.add_argument("--noise-dir", default=None)
+    p.add_argument("--noise-prob", default=0.4, type=float,
+                   help="acts with --noise-dir or --device-noise")
+    p.add_argument("--noise-min", default=0.0, type=float)
+    p.add_argument("--noise-max", default=0.5, type=float)
     p.add_argument("--device-noise", action="store_true")
+    p.add_argument("--device-noise-limit", default=0.2, type=float,
+                   help="acts with --device-noise")
     p.add_argument("--aug-prob-8khz", default=0, type=float)
+    p.add_argument("--aug-type", default=0, type=int, choices=[0, 1, 2, 3],
+                   help="waveform augmentation pipeline; acts with "
+                        "--augment")
     p.add_argument("--aug-prob-spect", default=0, type=float)
     # sampling
     p.add_argument("--no-shuffle", action="store_true")
@@ -116,7 +133,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported yet")
     p.add_argument("--visdom", dest="live_html", action="store_true",
                    help="not ported yet")
+    p.add_argument("--enorm", action="store_true",
+                   help="accepted for reference-flag parity; no-op")
+    p.add_argument("--log-dir", default="visualize/deepspeech_final",
+                   help="directory of the JSONL metric log (not written "
+                        "yet)")
+    p.add_argument("--log-params", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--id", default="Deepspeech training",
+                   help="name of the JSONL metric log (not written yet)")
     p.add_argument("--profile-dir", default="", help="not ported yet")
+    p.add_argument("--profile-start", default=10, type=int,
+                   help="acts with --profile-dir")
+    p.add_argument("--profile-steps", default=5, type=int,
+                   help="acts with --profile-dir")
     p.add_argument("--seed", default=123456, type=int)
     # device / batching
     p.add_argument("--device", default="cuda",
@@ -132,10 +162,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host->device waveform format")
     p.add_argument("--max-items", default=0, type=int,
                    help="truncate manifests (debug)")
+    # multi-host rendezvous (not ported yet)
+    p.add_argument("--dist-url", default="")
+    p.add_argument("--dist-rank", "--rank", dest="dist_rank", default=-1,
+                   type=int)
+    p.add_argument("--dist-world-size", "--world-size",
+                   dest="dist_world_size", default=0, type=int)
+    p.add_argument("--dist-init", action="store_true")
     add_reference_noop_args(p)
     return p
 
 
+# (attribute, flag, what is not ported): refused at any value other than
+# the parser's default (``--dist-rank`` defaults to -1, so no truthiness)
 _NOT_PORTED = (
     ("augment", "--augment", "augmentation"),
     ("noise_dir", "--noise-dir", "augmentation"),
@@ -147,16 +186,24 @@ _NOT_PORTED = (
     ("profile_dir", "--profile-dir", "profiling"),
     ("tensorboard", "--tensorboard", "logging"),
     ("live_html", "--visdom", "logging"),
+    ("log_params", "--log-params", "logging"),
     ("train_val_manifest", "--train-val-manifest", "train-val evaluation"),
     ("checkpoint_per_samples", "--checkpoint-per-samples",
      "mid-epoch checkpoints"),
+    ("dist_url", "--dist-url", "multi-host training"),
+    ("dist_init", "--dist-init", "multi-host training"),
+    ("dist_rank", "--dist-rank", "multi-host training"),
+    ("dist_world_size", "--dist-world-size", "multi-host training"),
 )
 
 
 def check_ported(args) -> None:
-    """Refuse the flags whose paths the port has not ported yet."""
+    """Refuse the flags whose paths the port has not ported yet. The flags
+    that only act together with one of them (``--noise-prob``,
+    ``--aug-type``, ``--profile-start``, ...) are accepted as they are."""
+    parser = build_parser()
     for attr, flag, what in _NOT_PORTED:
-        if getattr(args, attr):
+        if getattr(args, attr) != parser.get_default(attr):
             raise SystemExit(f"{flag}: {what} is not ported to PyTorch yet "
                              "(see ROADMAP.md)")
     if args.steps_per_dispatch > 1:
@@ -197,6 +244,9 @@ def epoch_loader(dataset, epoch: int, args, bucket):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     check_ported(args)
+    if not args.silent:
+        print(f"--id {args.id!r}, --log-dir {args.log_dir!r}: the JSONL "
+              "metric log is not written yet (see ROADMAP.md)", flush=True)
     from deepspeech_tpu_torch.audio.features import AudioConf
     from deepspeech_tpu_torch.data import (AudioDataLoader, AudioDataset,
                                            BucketingSampler, BucketSpec)

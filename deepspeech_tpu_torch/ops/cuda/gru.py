@@ -44,8 +44,11 @@ from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import build
 from deepspeech_tpu_torch.ops.cuda.recurrence import (check_layer,
                                                       check_scan,
+                                                      h_copy_shape,
                                                       h_prev_stream,
-                                                      mm_f32, same_device,
+                                                      mm_f32, pack_w_hh,
+                                                      same_device,
+                                                      scan_variant,
                                                       to_time_order,
                                                       valid_mask,
                                                       walk_index)
@@ -75,9 +78,9 @@ def _fwd_kernel():
 @functools.cache
 def _scan_kernel():
     lib = build.load("gru_scan")
-    for name in _SCAN.values():
-        getattr(lib, name).argtypes = [_P] * 9 + [_I] * 4 + [_P]
-        getattr(lib, name).restype = _I
+    lib.gru_scan_f32.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+    lib.gru_scan_bf16.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+    lib.gru_scan_f32.restype = lib.gru_scan_bf16.restype = _I
     return lib
 
 
@@ -200,12 +203,15 @@ def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
 
 def gru_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
              b_hh: torch.Tensor, lengths: torch.Tensor,
-             residuals: bool = False):
+             residuals: bool = False, variant: str = "auto"):
     """K4: GRU recurrence on a projection -> (D, T, B, H) f32, zero past
     each row's length; with ``residuals`` -> (out, g, hn) for K5.
 
     xp (D, T, B, 3H) and w_hh (D, H, 3H) share the operand type (float32
-    or bfloat16); b_ih, b_hh (D, 3H) f32; lengths (B,)."""
+    or bfloat16); b_ih, b_hh (D, 3H) f32; lengths (B,). In bf16 the kernel
+    runs on tensor cores from W_hh packed here (``pack_w_hh``), one launch
+    a step or one persistent launch: ``variant`` "auto" (the kernel's
+    rule), "step" or "persistent"; f32 has one variant."""
     if xp.device.type == "cpu":
         return plain_scan(xp, b_ih, w_hh, b_hh, lengths, residuals)
     if xp.device.type != "cuda":
@@ -213,25 +219,40 @@ def gru_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
     dt, dev = xp.dtype, xp.device
     ndir, t, b, hidden = check_scan("gru_scan", 3, tuple(_SCAN), xp, b_ih,
                                     w_hh, b_hh, lengths)
+    mode = scan_variant(variant)
     lib = _scan_kernel()
     xp, w_hh = xp.contiguous(), w_hh.contiguous()
     b_ih = b_ih.float().contiguous()
     b_hh = b_hh.float().contiguous()
     lens = lengths.to(torch.int32).clamp(max=t).contiguous()
-    state = torch.empty((2, ndir, b, hidden), dtype=torch.float32, device=dev)
     out = torch.empty((ndir, t, b, hidden), dtype=torch.float32, device=dev)
     gates = hn = None
     if residuals:
         gates = torch.empty((ndir, t, b, 3 * hidden), dtype=dt, device=dev)
         hn = torch.empty((ndir, t, b, hidden), dtype=dt, device=dev)
-    fn = getattr(lib, _SCAN[dt])
+    res = (gates.data_ptr() if residuals else None,
+           hn.data_ptr() if residuals else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        code = fn(xp.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(),
-                  b_hh.data_ptr(), lens.data_ptr(), state.data_ptr(),
-                  out.data_ptr(), gates.data_ptr() if residuals else None,
-                  hn.data_ptr() if residuals else None, t, b, hidden, ndir,
-                  stream)
+    if dt == torch.bfloat16:
+        w_pk = pack_w_hh(w_hh, 3)
+        h = torch.empty((ndir, b, hidden), dtype=torch.float32, device=dev)
+        hb = torch.empty(h_copy_shape(ndir, b, hidden), dtype=dt,
+                         device=dev)
+        bar = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.gru_scan_bf16(
+                xp.data_ptr(), b_ih.data_ptr(), w_pk.data_ptr(),
+                b_hh.data_ptr(), lens.data_ptr(), h.data_ptr(),
+                hb.data_ptr(), bar.data_ptr(), out.data_ptr(), *res, t, b,
+                hidden, ndir, mode, stream)
+    else:
+        state = torch.empty((2, ndir, b, hidden), dtype=torch.float32,
+                            device=dev)
+        with torch.cuda.device(dev):
+            code = lib.gru_scan_f32(
+                xp.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(),
+                b_hh.data_ptr(), lens.data_ptr(), state.data_ptr(),
+                out.data_ptr(), *res, t, b, hidden, ndir, stream)
     build.check(lib, code, "gru_scan kernel")
     global scan_launches, scan_res_launches
     scan_launches += 1

@@ -48,8 +48,11 @@ from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import build
 from deepspeech_tpu_torch.ops.cuda.recurrence import (check_layer,
                                                       check_scan,
+                                                      h_copy_shape,
                                                       h_prev_stream,
-                                                      mm_f32, same_device,
+                                                      mm_f32, pack_w_hh,
+                                                      same_device,
+                                                      scan_variant,
                                                       to_time_order,
                                                       valid_mask,
                                                       walk_index)
@@ -79,9 +82,9 @@ def _fwd_kernel():
 @functools.cache
 def _scan_kernel():
     lib = build.load("lstm_scan")
-    for name in _SCAN.values():
-        getattr(lib, name).argtypes = [_P] * 9 + [_I] * 4 + [_P]
-        getattr(lib, name).restype = _I
+    lib.lstm_scan_f32.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+    lib.lstm_scan_bf16.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+    lib.lstm_scan_f32.restype = lib.lstm_scan_bf16.restype = _I
     return lib
 
 
@@ -209,12 +212,15 @@ def lstm_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
 
 def lstm_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
               b_hh: torch.Tensor, lengths: torch.Tensor,
-              residuals: bool = False):
+              residuals: bool = False, variant: str = "auto"):
     """K6: LSTM recurrence on a projection -> (D, T, B, H) f32, zero past
     each row's length; with ``residuals`` -> (out, c, g) for K7.
 
     xp (D, T, B, 4H) and w_hh (D, H, 4H) share the operand type (float32
-    or bfloat16); b_ih, b_hh (D, 4H) f32; lengths (B,)."""
+    or bfloat16); b_ih, b_hh (D, 4H) f32; lengths (B,). In bf16 the kernel
+    runs on tensor cores from W_hh packed here (``pack_w_hh``), one launch
+    a step or one persistent launch: ``variant`` "auto" (the kernel's
+    rule), "step" or "persistent"; f32 has one variant."""
     if xp.device.type == "cpu":
         return plain_scan(xp, b_ih, w_hh, b_hh, lengths, residuals)
     if xp.device.type != "cuda":
@@ -222,27 +228,43 @@ def lstm_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
     dt, dev = xp.dtype, xp.device
     ndir, t, b, hidden = check_scan("lstm_scan", 4, tuple(_SCAN), xp, b_ih,
                                     w_hh, b_hh, lengths)
+    mode = scan_variant(variant)
     lib = _scan_kernel()
     xp, w_hh = xp.contiguous(), w_hh.contiguous()
     b_ih = b_ih.float().contiguous()
     b_hh = b_hh.float().contiguous()
     lens = lengths.to(torch.int32).clamp(max=t).contiguous()
-    # h ping-pongs between [0] and [1]; [2] holds c
-    state = torch.empty((3, ndir, b, hidden), dtype=torch.float32, device=dev)
     out = torch.empty((ndir, t, b, hidden), dtype=torch.float32, device=dev)
     cells = gates = None
     if residuals:
         cells = torch.empty((ndir, t, b, hidden), dtype=torch.float32,
                             device=dev)
         gates = torch.empty((ndir, t, b, 4 * hidden), dtype=dt, device=dev)
-    fn = getattr(lib, _SCAN[dt])
+    res = (cells.data_ptr() if residuals else None,
+           gates.data_ptr() if residuals else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        code = fn(xp.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(),
-                  b_hh.data_ptr(), lens.data_ptr(), state.data_ptr(),
-                  out.data_ptr(), cells.data_ptr() if residuals else None,
-                  gates.data_ptr() if residuals else None, t, b, hidden,
-                  ndir, stream)
+    if dt == torch.bfloat16:
+        w_pk = pack_w_hh(w_hh, 4)
+        hc = torch.empty((2, ndir, b, hidden), dtype=torch.float32,
+                         device=dev)  # h, then c
+        hb = torch.empty(h_copy_shape(ndir, b, hidden), dtype=dt,
+                         device=dev)
+        bar = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.lstm_scan_bf16(
+                xp.data_ptr(), b_ih.data_ptr(), w_pk.data_ptr(),
+                b_hh.data_ptr(), lens.data_ptr(), hc.data_ptr(),
+                hb.data_ptr(), bar.data_ptr(), out.data_ptr(), *res, t, b,
+                hidden, ndir, mode, stream)
+    else:
+        # h ping-pongs between [0] and [1]; [2] holds c
+        state = torch.empty((3, ndir, b, hidden), dtype=torch.float32,
+                            device=dev)
+        with torch.cuda.device(dev):
+            code = lib.lstm_scan_f32(
+                xp.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(),
+                b_hh.data_ptr(), lens.data_ptr(), state.data_ptr(),
+                out.data_ptr(), *res, t, b, hidden, ndir, stream)
     build.check(lib, code, "lstm_scan kernel")
     global scan_launches, scan_res_launches
     scan_launches += 1

@@ -1,6 +1,8 @@
 """Helpers shared by the recurrent-layer wrappers (``gru.py``, ``lstm.py``):
 the backward direction's time walk, the h_prev stream of the backward
-products, argument checks and the f32-sum matmul of the layer backwards."""
+products, argument checks, the f32-sum matmul of the layer backwards, and
+the W_hh packing and scratch shapes of the bf16 recurrence kernels (K4,
+K6; ``csrc/rnn_mma.cuh``)."""
 
 from __future__ import annotations
 
@@ -104,6 +106,52 @@ def check_scan(where: str, gates: int, dtypes: tuple, xp: torch.Tensor,
     same_device(where, xp.device, b_ih=b_ih, w_hh=w_hh, b_hh=b_hh,
                 lengths=lengths)
     return ndir, t, b, hidden
+
+
+# The bf16 recurrence kernels' tiling (csrc/rnn_mma.cuh): TJ hidden units a
+# block, K chunks of KC h columns
+MMA_TJ, MMA_KC = 32, 64
+# "auto" is the kernels' fixed rule: persistent where the batch fits one
+# chunk (<= 64 rows) and the whole grid is resident at once
+SCAN_VARIANTS = {"auto": 0, "step": 1, "persistent": 2}
+
+
+def pack_w_hh(w_hh: torch.Tensor, gates: int) -> torch.Tensor:
+    """(D, H, G*H) -> (D, NJ, NK, G*TJ, KC), the order in which the bf16
+    recurrence's blocks read W_hh: tile (d, jb, kc), row g*TJ + jj, column
+    kk holds ``w_hh[d, kc*KC + kk, g*H + jb*TJ + jj]``, zero past H."""
+    ndir, hidden, _ = w_hh.shape
+    nj = -(-hidden // MMA_TJ)
+    nk = -(-hidden // MMA_KC)
+    w = w_hh.reshape(ndir, hidden, gates, hidden)
+    w = torch.nn.functional.pad(w, (0, nj * MMA_TJ - hidden, 0, 0,
+                                    0, nk * MMA_KC - hidden))
+    w = w.reshape(ndir, nk, MMA_KC, gates, nj, MMA_TJ)
+    return w.permute(0, 4, 1, 3, 5, 2).reshape(
+        ndir, nj, nk, gates * MMA_TJ, MMA_KC).contiguous()
+
+
+def unpack_w_hh(packed: torch.Tensor, gates: int,
+                hidden: int) -> torch.Tensor:
+    """The inverse of ``pack_w_hh`` -> (D, H, G*H)."""
+    ndir, nj, nk = packed.shape[:3]
+    w = packed.reshape(ndir, nj, nk, gates, MMA_TJ, MMA_KC)
+    w = w.permute(0, 2, 5, 3, 1, 4).reshape(
+        ndir, nk * MMA_KC, gates, nj * MMA_TJ)
+    return w[:, :hidden, :, :hidden].reshape(ndir, hidden, gates * hidden)
+
+
+def h_copy_shape(ndir: int, b: int, hidden: int) -> tuple:
+    """(2, D, B8, Hk): the bf16 kernels' two copies of h_prev in the
+    operand type, the batch padded to 8 rows and H to whole K chunks."""
+    return (2, ndir, -(-b // 8) * 8, -(-hidden // MMA_KC) * MMA_KC)
+
+
+def scan_variant(variant: str) -> int:
+    if variant not in SCAN_VARIANTS:
+        raise ValueError(f"variant must be one of {sorted(SCAN_VARIANTS)}, "
+                         f"got {variant!r}")
+    return SCAN_VARIANTS[variant]
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -390,7 +390,10 @@ def test_device_beam_through_k10_matches_plain(dev, lm, tmp_path):
         assert torch.equal(a, b)
 
 
-SCAN_SHAPES = [(7, 1, 32), (29, 3, 50), (33, 70, 800), (17, 64, 1600)]
+# (5, 13, 200): a ragged last block of units and K chunk; (9, 130, 1600):
+# a batch above one chunk of 64 rows, which the bf16 kernel loops over
+SCAN_SHAPES = [(7, 1, 32), (29, 3, 50), (33, 70, 800), (17, 64, 1600),
+               (5, 13, 200), (9, 130, 1600)]
 
 
 def _scan_case(dev, dtype, ndir, t, b, h, gates, seed):
@@ -410,23 +413,31 @@ def _scan_case(dev, dtype, ndir, t, b, h, gates, seed):
     return xp.to(dtype), b_ih, w_hh.to(dtype), b_hh, lens
 
 
+@pytest.mark.parametrize("variant", ["step", "persistent"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-3)])
 @pytest.mark.parametrize("ndir", [1, 2])
 @pytest.mark.parametrize("t,b,h", SCAN_SHAPES)
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-def test_scan_kernel_matches_plain(dev, cell, dtype, tol, ndir, t, b, h):
-    """K4 and K6, both variants, against plain_scan with the tolerances of
-    K2 and K3 (the LSTM's c relative to its largest value)."""
+def test_scan_kernel_matches_plain(dev, cell, dtype, tol, ndir, t, b, h,
+                                   variant):
+    """K4 and K6, inference and training, one launch a step and persistent
+    (bf16; f32 has one variant), against plain_scan with the tolerances of
+    K2 and K3 (the LSTM's c relative to its largest value). A persistent
+    launch of a batch above one chunk raises: it never falls back."""
     from deepspeech_tpu_torch.ops.cuda import gru, lstm
 
     mod = gru if cell == "gru" else lstm
     scan = gru.gru_scan if cell == "gru" else lstm.lstm_scan
     args = _scan_case(dev, dtype, ndir, t, b, h, 3 if cell == "gru" else 4,
                       t + b + 5)
+    if dtype == torch.bfloat16 and variant == "persistent" and b > 64:
+        with pytest.raises(RuntimeError, match="scan kernel"):
+            scan(*args, variant=variant)
+        return
     before = (mod.scan_launches, mod.scan_res_launches, mod.launches)
-    got = scan(*args)
-    res = scan(*args, residuals=True)
+    got = scan(*args, variant=variant)
+    res = scan(*args, residuals=True, variant=variant)
     assert (mod.scan_launches, mod.scan_res_launches, mod.launches) == (
         before[0] + 2, before[1] + 1, before[2])
     ref = mod.plain_scan(*args, residuals=True)
@@ -442,9 +453,11 @@ def test_scan_kernel_matches_plain(dev, cell, dtype, tol, ndir, t, b, h):
         assert not a[:, pad].any()
 
 
+@pytest.mark.parametrize("t,b,h", [(41, 20, 96), (5, 13, 200),
+                                   (9, 130, 1600)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-def test_scan_layer_grads_match_plain(dev, cell, dtype):
+def test_scan_layer_grads_match_plain(dev, cell, dtype, t, b, h):
     """GRUScanLayer / LSTMScanLayer (K4 or K6 forward, K5 or K7 backward)
     against the same Function on the plain twins: the grads of xp, b_ih,
     W_hh and b_hh at the backward kernels' tolerances x max(1, max|ref|)."""
@@ -454,10 +467,10 @@ def test_scan_layer_grads_match_plain(dev, cell, dtype):
     fn = gru.GRUScanLayer if cell == "gru" else lstm.LSTMScanLayer
     names = ("gru_scan", "gru_bwd") if cell == "gru" else ("lstm_scan",
                                                            "lstm_bwd")
-    xp, b_ih, w_hh, b_hh, lens = _scan_case(dev, dtype, 2, 41, 20, 96,
+    xp, b_ih, w_hh, b_hh, lens = _scan_case(dev, dtype, 2, t, b, h,
                                             3 if cell == "gru" else 4, 7)
     dout = torch.from_numpy(np.random.default_rng(8).standard_normal(
-        (2, 41, 20, 96)).astype(np.float32)).to(dev)
+        (2, t, b, h)).astype(np.float32)).to(dev)
 
     def grads():
         ins = [a.clone().requires_grad_(True)

@@ -140,6 +140,75 @@ def test_unported_flags_exit(flags):
         train_main(["--device", "cpu", *flags])
 
 
+def _valid_value(action):
+    """A command-line value the JAX option accepts (None: a switch)."""
+    if action.nargs == 0:
+        return None
+    if action.choices:
+        return str(list(action.choices)[-1])
+    if action.type in (int, float):
+        return "2"
+    return "x"
+
+
+def test_every_jax_train_option_parses():
+    """Every option string of the JAX train parser, with a valid value,
+    parses in the port's parser to the same value."""
+    from deepspeech_tpu.cli.train import build_parser as jax_parser
+    from deepspeech_tpu_torch.cli.train import build_parser
+
+    ours, theirs = build_parser(), jax_parser()
+    checked = set()
+    for action in theirs._actions:
+        for opt in action.option_strings:
+            if opt in ("-h", "--help"):
+                continue
+            value = _valid_value(action)
+            argv = [opt] if value is None else [opt, value]
+            got = vars(ours.parse_args(argv))
+            want = vars(theirs.parse_args(argv))
+            assert got[action.dest] == want[action.dest], opt
+            checked.add(opt)
+    # the 18 option strings the port lacked before are among them
+    assert {"--enorm", "--id", "--log-dir", "--rank",
+            "--world-size"} <= checked and len(checked) == 77
+
+
+# (flag, a value other than the default) of the flags that act on their own
+# and have no ported path
+REFUSED = [["--log-params"], ["--dist-url", "tcp://localhost:1234"],
+           ["--dist-init"], ["--dist-rank", "0"], ["--rank", "1"],
+           ["--dist-world-size", "2"], ["--world-size", "2"]]
+
+
+@pytest.mark.parametrize("flags", REFUSED)
+def test_unported_rendezvous_and_log_flags_exit(flags):
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        train_main(["--device", "cpu", *flags])
+
+
+def test_refused_and_dependent_flags_pass_at_their_defaults(capsys):
+    """At the JAX defaults (``--dist-rank -1`` is one) the refused flags
+    pass the check, and so do the flags that act only with a refused one,
+    at any value; ``--enorm``, ``--id`` and ``--log-dir`` are accepted."""
+    from deepspeech_tpu_torch.cli.train import build_parser, check_ported
+
+    argv = ["--dist-url", "", "--dist-rank", "-1", "--rank", "-1",
+            "--dist-world-size", "0", "--world-size", "0",
+            "--noise-prob", "0.9", "--noise-min", "0.1", "--noise-max",
+            "0.7", "--device-noise-limit", "0.5", "--aug-type", "2",
+            "--checkpoint-anneal", "1.2", "--profile-start", "3",
+            "--profile-steps", "9", "--enorm", "--id", "cli-e2e",
+            "--log-dir", "logs"]
+    check_ported(build_parser().parse_args(argv))
+    # the CLI goes on past the check and says the metric log is not
+    # written; it stops only where the card is asked for (or the manifest
+    # is missing)
+    with pytest.raises((RuntimeError, FileNotFoundError, OSError)):
+        train_main(argv + ["--train-manifest", "/nonexistent/m.csv"])
+    assert "metric log is not written yet" in capsys.readouterr().out
+
+
 def test_train_defaults_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")

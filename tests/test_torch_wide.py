@@ -16,7 +16,9 @@ residuals at valid steps at 1e-6. ``rnn_scan`` and a 2-layer DS2 train
 step run with ``DEEPSPEECH_TPU_NO_FUSED`` set on both sides, against the
 JAX ``rnn_scan(impl="pallas_interpret")`` and ``make_train_step`` with its
 model's layers on the same route, at the tolerances of
-tests/test_torch_train_step.py.
+tests/test_torch_train_step.py. The bf16 kernels' W_hh packing is held to
+its inverse, and one step computed from the packed tiles in the kernels'
+order to ``plain_scan``'s step.
 """
 
 import functools
@@ -47,6 +49,10 @@ from deepspeech_tpu_torch.convert import jax_to_torch, torch_to_jax
 from deepspeech_tpu_torch.models import build_model
 from deepspeech_tpu_torch.ops.cuda import gru as gru_k
 from deepspeech_tpu_torch.ops.cuda import lstm as lstm_k
+from deepspeech_tpu_torch.ops.cuda.recurrence import (MMA_KC, MMA_TJ,
+                                                      h_copy_shape,
+                                                      pack_w_hh,
+                                                      unpack_w_hh)
 from deepspeech_tpu_torch.ops.cuda.route import fused_route
 from deepspeech_tpu_torch.ops.rnn import rnn_scan
 from deepspeech_tpu_torch.train import optim
@@ -373,3 +379,95 @@ def test_wide_route_train_step_matches_jax(cell, monkeypatch):
     for name in want:
         np.testing.assert_allclose(got[name], want[name], rtol=1e-4,
                                    atol=3e-5, err_msg=name)
+
+
+# The bf16 recurrence kernels' packing and tiling (csrc/rnn_mma.cuh), held
+# on the CPU: B 13 (not a multiple of 8), H 200 (a ragged last block of 32
+# units and a ragged last K chunk of 64).
+TB, TH, TT = 13, 200, 3
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_pack_w_hh_round_trip(cell, ndir):
+    g = GATES[cell]
+    w = torch.from_numpy(np.random.default_rng(31).standard_normal(
+        (ndir, TH, g * TH)).astype(np.float32)).bfloat16()
+    packed = pack_w_hh(w, g)
+    nj, nk = -(-TH // MMA_TJ), -(-TH // MMA_KC)
+    assert packed.shape == (ndir, nj, nk, g * MMA_TJ, MMA_KC)
+    assert torch.equal(unpack_w_hh(packed, g, TH), w)
+    # the zero padding past H, in both the unit and the K direction
+    assert int((packed != 0).sum()) == int((w != 0).sum())
+
+
+def _tile_product(packed, hb, d, gates, hidden, b):
+    """h_prev @ W_hh of direction d as the kernel's blocks compute it: block
+    jb takes the gate rows g*TJ + jj of units jb*TJ + jj, sums the K chunks
+    of the packed tile against the bf16 h copy (B8, Hk) in f32."""
+    nj, nk = packed.shape[1:3]
+    out = torch.zeros((b, gates * hidden))
+    for jb in range(nj):
+        acc = torch.zeros((gates * MMA_TJ, hb.shape[1]))
+        for kc in range(nk):
+            cols = slice(kc * MMA_KC, (kc + 1) * MMA_KC)
+            acc += packed[d, jb, kc].float() @ hb[d, :, cols].float().t()
+        units = jb * MMA_TJ + torch.arange(MMA_TJ)
+        keep = units < hidden
+        for g in range(gates):
+            rows = acc[g * MMA_TJ:(g + 1) * MMA_TJ][keep, :b]
+            out[:, g * hidden + units[keep]] = rows.t()
+    return out
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_packed_tiles_step_matches_plain_scan(cell, ndir):
+    """One bf16 step (s = 1) computed from the packed tiles, in the
+    kernel's gate-row order and K chunks, on h_prev rounded into the
+    (2, D, B8, Hk) copy, held to plain_scan's step at 1e-5 (f32 sums in
+    another order): the hidden product against plain_scan's own, then h
+    (and c) of the step, for direction 0 at t = 1 and direction 1 at
+    t = T - 2."""
+    g = GATES[cell]
+    mod = KERNELS[cell][0]
+    rng = np.random.default_rng(32)
+    s = 1.0 / np.sqrt(TH)
+
+    def u(*shape, lo=-s, hi=s):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32))
+
+    xp = u(ndir, TT, TB, g * TH, lo=-1, hi=1).bfloat16()
+    w_hh, b_ih, b_hh = u(ndir, TH, g * TH).bfloat16(), u(ndir, g * TH), \
+        u(ndir, g * TH)
+    lens = torch.full((TB,), TT)
+    out, r1, _ = mod.plain_scan(xp, b_ih, w_hh, b_hh, lens, residuals=True)
+    packed = pack_w_hh(w_hh, g)
+    shape = h_copy_shape(ndir, TB, TH)
+    assert shape == (2, ndir, 16, 256)
+    hb = torch.zeros(shape[1:], dtype=torch.bfloat16)
+    t_prev, t_now = [0, TT - 1][:ndir], [1, TT - 2][:ndir]
+    for d in range(ndir):
+        hb[d, :TB, :TH] = out[d, t_prev[d]].bfloat16()
+    for d in range(ndir):
+        h_prev = out[d, t_prev[d]]
+        hg = _tile_product(packed, hb, d, g, TH, TB)
+        want = h_prev.bfloat16().float() @ w_hh[d].float()
+        torch.testing.assert_close(hg, want, rtol=0, atol=1e-5)
+        hg = hg + b_hh[d]
+        x = xp[d, t_now[d]].float() + b_ih[d]
+        gx = [x[:, i * TH:(i + 1) * TH] for i in range(g)]
+        gh = [hg[:, i * TH:(i + 1) * TH] for i in range(g)]
+        if cell == "gru":
+            r = torch.sigmoid(gx[0] + gh[0])
+            z = torch.sigmoid(gx[1] + gh[1])
+            n = torch.tanh(gx[2] + r * gh[2])
+            h = (1 - z) * n + z * h_prev
+        else:
+            c_prev = r1[d, t_prev[d]]
+            i_, f_ = torch.sigmoid(gx[0] + gh[0]), torch.sigmoid(gx[1] + gh[1])
+            c = f_ * c_prev + i_ * torch.tanh(gx[2] + gh[2])
+            h = torch.sigmoid(gx[3] + gh[3]) * torch.tanh(c)
+            torch.testing.assert_close(c, r1[d, t_now[d]], rtol=0, atol=1e-5)
+        torch.testing.assert_close(h, out[d, t_now[d]], rtol=0, atol=1e-5)
