@@ -8,7 +8,11 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel from csrc/ (one nvcc each, in parallel);
 3. K1 (stft_mag) against its plain version at the main-path shape,
-   20 x 120,000 samples: errors, kernel/plain/library ms, bound;
+   20 x 120,000 samples, n_fft 320 (the FFT route): errors, its device
+   time beside torch.stft(...).abs()'s (and each one's host-visible time),
+   the plain version's, the bound; the DFT route's export at the same
+   shape (K1's design before the FFT), held and timed; then the DFT route
+   (n_fft 448, through the wrapper) held to its plain version;
 4. K2 (gru_fwd), both variants, against its plain version at full width,
    T 376, B 20, H 800, F 1312 and 800, unequal lengths, bf16 and f32 (the
    training variant's residuals g and hn too); then the latency floor of
@@ -23,9 +27,11 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    T 376, C 30, L 150 with unequal lengths and one impossible row:
    alphas, betas, loss and dlogits; times beside F.ctc_loss;
 7. K10 (topk) against its plain version bit for bit at the beam's shapes,
-   (20, 310) k 10 and (20, 3968) k 128, and on stress rows (ties, signed
-   zeros, infinities, NaNs); its device time beside its bound, the plain
-   version, torch.topk and torch.sort;
+   (20, 310) k 10 and (20, 3968) k 128 (the selection route; the whole
+   order of 4 rows through the bitonic route), on stress rows (ties,
+   signed zeros, infinities, NaNs) and on a wide beam's early-step -inf
+   flood; its device time at both widths, on beam-like rows and on the
+   flood, beside its bound, the plain version, torch.topk and torch.sort;
 8. the inference path: the default DS2 (6 x BiGRU-800, 30 classes) in bf16
    from seeded random weights on 20 synthetic 7.5 s waveforms, featurize
    -> forward -> greedy ids, launch counts read around it, the logits held
@@ -92,12 +98,14 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
 23. prints one JSON line of kernel results (launches from one train step of
    the path each kernel is on: the GRU-800 step for K1, K2, K5, K8 and K9,
    the LSTM-800 step for K3 and K7, the BiGRU-1600 step for K4, the
-   BiLSTM-1600 step for K6; for K10 the beam path of phase 10), then the
-   device line last.
+   BiLSTM-1600 step for K6; for K10 the beam path of phase 10; K1's entry
+   adds its shape route and host-visible time, K10's its times at width
+   128), then the device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
-non-zero. Times are CUDA-event medians with warm L2; K10's are device time
-per call of 50 calls queued behind a sleeping kernel (``device_ms``).
+non-zero. Times are CUDA-event medians with warm L2; K1's and K10's (and
+their library calls') are device time per call of 50 calls queued behind a
+sleeping kernel (``device_ms``).
 """
 
 from __future__ import annotations
@@ -282,8 +290,12 @@ def random_weights(model, rng) -> dict:
 
 
 def phase_stft(torch, results):
+    """K1 at the main path's shape (n_fft 320: the FFT route) against its
+    plain version; its device time beside torch.stft(...).abs()'s and the
+    bound; then the DFT route (n_fft 448) held to its plain version on the
+    same batch."""
     from deepspeech_tpu_torch.audio.features import make_window
-    from deepspeech_tpu_torch.ops.cuda import stft
+    from deepspeech_tpu_torch.ops.cuda import build, stft
 
     rng = np.random.default_rng(SEED)
     b, s, n_fft, hop = BATCH, AUDIO_S, 320, 160
@@ -295,29 +307,71 @@ def phase_stft(torch, results):
     torch.cuda.synchronize()
     err = (got - ref).abs()
     rel = (err / ref.abs().clamp(min=1e-6)).max().item()
-    log(f"K1 stft_mag {tuple(got.shape)}: max_abs_err {err.max().item():.3e}"
-        f" max_rel_err {rel:.3e}")
+    log(f"K1 stft_mag {tuple(got.shape)}, {stft.route(n_fft)} route (plan "
+        f"{stft.fft_plan(n_fft)}, {stft.fft_frames_per_block(n_fft, hop)} "
+        f"frames a block): max_abs_err {err.max().item():.3e} max_rel_err "
+        f"{rel:.3e}")
     torch.testing.assert_close(got, ref, **STFT_TOL)
     win_t = torch.from_numpy(win).cuda()
-    ms = time_ms(lambda: stft.stft_mag(y, n_fft, hop, win), reps=20)
+
+    def library():
+        return torch.stft(y, n_fft, hop, n_fft, win_t, center=True,
+                          pad_mode="reflect", return_complex=True).abs()
+
+    ms = device_ms(lambda: stft.stft_mag(y, n_fft, hop, win))
+    lib_ms = device_ms(library)
+    call_ms = time_ms(lambda: stft.stft_mag(y, n_fft, hop, win), reps=20)
+    lib_call_ms = time_ms(library, reps=20)
+    # the plain version copies its DFT matrices to the card each call, which
+    # blocks the host, so it is timed by CUDA events around one call
     plain_ms = time_ms(lambda: stft.plain(y, n_fft, hop, win), reps=20)
-    lib_ms = time_ms(lambda: torch.stft(
-        y, n_fft, hop, n_fft, win_t, center=True, pad_mode="reflect",
-        return_complex=True).abs(), reps=20)
     frames, n_bins = b * got.shape[-1], got.shape[1]
     # The function is |STFT|. A real FFT of N points computes it exactly in
     # f32 with ~2.5 N log2 N operations, plus N for the window and 4 per bin
-    # for the magnitude; this kernel's DFT spends 4 N n_bins instead.
+    # for the magnitude.
     fft_flops = frames * (2.5 * n_fft * np.log2(n_fft) + n_fft + 4 * n_bins)
-    dft_ms = 4.0 * frames * n_bins * n_fft / PEAK_F32 * 1e3
     nbytes = 4.0 * (b * s + frames * n_bins)
     bound_ms, by = bound(fft_flops, PEAK_F32, nbytes)
-    log(f"K1 stft_mag: {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.stft "
-        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; FFT operation "
-        f"count); this design's DFT alone needs {dft_ms:.4f} ms of f32 FMA")
+    log(f"K1 stft_mag: {ms * 1e3:.2f} us device time a call ({call_ms:.4f} "
+        f"ms host-visible, CUDA events around one call), torch.stft(...)"
+        f".abs() {lib_ms * 1e3:.2f} us ({lib_call_ms:.4f} ms host-visible), "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({by})")
     results["stft_mag"] = dict(route="cuda", max_abs_err=err.max().item(),
                                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=by, library_ms=lib_ms)
+                               bound_by=by, library_ms=lib_ms,
+                               extra={"shape_route": stft.route(n_fft),
+                                      "call_ms": call_ms})
+    # the DFT route's export at this shape: the design K1 had before the
+    # FFT (the wrapper sends n_fft 320 to the FFT route), for its time
+    lib = stft._kernel()
+    cos_w, sin_w = stft._dft_on(n_fft, np.asarray(win, np.float32).tobytes(),
+                                y.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty(tuple(got.shape), device=y.device)
+
+    def dft_export():
+        build.check(lib, lib.stft_mag_dft_f32(
+            y.data_ptr(), cos_w.data_ptr(), sin_w.data_ptr(), out.data_ptr(),
+            b, s, got.shape[-1], n_fft, hop, n_bins, n_fft // 2, stream),
+            "stft_mag_dft_f32")
+
+    dft_export()
+    torch.testing.assert_close(out, ref, **STFT_TOL)
+    dft_ms = device_ms(dft_export)
+    log(f"K1's DFT route at n_fft {n_fft} (its design before the FFT): "
+        f"{dft_ms * 1e3:.2f} us device time a call")
+    results["stft_mag"]["extra"]["dft_route_ms"] = dft_ms
+    n_dft, hop_dft = 448, 160
+    win = make_window("hamming", n_dft)
+    got = stft.stft_mag(y, n_dft, hop_dft, win)
+    ref = stft.plain(y, n_dft, hop_dft, win)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    n_dft_ms = device_ms(lambda: stft.stft_mag(y, n_dft, hop_dft, win))
+    log(f"K1 stft_mag n_fft {n_dft} hop {hop_dft} {tuple(got.shape)}, "
+        f"{stft.route(n_dft)} route: max_abs_err {err:.3e}, "
+        f"{n_dft_ms * 1e3:.2f} us device time a call")
+    torch.testing.assert_close(got, ref, **STFT_TOL)
 
 
 CELLS = {"gru": dict(gates=3, fwd="gru_fwd", bwd="gru_bwd", name="K2",
@@ -1413,14 +1467,20 @@ def phase_wide_cli(torch):
             raise AssertionError(f"config-4 transcribe launches {counts}")
 
 
-def topk_rows(rng, r: int, n: int, stress: bool) -> np.ndarray:
+def topk_rows(rng, r: int, n: int, kind: str) -> np.ndarray:
     """Beam-like candidate scores (R, n): log masses around -40 with a
-    third of each row -inf (invalid or absorbed candidates); ``stress``
-    rows add exact ties, signed zeros, infinities, NaNs of both signs with
-    payloads, and one row of -0.0 alone."""
+    third of each row -inf (invalid or absorbed candidates); "stress" rows
+    add exact ties, signed zeros, infinities, NaNs of both signs with
+    payloads, and one row of -0.0 alone; "flood" rows are a wide beam's
+    early steps, 31 finite candidates a row and the rest -inf."""
     x = (rng.standard_normal((r, n)) * 8 - 40).astype(np.float32)
+    if kind == "flood":
+        keep = np.argsort(rng.random((r, n)), axis=1)[:, :31]
+        flood = np.full_like(x, -np.inf)
+        np.put_along_axis(flood, keep, np.take_along_axis(x, keep, 1), 1)
+        return flood
     x[rng.random((r, n)) < 0.33] = -np.inf
-    if stress:
+    if kind == "stress":
         nans = np.array([0x7FC00011, 0xFFC00022], np.uint32).view(np.float32)
         specials = np.concatenate(
             [np.array([0.0, -0.0, np.inf, -np.inf, -40.0], np.float32), nans])
@@ -1433,49 +1493,65 @@ def topk_rows(rng, r: int, n: int, stress: bool) -> np.ndarray:
 def phase_topk(torch, results):
     """K10 against its plain version, bit for bit (values as int32 bits,
     and indices; the top k and, on 4 rows, the whole order), at the beam's
-    shapes n = K (C + 1) for K 10 and 128 and on stress rows; its device
-    time beside its bound, the plain version, torch.topk and torch.sort."""
+    shapes n = K (C + 1) for K 10 and 128, on stress rows and on the -inf
+    flood of a wide beam's early steps; its device time beside its bound,
+    the plain version, torch.topk and torch.sort, on beam-like rows and on
+    the flood."""
     from deepspeech_tpu_torch.ops.cuda import topk
 
     rng = np.random.default_rng(SEED + 12)
     for width in (10, 128):
         r, n, k = BATCH, width * (CLASSES + 1), width
-        for stress in (False, True):
-            x = torch.from_numpy(topk_rows(rng, r, n, stress)).cuda()
+        for kind in ("beam", "stress", "flood"):
+            x = torch.from_numpy(topk_rows(rng, r, n, kind)).cuda()
             pairs = [(topk.topk_total_order(x, k), topk.plain(x, k)),
                      (topk.topk_total_order(x[:4], n), topk.plain(x[:4], n))]
             torch.cuda.synchronize()
             same = all(torch.equal(v.view(torch.int32), rv.view(torch.int32))
                        and torch.equal(i, ri)
                        for (v, i), (rv, ri) in pairs)
-            log(f"K10 topk ({r}, {n}) k={k}{' stress rows' if stress else ''}"
-                f": bit-equal to plain {same} (and the whole order of 4 rows)")
+            log(f"K10 topk ({r}, {n}) k={k}, {kind} rows, {topk.route(k)} "
+                f"route (and the whole order of 4 rows, {topk.route(n)} "
+                f"route): bit-equal to plain {same}")
             if not same:
-                raise AssertionError(f"topk ({r}, {n}) k={k} stress={stress} "
-                                     "differs from its plain version")
-        x = torch.from_numpy(topk_rows(rng, r, n, False)).cuda()
-        ms = device_ms(lambda: topk.topk_total_order(x, k))
-        call_ms = time_ms(lambda: topk.topk_total_order(x, k), reps=20)
-        plain_ms = device_ms(lambda: topk.plain(x, k))
-        lib_ms = device_ms(lambda: torch.topk(x, k, dim=1))
-        sort_ms = device_ms(lambda: torch.sort(x, dim=1, descending=True,
-                                               stable=True))
-        tv, ti = torch.topk(x, k, dim=1)
-        rv, ri = topk.plain(x, k)
-        matched = (torch.equal(ti.to(torch.int32), ri)
-                   and torch.equal(tv.view(torch.int32), rv.view(torch.int32)))
-        # bytes: the scores read once, values and indices written once;
-        # operations: at least one comparison a candidate
-        bound_ms, by = bound(float(r * n), PEAK_F32, 4.0 * r * n + 8.0 * r * k)
-        log(f"K10 topk ({r}, {n}) k={k}: {ms * 1e3:.2f} us device time a "
-            f"call ({call_ms * 1e3:.2f} us host-visible, CUDA events around "
-            f"one call), plain {plain_ms * 1e3:.2f} us, torch.topk "
-            f"{lib_ms * 1e3:.2f} us (order matched: {matched}), torch.sort "
-            f"{sort_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.4f} us ({by})")
+                raise AssertionError(f"topk ({r}, {n}) k={k} {kind} rows "
+                                     "differ from its plain version")
+        timed = {}
+        for kind in ("beam", "flood"):
+            x = torch.from_numpy(topk_rows(rng, r, n, kind)).cuda()
+            t = timed[kind] = dict(
+                ms=device_ms(lambda: topk.topk_total_order(x, k)),
+                call_ms=time_ms(lambda: topk.topk_total_order(x, k), reps=20),
+                plain_ms=device_ms(lambda: topk.plain(x, k)),
+                library_ms=device_ms(lambda: torch.topk(x, k, dim=1)),
+                sort_ms=device_ms(lambda: torch.sort(
+                    x, dim=1, descending=True, stable=True)))
+            tv, ti = torch.topk(x, k, dim=1)
+            rv, ri = topk.plain(x, k)
+            matched = (torch.equal(ti.to(torch.int32), ri) and torch.equal(
+                tv.view(torch.int32), rv.view(torch.int32)))
+            # bytes: the scores read once, values and indices written once;
+            # operations: at least one comparison a candidate
+            t["bound_ms"], t["bound_by"] = bound(float(r * n), PEAK_F32,
+                                                 4.0 * r * n + 8.0 * r * k)
+            log(f"K10 topk ({r}, {n}) k={k}, {kind} rows: "
+                f"{t['ms'] * 1e3:.2f} us device time a call "
+                f"({t['call_ms'] * 1e3:.2f} us host-visible, CUDA events "
+                f"around one call), plain {t['plain_ms'] * 1e3:.2f} us, "
+                f"torch.topk {t['library_ms'] * 1e3:.2f} us (order matched: "
+                f"{matched}), torch.sort {t['sort_ms'] * 1e3:.2f} us, bound "
+                f"{t['bound_ms'] * 1e3:.4f} us ({t['bound_by']})")
+        beam = timed["beam"]
         if width == 10:  # the default beam's shape
-            results["topk"] = dict(route="cuda", max_abs_err=0.0, ms=ms,
-                                   plain_ms=plain_ms, bound_ms=bound_ms,
-                                   bound_by=by, library_ms=lib_ms)
+            results["topk"] = dict(
+                route="cuda", max_abs_err=0.0, ms=beam["ms"],
+                plain_ms=beam["plain_ms"], bound_ms=beam["bound_ms"],
+                bound_by=beam["bound_by"], library_ms=beam["library_ms"],
+                extra={})
+        else:
+            results["topk"]["extra"]["at_width_128"] = dict(
+                beam, flood_ms=timed["flood"]["ms"],
+                flood_library_ms=timed["flood"]["library_ms"])
 
 
 def write_synthetic_arpa(path: str, rng, n_words: int = LM_WORDS) -> None:
@@ -1817,7 +1893,7 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"], **r.get("extra", {})})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

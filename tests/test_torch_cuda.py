@@ -54,6 +54,35 @@ def test_stft_kernel_matches_plain(dev, sr, center):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
+# n_fft 160-512 take the FFT route, 448 = 2^6 7 the DFT route; (320, 160,
+# 170) is one short utterance whose every frame reads a reflected edge
+@pytest.mark.parametrize("n_fft,hop,b,s", [
+    (160, 80, 3, 5921), (320, 160, 3, 5921), (400, 160, 3, 5921),
+    (512, 128, 2, 4000), (448, 112, 2, 4000), (320, 160, 1, 170)])
+def test_stft_routes_match_plain(dev, n_fft, hop, b, s):
+    """Each route against its plain version on the card and against a
+    float64 numpy FFT of the same frames."""
+    from deepspeech_tpu_torch.audio.features import make_window
+    from deepspeech_tpu_torch.ops.cuda import stft
+
+    rng = np.random.default_rng(n_fft + s)
+    y = rng.uniform(-1, 1, (b, s)).astype(np.float32)
+    win = make_window("hamming", n_fft)
+    y_dev = torch.from_numpy(y).to(dev)
+    before = stft.launches
+    got = stft.stft_mag(y_dev, n_fft, hop, win)
+    torch.cuda.synchronize()
+    assert stft.launches == before + 1
+    assert stft.route(n_fft) == ("dft" if n_fft == 448 else "fft")
+    ref = stft.plain(y_dev, n_fft, hop, win)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    pad = n_fft // 2
+    yp = np.pad(y.astype(np.float64), ((0, 0), (pad, pad)), mode="reflect")
+    frames = np.lib.stride_tricks.sliding_window_view(yp, n_fft, 1)[:, ::hop]
+    f64 = np.abs(np.fft.rfft(frames * win, axis=-1)).transpose(0, 2, 1)
+    np.testing.assert_allclose(got.cpu().numpy(), f64, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-3)])
 @pytest.mark.parametrize("ndir", [1, 2])
@@ -348,11 +377,48 @@ def test_topk_kernel_matches_plain(dev, r, n, k):
     assert torch.equal(i.cpu(), ri)
 
 
-def test_topk_kernel_refuses_oversize_rows(dev):
+def _flood_rows(rng, r, n, finite=31):
+    """The width-128 beam's early steps: ~31 finite candidates a row, the
+    rest -inf."""
+    x = np.full((r, n), -np.inf, np.float32)
+    for row in range(r):
+        x[row, rng.choice(n, finite, replace=False)] = (
+            rng.standard_normal(finite) * 8 - 40)
+    return x
+
+
+# the selection route up to k 256 (the -inf flood, k = n, 16 keys a
+# thread), the bitonic route from 257
+@pytest.mark.parametrize("r,n,k,flood", [
+    (20, 3968, 128, True), (20, 3968, 256, True), (20, 3968, 257, True),
+    (20, 3968, 256, False), (20, 3968, 257, False), (5, 300, 300, False),
+    (4, 256, 256, False), (3, 16384, 256, False), (2, 8193, 100, False)])
+def test_topk_routes_match_plain(dev, r, n, k, flood):
     from deepspeech_tpu_torch.ops.cuda import topk
 
-    with pytest.raises(ValueError, match="shared memory"):
+    rng = np.random.default_rng(n + k)
+    x = torch.from_numpy(_flood_rows(rng, r, n) if flood
+                         else _topk_rows(rng, r, n))
+    before = topk.launches
+    v, i = topk.topk_total_order(x.to(dev), k)
+    torch.cuda.synchronize()
+    assert topk.launches == before + 1
+    assert topk.route(k) == ("select" if k <= 256 else "bitonic")
+    rv, ri = topk.plain(x, k)
+    assert torch.equal(v.cpu().view(torch.int32), rv.view(torch.int32))
+    assert torch.equal(i.cpu(), ri)
+
+
+def test_topk_kernel_refuses_oversize_rows(dev):
+    """Each route refuses rows longer than it holds: the selection 16,384
+    keys in registers, the bitonic sort 16,384 padded keys in shared
+    memory."""
+    from deepspeech_tpu_torch.ops.cuda import topk
+
+    with pytest.raises(ValueError, match="registers"):
         topk.topk_total_order(torch.zeros(1, 16385, device=dev), 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        topk.topk_total_order(torch.zeros(1, 16385, device=dev), 300)
 
 
 @pytest.mark.parametrize("lm", [False, True])
