@@ -19,10 +19,11 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    the one-launch-per-step recurrences (an empty launch from a host loop,
    and the step kernels of K2, K5, K3 and K7 at the least work);
 5. K5 (gru_bwd) against its plain version at the same shapes: dg, dnh and
-   the bias grads, then dx, dW_ih and dW_hh through the layer's autograd
+   the bias grads (bf16: the rule's variant, one launch a step and
+   persistent), then dx, dW_ih and dW_hh through the layer's autograd
    Function against the same Function on the plain versions; its time
-   beside cuDNN's bidirectional GRU backward with the same weights, its
-   bound and its per-step floor;
+   (bf16: each variant's too) beside cuDNN's bidirectional GRU backward
+   with the same weights, its bound and the bf16 step's L2 floor;
 6. K8/K9 (ctc_alpha, ctc_beta) against their plain versions at B 20,
    T 376, C 30, L 150 with unequal lengths and one impossible row:
    alphas, betas, loss and dlogits; times beside F.ctc_loss;
@@ -61,9 +62,9 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
 14. K3 (lstm_fwd), both variants, against its plain version at the K2
    shapes (the training variant's residuals c and g too), beside cuDNN's
    bidirectional nn.LSTM with the same weights;
-15. K7 (lstm_bwd) against its plain version at the same shapes: dg and the
-   bias grad, then dx, dW_ih and dW_hh through LSTMLayer against the same
-   Function on the plain versions; its time beside cuDNN's LSTM backward;
+15. K7 (lstm_bwd) as phase 5: dg and the bias grad, then dx, dW_ih and
+   dW_hh through LSTMLayer against the same Function on the plain
+   versions; its time beside cuDNN's LSTM backward;
 16. the LSTM inference path: 6 x BiLSTM-800 bf16 from seeded weights,
    featurize -> forward -> greedy, as phase 8;
 17. the LSTM train path, as phase 12: one step's loss, grad norm and every
@@ -79,7 +80,12 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    and f32, D 2 and D 1; its time a call and a step beside its bound, the
    bf16 step's L2 floor (W_hh's and h's bytes a step over the warm W_hh's
    read rate), each bf16 variant's time, the plain version, the wide
-   route's whole layer (cuBLAS projection + K4) and cuDNN's nn.GRU;
+   route's whole layer (cuBLAS projection + K4) and cuDNN's nn.GRU; then
+   K5 in bf16 at the same width (B 64) on the plain forward's residuals,
+   each variant against plain_bwd, its time a call and a step beside its
+   bound, the step's L2 floor (the packed W_hh and the operand copy's
+   bytes over the warm W_hh's read rate), the plain version and cuDNN's
+   bidirectional GRU backward;
 20. the 6 x BiGRU-1600 model (DeepSpeech2-large, BASELINE.md config 4) at
    batch 64: the route of every layer (layer 0 on K2, layers 1-5 on K4),
    the bf16 forward's launches and logits against the plain versions, then
@@ -87,7 +93,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    with residuals, gru_bwd 6, ctc_alpha 1, ctc_beta 1), 5 steps and a
    profiled one;
 21. K6 (lstm_scan) as phase 19 at B 20, on projections of 1312- and
-   1600-wide inputs, beside nn.LSTM; then 6 x BiLSTM-1600 at batch 20 as
+   1600-wide inputs, beside nn.LSTM, and K7 as K5 there; then 6 x
+   BiLSTM-1600 at batch 20 as
    phase 20: every layer on K6 (lstm_scan 6, lstm_bwd 6, no lstm_fwd);
 22. config 4's train CLI: --hidden-size 1600 --batch-size 64
    --use-curriculum --checkpoint --epochs 2 on 128 synthetic utterances of
@@ -100,7 +107,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    the LSTM-800 step for K3 and K7, the BiGRU-1600 step for K4, the
    BiLSTM-1600 step for K6; for K10 the beam path of phase 10; K1's entry
    adds its shape route and host-visible time, K10's its times at width
-   128), then the device line last.
+   128, K5's and K7's their times at the wide width), then the device
+   line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
 non-zero. Times are CUDA-event medians with warm L2; K1's and K10's (and
@@ -611,8 +619,8 @@ def expect_counts(**nonzero) -> dict:
 
 
 def phase_layer_bwd(torch, results, cell):
-    """K5 or K7 at full width, alone and through the layer's autograd
-    Function."""
+    """K5 or K7 at full width, alone (bf16: the rule's variant and each
+    variant) and through the layer's autograd Function."""
     mod, function = cell_kernels(cell)
     spec = CELLS[cell]
     tol_of = GRU_BWD_TOL if cell == "gru" else LSTM_BWD_TOL
@@ -640,6 +648,12 @@ def phase_layer_bwd(torch, results, cell):
             got = bwd(*bwd_args)
             ref = mod.plain_bwd(*bwd_args)
             errs = {k: max_err(a, r) for k, a, r in zip(names, got, ref)}
+            # bf16: the rule's choice above, and each variant
+            variants = (("step", "persistent") if dt == torch.bfloat16
+                        else ())
+            for v in variants:
+                errs.update({f"{k} {v}": max_err(a, r) for k, a, r in
+                             zip(names, bwd(*bwd_args, variant=v), ref)})
 
             def layer_grads():
                 ins = [a.clone().requires_grad_(True)
@@ -666,6 +680,8 @@ def phase_layer_bwd(torch, results, cell):
             if f_in != FEATURES:
                 continue
             ms = time_ms(lambda: bwd(*bwd_args), reps=5)
+            by_variant = {v: time_ms(lambda: bwd(*bwd_args, variant=v),
+                                     reps=5) for v in variants}
             plain_ms = time_ms(lambda: mod.plain_bwd(*bwd_args), reps=2,
                                warmup=1)
             ins = [a.clone().requires_grad_(True)
@@ -684,30 +700,28 @@ def phase_layer_bwd(torch, results, cell):
             n_valid = float(lens.sum().item())
             esize = 2 if dt == torch.bfloat16 else 4
             flops = 2.0 * 2 * n_valid * gh * h
-            if cell == "gru":
-                # read dout, h (f32), g, hn, W_hh; write dg, dnh, dbi, dbh
-                nbytes = (4 * 2 * 2 * t * b * h + esize * 2 * t * b * 4 * h
-                          + esize * 2 * h * gh + esize * 2 * t * b * 4 * h
-                          + 4 * 2 * 2 * gh)
-            else:
-                # read dout, c (f32), g, W_hh; write dg, db
-                nbytes = (4 * 2 * 2 * t * b * h + esize * 2 * t * b * gh
-                          + esize * 2 * h * gh + esize * 2 * t * b * gh
-                          + 4 * 2 * gh)
             peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
-            bound_ms, by = bound(flops, peak, nbytes)
-            log(f"{spec['bname']} {spec['bwd']} {name} F={f_in}: {ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}); "
+            bound_ms, by = bound(flops, peak, bwd_bytes(cell, t, b, h, esize))
+            log(f"{spec['bname']} {spec['bwd']} {name} F={f_in}: {ms:.3f} ms "
+                f"({ms / t * 1e3:.2f} us a step"
+                + "".join(f"; {v} {m:.3f} ms" for v, m in by_variant.items())
+                + f"), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                f"({by}); "
                 f"the layer's whole backward ({spec['bname']} + dx, dW_ih, "
                 f"dW_hh on cuBLAS) {layer_ms:.3f} ms; cuDNN bidirectional "
                 f"{cell.upper()} backward (dx and all weight grads) "
                 f"{lib_ms:.3f} ms")
             if dt == torch.bfloat16:
+                floor_ms, _ = bwd_floor(torch, w_hh, spec["gates"], b)
+                log(f"{spec['bname']} {spec['bwd']} bf16 per-step L2 floor "
+                    f"{floor_ms * 1e3:.2f} us")
                 results[spec["bwd"]] = dict(
                     route="cuda",
                     max_abs_err=max(errs[k][0] for k in names),
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                    library_ms=lib_ms, layer_ms=layer_ms)
+                    library_ms=lib_ms, layer_ms=layer_ms,
+                    extra=dict(step_us=ms / t * 1e3, by_variant=by_variant,
+                               floor_step_us=floor_ms * 1e3))
             del net, y, o
 
 
@@ -729,26 +743,133 @@ def route_log(torch, cell, hidden, batch):
         + ", ".join(routes))
 
 
-def l2_floor(torch, w_hh, gates: int, b: int) -> tuple[float, float]:
-    """The bf16 K4/K6 step's L2 floor: the bytes a step brings to the SMs
-    (W_hh packed once, and the bf16 h copy once for each block) over the
-    read rate of the warm packed W_hh (a cuBLAS matrix-vector product over
-    it, device time of 50 calls in a row), timed here -> (floor ms, rate
-    bytes/s)."""
+def l2_floor(torch, w_pk, operand_bytes: int) -> tuple[float, float]:
+    """A bf16 tensor-core step's L2 floor (K4/K6, K5/K7): the bytes a step
+    brings to the SMs (the packed W_hh ``w_pk`` once, and ``operand_bytes``:
+    the bf16 h or operand copy once for each block) over the read rate of
+    the warm packed W_hh (a cuBLAS matrix-vector product over it, device
+    time of 50 calls in a row), timed here -> (floor ms, rate bytes/s)."""
+    rows = w_pk.view(-1, 1024)
+    ones = torch.ones(1024, dtype=w_pk.dtype, device=w_pk.device)
+    ms = device_ms(lambda: torch.mv(rows, ones))
+    rate = w_pk.numel() * 2 / (ms * 1e-3)
+    return (w_pk.numel() * 2 + operand_bytes) / rate * 1e3, rate
+
+
+def scan_floor(torch, w_hh, gates: int, b: int) -> tuple[float, float]:
+    """K4/K6's per-step L2 floor: W_hh packed by pack_w_hh, and the
+    (D, B8, Hk) h copy once for each of the NJ * D blocks."""
     from deepspeech_tpu_torch.ops.cuda.recurrence import (MMA_TJ,
                                                           h_copy_shape,
                                                           pack_w_hh)
 
     ndir, h = w_hh.shape[:2]
-    w_pk = pack_w_hh(w_hh, gates)
-    rows = w_pk.view(-1, 1024)
-    ones = torch.ones(1024, dtype=w_pk.dtype, device=w_pk.device)
-    ms = device_ms(lambda: torch.mv(rows, ones))
-    rate = w_pk.numel() * 2 / (ms * 1e-3)
     hb = h_copy_shape(ndir, b, h)
-    step_bytes = (w_pk.numel() * 2
-                  + ndir * -(-h // MMA_TJ) * hb[2] * hb[3] * 2)
-    return step_bytes / rate * 1e3, rate
+    return l2_floor(torch, pack_w_hh(w_hh, gates),
+                    ndir * -(-h // MMA_TJ) * hb[2] * hb[3] * 2)
+
+
+def bwd_floor(torch, w_hh, gates: int, b: int) -> tuple[float, float]:
+    """K5/K7's per-step L2 floor: W_hh packed by pack_w_hh_bwd, and the
+    (D, B8, Gk) operand copy once for each of the NJ * D clusters (each
+    block of a cluster reads its share of K)."""
+    from deepspeech_tpu_torch.ops.cuda.recurrence import (BWD_TM,
+                                                          op_copy_shape,
+                                                          pack_w_hh_bwd)
+
+    ndir, h = w_hh.shape[:2]
+    op = op_copy_shape(ndir, b, h, gates)
+    return l2_floor(torch, pack_w_hh_bwd(w_hh),
+                    ndir * -(-h // BWD_TM) * op[2] * op[3] * 2)
+
+
+def bwd_bytes(cell, t, b, h, esize, ndir=2) -> float:
+    """The bytes K5/K7 must move: GRU reads dout, h (f32), g, hn, W_hh and
+    writes dg, dnh, dbi, dbh; LSTM reads dout, c (f32), g, W_hh and writes
+    dg, db."""
+    gh = CELLS[cell]["gates"] * h
+    if cell == "gru":
+        return (4 * ndir * 2 * t * b * h + esize * ndir * t * b * 4 * h
+                + esize * ndir * h * gh + esize * ndir * t * b * 4 * h
+                + 4 * ndir * 2 * gh)
+    return (4 * ndir * 2 * t * b * h + esize * ndir * t * b * gh
+            + esize * ndir * h * gh + esize * ndir * t * b * gh
+            + 4 * ndir * gh)
+
+
+def phase_bwd_wide(torch, results, cell):
+    """K5 or K7 in bf16 at the wide model's width (T 376, H 1600; B 64 for
+    the GRU, 20 for the LSTM; unequal lengths), on residuals of the plain
+    forward: each variant against plain_bwd, then the time a call and a
+    step of each beside the bound, the per-step L2 floor, the plain
+    version and cuDNN's bidirectional backward (dx and all weight grads)
+    with the same weights."""
+    from deepspeech_tpu_torch.ops.rnn import project
+
+    mod, _ = cell_kernels(cell)
+    spec = CELLS[cell]
+    gates = spec["gates"]
+    bwd = mod.gru_bwd if cell == "gru" else mod.lstm_bwd
+    names = ("dg", "dnh", "dbi", "dbh") if cell == "gru" else ("dg", "db")
+    tol = (GRU_BWD_TOL if cell == "gru" else LSTM_BWD_TOL)["bfloat16"]
+    rng = np.random.default_rng(SEED + (18 if cell == "gru" else 19))
+    t, b, h = FRAMES, WIDE_BATCH[cell], WIDE
+    dt = torch.bfloat16
+    x32, w_ih32, b_ih, w_hh32, b_hh, lens = layer_inputs(
+        torch, rng, t, b, h, WIDE, gates)
+    x, w_ih, w_hh = x32.to(dt), w_ih32.to(dt), w_hh32.to(dt)
+    out, r1, r2 = mod.plain_scan(project(x, w_ih), b_ih, w_hh, b_hh, lens,
+                                 residuals=True)
+    dout = torch.from_numpy(rng.standard_normal((t, b, h)).astype(
+        np.float32)).cuda() * 0.1
+    d2 = dout[None].expand(2, -1, -1, -1).contiguous()
+    args = ((d2, r1, r2, out, w_hh, lens) if cell == "gru"
+            else (d2, r2, r1, w_hh, lens))
+    ref = mod.plain_bwd(*args)
+    torch.cuda.synchronize()
+    errs = {}
+    for variant in ("step", "persistent", "auto"):
+        got = bwd(*args, variant=variant)
+        torch.cuda.synchronize()
+        e = {k: max_err(a, r) for k, a, r in zip(names, got, ref)}
+        log(f"{spec['bname']} {spec['bwd']} bf16 {variant} (T {t}, B {b}, "
+            f"H {h}): "
+            + ", ".join(f"{k} {v:.3e} (scale {sc:.2f})"
+                        for k, (v, sc) in e.items())
+            + f"; tolerance {tol} x scale")
+        bad = {k: v for k, (v, sc) in e.items() if not v <= tol * sc}
+        if bad:
+            raise AssertionError(f"{spec['bwd']} bf16 {variant} at H {h} "
+                                 f"disagrees with its plain version: {bad}")
+        errs[variant] = max(v for v, _ in e.values())
+    by = {v: time_ms(lambda: bwd(*args, variant=v), reps=5)
+          for v in ("step", "persistent")}
+    ms = time_ms(lambda: bwd(*args), reps=5)
+    plain_ms = time_ms(lambda: mod.plain_bwd(*args), reps=1, warmup=1)
+    floor_ms, rate = bwd_floor(torch, w_hh, gates, b)
+    net = cudnn_layer(torch, (x, w_ih, b_ih, w_hh, b_hh, lens), dt, cell)
+    xin = x.clone().requires_grad_(True)
+    y, _ = net(xin)
+    dy = torch.cat([dout, dout], -1).to(dt)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        y, [xin] + list(net.parameters()), dy, retain_graph=True), reps=3)
+    del net, y
+    flops = 2.0 * 2 * float(lens.sum().item()) * gates * h * h
+    bound_ms, bound_by = bound(flops, PEAK_BF16, bwd_bytes(cell, t, b, h, 2))
+    log(f"{spec['bname']} {spec['bwd']} bf16 at T {t}, B {b}, H {h}, D 2: "
+        + ", ".join(f"{v} {m:.3f} ms ({m / t * 1e3:.2f} us a step)"
+                    for v, m in by.items())
+        + f"; the rule's choice {ms:.3f} ms ({ms / t * 1e3:.2f} us a "
+        f"step); per-step L2 floor {floor_ms * 1e3:.2f} us "
+        f"({floor_ms * t:.3f} ms a call) at the warm W_hh's read rate "
+        f"{rate / 1e12:.2f} TB/s; plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); cuDNN bidirectional "
+        f"{cell.upper()} backward (dx and all weight grads) {lib_ms:.3f} ms")
+    results[spec["bwd"]].setdefault("extra", {})["wide"] = dict(
+        shape=[t, b, h], ms=ms, step_us=ms / t * 1e3,
+        max_abs_err=max(errs.values()), plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+        floor_step_us=floor_ms * 1e3, by_variant=by)
 
 
 def phase_scan(torch, results, cell):
@@ -839,7 +960,7 @@ def phase_scan(torch, results, cell):
             bound_ms, by = bound(flops, peak, nbytes)
             bound_res_ms, by_res = bound(flops, peak, nbytes + res_bytes)
             if dt == torch.bfloat16:
-                floor_ms, rate = l2_floor(torch, w_hh, gates, b)
+                floor_ms, rate = scan_floor(torch, w_hh, gates, b)
                 log(f"{spec['name']} {spec['kernel']} bf16 variants (with "
                     "residuals): "
                     + ", ".join(f"{v} {m:.3f} ms ({m / t * 1e3:.2f} us a "
@@ -1097,6 +1218,14 @@ def profile_run(torch, label, fn, ms: float, floor: dict):
             log(f"{what} step at full width: {t / n:.3f} us of kernel time "
                 f"per step ({n} steps), {t / n / (floor[key] * 1e3):.1f}x "
                 f"the least-work step of {floor[key] * 1e3:.3f} us")
+    # the bf16 K5/K7 (rnn_mma_bwd.cuh): G 3 is the GRU's, 4 the LSTM's
+    for gates, what in ((3, "K5"), (4, "K7")):
+        runs = [(n, t) for name, (n, t) in by_name.items()
+                if re.search(rf"mma_bwd::\w+_kernel<{gates}\b", name)]
+        if runs:
+            n, t = map(sum, zip(*runs))
+            log(f"{what} bf16 (rnn_mma_bwd.cuh): {t / 1e3:.3f} ms of kernel "
+                f"time in {n} launches")
 
 
 def train_batch(torch, rng, labels: str, batch=BATCH):
@@ -1864,6 +1993,7 @@ def main() -> int:
     # step, then the config-4 train CLI with curriculum sampling
     for cell, fused, wide in (("gru", 1, LAYERS - 1), ("lstm", 0, LAYERS)):
         phase_scan(torch, results, cell)
+        phase_bwd_wide(torch, results, cell)
         b = WIDE_BATCH[cell]
         fwd = {f"{cell}_fwd": fused, f"{cell}_scan": wide}
         phase_forward(torch, {}, floor, cell, WIDE, b,

@@ -30,14 +30,20 @@
 // (chip_smoke.py measures this kernel at the least work, B 1, H 16, at
 // ~4.3-5.2 us a step).
 //
-// Design, K2's mirror, simple and right first:
+// Design, bf16: rnn_mma_bwd.cuh (tensor-core steps on W_hh packed once a
+// call by the wrapper and streamed once a step; the operand [dr, dz, dnh]
+// kept as a bf16 copy; one launch a step or one persistent cooperative
+// launch). chip_smoke.py and PERF.md record its times on the card beside
+// the bound and the per-step L2 floor.
+//
+// Design, f32 (K2's mirror, simple and right first):
 //  * bwd_first: the pointwise part of the first step, dh_carried = 0.
 //  * bwd_step, one launch per step s < T-1 for both directions: a block owns
 //    TJ hidden units of one direction for RB batch rows. It stages those
 //    rows of [dr, dz, dnh] of step s (3H wide, read back from dg and dnh,
-//    which hold exactly the rounded operand) in shared memory, a thread a
+//    which hold exactly the operand) in shared memory, a thread a
 //    column (RB row loads, then the RB values side by side in one store,
-//    so the dot reads them in one 16-byte load, two in f32; the earlier
+//    so the dot reads them in two 16-byte loads; the earlier
 //    element-wise staging, with a division and a modulo an element, took
 //    a third of the step), splits the 3H-long dots over KS
 //    thread groups that read W_hh^T from global memory
@@ -47,12 +53,9 @@
 //    its units. The block owns the same carried dh and the same bias
 //    accumulator entries (per row) at every step, so no atomics are needed.
 //  * bias_reduce: one small final pass sums the accumulators over B.
-// A persistent kernel with W_hh resident in shared memory is later work,
-// for K2 and K5 together (ROADMAP.md).
-// Against the bound: on an H100 SXM at 700 W a bf16 call at the default
-// shape takes ~9.3-9.7 ms, ~110x the bound; a step takes ~24 us of kernel
-// time, ~5x the least-work step and 1.6x K2's (chip_smoke.py; PERF.md).
+// chip_smoke.py and PERF.md record its times on the card.
 #include "rnn_common.cuh"
+#include "rnn_mma_bwd.cuh"
 
 namespace {
 
@@ -290,12 +293,28 @@ DS_EXPORT int gru_bwd_f32(const float* dout, const float* g, const float* hn,
                               dbh, Tn, B, H, D, stream);
 }
 
+// bf16: w_pk is W_hh packed (D, NJ, NK, 64, 128) (rnn_mma_bwd.cuh);
+// scratch op (2, D, B8, NK * 128) bf16, bar (1) uint32 and state
+// (6, D, B, H) f32, all zeroed here; variant 1 (one launch a step) or 2
+// (persistent). Other arguments as the f32 entry.
 DS_EXPORT int gru_bwd_bf16(const float* dout, const __nv_bfloat16* g,
                            const __nv_bfloat16* hn, const float* h,
-                           const __nv_bfloat16* wt, const int* lens,
+                           const __nv_bfloat16* w_pk, const int* lens,
                            __nv_bfloat16* dg, __nv_bfloat16* dnh,
-                           float* scratch, float* dbi, float* dbh, int Tn,
-                           int B, int H, int D, void* stream) {
-  return gru_bwd_entry<__nv_bfloat16>(dout, g, hn, h, wt, lens, dg, dnh,
-                                      scratch, dbi, dbh, Tn, B, H, D, stream);
+                           __nv_bfloat16* op, unsigned* bar, float* state,
+                           float* dbi, float* dbh, int Tn, int B, int H,
+                           int D, int variant, void* stream) {
+  const int nk = (3 * H + mma_bwd::KC - 1) / mma_bwd::KC;
+  const mma_bwd::Args a{dout, g, hn, h, w_pk, lens, dg, dnh, op, bar, state,
+                        Tn, B, H, (B + 7) / 8 * 8, nk * mma_bwd::KC, nk,
+                        (H + mma_bwd::TM - 1) / mma_bwd::TM};
+  return static_cast<int>(mma_bwd::backward<3>(
+      a, D, variant, dbi, dbh, static_cast<cudaStream_t>(stream)));
+}
+
+// The blocks of the bf16 persistent kernel that can be resident at once
+// for a batch of B rows, into *blocks.
+DS_EXPORT int gru_bwd_resident(int B, int* blocks) {
+  return static_cast<int>(
+      mma_bwd::resident_of<3>((B + 7) / 8 * 8, blocks));
 }

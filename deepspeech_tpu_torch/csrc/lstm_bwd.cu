@@ -33,15 +33,21 @@
 // at 3.35 TB/s. So bytes bound it, and in this design latency does: the T
 // steps depend on each other and each costs one launch.
 //
-// Design, K5's (gru_bwd.cu) with four gates and a carried cell, simple
-// and right first:
+// Design, bf16: rnn_mma_bwd.cuh, K5's (tensor-core steps on W_hh packed
+// once a call by the wrapper and streamed once a step; the operand dg kept
+// as a bf16 copy; one launch a step or one persistent cooperative launch),
+// with four gates and the carried dc. chip_smoke.py and PERF.md record its
+// times on the card.
+//
+// Design, f32 (K5's f32 design with four gates and a carried cell, simple
+// and right first):
 //  * bwd_first: the pointwise part of the first step, nothing carried.
 //  * lstm_bwd_step, one launch per step s < T-1 for both directions: a
 //    block owns TJ hidden units of one direction for RB batch rows. It
 //    stages those rows of dg of step s (4H wide, read back from dg, which
-//    holds exactly the rounded operand) in shared memory, a thread a column
+//    holds exactly the operand) in shared memory, a thread a column
 //    (RB row loads, then one store of the RB values side by side, so the
-//    dot reads them in one 16-byte load, two in f32), splits the 4H-long
+//    dot reads them in two 16-byte loads), splits the 4H-long
 //    dots over KS thread groups that read W_hh^T from global memory (L2;
 //    the wrapper passes the transpose so that neighbouring threads read
 //    neighbouring units), reduces the partial sums through shared memory,
@@ -50,8 +56,8 @@
 //    bias accumulator entries (per row) at every step, so no atomics are
 //    needed, and dc never leaves its thread's entry.
 //  * bias_reduce: one small final pass sums the accumulators over B.
-// Against the bound: chip_smoke.py and PERF.md record its time on the card.
 #include "rnn_common.cuh"
+#include "rnn_mma_bwd.cuh"
 
 namespace {
 
@@ -278,11 +284,28 @@ DS_EXPORT int lstm_bwd_f32(const float* dout, const float* g, const float* c,
                                H, D, stream);
 }
 
+// bf16: w_pk is W_hh packed (D, NJ, NK, 64, 128) (rnn_mma_bwd.cuh);
+// scratch op (2, D, B8, NK * 128) bf16, bar (1) uint32 and state
+// (6, D, B, H) f32, all zeroed here; variant 1 (one launch a step) or 2
+// (persistent). Other arguments as the f32 entry.
 DS_EXPORT int lstm_bwd_bf16(const float* dout, const __nv_bfloat16* g,
-                            const float* c, const __nv_bfloat16* wt,
+                            const float* c, const __nv_bfloat16* w_pk,
                             const int* lens, __nv_bfloat16* dg,
-                            float* scratch, float* db, int Tn, int B, int H,
-                            int D, void* stream) {
-  return lstm_bwd_entry<__nv_bfloat16>(dout, g, c, wt, lens, dg, scratch, db,
-                                       Tn, B, H, D, stream);
+                            __nv_bfloat16* op, unsigned* bar, float* state,
+                            float* db, int Tn, int B, int H, int D,
+                            int variant, void* stream) {
+  const int nk = (4 * H + mma_bwd::KC - 1) / mma_bwd::KC;
+  const mma_bwd::Args a{dout, g, nullptr, c, w_pk, lens, dg, nullptr, op,
+                        bar, state, Tn, B, H, (B + 7) / 8 * 8,
+                        nk * mma_bwd::KC, nk,
+                        (H + mma_bwd::TM - 1) / mma_bwd::TM};
+  return static_cast<int>(mma_bwd::backward<4>(
+      a, D, variant, db, nullptr, static_cast<cudaStream_t>(stream)));
+}
+
+// The blocks of the bf16 persistent kernel that can be resident at once
+// for a batch of B rows, into *blocks.
+DS_EXPORT int lstm_bwd_resident(int B, int* blocks) {
+  return static_cast<int>(
+      mma_bwd::resident_of<4>((B + 7) / 8 * 8, blocks));
 }

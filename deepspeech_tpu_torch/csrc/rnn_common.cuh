@@ -86,8 +86,8 @@ __device__ __forceinline__ float ds_sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// The backward step kernels stage 8 batch rows of a gate-gradient column
-// side by side, so the dot reads them in one 16-byte load (two in f32).
+// The f32 backward step kernels stage 8 batch rows of a gate-gradient
+// column side by side, so the dot reads them in two 16-byte loads.
 constexpr int STAGE_ROWS = 8;
 
 // The STAGE_ROWS staged values of one column, as f32.
@@ -99,33 +99,11 @@ __device__ __forceinline__ void load_column(const float* p,
   v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
-__device__ __forceinline__ void load_column(const __nv_bfloat16* p,
-                                            float v[STAGE_ROWS]) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-  for (int i = 0; i < STAGE_ROWS / 2; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
 // Stores the STAGE_ROWS values of one column side by side (16-byte aligned).
 __device__ __forceinline__ void store_column(float* p,
                                              const float v[STAGE_ROWS]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void store_column(
-    __nv_bfloat16* p, const __nv_bfloat16 v[STAGE_ROWS]) {
-  uint4 q;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-  for (int i = 0; i < STAGE_ROWS / 2; ++i)
-    h[i] = __halves2bfloat162(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = q;
 }
 
 }  // namespace

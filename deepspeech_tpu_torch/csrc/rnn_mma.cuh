@@ -138,6 +138,24 @@ __device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Grid barrier of a cooperative launch, the pattern of cooperative groups'
+// grid sync: a block barrier, one fenced arrival on the counter (zeroed
+// before the launch), a spin until `target` blocks have arrived.
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen) : "l"(bar) : "memory");
+    } while (seen < target);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 // Shared memory of one block: the ring, and after the product the K-split
 // partial sums (KSPLIT, NT * 8, MP) f32 on the same bytes. MP = G * TJ + 4
 // makes the fragment stores and the epilogue's reads conflict-free.
@@ -487,22 +505,8 @@ __global__ void __launch_bounds__(THREADS, 1) persistent_kernel(Args a) {
                     q);
     if (s + 1 == a.Tn) break;
     load_x<G, NT>(a, s + 1, d, jb, 0, q);
-    // grid barrier: every block's h for step s is written (the pattern of
-    // cooperative groups' grid sync: a block barrier, one fenced arrival,
-    // a spin on the count)
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      atomicAdd(a.bar, 1u);
-      const unsigned target = (s + 1) * nblocks;
-      unsigned seen;
-      do {
-        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                     : "=r"(seen) : "l"(a.bar) : "memory");
-      } while (seen < target);
-      __threadfence();
-    }
-    __syncthreads();
+    // every block's h for step s is written
+    grid_sync(a.bar, (s + 1) * nblocks);
   }
 }
 

@@ -16,6 +16,11 @@ tensors each wrapper runs its plain PyTorch twin beside it (``plain``,
 ``plain_scan``, ``plain_bwd``); for CUDA tensors it launches the kernel or
 raises.
 
+In bf16 the backward ``gru_bwd`` (K5) runs its recurrent product on tensor
+cores (``csrc/rnn_mma_bwd.cuh``: W_hh packed by
+``recurrence.pack_w_hh_bwd``, one launch a step or one persistent launch,
+``variant=``); in f32 it keeps its SIMT step kernel.
+
 Semantics: time-major (T, B, F) layout, torch gate order r, z, n, f32 state
 and f32 gates. With bf16 operands every product accumulates in f32, the
 input projection stays f32, and the hidden dot rounds h_prev to bf16. The
@@ -42,11 +47,16 @@ import torch
 
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import build
-from deepspeech_tpu_torch.ops.cuda.recurrence import (check_layer,
+from deepspeech_tpu_torch.ops.cuda.recurrence import (bwd_blocks,
+                                                      bwd_variant,
+                                                      check_layer,
                                                       check_scan,
                                                       h_copy_shape,
                                                       h_prev_stream,
-                                                      mm_f32, pack_w_hh,
+                                                      mm_f32, op_copy_shape,
+                                                      pack_w_hh,
+                                                      pack_w_hh_bwd,
+                                                      resident_blocks,
                                                       same_device,
                                                       scan_variant,
                                                       to_time_order,
@@ -87,8 +97,10 @@ def _scan_kernel():
 @functools.cache
 def _bwd_kernel():
     lib = build.load("gru_bwd")
-    for name in _BWD.values():
-        getattr(lib, name).argtypes = [_P] * 11 + [_I] * 4 + [_P]
+    lib.gru_bwd_f32.argtypes = [_P] * 11 + [_I] * 4 + [_P]
+    lib.gru_bwd_bf16.argtypes = [_P] * 13 + [_I] * 5 + [_P]
+    lib.gru_bwd_resident.argtypes = [_I, _P]
+    for name in (*_BWD.values(), "gru_bwd_resident"):
         getattr(lib, name).restype = _I
     return lib
 
@@ -309,9 +321,13 @@ def plain_bwd(dout: torch.Tensor, g: torch.Tensor, hn: torch.Tensor,
 
 
 def gru_bwd(dout: torch.Tensor, g: torch.Tensor, hn: torch.Tensor,
-            h: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor):
+            h: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor,
+            variant: str = "auto"):
     """K5: the GRU recurrence's backward; arguments and results as
-    ``plain_bwd``."""
+    ``plain_bwd``. In bf16 the kernel runs on tensor cores from W_hh packed
+    here (``pack_w_hh_bwd``), one launch a step or one persistent launch:
+    ``variant`` "auto" (the rule ``bwd_variant``), "step" or "persistent";
+    f32 has one variant."""
     if h.device.type == "cpu":
         return plain_bwd(dout, g, hn, h, w_hh, lengths)
     if h.device.type != "cuda":
@@ -335,23 +351,41 @@ def gru_bwd(dout: torch.Tensor, g: torch.Tensor, hn: torch.Tensor,
     dev = h.device
     same_device("gru_bwd", dev, dout=dout, g=g, hn=hn, w_hh=w_hh,
                  lengths=lengths)
+    scan_variant(variant)
     lib = _bwd_kernel()
     dout, g, hn, h = (a.contiguous() for a in (dout, g, hn, h))
-    wt = w_hh.transpose(1, 2).contiguous()
     lens = lengths.to(torch.int32).clamp(max=t).contiguous()
     dg = torch.empty((ndir, t, b, gh), dtype=dt, device=dev)
     dnh = torch.empty((ndir, t, b, hidden), dtype=dt, device=dev)
-    scratch = torch.empty(2 * ndir * b * gh + 2 * ndir * b * hidden,
-                          dtype=torch.float32, device=dev)
     dbi = torch.empty((ndir, gh), dtype=torch.float32, device=dev)
     dbh = torch.empty_like(dbi)
-    fn = getattr(lib, _BWD[dt])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        code = fn(dout.data_ptr(), g.data_ptr(), hn.data_ptr(), h.data_ptr(),
-                  wt.data_ptr(), lens.data_ptr(), dg.data_ptr(),
-                  dnh.data_ptr(), scratch.data_ptr(), dbi.data_ptr(),
-                  dbh.data_ptr(), t, b, hidden, ndir, stream)
+    if dt == torch.bfloat16:
+        mode = bwd_variant(variant, b, bwd_blocks(ndir, hidden),
+                           resident_blocks(lib, "gru_bwd_resident", b, dev))
+        w_pk = pack_w_hh_bwd(w_hh)
+        op = torch.empty(op_copy_shape(ndir, b, hidden, 3), dtype=dt,
+                         device=dev)
+        bar = torch.empty(1, dtype=torch.int32, device=dev)
+        state = torch.empty((6, ndir, b, hidden), dtype=torch.float32,
+                            device=dev)
+        with torch.cuda.device(dev):
+            code = lib.gru_bwd_bf16(
+                dout.data_ptr(), g.data_ptr(), hn.data_ptr(), h.data_ptr(),
+                w_pk.data_ptr(), lens.data_ptr(), dg.data_ptr(),
+                dnh.data_ptr(), op.data_ptr(), bar.data_ptr(),
+                state.data_ptr(), dbi.data_ptr(), dbh.data_ptr(), t, b,
+                hidden, ndir, mode, stream)
+    else:
+        wt = w_hh.transpose(1, 2).contiguous()
+        scratch = torch.empty(2 * ndir * b * gh + 2 * ndir * b * hidden,
+                              dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.gru_bwd_f32(
+                dout.data_ptr(), g.data_ptr(), hn.data_ptr(), h.data_ptr(),
+                wt.data_ptr(), lens.data_ptr(), dg.data_ptr(),
+                dnh.data_ptr(), scratch.data_ptr(), dbi.data_ptr(),
+                dbh.data_ptr(), t, b, hidden, ndir, stream)
     build.check(lib, code, "gru_bwd kernel")
     global bwd_launches
     bwd_launches += 1

@@ -18,6 +18,11 @@ CPU tensors each wrapper runs its plain PyTorch twin beside it (``plain``,
 ``plain_scan``, ``plain_bwd``); for CUDA tensors it launches the kernel or
 raises.
 
+In bf16 the backward ``lstm_bwd`` (K7) runs its recurrent product on tensor
+cores (``csrc/rnn_mma_bwd.cuh``: W_hh packed by
+``recurrence.pack_w_hh_bwd``, one launch a step or one persistent launch,
+``variant=``); in f32 it keeps its SIMT step kernel.
+
 Semantics: time-major (T, B, F) layout, torch gate order i, f, g, o, f32
 state (h and c) and f32 gates. With bf16 operands every product
 accumulates in f32, the input projection stays f32 with both biases added
@@ -46,11 +51,16 @@ import torch
 
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import build
-from deepspeech_tpu_torch.ops.cuda.recurrence import (check_layer,
+from deepspeech_tpu_torch.ops.cuda.recurrence import (bwd_blocks,
+                                                      bwd_variant,
+                                                      check_layer,
                                                       check_scan,
                                                       h_copy_shape,
                                                       h_prev_stream,
-                                                      mm_f32, pack_w_hh,
+                                                      mm_f32, op_copy_shape,
+                                                      pack_w_hh,
+                                                      pack_w_hh_bwd,
+                                                      resident_blocks,
                                                       same_device,
                                                       scan_variant,
                                                       to_time_order,
@@ -91,8 +101,10 @@ def _scan_kernel():
 @functools.cache
 def _bwd_kernel():
     lib = build.load("lstm_bwd")
-    for name in _BWD.values():
-        getattr(lib, name).argtypes = [_P] * 8 + [_I] * 4 + [_P]
+    lib.lstm_bwd_f32.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+    lib.lstm_bwd_bf16.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    lib.lstm_bwd_resident.argtypes = [_I, _P]
+    for name in (*_BWD.values(), "lstm_bwd_resident"):
         getattr(lib, name).restype = _I
     return lib
 
@@ -325,9 +337,13 @@ def plain_bwd(dout: torch.Tensor, g: torch.Tensor, c: torch.Tensor,
 
 
 def lstm_bwd(dout: torch.Tensor, g: torch.Tensor, c: torch.Tensor,
-             w_hh: torch.Tensor, lengths: torch.Tensor):
+             w_hh: torch.Tensor, lengths: torch.Tensor,
+             variant: str = "auto"):
     """K7: the LSTM recurrence's backward; arguments and results as
-    ``plain_bwd``."""
+    ``plain_bwd``. In bf16 the kernel runs on tensor cores from W_hh packed
+    here (``pack_w_hh_bwd``), one launch a step or one persistent launch:
+    ``variant`` "auto" (the rule ``bwd_variant``), "step" or "persistent";
+    f32 has one variant."""
     if c.device.type == "cpu":
         return plain_bwd(dout, g, c, w_hh, lengths)
     if c.device.type != "cuda":
@@ -349,20 +365,37 @@ def lstm_bwd(dout: torch.Tensor, g: torch.Tensor, c: torch.Tensor,
                          f"{tuple(lengths.shape)}")
     dev = c.device
     same_device("lstm_bwd", dev, dout=dout, g=g, w_hh=w_hh, lengths=lengths)
+    scan_variant(variant)
     lib = _bwd_kernel()
     dout, g, c = (a.contiguous() for a in (dout, g, c))
-    wt = w_hh.transpose(1, 2).contiguous()
     lens = lengths.to(torch.int32).clamp(max=t).contiguous()
     dg = torch.empty((ndir, t, b, gh), dtype=dt, device=dev)
-    scratch = torch.empty(ndir * b * gh + 2 * ndir * b * hidden,
-                          dtype=torch.float32, device=dev)
     db = torch.empty((ndir, gh), dtype=torch.float32, device=dev)
-    fn = getattr(lib, _BWD[dt])
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        code = fn(dout.data_ptr(), g.data_ptr(), c.data_ptr(), wt.data_ptr(),
-                  lens.data_ptr(), dg.data_ptr(), scratch.data_ptr(),
-                  db.data_ptr(), t, b, hidden, ndir, stream)
+    if dt == torch.bfloat16:
+        mode = bwd_variant(variant, b, bwd_blocks(ndir, hidden),
+                           resident_blocks(lib, "lstm_bwd_resident", b, dev))
+        w_pk = pack_w_hh_bwd(w_hh)
+        op = torch.empty(op_copy_shape(ndir, b, hidden, 4), dtype=dt,
+                         device=dev)
+        bar = torch.empty(1, dtype=torch.int32, device=dev)
+        state = torch.empty((6, ndir, b, hidden), dtype=torch.float32,
+                            device=dev)
+        with torch.cuda.device(dev):
+            code = lib.lstm_bwd_bf16(
+                dout.data_ptr(), g.data_ptr(), c.data_ptr(), w_pk.data_ptr(),
+                lens.data_ptr(), dg.data_ptr(), op.data_ptr(),
+                bar.data_ptr(), state.data_ptr(), db.data_ptr(), t, b,
+                hidden, ndir, mode, stream)
+    else:
+        wt = w_hh.transpose(1, 2).contiguous()
+        scratch = torch.empty(ndir * b * gh + 2 * ndir * b * hidden,
+                              dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.lstm_bwd_f32(
+                dout.data_ptr(), g.data_ptr(), c.data_ptr(), wt.data_ptr(),
+                lens.data_ptr(), dg.data_ptr(), scratch.data_ptr(),
+                db.data_ptr(), t, b, hidden, ndir, stream)
     build.check(lib, code, "lstm_bwd kernel")
     global bwd_launches
     bwd_launches += 1

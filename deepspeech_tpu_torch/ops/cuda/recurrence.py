@@ -1,12 +1,16 @@
 """Helpers shared by the recurrent-layer wrappers (``gru.py``, ``lstm.py``):
 the backward direction's time walk, the h_prev stream of the backward
 products, argument checks, the f32-sum matmul of the layer backwards, and
-the W_hh packing and scratch shapes of the bf16 recurrence kernels (K4,
-K6; ``csrc/rnn_mma.cuh``)."""
+the W_hh packings, scratch shapes and rules of the bf16 recurrence kernels
+(K4, K6: ``csrc/rnn_mma.cuh``; K5, K7: ``csrc/rnn_mma_bwd.cuh``)."""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from deepspeech_tpu_torch.ops.cuda import build
 
 
 def walk_index(lengths: torch.Tensor, t: int) -> torch.Tensor:
@@ -152,6 +156,77 @@ def scan_variant(variant: str) -> int:
         raise ValueError(f"variant must be one of {sorted(SCAN_VARIANTS)}, "
                          f"got {variant!r}")
     return SCAN_VARIANTS[variant]
+
+
+# The bf16 backward kernels' tiling (csrc/rnn_mma_bwd.cuh): clusters of
+# BWD_CL blocks split the product's K for BWD_TM = BWD_CL * 32 hidden units,
+# K chunks of BWD_KC gate columns, at most BWD_CHUNK batch rows in one chunk
+# (the persistent variant's limit)
+BWD_CL, BWD_TM, BWD_KC, BWD_CHUNK = 2, 64, 128, 64
+
+
+def pack_w_hh_bwd(w_hh: torch.Tensor) -> torch.Tensor:
+    """(D, H, G*H) -> (D, NJ, NK, TM, KC), the order in which the bf16
+    backward's clusters read W_hh (NJ = ceil(H / TM), NK = ceil(G*H /
+    KC)): tile (d, jw, kc), row jj, column kk holds
+    ``w_hh[d, jw*TM + jj, kc*KC + kk]``, zero past H and past G*H."""
+    ndir, hidden, gh = w_hh.shape
+    nj = -(-hidden // BWD_TM)
+    nk = -(-gh // BWD_KC)
+    w = torch.nn.functional.pad(w_hh, (0, nk * BWD_KC - gh,
+                                       0, nj * BWD_TM - hidden))
+    w = w.reshape(ndir, nj, BWD_TM, nk, BWD_KC)
+    return w.permute(0, 1, 3, 2, 4).contiguous()
+
+
+def unpack_w_hh_bwd(packed: torch.Tensor, gates: int,
+                    hidden: int) -> torch.Tensor:
+    """The inverse of ``pack_w_hh_bwd`` -> (D, H, G*H)."""
+    ndir, nj, nk, tm, kc = packed.shape
+    w = packed.permute(0, 1, 3, 2, 4).reshape(ndir, nj * tm, nk * kc)
+    return w[:, :hidden, :gates * hidden]
+
+
+def op_copy_shape(ndir: int, b: int, hidden: int, gates: int) -> tuple:
+    """(2, D, B8, Gk): the bf16 backward's two copies of the product's
+    operand, the batch padded to 8 rows and G*H to whole K chunks."""
+    return (2, ndir, -(-b // 8) * 8, -(-gates * hidden // BWD_KC) * BWD_KC)
+
+
+def bwd_blocks(ndir: int, hidden: int) -> int:
+    """The bf16 backward's grid: BWD_CL blocks for every BWD_TM units of
+    each direction."""
+    return ndir * -(-hidden // BWD_TM) * BWD_CL
+
+
+def bwd_variant(variant: str, b: int, blocks: int, resident: int) -> int:
+    """The bf16 backward's variant, 1 (one launch a step) or 2
+    (persistent): ``variant`` "step" or "persistent" as asked; "auto" the
+    fixed rule, persistent where the batch fits one chunk and the grid of
+    ``blocks`` is resident at once (``resident`` blocks can be)."""
+    mode = scan_variant(variant)
+    if mode:
+        return mode
+    return 2 if -(-b // 8) * 8 <= BWD_CHUNK and blocks <= resident else 1
+
+
+_resident: dict = {}
+
+
+def resident_blocks(lib: ctypes.CDLL, name: str, b: int,
+                    dev: torch.device) -> int:
+    """How many blocks of a bf16 backward's persistent kernel (the C entry
+    ``name`` of ``lib``: ``<cell>_bwd_resident``) can be resident at once
+    on ``dev`` for a batch of ``b`` rows; asked once."""
+    key = (name, -(-b // 8), torch.cuda.current_device()
+           if dev.index is None else dev.index)
+    if key not in _resident:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            code = getattr(lib, name)(b, ctypes.byref(n))
+        build.check(lib, code, name)
+        _resident[key] = n.value
+    return _resident[key]
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

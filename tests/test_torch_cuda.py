@@ -17,6 +17,8 @@ backward's dg, dnh 1e-4 in f32 and 2e-2 relative to the largest in bf16
 CTC alphas/betas and loss 1e-4 relative, dlogits 1e-4; small-model logits
 2e-2. The LSTM kernels (K3, K7) hold the GRU's tolerances, the cell
 stream c relative to its largest value, since |c| is not bounded by 1.
+The bf16 backwards (K5, K7 on tensor cores) are held in each variant at
+the widths of both models, and beyond one batch chunk.
 The top-k (K10) and the device beam search through it are exact: bit for
 bit against the plain top-k, on rows of ties, signed zeros, infinities and
 NaNs of both signs.
@@ -311,6 +313,53 @@ def test_lstm_bwd_kernel_matches_plain(dev, dtype, ndir, t, b, f, h):
         assert err <= tol * scale, (name, err, scale)
     pad = torch.arange(t, device=dev)[:, None] >= lens[None, :]
     assert not got[0][:, pad].any()
+
+
+# The bf16 K5 and K7 (csrc/rnn_mma_bwd.cuh) at (T, B, H): a ragged block of
+# units and K chunk (B 13, H 200), the default width (B 20, H 800), the wide
+# models' (B 64, H 1600), and a batch beyond one chunk (B 130), which the
+# step variant loops over and the persistent variant refuses
+BWD_SHAPES = [(9, 13, 200), (7, 20, 800), (5, 64, 1600), (5, 130, 1600)]
+
+
+@pytest.mark.parametrize("variant", ["step", "persistent"])
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("t,b,h", BWD_SHAPES)
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_bf16_bwd_variants_match_plain(dev, cell, t, b, h, ndir, variant):
+    """K5 and K7 in bf16, each variant, against plain_bwd with
+    GRU_BWD_TOL (2e-2 x max(1, max|ref|)), ragged lengths with a length-1
+    row; one launch counted a call; zeros past every length."""
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+
+    mod = gru if cell == "gru" else lstm
+    case = _gru_case if cell == "gru" else _lstm_case
+    x, w_ih, b_ih, w_hh, b_hh, lens = case(dev, torch.bfloat16, ndir, t, b,
+                                           64, h, t + b + 6)
+    lens[-1] = 1
+    out, r1, r2 = mod.plain(x, w_ih, b_ih, w_hh, b_hh, lens, residuals=True)
+    dout = torch.from_numpy(np.random.default_rng(b).standard_normal(
+        out.shape).astype(np.float32)).to(dev)
+    args = ((dout, r1, r2, out, w_hh, lens) if cell == "gru"
+            else (dout, r2, r1, w_hh, lens))
+    bwd = gru.gru_bwd if cell == "gru" else lstm.lstm_bwd
+    if variant == "persistent" and b > 64:
+        with pytest.raises(RuntimeError, match="bwd kernel"):
+            bwd(*args, variant=variant)
+        return
+    before = mod.bwd_launches
+    got = bwd(*args, variant=variant)
+    assert mod.bwd_launches == before + 1
+    want = mod.plain_bwd(*args)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        scale = max(1.0, w.float().abs().max().item())
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * scale, (err, scale)
+    pad = torch.arange(t, device=dev)[:, None] >= lens[None, :]
+    assert not got[0][:, pad].any()
+    if cell == "gru":
+        assert not got[1][:, pad].any()
 
 
 @pytest.mark.parametrize("cell", ["lstm", "rnn"])
