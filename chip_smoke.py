@@ -14,10 +14,16 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    shape (K1's design before the FFT), held and timed; then the DFT route
    (n_fft 448, through the wrapper) held to its plain version;
 4. K2 (gru_fwd), both variants, against its plain version at full width,
-   T 376, B 20, H 800, F 1312 and 800, unequal lengths, bf16 and f32 (the
-   training variant's residuals g and hn too); then the latency floor of
-   the one-launch-per-step recurrences (an empty launch from a host loop,
-   and the step kernels of K2, K5, K3 and K7 at the least work);
+   T 376, B 20, H 800, F 1312 and 800, unequal lengths, bf16 (each of its
+   three recurrence variants, W-resident persistent, streamed persistent
+   and one launch a step, and the rule's choice) and f32 (the training
+   variant's residuals g and hn too); each variant's time a call and a
+   step, and its tensor-core projection GEMM alone beside cuBLAS
+   (torch.matmul of the same bf16 operands) and its bound; then the
+   latency floor of the recurrences: an empty launch from a host loop,
+   the f32 step kernels of K2, K5, K3 and K7 at the least work, and a
+   persistent grid doing only its grid barrier a step (the W-resident
+   grid's release barrier, and the streamed kernels' barrier);
 5. K5 (gru_bwd) against its plain version at the same shapes: dg, dnh and
    the bias grads (bf16: the rule's variant, one launch a step and
    persistent), then dx, dW_ih and dW_hh through the layer's autograd
@@ -60,7 +66,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
 13. the train CLI trains 1 epoch at full width on a synthetic manifest in a
    temporary directory, and its checkpoint answers one transcribe request;
 14. K3 (lstm_fwd), both variants, against its plain version at the K2
-   shapes (the training variant's residuals c and g too), beside cuDNN's
+   shapes (the training variant's residuals c and g too; bf16 in each
+   recurrence variant, with the GEMM beside cuBLAS), beside cuDNN's
    bidirectional nn.LSTM with the same weights;
 15. K7 (lstm_bwd) as phase 5: dg and the bias grad, then dx, dW_ih and
    dW_hh through LSTMLayer against the same Function on the plain
@@ -86,7 +93,11 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    bound, the step's L2 floor (the packed W_hh and the operand copy's
    bytes over the warm W_hh's read rate), the plain version and cuDNN's
    bidirectional GRU backward;
-20. the 6 x BiGRU-1600 model (DeepSpeech2-large, BASELINE.md config 4) at
+20. K2 at the wide GRU's layer 0 (T 376, B 64, H 1600, F 1312, bf16): the
+   streamed persistent variant (the rule's choice) and one launch a step
+   against plain, timed beside cuDNN's nn.GRU; the W-resident variant
+   refused (its slices do not fit); then
+   the 6 x BiGRU-1600 model (DeepSpeech2-large, BASELINE.md config 4) at
    batch 64: the route of every layer (layer 0 on K2, layers 1-5 on K4),
    the bf16 forward's launches and logits against the plain versions, then
    the train step as phase 12 (stft_mag 1, gru_fwd 1 and gru_scan 5, all
@@ -107,8 +118,10 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    the LSTM-800 step for K3 and K7, the BiGRU-1600 step for K4, the
    BiLSTM-1600 step for K6; for K10 the beam path of phase 10; K1's entry
    adds its shape route and host-visible time, K10's its times at width
-   128, K5's and K7's their times at the wide width), then the device
-   line last.
+   128, K5's and K7's their times at the wide width, K2's and K3's the
+   recurrence variant the rule chose, each variant's time, a step's time
+   and the projection GEMM's beside cuBLAS, K2's its wide layer 0), then
+   the device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
 non-zero. Times are CUDA-event medians with warm L2; K1's and K10's (and
@@ -173,6 +186,10 @@ GRU_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSTM_TOL, LSTM_BWD_TOL = GRU_TOL, GRU_BWD_TOL
 CTC_TOL = dict(rtol=1e-4, atol=1e-4)    # log-space sums, f32 exp/log
 LOGIT_TOL = 2e-2                        # x max(1, max|logits|), bf16 forward
+# K2's/K3's projection GEMM against the f32 einsum of the same bf16
+# operands, x max(1, max|ref|) x sqrt(K): exact products, f32 sums of K
+# terms in another order
+GEMM_TOL = 1e-5
 # the train step in bf16, kernels against plain versions: the loss and the
 # grad norm relative; each parameter's gradient x max(1, max|its grad|)
 STEP_LOSS_TOL, STEP_GRAD_TOL = 2e-3, 5e-2
@@ -429,14 +446,99 @@ def cudnn_layer(torch, args, dt, cell):
     return net
 
 
-def phase_layer_fwd(torch, results, cell):
-    """K2 or K3, both variants, against the plain version at full width,
-    with times, bounds and cuDNN's layer as the yardstick."""
+FUSED_VARIANTS = ("resident", "persistent", "step", "auto")
+
+
+def fused_variant(torch, cell, b, h) -> str:
+    """The bf16 recurrence variant K2's/K3's rule picks on this card for a
+    bidirectional layer of B b and H h."""
+    from deepspeech_tpu_torch.ops.cuda.recurrence import (FWD_VARIANTS as V,
+                                                          fwd_capacity,
+                                                          fwd_variant)
+
+    mod, _ = cell_kernels(cell)
+    caps = fwd_capacity(mod._fwd_kernel(), f"{cell}_fwd_capacity", b, h,
+                        torch.device("cuda"))
+    mode = fwd_variant("auto", CELLS[cell]["gates"], b, h, 2, *caps)
+    return {m: v for v, m in V.items()}[mode]
+
+
+def hold_fused(torch, cell, args, variants, label) -> float:
+    """K2 or K3 at ``args`` in each of ``variants``, inference and training,
+    against plain (every stream against the cell's tolerance, c against it
+    x max(1, max|c|)) -> the largest error."""
     mod, _ = cell_kernels(cell)
     spec = CELLS[cell]
-    tol_of = GRU_TOL if cell == "gru" else LSTM_TOL
     layer = mod.gru_layer if cell == "gru" else mod.lstm_layer
     names = ("h", "g", "hn") if cell == "gru" else ("h", "c", "g")
+    name = str(args[0].dtype).split(".")[-1]
+    tol = (GRU_TOL if cell == "gru" else LSTM_TOL)[name]
+    ref = mod.plain(*args, residuals=True)
+    worst = 0.0
+    for variant in variants:
+        got = layer(*args, variant=variant)
+        res = layer(*args, residuals=True, variant=variant)
+        torch.cuda.synchronize()
+        err = (got - ref[0]).abs().max().item()
+        errs = [(e, sc if k == "c" else 1.0) for k, (e, sc) in
+                zip(names, (max_err(a, r) for a, r in zip(res, ref)))]
+        log(f"{spec['name']} {spec['fwd']} {name} {variant} {label}: "
+            f"max_abs_err {err:.3e}; with residuals "
+            + " ".join(f"{k} {e:.3e}" for k, (e, _) in zip(names, errs))
+            + f" (tolerance {tol}"
+            + (", c x max(1, max|c|))" if cell == "lstm" else ")"))
+        if not (err <= tol and all(e <= tol * sc for e, sc in errs)):
+            raise AssertionError(f"{spec['fwd']} {name} {variant} {label} "
+                                 f"disagrees with its plain version: "
+                                 f"{err} {errs}")
+        worst = max([worst, err] + [e for e, _ in errs])
+    return worst
+
+
+def gemm_yardstick(torch, x, w_ih) -> dict:
+    """K2's/K3's bf16 projection GEMM alone (gru.projection) against its
+    plain einsum, timed beside cuBLAS on the same bf16 operands
+    (torch.matmul, bf16 out; torch.mm with an f32 out, one call a
+    direction) and its bound."""
+    from deepspeech_tpu_torch.ops import fp32_matmul
+    from deepspeech_tpu_torch.ops.cuda import gru
+
+    t, b, f_in = x.shape
+    ndir, _, n = w_ih.shape
+    got = gru.projection(x, w_ih)
+    with fp32_matmul():
+        ref = torch.einsum("tbf,dfn->dtbn", x.float(), w_ih.float())
+    err, scale = max_err(got, ref)
+    if not err <= GEMM_TOL * scale * f_in ** 0.5:
+        raise AssertionError(f"projection GEMM disagrees with its plain "
+                             f"einsum: {err} (scale {scale})")
+    x2 = x.reshape(t * b, f_in)
+    ms = time_ms(lambda: gru.projection(x, w_ih), reps=10)
+    lib_ms = time_ms(lambda: torch.matmul(x2, w_ih), reps=10)
+    lib_f32_ms = time_ms(lambda: [torch.mm(x2, w_ih[d],
+                                           out_dtype=torch.float32)
+                                  for d in range(ndir)], reps=10)
+    flops = 2.0 * ndir * t * b * n * f_in
+    bound_ms, by = bound(flops, PEAK_BF16, 2 * (t * b * f_in
+                                                + ndir * f_in * n)
+                         + 4 * ndir * t * b * n)
+    log(f"projection GEMM (proj_mma.cuh) M {t * b} N {n} K {f_in} D {ndir}: "
+        f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), max_abs_err "
+        f"{err:.3e} vs the f32 einsum; cuBLAS torch.matmul (bf16 out) "
+        f"{lib_ms:.4f} ms, torch.mm f32 out {lib_f32_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({by})")
+    return dict(gemm_ms=ms, gemm_library_ms=lib_ms,
+                gemm_library_f32_ms=lib_f32_ms, gemm_bound_ms=bound_ms,
+                gemm_max_abs_err=err)
+
+
+def phase_layer_fwd(torch, results, cell):
+    """K2 or K3, both variants, against the plain version at full width
+    (bf16 in each recurrence variant), with times, bounds and cuDNN's
+    layer as the yardstick; the projection GEMM beside cuBLAS."""
+    mod, _ = cell_kernels(cell)
+    spec = CELLS[cell]
+    layer = mod.gru_layer if cell == "gru" else mod.lstm_layer
     rng = np.random.default_rng(SEED + (1 if cell == "gru" else 8))
     t, b, h = FRAMES, BATCH, HIDDEN
     gh = spec["gates"] * h
@@ -445,29 +547,29 @@ def phase_layer_fwd(torch, results, cell):
             torch, rng, t, b, h, f_in, spec["gates"])
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).split(".")[-1]
-            tol = tol_of[name]
             args = (x32.to(dt), w_ih32.to(dt), b_ih, w_hh32.to(dt), b_hh,
                     lens)
-            got = layer(*args)
-            res = layer(*args, residuals=True)
-            ref = mod.plain(*args, residuals=True)
-            torch.cuda.synchronize()
-            err = (got - ref[0]).abs().max().item()
-            # every stream against tol, c against tol x max(1, max|c|)
-            errs = [max_err(a, r) for a, r in zip(res, ref)]
-            errs = [(e, sc if k == "c" else 1.0)
-                    for k, (e, sc) in zip(names, errs)]
-            log(f"{spec['name']} {spec['fwd']} {name} F={f_in}: max_abs_err "
-                f"{err:.3e}; with residuals "
-                + " ".join(f"{k} {e:.3e}" for k, (e, _) in zip(names, errs))
-                + f" (tolerance {tol}"
-                + (", c x max(1, max|c|))" if cell == "lstm" else ")"))
-            if not (err <= tol and all(e <= tol * sc for e, sc in errs)):
-                raise AssertionError(f"{spec['fwd']} {name} F={f_in} "
-                                     f"disagrees with its plain version: "
-                                     f"{err} {errs}")
+            bf16 = dt == torch.bfloat16
+            worst = hold_fused(torch, cell, args,
+                               FUSED_VARIANTS if bf16 else ("auto",),
+                               f"F={f_in}")
             ms = time_ms(lambda: layer(*args), reps=5)
             ms_res = time_ms(lambda: layer(*args, residuals=True), reps=5)
+            extra = {}
+            if bf16:
+                extra = dict(variant=fused_variant(torch, cell, b, h),
+                             by_variant={v: time_ms(lambda: layer(
+                                 *args, residuals=True, variant=v), reps=5)
+                                 for v in FUSED_VARIANTS[:3]},
+                             **gemm_yardstick(torch, args[0], args[1]))
+                extra["step_us"] = ((ms_res - extra["gemm_ms"]) / t * 1e3)
+                g_ms = extra["gemm_ms"]
+                log(f"{spec['name']} {spec['fwd']} bf16 F={f_in} (with "
+                    "residuals): "
+                    + ", ".join(f"{v} {m:.3f} ms ({(m - g_ms) / t * 1e3:.2f}"
+                                " us a step)"
+                                for v, m in extra["by_variant"].items())
+                    + f"; the rule chose {extra['variant']}")
             plain_ms = time_ms(lambda: mod.plain(*args, residuals=True),
                                reps=3, warmup=1)
             net = cudnn_layer(torch, args, dt, cell)
@@ -490,14 +592,13 @@ def phase_layer_fwd(torch, results, cell):
                 f"{plain_ms:.3f} ms, cuDNN {cell.upper()} {lib_ms:.3f} ms, "
                 f"bound {bound_ms:.4f} ms ({by}), with residuals "
                 f"{bound_res_ms:.4f} ms ({by_res})")
-            if f_in == FEATURES and dt == torch.bfloat16:
+            if f_in == FEATURES and bf16:
                 # the train path runs the residual variant
                 results[spec["fwd"]] = dict(
-                    route="cuda", max_abs_err=max([err] + [e for e, _ in
-                                                           errs]),
-                    ms=ms_res, ms_inference=ms, plain_ms=plain_ms,
+                    route="cuda", max_abs_err=worst, ms=ms_res,
+                    ms_inference=ms, plain_ms=plain_ms,
                     bound_ms=bound_res_ms, bound_by=by_res,
-                    library_ms=lib_ms)
+                    library_ms=lib_ms, extra=extra)
             del net
 
 
@@ -535,7 +636,33 @@ def step_floor(torch) -> dict:
         return time_ms(lambda: lstm.lstm_bwd(out, r2, r1, w_hh, lens),
                        reps=7)
 
+    # the persistent grids' floor: a grid doing only its barrier a step, the
+    # W-resident variant's (release/acquire, on its grid at H 800, D 2) and
+    # the streamed kernels' (on K4's and K5's 100-block grids at H 1600)
+    from deepspeech_tpu_torch.ops.cuda.recurrence import fwd_blocks
+
+    lib.grid_sync_steps.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p]
+    lib.grid_sync_steps.restype = ctypes.c_int
+    bar = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def sync_ms(steps, release, blocks):
+        return time_ms(lambda: build.check(lib, lib.grid_sync_steps(
+            blocks, steps, bar.data_ptr(), release, stream), "grid sync"),
+            reps=7)
+
+    res_blocks = fwd_blocks(2, HIDDEN)[1]
     floor = dict(gap_ms=gap_ms)
+    floor["sync_us"] = (sync_ms(376, 1, res_blocks)
+                        - sync_ms(188, 1, res_blocks)) / 188 * 1e3
+    floor["sync_streamed_us"] = (sync_ms(376, 0, 100)
+                                 - sync_ms(188, 0, 100)) / 188 * 1e3
+    log(f"persistent floor per step (a grid doing only its barrier): "
+        f"{floor['sync_us']:.3f} us (the W-resident variant's barrier, "
+        f"{res_blocks} blocks), {floor['sync_streamed_us']:.3f} us (the "
+        f"streamed kernels' barrier, 100 blocks); x 376 steps = "
+        f"{floor['sync_us'] * 376 / 1e3:.3f} ms a call")
     for cell, key in (("gru", ""), ("lstm", "lstm_")):
         for backward, what in ((False, "step_ms"), (True, "bwd_step_ms")):
             floor[key + what] = (tiny(376, cell, backward)
@@ -870,6 +997,54 @@ def phase_bwd_wide(torch, results, cell):
         max_abs_err=max(errs.values()), plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
         floor_step_us=floor_ms * 1e3, by_variant=by)
+
+
+def phase_fused_wide(torch, results):
+    """K2 at the wide GRU's layer 0 (T 376, B 64, H 1600, F 1312, bf16,
+    unequal lengths): the streamed persistent variant (the rule's choice
+    there) and one launch a step against plain, each timed, beside cuDNN's
+    nn.GRU and the GEMM's yardstick; the W-resident variant, whose slices
+    do not fit a block's shared memory there, must be refused."""
+    from deepspeech_tpu_torch.ops.cuda import gru
+
+    rng = np.random.default_rng(SEED + 21)
+    t, b, h = FRAMES, WIDE_BATCH["gru"], WIDE
+    dt = torch.bfloat16
+    x32, w_ih32, b_ih, w_hh32, b_hh, lens = layer_inputs(
+        torch, rng, t, b, h, FEATURES, 3)
+    args = (x32.to(dt), w_ih32.to(dt), b_ih, w_hh32.to(dt), b_hh, lens)
+    variant = fused_variant(torch, "gru", b, h)
+    if variant != "persistent":
+        raise AssertionError(f"K2's rule at H {h}, B {b}: {variant}, "
+                             "expected persistent")
+    worst = hold_fused(torch, "gru", args, ("persistent", "step", "auto"),
+                       f"H={h} B={b} F={FEATURES}")
+    try:
+        gru.gru_layer(*args, variant="resident")
+    except RuntimeError as e:
+        log(f"K2 resident at H {h}, B {b}: refused ({e})")
+    else:
+        raise AssertionError("K2's resident variant ran at H 1600")
+    by = {v: time_ms(lambda: gru.gru_layer(*args, residuals=True,
+                                           variant=v), reps=5)
+          for v in ("persistent", "step")}
+    plain_ms = time_ms(lambda: gru.plain(*args, residuals=True), reps=1,
+                       warmup=1)
+    net = cudnn_layer(torch, args, dt, "gru")
+    with torch.no_grad():
+        lib_ms = time_ms(lambda: net(args[0]), reps=5)
+    del net
+    gemm = gemm_yardstick(torch, args[0], args[1])
+    log(f"K2 gru_fwd bf16 at the wide layer 0 (T {t}, B {b}, H {h}, "
+        f"F {FEATURES}, with residuals): "
+        + ", ".join(f"{v} {m:.3f} ms ({(m - gemm['gemm_ms']) / t * 1e3:.2f}"
+                    f" us a step)" for v, m in by.items())
+        + f"; plain {plain_ms:.3f} ms; cuDNN GRU {lib_ms:.3f} ms")
+    results["gru_fwd"].setdefault("extra", {})["wide"] = dict(
+        shape=[t, b, h, FEATURES], variant=variant, ms=by[variant],
+        by_variant=by, max_abs_err=worst, plain_ms=plain_ms,
+        library_ms=lib_ms, gemm_ms=gemm["gemm_ms"],
+        gemm_library_ms=gemm["gemm_library_ms"])
 
 
 def phase_scan(torch, results, cell):
@@ -1218,6 +1393,25 @@ def profile_run(torch, label, fn, ms: float, floor: dict):
             log(f"{what} step at full width: {t / n:.3f} us of kernel time "
                 f"per step ({n} steps), {t / n / (floor[key] * 1e3):.1f}x "
                 f"the least-work step of {floor[key] * 1e3:.3f} us")
+    # the bf16 forward recurrences (rnn_mma.cuh): on an f32 stream K2 (G 3)
+    # and K3 (G 4), on a bf16 stream K4 and K6; proj_mma.cuh is K2's and
+    # K3's projection GEMM
+    for stream_t, gates, what in (("float", 3, "K2"), ("float", 4, "K3"),
+                                  ("__nv_bfloat16", 3, "K4"),
+                                  ("__nv_bfloat16", 4, "K6")):
+        runs = [(n, t) for name, (n, t) in by_name.items()
+                if re.search(rf"mma_rnn::\w+_kernel<{stream_t}, {gates}\b",
+                             name)]
+        if runs:
+            n, t = map(sum, zip(*runs))
+            log(f"{what} bf16 recurrence (rnn_mma.cuh): {t / 1e3:.3f} ms of "
+                f"kernel time in {n} launches")
+    runs = [(n, t) for name, (n, t) in by_name.items()
+            if "proj_mma::gemm_kernel" in name]
+    if runs:
+        n, t = map(sum, zip(*runs))
+        log(f"K2/K3 bf16 projection GEMM (proj_mma.cuh): {t / 1e3:.3f} ms "
+            f"of kernel time in {n} launches")
     # the bf16 K5/K7 (rnn_mma_bwd.cuh): G 3 is the GRU's, 4 the LSTM's
     for gates, what in ((3, "K5"), (4, "K7")):
         runs = [(n, t) for name, (n, t) in by_name.items()
@@ -1994,6 +2188,8 @@ def main() -> int:
     for cell, fused, wide in (("gru", 1, LAYERS - 1), ("lstm", 0, LAYERS)):
         phase_scan(torch, results, cell)
         phase_bwd_wide(torch, results, cell)
+        if cell == "gru":
+            phase_fused_wide(torch, results)
         b = WIDE_BATCH[cell]
         fwd = {f"{cell}_fwd": fused, f"{cell}_scan": wide}
         phase_forward(torch, {}, floor, cell, WIDE, b,

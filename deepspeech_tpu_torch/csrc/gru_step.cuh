@@ -1,7 +1,7 @@
-// The GRU recurrence shared by K2 (gru_fwd.cu, on its f32 projection
-// scratch) and K4 (gru_scan.cu, on a projection in the operand type): the
-// r, z, n gates with f32 state and f32 gate math, both biases added in f32
-// and b_hn inside the r *, torch gate order.
+// The f32 GRU recurrence of K2 (gru_fwd.cu, on its f32 projection
+// scratch) and K4 (gru_scan.cu, on its f32 projection): the r, z, n gates
+// with f32 state and f32 gate math, both biases added in f32 and b_hn
+// inside the r *, torch gate order. In bf16 both run rnn_mma.cuh instead.
 //
 //  * gru_step: one launch per time step covering both directions. A block
 //    owns TJ hidden units of one direction for RB batch rows, so its shared
@@ -11,13 +11,14 @@
 //    reduces the partial sums through shared memory and applies the gate
 //    update. The backward direction indexes t = len_b - 1 - s directly;
 //    steps past a row's length keep its state and write zeros. h
-//    ping-pongs between two state buffers. A persistent kernel with W_hh
-//    resident in shared memory and a grid barrier per step is later work.
-//  * T is the operand type of W_hh and of the residuals (float or
-//    __nv_bfloat16; in bf16 the hidden dot rounds h_prev to bf16 and every
-//    product accumulates in f32). XT is the type of the projection stream:
-//    float for K2's scratch, T for K4's input; it is widened to f32 before
-//    b_ih is added.
+//    ping-pongs between two state buffers. The bf16 recurrences' tensor-
+//    core steps, persistent variants and W_hh held in shared memory are
+//    rnn_mma.cuh's.
+//  * T is the operand type of W_hh and of the residuals (instantiated for
+//    float; the template also takes __nv_bfloat16, where the hidden dot
+//    rounds h_prev to bf16 and every product accumulates in f32). XT is
+//    the type of the projection stream, widened to f32 before b_ih is
+//    added.
 #pragma once
 
 #include "rnn_common.cuh"

@@ -1,7 +1,7 @@
-// The LSTM recurrence shared by K3 (lstm_fwd.cu, on its f32 projection
-// scratch) and K6 (lstm_scan.cu, on a projection in the operand type):
-// torch gate order i, f, g, o with f32 state h and c, both biases added in
-// f32 and f32 gates.
+// The f32 LSTM recurrence of K3 (lstm_fwd.cu, on its f32 projection
+// scratch) and K6 (lstm_scan.cu, on its f32 projection): torch gate order
+// i, f, g, o with f32 state h and c, both biases added in f32 and f32
+// gates. In bf16 both run rnn_mma.cuh instead.
 //
 //  * lstm_step: one launch per time step covering both directions. A block
 //    owns TJ hidden units of one direction for RB batch rows and computes
@@ -15,11 +15,11 @@
 //    steps past a row's length keep its state and write zeros. h
 //    ping-pongs between two state buffers, since every block reads all of
 //    h_prev.
-//  * T is the operand type of W_hh and of the gate residuals (float or
-//    __nv_bfloat16; in bf16 the hidden dot rounds h_prev to bf16 and every
-//    product accumulates in f32). XT is the type of the projection stream:
-//    float for K3's scratch, T for K6's input; it is widened to f32 before
-//    b_ih is added.
+//  * T is the operand type of W_hh and of the gate residuals (instantiated
+//    for float; the template also takes __nv_bfloat16, where the hidden
+//    dot rounds h_prev to bf16 and every product accumulates in f32). XT is
+//    the type of the projection stream, widened to f32 before b_ih is
+//    added.
 #pragma once
 
 #include "rnn_common.cuh"

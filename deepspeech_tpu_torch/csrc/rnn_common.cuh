@@ -1,5 +1,5 @@
 // Pieces shared by the recurrent-layer kernels (gru_fwd.cu, gru_bwd.cu,
-// lstm_fwd.cu, lstm_bwd.cu): the input-projection GEMM of the forward
+// lstm_fwd.cu, lstm_bwd.cu): the f32 input-projection GEMM of the forward
 // kernels, the sigmoid, and the column staging of the backward step
 // kernels.
 #pragma once
@@ -11,8 +11,9 @@ namespace {
 constexpr int GBM = 128, GBN = 128, GBK = 8;  // projection GEMM tile
 
 // C[d] (M x N, f32) = A (M x K) @ W[d] (K x N); grid (N/GBN, M/GBM, D).
-// A tiled SIMT GEMM (128 x 128 x 8 tiles, 8 x 8 per thread, f32 FMA): it
-// uses no tensor cores yet; a wgmma version is later work.
+// A tiled SIMT GEMM (128 x 128 x 8 tiles, 8 x 8 per thread, f32 FMA), the
+// f32 projection of K2 and K3 (no TF32); their bf16 projection runs on
+// tensor cores (proj_mma.cuh).
 template <typename T>
 __global__ void __launch_bounds__(256)
 proj_gemm(const T* __restrict__ A, const T* __restrict__ W,

@@ -6,9 +6,14 @@ tie them together.
 (``_gru_fused_fwd_kernel`` via ``bigru_layer_pallas`` / ``gru_layer_pallas``),
 input projection included, in both variants: inference, and training
 (``residuals=True``), which also returns the gate stream g = (r, z, n) and hn,
-the hidden n-term before the r *, in the operand type. ``gru_bwd`` replaces
-``deepspeech_tpu/ops/pallas/rnn_kernel.py`` (``_gru_bwd_kernel`` via
-``_gru_bwd``). ``gru_scan`` (K4) replaces ``rnn_kernel.py``
+the hidden n-term before the r *, in the operand type. In bf16 (K2 on
+tensor cores: ``csrc/proj_mma.cuh`` for the projection, ``csrc/rnn_mma.cuh``
+for the recurrence on its f32 stream) it runs one of three variants,
+``variant=`` "resident", "persistent" or "step", or by the rule
+``recurrence.fwd_variant``; in f32 it keeps its SIMT kernels.
+``gru_bwd`` replaces ``deepspeech_tpu/ops/pallas/rnn_kernel.py``
+(``_gru_bwd_kernel`` via ``_gru_bwd``). ``gru_scan`` (K4) replaces
+``rnn_kernel.py``
 (``_gru_fwd_kernel`` via ``bigru_scan_pallas`` / ``gru_scan_pallas``): the
 same recurrence on a projection computed outside and rounded to the
 operand type, for the layers ``route.fused_route`` sends there. For CPU
@@ -51,6 +56,8 @@ from deepspeech_tpu_torch.ops.cuda.recurrence import (bwd_blocks,
                                                       bwd_variant,
                                                       check_layer,
                                                       check_scan,
+                                                      fwd_capacity,
+                                                      fwd_mode, fwd_variant,
                                                       h_copy_shape,
                                                       h_prev_stream,
                                                       mm_f32, op_copy_shape,
@@ -65,6 +72,7 @@ from deepspeech_tpu_torch.ops.cuda.recurrence import (bwd_blocks,
 
 launches = 0      # gru_fwd launches (one per layer call), both variants
 res_launches = 0  # of those, the training variant's (residuals written)
+proj_launches = 0  # the bf16 projection GEMM alone (``projection``)
 scan_launches = 0      # gru_scan launches (K4, one per layer call)
 scan_res_launches = 0  # of those, the training variant's
 bwd_launches = 0  # gru_bwd launches (one per layer backward)
@@ -79,8 +87,11 @@ _BWD = {torch.float32: "gru_bwd_f32", torch.bfloat16: "gru_bwd_bf16"}
 @functools.cache
 def _fwd_kernel():
     lib = build.load("gru_fwd")
-    for name in _FWD.values():
-        getattr(lib, name).argtypes = [_P] * 11 + [_I] * 5 + [_P]
+    lib.gru_fwd_f32.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+    lib.gru_fwd_bf16.argtypes = [_P] * 13 + [_I] * 6 + [_P]
+    lib.gru_fwd_capacity.argtypes = [_I, _I, _P, _P]
+    lib.proj_mma_bf16.argtypes = [_P] * 3 + [_I] * 4 + [_P]
+    for name in (*_FWD.values(), "gru_fwd_capacity", "proj_mma_bf16"):
         getattr(lib, name).restype = _I
     return lib
 
@@ -168,12 +179,16 @@ def plain_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
 
 def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
               w_hh: torch.Tensor, b_hh: torch.Tensor, lengths: torch.Tensor,
-              residuals: bool = False):
-    """GRU layer forward -> (D, T, B, H) f32, zero past each row's length;
-    with ``residuals`` -> (out, g, hn) for the backward.
+              residuals: bool = False, variant: str = "auto"):
+    """K2: GRU layer forward -> (D, T, B, H) f32, zero past each row's
+    length; with ``residuals`` -> (out, g, hn) for the backward.
 
     x (T, B, F), w_ih (D, F, 3H) and w_hh (D, H, 3H) share the operand type
-    (float32 or bfloat16); b_ih, b_hh (D, 3H) f32; lengths (B,)."""
+    (float32 or bfloat16); b_ih, b_hh (D, 3H) f32; lengths (B,). In bf16
+    the projection and the recurrence run on tensor cores, the recurrence
+    from W_hh packed here (``pack_w_hh``): ``variant`` "auto" (the rule
+    ``fwd_variant``), "resident", "persistent" or "step"; a variant the
+    shape does not allow raises. f32 has one variant."""
     if x.device.type == "cpu":
         return plain(x, w_ih, b_ih, w_hh, b_hh, lengths, residuals)
     if x.device.type != "cuda":
@@ -181,6 +196,7 @@ def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     dt, dev = x.dtype, x.device
     t, b, f_in, ndir, hidden = check_layer("gru_layer", 3, tuple(_FWD), x,
                                            w_ih, b_ih, w_hh, b_hh, lengths)
+    fwd_mode(variant)
     g = 3 * hidden
     lib = _fwd_kernel()
     x = x.contiguous()
@@ -189,21 +205,38 @@ def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     b_hh = b_hh.float().contiguous()
     lens = lengths.to(torch.int32).clamp(max=t).contiguous()
     xp = torch.empty((ndir, t, b, g), dtype=torch.float32, device=dev)
-    state = torch.empty((2, ndir, b, hidden), dtype=torch.float32, device=dev)
     out = torch.empty((ndir, t, b, hidden), dtype=torch.float32, device=dev)
     gates = hn = None
     if residuals:
         gates = torch.empty((ndir, t, b, g), dtype=dt, device=dev)
         hn = torch.empty((ndir, t, b, hidden), dtype=dt, device=dev)
-    fn = getattr(lib, _FWD[dt])
+    res = (gates.data_ptr() if residuals else None,
+           hn.data_ptr() if residuals else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        code = fn(x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
-                  w_hh.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
-                  xp.data_ptr(), state.data_ptr(), out.data_ptr(),
-                  gates.data_ptr() if residuals else None,
-                  hn.data_ptr() if residuals else None,
-                  t, b, f_in, hidden, ndir, stream)
+    if dt == torch.bfloat16:
+        mode = fwd_variant(variant, 3, b, hidden, ndir, *fwd_capacity(
+            lib, "gru_fwd_capacity", b, hidden, dev))
+        w_pk = pack_w_hh(w_hh, 3)
+        h = torch.empty((ndir, b, hidden), dtype=torch.float32, device=dev)
+        hb = torch.empty(h_copy_shape(ndir, b, hidden), dtype=dt,
+                         device=dev)
+        bar = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.gru_fwd_bf16(
+                x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
+                w_pk.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
+                xp.data_ptr(), h.data_ptr(), hb.data_ptr(), bar.data_ptr(),
+                out.data_ptr(), *res, t, b, f_in, hidden, ndir, mode,
+                stream)
+    else:
+        state = torch.empty((2, ndir, b, hidden), dtype=torch.float32,
+                            device=dev)
+        with torch.cuda.device(dev):
+            code = lib.gru_fwd_f32(
+                x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
+                w_hh.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
+                xp.data_ptr(), state.data_ptr(), out.data_ptr(), *res, t, b,
+                f_in, hidden, ndir, stream)
     build.check(lib, code, "gru_fwd kernel")
     global launches, res_launches
     launches += 1
@@ -211,6 +244,37 @@ def gru_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
         return out
     res_launches += 1
     return out, gates, hn
+
+
+def projection(x: torch.Tensor, w_ih: torch.Tensor) -> torch.Tensor:
+    """The bf16 projection GEMM of K2 and K3 alone (``csrc/proj_mma.cuh``):
+    x (T, B, F) @ w_ih (D, F, N) -> (D, T, B, N) f32 with f32 sums, as the
+    fused forwards compute it before their recurrence; its plain twin is
+    ``plain``'s einsum. For timing it beside cuBLAS and for the card
+    tests; the layers launch it inside ``gru_layer``/``lstm_layer``."""
+    if x.device.type == "cpu":
+        with fp32_matmul():
+            return torch.einsum("tbf,dfn->dtbn", x.float(), w_ih.float())
+    if x.dtype != torch.bfloat16 or w_ih.dtype != torch.bfloat16:
+        raise TypeError(f"projection kernel takes bfloat16 x and w_ih, got "
+                        f"{x.dtype}, {w_ih.dtype}")
+    t, b, f_in = x.shape
+    ndir, n = w_ih.shape[0], w_ih.shape[2]
+    if w_ih.shape[1] != f_in:
+        raise ValueError(f"projection: x {tuple(x.shape)} against w_ih "
+                         f"{tuple(w_ih.shape)}")
+    same_device("projection", x.device, w_ih=w_ih)
+    lib = _fwd_kernel()
+    x, w_ih = x.contiguous(), w_ih.contiguous()
+    out = torch.empty((ndir, t, b, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = lib.proj_mma_bf16(
+            x.data_ptr(), w_ih.data_ptr(), out.data_ptr(), t * b, n, f_in,
+            ndir, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, code, "projection kernel")
+    global proj_launches
+    proj_launches += 1
+    return out
 
 
 def gru_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,

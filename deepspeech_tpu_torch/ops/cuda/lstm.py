@@ -7,7 +7,11 @@ that tie them together.
 ``lstm_layer_pallas``), input projection included, in both variants:
 inference, which writes only h, and training (``residuals=True``), which
 also returns the cell stream c in f32 and the activated gates (i, f, g, o)
-in the operand type. ``lstm_bwd`` replaces
+in the operand type. In bf16 (K3 on tensor cores: ``csrc/proj_mma.cuh``
+for the projection, ``csrc/rnn_mma.cuh`` for the recurrence on its f32
+stream) it runs one of three variants, ``variant=`` "resident",
+"persistent" or "step", or by the rule ``recurrence.fwd_variant``; in f32
+it keeps its SIMT kernels. ``lstm_bwd`` replaces
 ``deepspeech_tpu/ops/pallas/rnn_kernel.py`` (``_lstm_bwd_kernel`` via
 ``_lstm_bwd``). ``lstm_scan`` (K6) replaces ``rnn_kernel.py``
 (``_lstm_fwd_kernel`` via ``bilstm_scan_pallas`` / ``lstm_scan_pallas``):
@@ -55,6 +59,8 @@ from deepspeech_tpu_torch.ops.cuda.recurrence import (bwd_blocks,
                                                       bwd_variant,
                                                       check_layer,
                                                       check_scan,
+                                                      fwd_capacity,
+                                                      fwd_mode, fwd_variant,
                                                       h_copy_shape,
                                                       h_prev_stream,
                                                       mm_f32, op_copy_shape,
@@ -83,8 +89,10 @@ _BWD = {torch.float32: "lstm_bwd_f32", torch.bfloat16: "lstm_bwd_bf16"}
 @functools.cache
 def _fwd_kernel():
     lib = build.load("lstm_fwd")
-    for name in _FWD.values():
-        getattr(lib, name).argtypes = [_P] * 11 + [_I] * 5 + [_P]
+    lib.lstm_fwd_f32.argtypes = [_P] * 11 + [_I] * 5 + [_P]
+    lib.lstm_fwd_bf16.argtypes = [_P] * 13 + [_I] * 6 + [_P]
+    lib.lstm_fwd_capacity.argtypes = [_I, _I, _P, _P]
+    for name in (*_FWD.values(), "lstm_fwd_capacity"):
         getattr(lib, name).restype = _I
     return lib
 
@@ -175,12 +183,16 @@ def plain_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
 
 def lstm_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
                w_hh: torch.Tensor, b_hh: torch.Tensor, lengths: torch.Tensor,
-               residuals: bool = False):
+               residuals: bool = False, variant: str = "auto"):
     """K3: LSTM layer forward -> (D, T, B, H) f32, zero past each row's
     length; with ``residuals`` -> (out, c, g) for the backward.
 
     x (T, B, F), w_ih (D, F, 4H) and w_hh (D, H, 4H) share the operand type
-    (float32 or bfloat16); b_ih, b_hh (D, 4H) f32; lengths (B,)."""
+    (float32 or bfloat16); b_ih, b_hh (D, 4H) f32; lengths (B,). In bf16
+    the projection and the recurrence run on tensor cores, the recurrence
+    from W_hh packed here (``pack_w_hh``): ``variant`` "auto" (the rule
+    ``fwd_variant``), "resident", "persistent" or "step"; a variant the
+    shape does not allow raises. f32 has one variant."""
     if x.device.type == "cpu":
         return plain(x, w_ih, b_ih, w_hh, b_hh, lengths, residuals)
     if x.device.type != "cuda":
@@ -188,6 +200,7 @@ def lstm_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     dt, dev = x.dtype, x.device
     t, b, f_in, ndir, hidden = check_layer("lstm_layer", 4, tuple(_FWD), x,
                                            w_ih, b_ih, w_hh, b_hh, lengths)
+    fwd_mode(variant)
     g = 4 * hidden
     lib = _fwd_kernel()
     x = x.contiguous()
@@ -196,23 +209,41 @@ def lstm_layer(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     b_hh = b_hh.float().contiguous()
     lens = lengths.to(torch.int32).clamp(max=t).contiguous()
     xp = torch.empty((ndir, t, b, g), dtype=torch.float32, device=dev)
-    # h ping-pongs between [0] and [1]; [2] holds c
-    state = torch.empty((3, ndir, b, hidden), dtype=torch.float32, device=dev)
     out = torch.empty((ndir, t, b, hidden), dtype=torch.float32, device=dev)
     cells = gates = None
     if residuals:
         cells = torch.empty((ndir, t, b, hidden), dtype=torch.float32,
                             device=dev)
         gates = torch.empty((ndir, t, b, g), dtype=dt, device=dev)
-    fn = getattr(lib, _FWD[dt])
+    res = (cells.data_ptr() if residuals else None,
+           gates.data_ptr() if residuals else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        code = fn(x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
-                  w_hh.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
-                  xp.data_ptr(), state.data_ptr(), out.data_ptr(),
-                  cells.data_ptr() if residuals else None,
-                  gates.data_ptr() if residuals else None,
-                  t, b, f_in, hidden, ndir, stream)
+    if dt == torch.bfloat16:
+        mode = fwd_variant(variant, 4, b, hidden, ndir, *fwd_capacity(
+            lib, "lstm_fwd_capacity", b, hidden, dev))
+        w_pk = pack_w_hh(w_hh, 4)
+        hc = torch.empty((2, ndir, b, hidden), dtype=torch.float32,
+                         device=dev)
+        hb = torch.empty(h_copy_shape(ndir, b, hidden), dtype=dt,
+                         device=dev)
+        bar = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.lstm_fwd_bf16(
+                x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
+                w_pk.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
+                xp.data_ptr(), hc.data_ptr(), hb.data_ptr(), bar.data_ptr(),
+                out.data_ptr(), *res, t, b, f_in, hidden, ndir, mode,
+                stream)
+    else:
+        # h ping-pongs between [0] and [1]; [2] holds c
+        state = torch.empty((3, ndir, b, hidden), dtype=torch.float32,
+                            device=dev)
+        with torch.cuda.device(dev):
+            code = lib.lstm_fwd_f32(
+                x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
+                w_hh.data_ptr(), b_hh.data_ptr(), lens.data_ptr(),
+                xp.data_ptr(), state.data_ptr(), out.data_ptr(), *res, t, b,
+                f_in, hidden, ndir, stream)
     build.check(lib, code, "lstm_fwd kernel")
     global launches, res_launches
     launches += 1

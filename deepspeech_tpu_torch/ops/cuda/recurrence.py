@@ -2,7 +2,8 @@
 the backward direction's time walk, the h_prev stream of the backward
 products, argument checks, the f32-sum matmul of the layer backwards, and
 the W_hh packings, scratch shapes and rules of the bf16 recurrence kernels
-(K4, K6: ``csrc/rnn_mma.cuh``; K5, K7: ``csrc/rnn_mma_bwd.cuh``)."""
+(K2, K3, K4, K6: ``csrc/rnn_mma.cuh``, with K2's and K3's projection GEMM
+in ``csrc/proj_mma.cuh``; K5, K7: ``csrc/rnn_mma_bwd.cuh``)."""
 
 from __future__ import annotations
 
@@ -156,6 +157,103 @@ def scan_variant(variant: str) -> int:
         raise ValueError(f"variant must be one of {sorted(SCAN_VARIANTS)}, "
                          f"got {variant!r}")
     return SCAN_VARIANTS[variant]
+
+
+# The fused forwards' bf16 variants (K2, K3; csrc/rnn_mma.cuh): one launch a
+# step, persistent with W_hh streamed from L2 once a step, persistent with
+# each block's W_hh slice resident in shared memory. "auto" is the rule
+# ``fwd_variant``.
+FWD_VARIANTS = {"auto": 0, "step": 1, "persistent": 2, "resident": 3}
+# The W-resident variant's units a block and blocks a cluster (sharing each
+# step's h_prev load), its column groups of that load, the batch rows of
+# one chunk (the persistent variants' limit), and the shared memory a block
+# may have
+RES_TJ, RES_CL, RES_HCH, FWD_CHUNK, SMEM_MAX = 16, 4, 2, 64, 232448
+# K2's and K3's bf16 projection GEMM (csrc/proj_mma.cuh): output tiles of
+# PROJ_BM x PROJ_BN, K in chunks of PROJ_BK
+PROJ_BM, PROJ_BN, PROJ_BK = 128, 128, 32
+
+
+def fwd_mode(variant: str) -> int:
+    if variant not in FWD_VARIANTS:
+        raise ValueError(f"variant must be one of {sorted(FWD_VARIANTS)}, "
+                         f"got {variant!r}")
+    return FWD_VARIANTS[variant]
+
+
+def res_shape(b: int) -> tuple[int, int, int]:
+    """The W-resident variant's warps for a batch of b rows (``ResShape`` in
+    csrc/rnn_mma.cuh) -> (NT n tiles of 8 rows in the chunk, WN warps along
+    the batch, KS warps along K); the 16 warps are 2 groups of gate tiles
+    x KS x WN, each taking NT / WN n tiles and the k16 steps ks, ks + KS,
+    ...; each output's KS partial sums meet in KS slots."""
+    b8 = -(-b // 8) * 8
+    nt = 2 if b8 <= 16 else 4 if b8 <= 32 else 8
+    wn = 2 if nt == 8 else 1
+    return nt, wn, 16 // (2 * wn)
+
+
+def res_smem(gates: int, b: int, hidden: int) -> int:
+    """Shared memory of one block of the W-resident variant (``ResShape``
+    in csrc/rnn_mma.cuh): the G * 16 gate rows of its units and the
+    h_prev staging of the batch chunk, rows of KW = 16 ceil(H / 16) columns
+    at a pitch of KW + 8, the staging's bytes shared with the K-split
+    sums' slots, then one mbarrier for each column group of the h_prev
+    load."""
+    nt, _, ks = res_shape(b)
+    m, nc = gates * RES_TJ, nt * 8
+    pitch = -(-hidden // 16) * 16 + 8
+    red = ks * nc * (m + 4) * 4
+    return m * pitch * 2 + max(nc * pitch * 2, red) + 8 * RES_HCH
+
+
+def fwd_blocks(ndir: int, hidden: int) -> tuple[int, int]:
+    """The grids of the fused forwards' persistent variants: (streamed, 32
+    units a block; resident, RES_TJ units a block in whole clusters of
+    RES_CL), over both directions."""
+    nj = -(-hidden // RES_TJ)
+    return ndir * -(-hidden // MMA_TJ), ndir * -(-nj // RES_CL) * RES_CL
+
+
+def fwd_variant(variant: str, gates: int, b: int, hidden: int, ndir: int,
+                streamed: int, resident: int) -> int:
+    """K2's and K3's bf16 variant, 1 (one launch a step), 2 (persistent,
+    W_hh streamed) or 3 (persistent, W_hh resident): ``variant`` "step",
+    "persistent" or "resident" as asked; "auto" the fixed rule. The rule,
+    for a batch that fits one chunk (<= 64 rows; else one launch a step):
+    resident where its slices fit a block's shared memory and its grid is
+    resident at once (``resident`` blocks can be), else persistent where
+    its grid is (``streamed`` blocks can be), else one launch a step."""
+    mode = fwd_mode(variant)
+    if mode:
+        return mode
+    if -(-b // 8) * 8 > FWD_CHUNK:
+        return 1
+    grid_s, grid_r = fwd_blocks(ndir, hidden)
+    if res_smem(gates, b, hidden) <= SMEM_MAX and grid_r <= resident:
+        return 3
+    return 2 if grid_s <= streamed else 1
+
+
+_capacity: dict = {}
+
+
+def fwd_capacity(lib: ctypes.CDLL, name: str, b: int, hidden: int,
+                 dev: torch.device) -> tuple[int, int]:
+    """How many blocks of a fused forward's streamed and W-resident
+    persistent kernels can be resident at once on ``dev`` (the C entry
+    ``name`` of ``lib``: ``<cell>_fwd_capacity``) for a batch of ``b`` rows
+    and ``hidden`` units; asked once."""
+    key = (name, -(-b // 8), hidden, torch.cuda.current_device()
+           if dev.index is None else dev.index)
+    if key not in _capacity:
+        streamed, resident = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            code = getattr(lib, name)(b, hidden, ctypes.byref(streamed),
+                                      ctypes.byref(resident))
+        build.check(lib, code, name)
+        _capacity[key] = (streamed.value, resident.value)
+    return _capacity[key]
 
 
 # The bf16 backward kernels' tiling (csrc/rnn_mma_bwd.cuh): clusters of

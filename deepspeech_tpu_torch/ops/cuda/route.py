@@ -22,9 +22,10 @@ _VMEM_LIMIT = 100 * 1024 * 1024  # the Pallas kernels' compiler limit
 
 def chunk_for(hidden: int) -> int:
     """Time steps per grid step of the TPU kernels (``rnn_kernel.py:75-83``);
-    ``DEEPSPEECH_TPU_GRU_CHUNK`` overrides. The port's kernels step one time
-    step a launch; the chunk only enters the VMEM estimate below. Read at
-    call time (the JAX package reads it when its module is imported)."""
+    ``DEEPSPEECH_TPU_GRU_CHUNK`` overrides. The port's kernels do not chunk
+    time (a persistent launch walks every step, or one launch runs each
+    step); the chunk only enters the VMEM estimate below. Read at call
+    time (the JAX package reads it when its module is imported)."""
     env = os.environ.get("DEEPSPEECH_TPU_GRU_CHUNK")
     if env:
         return int(env)

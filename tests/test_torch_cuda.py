@@ -632,3 +632,96 @@ def test_wide_route_on_the_card(dev, cell, monkeypatch):
     assert (mod.scan_launches, mod.launches) == (before[0] + 1, before[1])
     ref = rnn_scan(x, lens, *w, cell=cell, compute_dtype=torch.bfloat16)
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-2)
+
+
+# K2 and K3 in bf16 (csrc/proj_mma.cuh, csrc/rnn_mma.cuh), each variant, at
+# (T, B, F, H): a ragged H and F (the projection's element-wise edge, F not
+# a multiple of 8), B not a multiple of 8 with H 50 (3H and 4H not
+# multiples of 8 either), a batch above one chunk (70 rows: the persistent
+# variants refuse it) and H 1600 at B 64 (the resident slices do not fit a
+# block's shared memory: that variant refuses it)
+FWD_SHAPES = [(7, 5, 50, 40), (9, 13, 96, 50), (5, 70, 64, 800),
+              (4, 64, 1312, 1600)]
+
+
+@pytest.mark.parametrize("variant", ["step", "persistent", "resident"])
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("t,b,f,h", FWD_SHAPES)
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_bf16_fwd_variants_match_plain(dev, cell, t, b, f, h, ndir,
+                                       variant):
+    """K2 and K3 in bf16, inference and training, each variant, against
+    plain with the fused forwards' tolerance 5e-3 (the LSTM's c relative
+    to its largest value), ragged lengths with a length-1 row; one launch
+    counted a call; zeros past every length. A variant the shape does not
+    allow raises: it never falls back."""
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+
+    mod = gru if cell == "gru" else lstm
+    case = _gru_case if cell == "gru" else _lstm_case
+    layer = gru.gru_layer if cell == "gru" else lstm.lstm_layer
+    args = case(dev, torch.bfloat16, ndir, t, b, f, h, t + b + 9)
+    args[-1][-1] = 1
+    if (variant != "step" and b > 64) or (variant == "resident"
+                                          and h == 1600):
+        with pytest.raises(RuntimeError, match="fwd kernel"):
+            layer(*args, variant=variant)
+        return
+    before = (mod.launches, mod.res_launches)
+    got = layer(*args, variant=variant)
+    res = layer(*args, residuals=True, variant=variant)
+    assert (mod.launches, mod.res_launches) == (before[0] + 2, before[1] + 1)
+    ref = mod.plain(*args, residuals=True)
+    torch.testing.assert_close(got, ref[0], rtol=0, atol=5e-3)
+    for name, a, w in zip(("h", "r1", "r2"), res, ref):
+        assert a.dtype == w.dtype, name
+        scale = (max(1.0, w.abs().max().item())
+                 if a.dtype == torch.float32 and name == "r1" else 1.0)
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                   atol=5e-3 * scale)
+    pad = torch.arange(t, device=dev)[:, None] >= args[-1][None, :]
+    for a in (got, *res):
+        assert not a[:, pad].any()
+
+
+@pytest.mark.parametrize("cell,b,h,want", [
+    ("gru", 20, 800, 3), ("lstm", 20, 800, 3), ("gru", 64, 800, 3),
+    ("lstm", 64, 800, 3), ("gru", 64, 1600, 2), ("lstm", 70, 800, 1)])
+def test_fwd_rule_on_the_card(dev, cell, b, h, want):
+    """The rule on this card's capacities: the resident variant at H 800
+    up to one chunk, the streamed one for the wide GRU's layer 0, one
+    launch a step above 64 rows."""
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+    from deepspeech_tpu_torch.ops.cuda.recurrence import (fwd_capacity,
+                                                          fwd_variant)
+
+    mod = gru if cell == "gru" else lstm
+    caps = fwd_capacity(mod._fwd_kernel(), f"{cell}_fwd_capacity", b, h, dev)
+    assert fwd_variant("auto", 3 if cell == "gru" else 4, b, h, 2,
+                       *caps) == want
+
+
+# (T, B, F, N): ragged M, N and K, the default layer 0 and its GRU's N, and
+# an x whose base is 2 bytes off 16-byte alignment
+PROJ_SHAPES = [(7, 5, 50, 150), (9, 13, 96, 200), (64, 20, 1312, 2400)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("t,b,f,n", PROJ_SHAPES)
+def test_projection_kernel_matches_plain(dev, t, b, f, n, offset):
+    """K2's and K3's bf16 projection GEMM against the f32 einsum of the
+    same bf16 operands (exact products, sums in another order: rtol 1e-5,
+    atol 1e-4)."""
+    from deepspeech_tpu_torch.ops.cuda import gru
+
+    rng = np.random.default_rng(f + n)
+    buf = torch.from_numpy(rng.uniform(0, 1, t * b * f + offset).astype(
+        np.float32)).to(dev).bfloat16()
+    x = buf[offset:].view(t, b, f)
+    w = torch.from_numpy(rng.uniform(-0.05, 0.05, (2, f, n)).astype(
+        np.float32)).to(dev).bfloat16()
+    before = gru.proj_launches
+    got = gru.projection(x, w)
+    assert gru.proj_launches == before + 1
+    torch.testing.assert_close(got, gru.projection(x.cpu(), w.cpu()).to(dev),
+                               rtol=1e-5, atol=1e-4)

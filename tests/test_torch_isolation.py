@@ -2,7 +2,8 @@
 
 * Every module of deepspeech_tpu_torch imports with ``jax`` blocked, and
   none of them pulls in deepspeech_tpu.
-* No source of the port, nor chip_smoke.py, imports deepspeech_tpu.
+* No source of the port, nor the chip scripts (chip_smoke.py, chip_ab.py,
+  chip_stamps.py), imports deepspeech_tpu.
 * A kernel wrapper given CPU tensors runs the plain version.
 * An entry point called without ``device`` asks for the card and raises
   where there is none, rather than running on the CPU.
@@ -52,7 +53,8 @@ def _sources():
         for f in files:
             if f.endswith((".py", ".cu", ".cuh")):
                 yield os.path.join(dirpath, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
+    for script in ("chip_smoke.py", "chip_ab.py", "chip_stamps.py"):
+        yield os.path.join(ROOT, script)
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
