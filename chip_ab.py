@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Train steps of two checkouts of the port, in turns, on one CUDA card.
 
-    python3 chip_ab.py [--log-dir DIR] TREE [TREE ...]
+    python3 chip_ab.py [--log-dir DIR] [--ctc] TREE [TREE ...]
 
 Each TREE is the root of a checkout holding ``chip_smoke.py`` and
 ``deepspeech_tpu_torch`` (the current tree is ``.``; an older commit can
@@ -16,6 +16,14 @@ path and its launches checked, 5 steps timed by CUDA events and one
 profiled. Each run's log goes to ``DIR/ab_<i>.log`` (by default to a
 temporary directory, removed at the end); the last line printed is one
 JSON object of each run's step times in ms. Exits non-zero if a run fails.
+
+With ``--ctc`` each run times that tree's CTC kernels and layer instead, at
+phase 6's train shape (B 20, T 376, C 30, L 150): K8 and K9 by device time
+and by CUDA events around a call, the layer (loss + dlogits) both ways, and
+one profiled pass of the layer: the kernels it launches on the card and the
+top-level ATen ops it issues. It handles both kernel interfaces, the one
+that takes (B, T, S) emissions and the one that takes log-probs and the
+extended labels (K9 then also computes the logit gradient).
 """
 
 from __future__ import annotations
@@ -50,26 +58,77 @@ for cell, fused, wide in (("gru", 1, c.LAYERS - 1), ("lstm", 0, c.LAYERS)):
                       **{f"{cell}_fwd_res": fused, f"{cell}_scan_res": wide,
                          f"{cell}_bwd": c.LAYERS}))
 """
+RUN_CTC = r"""
+import inspect, json
+import numpy as np
+import torch
+import chip_smoke as c
+from deepspeech_tpu_torch.ops import ctc as L
+from deepspeech_tpu_torch.ops.cuda import build, ctc
+
+build.build_all(("ctc",), force=True)
+logits, ll, targets, tl = c.ctc_inputs(torch, np.random.default_rng(c.SEED + 5))
+ones = torch.ones(logits.shape[0], device="cuda")
+if "log_probs" in inspect.signature(ctc.ctc_alpha).parameters:
+    lp, ext = L._prep(logits, targets, 0)
+    alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll)
+    k8 = lambda: ctc.ctc_alpha(lp, ext, tl, ll)
+    k9 = lambda: ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, ones)
+else:
+    _, _, skip, valid, end, emit = L._prep(logits, targets, tl, 0)
+    k8 = lambda: ctc.ctc_alpha(emit, skip, valid, ll)
+    k9 = lambda: ctc.ctc_beta(emit, skip, valid, end, ll)
+
+
+def layer():
+    lg = logits.clone().requires_grad_(True)
+    per = L.ctc_loss(lg, ll, targets, tl)
+    return torch.autograd.grad(
+        torch.where(torch.isfinite(per), per, 0.0).sum(), lg)
+
+
+out = {"k8_device_ms": c.device_ms(k8), "k9_device_ms": c.device_ms(k9),
+       "k8_ms": c.time_ms(k8, reps=20), "k9_ms": c.time_ms(k9, reps=20),
+       "layer_device_ms": c.device_ms(layer, reps=20),
+       "layer_ms": c.time_ms(layer)}
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    layer()
+    torch.cuda.synchronize()
+ev = p.events()
+out["aten_ops"] = sum(
+    1 for e in ev if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+out["device_kernels"] = sum(
+    1 for e in ev if e.device_type == torch.autograd.DeviceType.CUDA
+    and not e.name.startswith("Memcpy") and not e.name.startswith("Memset"))
+print("CTC " + json.dumps(out), flush=True)
+"""
 STEP = re.compile(r"^(\w+-\d+) train path: ([\d.]+) ms per step")
 
 
-def run(trees, log_dir: str) -> int:
+def run(trees, log_dir: str, ctc: bool = False) -> int:
     runs = []
     for i, tree in enumerate(trees):
-        path = os.path.join(log_dir, f"ab_{i}.log")
+        path = os.path.join(log_dir, f"ab{'_ctc' if ctc else ''}_{i}.log")
         with open(path, "w") as log:
-            rc = subprocess.run([sys.executable, "-c", RUN],
+            rc = subprocess.run([sys.executable, "-c",
+                                 RUN_CTC if ctc else RUN],
                                 cwd=os.path.abspath(tree), stdout=log,
                                 stderr=subprocess.STDOUT).returncode
         with open(path) as log:
             lines = log.read().splitlines()
-        steps = {m.group(1): float(m.group(2))
-                 for m in map(STEP.match, lines) if m}
-        print(f"run {i} ({tree}): rc {rc}, {steps}", flush=True)
+        if ctc:
+            found = [json.loads(x[4:]) for x in lines if x.startswith("CTC ")]
+            result = {"ctc": found[-1] if found else None}
+        else:
+            result = {"step_ms": {m.group(1): float(m.group(2))
+                                  for m in map(STEP.match, lines) if m}}
+        print(f"run {i} ({tree}): rc {rc}, {result}", flush=True)
         if rc != 0:
             print("\n".join(lines[-30:]), file=sys.stderr)
             return 1
-        runs.append({"tree": tree, "step_ms": steps})
+        runs.append({"tree": tree, **result})
     print(json.dumps({"runs": runs}))
     return 0
 
@@ -77,13 +136,15 @@ def run(trees, log_dir: str) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-dir", help="keep each run's log here")
+    ap.add_argument("--ctc", action="store_true",
+                    help="time the CTC kernels and layer, not the steps")
     ap.add_argument("trees", nargs="+", help="checkout roots, in turns")
     args = ap.parse_args(argv)
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
-        return run(args.trees, args.log_dir)
+        return run(args.trees, args.log_dir, args.ctc)
     with tempfile.TemporaryDirectory() as log_dir:
-        return run(args.trees, log_dir)
+        return run(args.trees, log_dir, args.ctc)
 
 
 if __name__ == "__main__":

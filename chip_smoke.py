@@ -30,9 +30,15 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    Function against the same Function on the plain versions; its time
    (bf16: each variant's too) beside cuDNN's bidirectional GRU backward
    with the same weights, its bound and the bf16 step's L2 floor;
-6. K8/K9 (ctc_alpha, ctc_beta) against their plain versions at B 20,
-   T 376, C 30, L 150 with unequal lengths and one impossible row:
-   alphas, betas, loss and dlogits; times beside F.ctc_loss;
+6. K8/K9 (ctc_alpha with the loss, ctc_beta with the logit gradient)
+   against their plain versions at B 20, T 376, C 30, L 150 with unequal
+   lengths and one impossible row, again with a NaN row, and at S 1041
+   (B 2, T 1,100, L 520): alphas, loss, the debug betas and dlogits, the
+   impossible and NaN rows' non-finite loss and zero gradient; the layer
+   (loss + dlogits) against the plain path; K8's and K9's device time and
+   time a call beside their bytes bound, the chain floor (the same block
+   doing only a barrier and one logaddexp3 a frame) and F.ctc_loss's
+   forward and backward; the layer's beside F.ctc_loss forward + backward;
 7. K10 (topk) against its plain version bit for bit at the beam's shapes,
    (20, 310) k 10 and (20, 3968) k 128 (the selection route; the whole
    order of 4 rows through the bitonic route), on stress rows (ties,
@@ -120,8 +126,9 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    adds its shape route and host-visible time, K10's its times at width
    128, K5's and K7's their times at the wide width, K2's and K3's the
    recurrence variant the rule chose, each variant's time, a step's time
-   and the projection GEMM's beside cuBLAS, K2's its wide layer 0), then
-   the device line last.
+   and the projection GEMM's beside cuBLAS, K2's its wide layer 0, K8's
+   and K9's their device time, the chain floor and F.ctc_loss's device
+   time, K9's the layer's times too), then the device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
 non-zero. Times are CUDA-event medians with warm L2; K1's and K10's (and
@@ -1177,6 +1184,64 @@ def ctc_inputs(torch, rng):
     return logits, ll, targets, tl
 
 
+def hold_ctc(torch, logits, ll, targets, tl, rows: dict) -> dict:
+    """K8 and K9 (one launch each) against plain_alpha / plain_beta on the
+    same inputs: alphas, loss, the debug betas and dlogits within CTC_TOL,
+    non-finite entries in the same places; ``rows`` names rows whose loss
+    must not be finite ("inf" or "nan") and whose dlogits must be 0."""
+    from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
+    from deepspeech_tpu_torch.ops.cuda import ctc
+
+    rng = np.random.default_rng(SEED + 6)
+    lp, ext = ctc_loss_mod._prep(logits, targets, 0)
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, len(ll)).astype(
+        np.float32)).cuda()
+    before = (ctc.alpha_launches, ctc.beta_launches)
+    alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll)
+    dl, betas = ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, g,
+                             with_betas=True)
+    if (ctc.alpha_launches, ctc.beta_launches) != (before[0] + 1,
+                                                   before[1] + 1):
+        raise AssertionError("K8/K9 did not launch once each")
+    ref_a, ref_l = ctc.plain_alpha(lp, ext, tl, ll)
+    ref_d, ref_b = ctc.plain_beta(lp, ext, tl, ll, ref_a, ref_l, g,
+                                  with_betas=True)
+    errs = {}
+    for name, got, ref in (("alphas", alphas, ref_a), ("loss", loss, ref_l),
+                           ("betas", betas, ref_b), ("dlogits", dl, ref_d)):
+        torch.testing.assert_close(got, ref, equal_nan=True, **CTC_TOL)
+        fin = torch.isfinite(ref)
+        errs[name] = max_err(got[fin], ref[fin])[0] if fin.any() else 0.0
+    for row, kind in rows.items():
+        bad = loss[row].item()
+        if (kind == "inf" and bad != float("inf")) or (
+                kind == "nan" and bad == bad):
+            raise AssertionError(f"row {row}: loss {bad}, expected {kind}")
+        if dl[row].abs().max().item() != 0.0:
+            raise AssertionError(f"row {row}: dlogits not 0")
+    fin = torch.ones_like(loss, dtype=torch.bool)
+    fin[list(rows)] = False
+    if not torch.isfinite(loss[fin]).all():
+        raise AssertionError(f"CTC losses: {loss.tolist()}")
+    return errs
+
+
+def ctc_chain_floor(torch, b: int, t: int, s: int) -> float:
+    """Device ms of the frame chain's floor: K8's block shape doing, for t
+    frames, only one logaddexp3 on shared memory and the barrier
+    (``ctc_chain_floor_f32``, csrc/ctc.cu)."""
+    from deepspeech_tpu_torch.ops.cuda import build
+
+    lib = build.load("ctc")
+    lib.ctc_chain_floor_f32.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    lib.ctc_chain_floor_f32.restype = ctypes.c_int
+    out = torch.empty((b, s), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    return device_ms(lambda: build.check(lib, lib.ctc_chain_floor_f32(
+        out.data_ptr(), b, t, s, stream), "ctc chain floor"))
+
+
 def phase_ctc(torch, results):
     from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
     from deepspeech_tpu_torch.ops.cuda import ctc
@@ -1184,14 +1249,20 @@ def phase_ctc(torch, results):
     rng = np.random.default_rng(SEED + 5)
     logits, ll, targets, tl = ctc_inputs(torch, rng)
     b, t, c = logits.shape
-    _, _, skip, valid, end, emit = ctc_loss_mod._prep(logits, targets, tl, 0)
-    s = emit.shape[-1]
-    alphas = ctc.ctc_alpha(emit, skip, valid, ll)
-    betas = ctc.ctc_beta(emit, skip, valid, end, ll)
-    ref_a = ctc.plain_alpha(emit, skip, valid, ll)
-    ref_b = ctc.plain_beta(emit, skip, valid, end, ll)
-    torch.testing.assert_close(alphas, ref_a, **CTC_TOL)
-    torch.testing.assert_close(betas, ref_b, **CTC_TOL)
+    s = 2 * targets.shape[1] + 1
+    # the train shape, row 1 impossible, and again with row 2 NaN
+    errs = hold_ctc(torch, logits, ll, targets, tl, {1: "inf"})
+    nan_logits = logits.clone()
+    nan_logits[2, t // 3, 3] = float("nan")
+    hold_ctc(torch, nan_logits, ll, targets, tl, {1: "inf", 2: "nan"})
+    # S > 1024 (L 520, S 1041), several states a thread
+    big = (2, 1100, c, 520)
+    big_logits = torch.from_numpy(rng.standard_normal(big[:3]).astype(
+        np.float32)).cuda()
+    big_errs = hold_ctc(
+        torch, big_logits, torch.tensor([1100, 1000]).cuda(),
+        torch.from_numpy(rng.integers(1, c, (2, 520))).cuda(),
+        torch.tensor([520, 500]).cuda(), {})
 
     def loss_and_grad():
         lg = logits.clone().requires_grad_(True)
@@ -1210,53 +1281,90 @@ def phase_ctc(torch, results):
         raise AssertionError("the impossible row's gradient is not 0")
     torch.testing.assert_close(per, ref_per, **CTC_TOL)
     torch.testing.assert_close(grad, ref_grad, **CTC_TOL)
-    err_a, err_b = max_err(alphas, ref_a)[0], max_err(betas, ref_b)[0]
-    err_g = max_err(grad, ref_grad)[0]
-    log(f"K8/K9 ctc (B {b}, T {t}, C {c}, S {s}): alphas max_abs_err "
-        f"{err_a:.3e}, betas {err_b:.3e}, loss "
-        f"{max_err(per[torch.isfinite(per)], ref_per[torch.isfinite(per)])[0]:.3e}"
-        f", dlogits {err_g:.3e}; impossible row: loss inf, grad 0")
+    fin = torch.isfinite(per)
+    log(f"K8/K9 ctc (B {b}, T {t}, C {c}, S {s}): max_abs_err alphas "
+        f"{errs['alphas']:.3e}, loss {errs['loss']:.3e}, betas "
+        f"{errs['betas']:.3e}, dlogits {errs['dlogits']:.3e}; impossible "
+        f"row: loss inf, dlogits 0; NaN row: loss NaN, dlogits 0; at S 1041 "
+        f"(B 2, T 1,100): alphas {big_errs['alphas']:.3e}, betas "
+        f"{big_errs['betas']:.3e}, dlogits {big_errs['dlogits']:.3e}; the "
+        f"layer's loss {max_err(per[fin], ref_per[fin])[0]:.3e}, grad "
+        f"{max_err(grad, ref_grad)[0]:.3e} against the plain path")
 
-    a_ms = time_ms(lambda: ctc.ctc_alpha(emit, skip, valid, ll), reps=20)
-    b_ms = time_ms(lambda: ctc.ctc_beta(emit, skip, valid, end, ll), reps=20)
-    pa_ms = time_ms(lambda: ctc.plain_alpha(emit, skip, valid, ll), reps=3,
+    lp, ext = ctc_loss_mod._prep(logits, targets, 0)
+    alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll)
+    ones = torch.ones(b, device="cuda")
+
+    def k8():
+        return ctc.ctc_alpha(lp, ext, tl, ll)
+
+    def k9():
+        return ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, ones)
+
+    a_ms, b_ms = time_ms(k8, reps=20), time_ms(k9, reps=20)
+    a_dev, b_dev = device_ms(k8), device_ms(k9)
+    pa_ms = time_ms(lambda: ctc.plain_alpha(lp, ext, tl, ll), reps=3,
                     warmup=1)
-    pb_ms = time_ms(lambda: ctc.plain_beta(emit, skip, valid, end, ll),
-                    reps=3, warmup=1)
-    port_ms = time_ms(loss_and_grad, reps=10)
+    pb_ms = time_ms(lambda: ctc.plain_beta(lp, ext, tl, ll, alphas, loss,
+                                           ones), reps=3, warmup=1)
+    floor_ms = ctc_chain_floor(torch, b, t, s)
+    port_ms, port_dev = time_ms(loss_and_grad, reps=10), device_ms(
+        loss_and_grad, reps=20)
     # F.ctc_loss on the same log-probs, a leaf: its forward, its backward
     # (the gradient w.r.t. the log-probs), and both
-    lp = torch.log_softmax(logits, -1).transpose(0, 1).detach()
-    lp.requires_grad_(True)
+    lpt = lp.transpose(0, 1).detach()
+    lpt.requires_grad_(True)
 
     def torch_fwd():
-        return torch.nn.functional.ctc_loss(lp, targets, ll, tl,
+        return torch.nn.functional.ctc_loss(lpt, targets, ll, tl,
                                             reduction="none")
 
-    lib_fwd_ms = time_ms(torch_fwd, reps=10)
     ref_loss = torch_fwd().sum()
-    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
-        ref_loss, lp, retain_graph=True), reps=10)
-    lib_ms = time_ms(lambda: torch.autograd.grad(torch_fwd().sum(), lp),
-                     reps=10)
+
+    def torch_bwd():
+        return torch.autograd.grad(ref_loss, lpt, retain_graph=True)
+
+    def torch_both():
+        return torch.autograd.grad(torch_fwd().sum(), lpt)
+
+    lib_fwd_ms, lib_fwd_dev = time_ms(torch_fwd), device_ms(torch_fwd)
+    lib_bwd_ms, lib_bwd_dev = time_ms(torch_bwd), device_ms(torch_bwd)
+    lib_ms, lib_dev = time_ms(torch_both), device_ms(torch_both, reps=20)
+    # the bytes each kernel must move (this run's frames below the lengths)
+    # and ~12 operations a state and frame (3 exp, 1 log, adds, compares),
+    # for K9 ~6 more for gamma and ~4 a class and frame for dlogits
     n_valid = float(ll.clamp(max=t).sum().item())
-    ops = 12.0 * n_valid * s  # 3 exp, 1 log, ~8 adds and compares a state
-    a_bytes = 4.0 * (n_valid * s + b * t * s + 2 * b * s) + 8 * b
-    b_bytes = 4.0 * (n_valid * s + b * t * s + 3 * b * s) + 8 * b
-    a_bound, a_by = bound(ops, PEAK_F32, a_bytes)
-    b_bound, b_by = bound(ops, PEAK_F32, b_bytes)
-    log(f"K8 ctc_alpha: {a_ms:.4f} ms, plain {pa_ms:.3f} ms, bound "
-        f"{a_bound:.4f} ms ({a_by}), F.ctc_loss forward {lib_fwd_ms:.4f} ms")
-    log(f"K9 ctc_beta: {b_ms:.4f} ms, plain {pb_ms:.3f} ms, bound "
-        f"{b_bound:.4f} ms ({b_by}), F.ctc_loss backward {lib_bwd_ms:.4f} ms")
-    log(f"CTC loss + dlogits through the port (K8, K9, gather, scatter): "
-        f"{port_ms:.4f} ms; F.ctc_loss forward + backward {lib_ms:.4f} ms")
-    results["ctc_alpha"] = dict(route="cuda", max_abs_err=err_a, ms=a_ms,
-                                plain_ms=pa_ms, bound_ms=a_bound,
-                                bound_by=a_by, library_ms=lib_fwd_ms)
-    results["ctc_beta"] = dict(route="cuda", max_abs_err=err_b, ms=b_ms,
-                               plain_ms=pb_ms, bound_ms=b_bound, bound_by=b_by,
-                               library_ms=lib_bwd_ms)
+    tables = 4.0 * (b * s + 2 * b)  # ext, the two lengths
+    a_bytes = 4.0 * (n_valid * c + b * t * s + b) + tables
+    b_bytes = 4.0 * (n_valid * (c + s) + b * t * c + 2 * b) + tables
+    a_bound, a_by = bound(12.0 * n_valid * s, PEAK_F32, a_bytes)
+    b_bound, b_by = bound(18.0 * n_valid * s + 4.0 * n_valid * c, PEAK_F32,
+                          b_bytes)
+    log(f"K8 ctc_alpha: device {a_dev:.4f} ms ({a_ms:.4f} by events around "
+        f"a call), plain {pa_ms:.3f} ms, bound {a_bound:.4f} ms ({a_by}), "
+        f"chain floor {floor_ms:.4f} ms; F.ctc_loss forward device "
+        f"{lib_fwd_dev:.4f} ms ({lib_fwd_ms:.4f})")
+    log(f"K9 ctc_beta (with dlogits): device {b_dev:.4f} ms ({b_ms:.4f}), "
+        f"plain {pb_ms:.3f} ms, bound {b_bound:.4f} ms ({b_by}), chain "
+        f"floor {floor_ms:.4f} ms; F.ctc_loss backward device "
+        f"{lib_bwd_dev:.4f} ms ({lib_bwd_ms:.4f})")
+    log(f"CTC layer, loss + dlogits (K8, K9 and the glue): device "
+        f"{port_dev:.4f} ms ({port_ms:.4f}); F.ctc_loss forward + backward "
+        f"device {lib_dev:.4f} ms ({lib_ms:.4f})")
+    results["ctc_alpha"] = dict(
+        route="cuda", max_abs_err=max(errs["alphas"], errs["loss"]),
+        ms=a_ms, plain_ms=pa_ms, bound_ms=a_bound, bound_by=a_by,
+        library_ms=lib_fwd_ms,
+        extra=dict(device_ms=a_dev, chain_floor_ms=floor_ms,
+                   library_device_ms=lib_fwd_dev))
+    results["ctc_beta"] = dict(
+        route="cuda", max_abs_err=max(errs["betas"], errs["dlogits"]),
+        ms=b_ms, plain_ms=pb_ms, bound_ms=b_bound, bound_by=b_by,
+        library_ms=lib_bwd_ms,
+        extra=dict(device_ms=b_dev, chain_floor_ms=floor_ms,
+                   library_device_ms=lib_bwd_dev, layer_ms=port_ms,
+                   layer_device_ms=port_dev, library_layer_ms=lib_ms,
+                   library_layer_device_ms=lib_dev))
 
 
 def default_model(torch, seed, cell="gru", hidden=HIDDEN):

@@ -1,17 +1,21 @@
 """Wrappers of the CTC alpha and beta kernels (``csrc/ctc.cu``).
 
 ``ctc_alpha`` replaces ``deepspeech_tpu/ops/pallas/ctc_kernel.py``
-(``_ctc_alpha_kernel`` via ``_run_alpha``) and ``ctc_beta`` replaces
-``_ctc_beta_kernel`` (via ``_run_beta``). For CPU tensors each runs its
+(``_ctc_alpha_kernel`` via ``_run_alpha``, with the loss of ``_ctc_fwd``)
+and ``ctc_beta`` replaces ``_ctc_beta_kernel`` (via ``_run_beta``) together
+with ``_ctc_bwd``'s closed-form gradient. For CPU tensors each runs its
 plain PyTorch twin (``plain_alpha``, ``plain_beta``); for CUDA tensors it
 launches the kernel or raises.
 
-Layout (batch-major, unlike the TPU kernels' time-major stream): emit
-(B, T, S) f32, the per-state emission log-probs of the S = 2L + 1 states;
-skip, valid, end (B, S) f32, 0 where the skip transition / state / final
-state is allowed and -1e30 where not; lengths (B,) logit lengths. Both
-recursions clamp at -1e30 and freeze past each row's length, in the TPU
-kernels' order of operations.
+Layout (batch-major, unlike the TPU kernels' time-major stream): log_probs
+(B, T, C) f32, the log-softmax of the logits; ext (B, S) int, the
+blank-extended labels of the S = 2L + 1 states (ext[:, 0] is the blank);
+target_lengths and lengths (B,), the label and logit lengths. The kernels
+gather each state's emission log_probs[b, t, ext[b, s]] themselves, from
+the row staged in shared memory, and derive the skip / valid / end state
+tables (``tables``) from ext and the target lengths. Both recursions clamp
+at -1e30 and freeze past each row's length, in the TPU kernels' order of
+operations.
 """
 
 from __future__ import annotations
@@ -28,6 +32,13 @@ NEG_INF = -1e30
 alpha_launches = 0  # ctc_alpha launches (one per loss call)
 beta_launches = 0   # ctc_beta launches (one per loss backward)
 
+# The staging ring (csrc/ctc.cu): RING stages of `chunk` frames, the rows
+# of both rings within RING_BYTES, chunks of 2 to MAX_CHUNK frames; one
+# block's shared memory holds at most SMEM_MAX bytes on the H100.
+RING, MAX_CHUNK, MIN_CHUNK = 4, 32, 2
+RING_BYTES = 64 * 1024
+SMEM_MAX = 232_448
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -35,11 +46,30 @@ _I = ctypes.c_int
 @functools.cache
 def _kernel():
     lib = build.load("ctc")
-    lib.ctc_alpha_f32.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+    lib.ctc_alpha_f32.argtypes = [_P] * 6 + [_I] * 5 + [_P]
     lib.ctc_alpha_f32.restype = _I
-    lib.ctc_beta_f32.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    lib.ctc_beta_f32.argtypes = [_P] * 9 + [_I] * 5 + [_P]
     lib.ctc_beta_f32.restype = _I
     return lib
+
+
+def ring_plan(s: int, c: int, beta: bool) -> tuple[int, int]:
+    """(chunk frames, dynamic shared-memory bytes) of K8 (``beta`` False:
+    the previous and current rows and a ring of log-prob rows) or K9 (also
+    two gamma rows, a ring of alpha rows and the label states sorted by
+    class). Raises where even the least chunk does not fit one block's
+    shared memory."""
+    if beta:
+        per_frame, fixed = RING * (c + s), 4 * s + 2 * c + 1 + s
+    else:
+        per_frame, fixed = RING * c, 2 * s
+    chunk = max(MIN_CHUNK, min(MAX_CHUNK, RING_BYTES // (4 * per_frame)))
+    smem = 4 * (fixed + chunk * per_frame)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"ctc_{'beta' if beta else 'alpha'}: S {s}, C {c} need {smem} "
+            f"bytes of shared memory, more than one block's {SMEM_MAX}")
+    return chunk, smem
 
 
 def logaddexp3(a: torch.Tensor, b: torch.Tensor,
@@ -61,8 +91,33 @@ def _shift(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x[:, -n:], pad], 1)
 
 
-def plain_alpha(emit, skip, valid, lengths):
-    """Alpha trajectory (B, T, S): alpha_t including frame t's emission."""
+def tables(ext: torch.Tensor, target_lengths: torch.Tensor):
+    """The skip / valid / end state tables (B, S) f32, 0 where the s-2 skip
+    transition / the state / the final state is allowed and -1e30 where
+    not; ext[:, 0], the blank, stands before state 0."""
+    b, s = ext.shape
+    dev = ext.device
+    prev2 = torch.cat([ext[:, :1].expand(b, 2), ext[:, :-2]], 1)
+    lane = torch.arange(s, device=dev)[None, :]
+    can_skip = (lane % 2 == 1) & (ext != prev2)
+    skip = torch.where(can_skip, 0.0, NEG_INF)
+    tl = target_lengths.to(dev)[:, None]
+    valid = torch.where(lane < 2 * tl + 1, 0.0, NEG_INF)
+    end = torch.where((lane == 2 * tl) | ((lane == 2 * tl - 1) & (tl > 0)),
+                      0.0, NEG_INF)
+    return skip, valid, end
+
+
+def emissions(log_probs: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
+    """Each state's emission log-prob (B, T, S)."""
+    b, t, _ = log_probs.shape
+    return torch.gather(log_probs, 2,
+                        ext.long()[:, None, :].expand(b, t, ext.shape[1]))
+
+
+def alpha_recursion(emit, skip, valid, lengths):
+    """Alpha trajectory (B, T, S) from the emissions: alpha_t including
+    frame t's emission."""
     b, t, s = emit.shape
     lengths = lengths.to(emit.device)
     lane = torch.arange(s, device=emit.device)
@@ -77,7 +132,7 @@ def plain_alpha(emit, skip, valid, lengths):
     return torch.stack(out, 1)
 
 
-def plain_beta(emit, skip, valid, end, lengths):
+def beta_recursion(emit, skip, valid, end, lengths):
     """Beta trajectory plus emission (B, T, S), -1e30 past each length."""
     b, t, s = emit.shape
     lengths = lengths.to(emit.device)
@@ -95,65 +150,142 @@ def plain_beta(emit, skip, valid, end, lengths):
     return torch.stack(out, 1)
 
 
-def _check(name, emit, lengths, **tables):
-    if emit.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {emit.device}")
-    if emit.dtype != torch.float32 or emit.ndim != 3:
-        raise TypeError(f"{name} kernel takes (B, T, S) float32 emissions, "
-                        f"got {emit.dtype} {tuple(emit.shape)}")
-    b, _, s = emit.shape
-    for key, a in tables.items():
-        if a.shape != (b, s) or a.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} {a.dtype} {tuple(a.shape)}, "
-                             f"expected float32 {(b, s)}")
-        if a.device != emit.device:
-            raise ValueError(f"{name}: {key} on {a.device}")
-    if lengths.shape != (b,) or lengths.device != emit.device:
-        raise ValueError(f"{name}: lengths {tuple(lengths.shape)} on "
-                         f"{lengths.device}")
+def loss_from_alpha(alpha_last, target_lengths):
+    """-log(alpha_last at the two end states), +inf where both are dead."""
+    tl = target_lengths.to(alpha_last.device).long()
+    end_blank = alpha_last.gather(1, (2 * tl)[:, None])[:, 0]
+    end_label = alpha_last.gather(1, (2 * tl - 1).clamp(min=0)[:, None])[:, 0]
+    end_label = torch.where(tl > 0, end_label, NEG_INF)
+    m = torch.maximum(end_blank, end_label)
+    dead = m <= NEG_INF
+    ms = torch.where(dead, 0.0, m)
+    sm = torch.exp(end_blank - ms) + torch.exp(end_label - ms)
+    sm = torch.where(dead, 1.0, sm)
+    total = torch.where(dead, -torch.inf, ms + torch.log(sm))
+    return -total
 
 
-def ctc_alpha(emit, skip, valid, lengths):
-    """K8: alpha trajectory (B, T, S); arguments as ``plain_alpha``."""
-    if emit.device.type == "cpu":
-        return plain_alpha(emit, skip, valid, lengths)
-    _check("ctc_alpha", emit, lengths, skip=skip, valid=valid)
-    b, t, s = emit.shape
-    emit, skip, valid = emit.contiguous(), skip.contiguous(), \
-        valid.contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty_like(emit)
+def plain_alpha(log_probs, ext, target_lengths, lengths):
+    """(alphas (B, T, S), loss (B,)): the gather, the alpha recursion and
+    the loss at each row's last frame."""
+    skip, valid, _ = tables(ext, target_lengths)
+    lengths = lengths.to(log_probs.device)
+    alphas = alpha_recursion(emissions(log_probs, ext), skip, valid, lengths)
+    idx = (lengths.long() - 1).clamp(min=0)
+    alpha_last = alphas[torch.arange(alphas.shape[0],
+                                     device=alphas.device), idx]
+    return alphas, loss_from_alpha(alpha_last, target_lengths)
+
+
+def occupancy(gamma: torch.Tensor, ext: torch.Tensor, c: int):
+    """Class occupancy (B, T, C): each state's gamma summed into its
+    label's class."""
+    b, t, s = gamma.shape
+    return gamma.new_zeros((b, t, c)).scatter_add_(
+        2, ext.long()[:, None, :].expand(b, t, s), gamma)
+
+
+def plain_beta(log_probs, ext, target_lengths, lengths, alphas, loss, g,
+               with_betas: bool = False):
+    """dlogits (B, T, C) of the loss, scaled by g (B,), by the beta
+    recursion and the closed form (and, with ``with_betas``, also the beta
+    + emission trajectory (B, T, S))."""
+    skip, valid, end = tables(ext, target_lengths)
+    lengths = lengths.to(log_probs.device)
+    emit = emissions(log_probs, ext)
+    betas = beta_recursion(emit, skip, valid, end, lengths)
+    sample_ok = torch.isfinite(loss)[:, None, None]
+    # emission is counted in both alpha and beta: remove one copy
+    log_gamma = alphas + betas - emit + loss[:, None, None]
+    gamma = torch.where(sample_ok & (log_gamma > -80.0),
+                        torch.exp(log_gamma.clamp(max=0.0)), 0.0)
+    b, t, c = log_probs.shape
+    frame_ok = (torch.arange(t, device=lengths.device)[None, :]
+                < lengths[:, None])[..., None]
+    dlogits = torch.where(frame_ok & sample_ok,
+                          torch.exp(log_probs) - occupancy(gamma, ext, c),
+                          0.0)
+    # rows zeroed above stay 0 even when g is not finite there
+    dlogits = torch.where(sample_ok, dlogits * g[:, None, None], 0.0)
+    return (dlogits, betas) if with_betas else dlogits
+
+
+def _check(name, log_probs, ext, **rows):
+    if log_probs.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {log_probs.device}")
+    if log_probs.dtype != torch.float32 or log_probs.ndim != 3:
+        raise TypeError(f"{name} kernel takes (B, T, C) float32 log-probs, "
+                        f"got {log_probs.dtype} {tuple(log_probs.shape)}")
+    b = log_probs.shape[0]
+    if ext.ndim != 2 or ext.shape[0] != b or ext.device != log_probs.device:
+        raise ValueError(f"{name}: ext {tuple(ext.shape)} on {ext.device}")
+    for key, a in rows.items():
+        if a.shape[0] != b or a.device != log_probs.device:
+            raise ValueError(f"{name}: {key} {tuple(a.shape)} on {a.device}")
+
+
+def _i32(x):
+    return x.to(torch.int32).contiguous()
+
+
+def ctc_alpha(log_probs, ext, target_lengths, lengths):
+    """K8: (alphas (B, T, S), loss (B,)); arguments as ``plain_alpha``."""
+    if log_probs.device.type == "cpu":
+        return plain_alpha(log_probs, ext, target_lengths, lengths)
+    _check("ctc_alpha", log_probs, ext, target_lengths=target_lengths,
+           lengths=lengths)
+    b, t, c = log_probs.shape
+    s = ext.shape[1]
+    chunk, _ = ring_plan(s, c, beta=False)
+    lp = log_probs.contiguous()
+    ext, tls, lens = _i32(ext), _i32(target_lengths), _i32(lengths)
+    alphas = lp.new_empty((b, t, s))
+    loss = lp.new_empty((b,))
     lib = _kernel()
-    stream = torch.cuda.current_stream(emit.device).cuda_stream
-    with torch.cuda.device(emit.device):
-        code = lib.ctc_alpha_f32(emit.data_ptr(), skip.data_ptr(),
-                                 valid.data_ptr(), lens.data_ptr(),
-                                 out.data_ptr(), b, t, s, stream)
+    stream = torch.cuda.current_stream(lp.device).cuda_stream
+    with torch.cuda.device(lp.device):
+        code = lib.ctc_alpha_f32(lp.data_ptr(), ext.data_ptr(),
+                                 tls.data_ptr(), lens.data_ptr(),
+                                 alphas.data_ptr(), loss.data_ptr(), b, t, s,
+                                 c, chunk, stream)
     build.check(lib, code, "ctc_alpha kernel")
     global alpha_launches
     alpha_launches += 1
-    return out
+    return alphas, loss
 
 
-def ctc_beta(emit, skip, valid, end, lengths):
-    """K9: beta + emission trajectory (B, T, S); arguments as
-    ``plain_beta``."""
-    if emit.device.type == "cpu":
-        return plain_beta(emit, skip, valid, end, lengths)
-    _check("ctc_beta", emit, lengths, skip=skip, valid=valid, end=end)
-    b, t, s = emit.shape
-    emit, skip, valid, end = (a.contiguous() for a in (emit, skip, valid,
-                                                       end))
-    lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty_like(emit)
+def ctc_beta(log_probs, ext, target_lengths, lengths, alphas, loss, g,
+             with_betas: bool = False):
+    """K9: dlogits (B, T, C) (and, with ``with_betas``, beta + emission);
+    arguments as ``plain_beta``."""
+    if log_probs.device.type == "cpu":
+        return plain_beta(log_probs, ext, target_lengths, lengths, alphas,
+                          loss, g, with_betas)
+    _check("ctc_beta", log_probs, ext, target_lengths=target_lengths,
+           lengths=lengths, alphas=alphas, loss=loss, g=g)
+    b, t, c = log_probs.shape
+    s = ext.shape[1]
+    if alphas.shape != (b, t, s) or alphas.dtype != torch.float32:
+        raise ValueError(f"ctc_beta: alphas {alphas.dtype} "
+                         f"{tuple(alphas.shape)}, expected float32 "
+                         f"{(b, t, s)}")
+    chunk, _ = ring_plan(s, c, beta=True)
+    lp, alphas = log_probs.contiguous(), alphas.contiguous()
+    loss = loss.to(torch.float32).contiguous()
+    g = g.to(torch.float32).contiguous()
+    ext, tls, lens = _i32(ext), _i32(target_lengths), _i32(lengths)
+    dlogits = torch.empty_like(lp)
+    betas = lp.new_empty((b, t, s)) if with_betas else None
     lib = _kernel()
-    stream = torch.cuda.current_stream(emit.device).cuda_stream
-    with torch.cuda.device(emit.device):
-        code = lib.ctc_beta_f32(emit.data_ptr(), skip.data_ptr(),
-                                valid.data_ptr(), end.data_ptr(),
-                                lens.data_ptr(), out.data_ptr(), b, t, s,
-                                stream)
+    stream = torch.cuda.current_stream(lp.device).cuda_stream
+    with torch.cuda.device(lp.device):
+        code = lib.ctc_beta_f32(
+            lp.data_ptr(), ext.data_ptr(), tls.data_ptr(), lens.data_ptr(),
+            alphas.data_ptr(), loss.data_ptr(), g.data_ptr(),
+            dlogits.data_ptr(), betas.data_ptr() if with_betas else None, b,
+            t, s, c, chunk, stream)
     build.check(lib, code, "ctc_beta kernel")
     global beta_launches
     beta_launches += 1
-    return out
+    return (dlogits, betas) if with_betas else dlogits
+

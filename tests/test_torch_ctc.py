@@ -124,9 +124,10 @@ def test_ctc_loss_mean_matches_jax():
 def test_plain_recursions_freeze_past_length():
     """Alpha holds its last value and beta is -1e30 past each length."""
     logits, ll, targets, tl = (torch.from_numpy(a) for a in _case(6))
-    _, _, skip, valid, end, emit = port_ctc._prep(logits, targets, tl, 0)
-    alphas = ctc_k.ctc_alpha(emit, skip, valid, ll)
-    betas = ctc_k.ctc_beta(emit, skip, valid, end, ll)
+    log_probs, ext = port_ctc._prep(logits, targets, 0)
+    alphas, loss = ctc_k.ctc_alpha(log_probs, ext, tl, ll)
+    _, betas = ctc_k.ctc_beta(log_probs, ext, tl, ll, alphas, loss,
+                              torch.ones(len(ll)), with_betas=True)
     for i, n in enumerate(ll.tolist()):
         assert torch.equal(alphas[i, n:], alphas[i, n - 1].expand_as(
             alphas[i, n:]))

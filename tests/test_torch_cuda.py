@@ -14,7 +14,8 @@ state on a bf16 rounding boundary may round the other way); the GRU
 backward's dg, dnh 1e-4 in f32 and 2e-2 relative to the largest in bf16
 (a one-ulp flip of a bf16 operand moves the carried dh), its bias grads
 1e-3 relative in f32 and 2e-2 in bf16 (sums over T x B in other orders);
-CTC alphas/betas and loss 1e-4 relative, dlogits 1e-4; small-model logits
+CTC alphas, the debug betas, loss and dlogits 1e-4 (at S > 1024, T 1,500,
+one row, 64 rows and with a NaN row too); small-model logits
 2e-2. The LSTM kernels (K3, K7) hold the GRU's tolerances, the cell
 stream c relative to its largest value, since |c| is not bounded by 1.
 The bf16 backwards (K5, K7 on tensor cores) are held in each variant at
@@ -206,10 +207,36 @@ def test_gru_bwd_kernel_matches_plain(dev, dtype, ndir, t, b, f, h):
     assert not got[0][:, pad].any() and not got[1][:, pad].any()
 
 
+def _hold_ctc(dev, logits, ll, targets, tl):
+    """K8 and K9, one launch each, against plain_alpha / plain_beta on the
+    same inputs: alphas, loss, the debug betas and dlogits, non-finite
+    entries in the same places. -> the kernels' loss and dlogits."""
+    from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
+    from deepspeech_tpu_torch.ops.cuda import ctc
+
+    lp, ext = ctc_loss_mod._prep(logits, targets, 0)
+    g = torch.linspace(0.5, 1.5, len(ll), device=dev)
+    before = (ctc.alpha_launches, ctc.beta_launches)
+    alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll)
+    dl, betas = ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, g,
+                             with_betas=True)
+    assert (ctc.alpha_launches, ctc.beta_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    ref_a, ref_l = ctc.plain_alpha(lp, ext, tl, ll)
+    ref_d, ref_b = ctc.plain_beta(lp, ext, tl, ll, ref_a, ref_l, g,
+                                  with_betas=True)
+    for got, ref in ((alphas, ref_a), (loss, ref_l), (betas, ref_b),
+                     (dl, ref_d)):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4,
+                                   equal_nan=True)
+    bad = ~torch.isfinite(loss)
+    assert not dl[bad].any()
+    return loss, dl
+
+
 @pytest.mark.parametrize("t", [1, 17, 101])
 def test_ctc_kernels_match_plain(dev, t):
     from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
-    from deepspeech_tpu_torch.ops.cuda import ctc
 
     rng = np.random.default_rng(t)
     b, c, lmax = 6, 30, max(2, t // 3)
@@ -221,17 +248,7 @@ def test_ctc_kernels_match_plain(dev, t):
     tl = torch.from_numpy(rng.integers(0, lmax + 1, b)).to(dev)
     tl[1] = 0               # no labels
     tl[2], ll[2] = lmax, 1  # impossible: two or more labels in one frame
-    _, _, skip, valid, end, emit = ctc_loss_mod._prep(logits, targets, tl, 0)
-    before = (ctc.alpha_launches, ctc.beta_launches)
-    alphas = ctc.ctc_alpha(emit, skip, valid, ll)
-    betas = ctc.ctc_beta(emit, skip, valid, end, ll)
-    assert (ctc.alpha_launches, ctc.beta_launches) == (before[0] + 1,
-                                                       before[1] + 1)
-    torch.testing.assert_close(alphas, ctc.plain_alpha(emit, skip, valid, ll),
-                               rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(
-        betas, ctc.plain_beta(emit, skip, valid, end, ll), rtol=1e-4,
-        atol=1e-4)
+    _hold_ctc(dev, logits, ll, targets, tl)
 
     lg = logits.clone().requires_grad_(True)
     per = ctc_loss_mod.ctc_loss(lg, ll, targets, tl)
@@ -244,6 +261,34 @@ def test_ctc_kernels_match_plain(dev, t):
     torch.testing.assert_close(per.cpu(), per_cpu, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(lg.grad.cpu(), lg_cpu.grad, rtol=1e-4,
                                atol=1e-4)
+
+
+# (B, T, L): S > 1024 (several states a thread), T 1,500 (many staging
+# chunks), T not a multiple of K8's or K9's chunk, one row, 64 rows; and a
+# row with a NaN logit
+@pytest.mark.parametrize("b,t,lmax,nan", [(2, 1100, 520, False),
+                                          (3, 1500, 200, False),
+                                          (4, 77, 20, False),
+                                          (1, 61, 15, False),
+                                          (64, 90, 25, False),
+                                          (5, 50, 12, True)])
+def test_ctc_kernels_edge_shapes(dev, b, t, lmax, nan):
+    rng = np.random.default_rng(b * t)
+    c = 30
+    logits = torch.from_numpy(rng.standard_normal((b, t, c)).astype(
+        np.float32)).to(dev)
+    ll = torch.from_numpy(rng.integers(max(1, 2 * lmax + 2), t + 1,
+                                       b)).to(dev).clamp(max=t)
+    ll[0] = t
+    targets = torch.from_numpy(rng.integers(1, c, (b, lmax))).to(dev)
+    tl = torch.from_numpy(rng.integers(0, lmax + 1, b)).to(dev)
+    tl[0] = lmax
+    if nan:
+        logits[1, t // 2, 4] = float("nan")
+    loss, dl = _hold_ctc(dev, logits, ll, targets, tl)
+    assert torch.isfinite(loss[0])
+    if nan:
+        assert torch.isnan(loss[1]) and not dl[1].any()
 
 
 def _lstm_case(dev, dtype, ndir, t, b, f, h, seed):

@@ -149,11 +149,11 @@ def test_training_kernel_wrappers_use_plain_versions_on_cpu(monkeypatch):
                                residuals=True)
     logits = torch.randn(b, t, 6)
     targets, tl = torch.tensor([[1, 2], [3, 0]]), torch.tensor([2, 1])
-    _, _, skip, valid, end, emit = ctc_loss_mod._prep(logits, targets, tl, 0)
+    log_probs, ext = ctc_loss_mod._prep(logits, targets, 0)
     before = (gru.bwd_launches, ctc.alpha_launches, ctc.beta_launches)
     gru.gru_bwd(out, g, hn, out, w_hh, lens)
-    ctc.ctc_alpha(emit, skip, valid, lens)
-    ctc.ctc_beta(emit, skip, valid, end, lens)
+    alphas, loss = ctc.ctc_alpha(log_probs, ext, tl, lens)
+    ctc.ctc_beta(log_probs, ext, tl, lens, alphas, loss, torch.ones(b))
     assert calls == ["plain_bwd", "plain_alpha", "plain_beta"]
     assert (gru.bwd_launches, ctc.alpha_launches,
             ctc.beta_launches) == before
@@ -161,9 +161,10 @@ def test_training_kernel_wrappers_use_plain_versions_on_cpu(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         gru.gru_bwd(meta[0], meta[1], meta[2], meta[0], meta[3], lens)
     with pytest.raises(ValueError, match="unsupported device"):
-        ctc.ctc_alpha(emit.to("meta"), skip, valid, lens)
+        ctc.ctc_alpha(log_probs.to("meta"), ext, tl, lens)
     with pytest.raises(ValueError, match="unsupported device"):
-        ctc.ctc_beta(emit.to("meta"), skip, valid, end, lens)
+        ctc.ctc_beta(log_probs.to("meta"), ext, tl, lens, alphas, loss,
+                     torch.ones(b))
     assert len(calls) == 3
 
 
