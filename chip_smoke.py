@@ -39,6 +39,11 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    time a call beside their bytes bound, the chain floor (the same block
    doing only a barrier and one logaddexp3 a frame) and F.ctc_loss's
    forward and backward; the layer's beside F.ctc_loss forward + backward;
+   each held again on the global route (the per-state rows in global
+   memory) and timed there; then long label sequences, L 2,200 (S 4,401,
+   the ring's last size for K9) and L 2,250 (S 4,501, past it), B 2,
+   T 1.1 L + 40, held on the rule's route and the global route, timed
+   beside F.ctc_loss at the same shape;
 7. K10 (topk) against its plain version bit for bit at the beam's shapes,
    (20, 310) k 10 and (20, 3968) k 128 (the selection route; the whole
    order of 4 rows through the bitonic route), on stress rows (ties,
@@ -69,8 +74,24 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    versions; 5 steps give finite losses with none skipped, a CUDA-event
    median step time in audio-s/s, and one more, profiled, step its busy
    and idle time;
+12a. the same step with the train CLI's device augmentation (the noise
+   mix at prob 0.4, SpecAugment at 0.5, the 8 kHz band zero at 0.2) and
+   without, 5 steps each in turns, each median and one profiled step;
 13. the train CLI trains 1 epoch at full width on a synthetic manifest in a
    temporary directory, and its checkpoint answers one transcribe request;
+13a. the train CLI at full width with its augmentation, resume,
+   checkpoint, logging and profiling flags (--augment --aug-type 0, the
+   device masks and noise mix with a noise bank from synthetic noise
+   wavs, --checkpoint-per-samples with --checkpoint-anneal,
+   --train-val-manifest, the JSONL log, --visdom, --log-params, a
+   profiler trace of step 1) for 1 epoch of 60 synthetic
+   7.5 s utterances (3 steps), then resumed from its mid-epoch checkpoint
+   for epoch 2: the launches of each run against the count of steps and
+   validation batches, the files written, the mid-epoch checkpoint's
+   optimizer leaves restored on the card bit for bit, the annealed LR, the
+   batches of the resume (no epoch re-run); the loader's batches/s with and
+   without the host waveform pipeline, and the CLI's steps/s with and
+   without --augment;
 14. K3 (lstm_fwd), both variants, against its plain version at the K2
    shapes (the training variant's residuals c and g too; bf16 in each
    recurrence variant, with the GEMM beside cuBLAS), beside cuDNN's
@@ -122,7 +143,9 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
 23. prints one JSON line of kernel results (launches from one train step of
    the path each kernel is on: the GRU-800 step for K1, K2, K5, K8 and K9,
    the LSTM-800 step for K3 and K7, the BiGRU-1600 step for K4, the
-   BiLSTM-1600 step for K6; for K10 the beam path of phase 10; K1's entry
+   BiLSTM-1600 step for K6; for K10 the beam path of phase 10; K8's and
+   K9's entries add the route the train shape takes, their global
+   route's device time and the long-label times; K1's entry
    adds its shape route and host-visible time, K10's its times at width
    128, K5's and K7's their times at the wide width, K2's and K3's the
    recurrence variant the rule chose, each variant's time, a step's time
@@ -193,6 +216,9 @@ GRU_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSTM_TOL, LSTM_BWD_TOL = GRU_TOL, GRU_BWD_TOL
 CTC_TOL = dict(rtol=1e-4, atol=1e-4)    # log-space sums, f32 exp/log
 LOGIT_TOL = 2e-2                        # x max(1, max|logits|), bf16 forward
+# the long label sequences of K8/K9's routes: L 2,200 (S 4,401, the ring's
+# last size for K9) and 2,250 (S 4,501, the global route), 2 rows each
+CTC_LONG_L, CTC_LONG_B = (2200, 2250), 2
 # K2's/K3's projection GEMM against the f32 einsum of the same bf16
 # operands, x max(1, max|ref|) x sqrt(K): exact products, f32 sums of K
 # terms in another order
@@ -215,6 +241,8 @@ WIDE, WIDE_BATCH = 1600, {"gru": 64, "lstm": 20}
 # the config-4 train CLI: utterances of 6.8-7.5 s, validation on the first
 # half
 CLI_UTTS = 128
+# the full train CLI phase: 60 utterances of 6.8-7.5 s, 3 steps an epoch
+CLI_FULL_UTTS = 60
 SEARCHES = (("width 10", 10, False, BATCH), ("width 128", 128, False, 2),
             ("width 10 + LM", 10, True, BATCH))
 # the synthetic LM's weights (the CLIs' defaults) and size
@@ -1184,11 +1212,12 @@ def ctc_inputs(torch, rng):
     return logits, ll, targets, tl
 
 
-def hold_ctc(torch, logits, ll, targets, tl, rows: dict) -> dict:
-    """K8 and K9 (one launch each) against plain_alpha / plain_beta on the
-    same inputs: alphas, loss, the debug betas and dlogits within CTC_TOL,
-    non-finite entries in the same places; ``rows`` names rows whose loss
-    must not be finite ("inf" or "nan") and whose dlogits must be 0."""
+def hold_ctc(torch, logits, ll, targets, tl, rows: dict, how=None) -> dict:
+    """K8 and K9 (one launch each, on the route ``how``, by default the
+    rule's) against plain_alpha / plain_beta on the same inputs: alphas,
+    loss, the debug betas and dlogits within CTC_TOL, non-finite entries in
+    the same places; ``rows`` names rows whose loss must not be finite
+    ("inf" or "nan") and whose dlogits must be 0."""
     from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
     from deepspeech_tpu_torch.ops.cuda import ctc
 
@@ -1197,9 +1226,9 @@ def hold_ctc(torch, logits, ll, targets, tl, rows: dict) -> dict:
     g = torch.from_numpy(rng.uniform(0.5, 1.5, len(ll)).astype(
         np.float32)).cuda()
     before = (ctc.alpha_launches, ctc.beta_launches)
-    alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll)
+    alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll, how=how)
     dl, betas = ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, g,
-                             with_betas=True)
+                             with_betas=True, how=how)
     if (ctc.alpha_launches, ctc.beta_launches) != (before[0] + 1,
                                                    before[1] + 1):
         raise AssertionError("K8/K9 did not launch once each")
@@ -1242,6 +1271,78 @@ def ctc_chain_floor(torch, b: int, t: int, s: int) -> float:
         out.data_ptr(), b, t, s, stream), "ctc chain floor"))
 
 
+def long_label_inputs(torch, rng, lmax: int, b: int = CTC_LONG_B):
+    """``b`` rows of ``lmax`` labels with no repeats over T = 1.1 lmax + 40
+    frames (S = 2 lmax + 1), the logits peaked along one alignment (label
+    i at frame i, then blanks), row 1 shorter by 13 frames and 7 labels."""
+    t, c = lmax + lmax // 10 + 40, CLASSES
+    targets = np.empty((b, lmax), np.int64)
+    logits = rng.standard_normal((b, t, c)).astype(np.float32)
+    for r in range(b):
+        prev = 0
+        for i in range(lmax):
+            prev = (prev + rng.integers(1, c - 1)) % (c - 1) + 1
+            targets[r, i] = prev
+        logits[r, np.arange(lmax), targets[r]] += 8.0
+        logits[r, lmax:, 0] += 8.0
+    ll = torch.full((b,), t).cuda()
+    tl = torch.full((b,), lmax).cuda()
+    ll[1], tl[1] = t - 13, lmax - 7
+    return (torch.from_numpy(logits).cuda(), ll,
+            torch.from_numpy(targets).cuda(), tl)
+
+
+def phase_ctc_long(torch, results):
+    """Long label sequences: at S 4,401 (L 2,200; the ring route's last
+    size, K9 ~230 KB of shared memory) and S 4,501 (L 2,250, past it)
+    each kernel held against its plain version on the rule's route and on
+    the global route, with both routes timed at S 4,401 and the global
+    route at S 4,501, beside F.ctc_loss on the same log-probs."""
+    from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
+    from deepspeech_tpu_torch.ops.cuda import ctc
+
+    rng = np.random.default_rng(SEED + 23)
+    out = {}
+    for lmax in CTC_LONG_L:
+        logits, ll, targets, tl = long_label_inputs(torch, rng, lmax)
+        s, c = 2 * lmax + 1, CLASSES
+        rule = ctc.route(s, c, True)
+        hows = [None] if rule == "global" else [None, "global"]
+        for how in hows:
+            errs = hold_ctc(torch, logits, ll, targets, tl, {}, how)
+            out[f"S {s} {how or rule} max_abs_err"] = max(errs.values())
+        lp, ext = ctc_loss_mod._prep(logits, targets, 0)
+        ones = torch.ones(len(ll), device="cuda")
+        for how in hows:
+            name = how or rule
+            alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll, how=how)
+            out[f"S {s} K8 {name} device_ms"] = device_ms(
+                lambda: ctc.ctc_alpha(lp, ext, tl, ll, how=how), reps=10)
+            out[f"S {s} K9 {name} device_ms"] = device_ms(
+                lambda: ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, ones,
+                                     how=how), reps=10)
+        lpt = lp.transpose(0, 1).detach().requires_grad_(True)
+
+        def torch_fwd():
+            return torch.nn.functional.ctc_loss(lpt, targets, ll, tl,
+                                                reduction="none")
+
+        ref = torch_fwd().sum()
+        out[f"S {s} F.ctc_loss forward device_ms"] = device_ms(torch_fwd,
+                                                               reps=10)
+        out[f"S {s} F.ctc_loss backward device_ms"] = device_ms(
+            lambda: torch.autograd.grad(ref, lpt, retain_graph=True),
+            reps=10)
+        log(f"K8/K9 at S {s} (B {len(ll)}, T {logits.shape[1]}, L {lmax}; "
+            f"the rule's route {rule}): " + ", ".join(
+                f"{k.split(' ', 2)[2]} {v:.4g}" for k, v in out.items()
+                if k.startswith(f"S {s} ")))
+    results["ctc_alpha"]["extra"]["long_labels"] = {
+        k: v for k, v in out.items() if "K9" not in k}
+    results["ctc_beta"]["extra"]["long_labels"] = {
+        k: v for k, v in out.items() if "K8" not in k}
+
+
 def phase_ctc(torch, results):
     from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
     from deepspeech_tpu_torch.ops.cuda import ctc
@@ -1250,11 +1351,16 @@ def phase_ctc(torch, results):
     logits, ll, targets, tl = ctc_inputs(torch, rng)
     b, t, c = logits.shape
     s = 2 * targets.shape[1] + 1
-    # the train shape, row 1 impossible, and again with row 2 NaN
+    # the train shape, row 1 impossible, and again with row 2 NaN; both on
+    # the rule's route (the ring) and on the global route
     errs = hold_ctc(torch, logits, ll, targets, tl, {1: "inf"})
     nan_logits = logits.clone()
     nan_logits[2, t // 3, 3] = float("nan")
     hold_ctc(torch, nan_logits, ll, targets, tl, {1: "inf", 2: "nan"})
+    global_errs = hold_ctc(torch, logits, ll, targets, tl, {1: "inf"},
+                           how="global")
+    hold_ctc(torch, nan_logits, ll, targets, tl, {1: "inf", 2: "nan"},
+             how="global")
     # S > 1024 (L 520, S 1041), several states a thread
     big = (2, 1100, c, 520)
     big_logits = torch.from_numpy(rng.standard_normal(big[:3]).astype(
@@ -1295,14 +1401,19 @@ def phase_ctc(torch, results):
     alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll)
     ones = torch.ones(b, device="cuda")
 
-    def k8():
-        return ctc.ctc_alpha(lp, ext, tl, ll)
+    def k8(how=None):
+        return ctc.ctc_alpha(lp, ext, tl, ll, how=how)
 
-    def k9():
-        return ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, ones)
+    def k9(how=None):
+        return ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, ones, how=how)
 
     a_ms, b_ms = time_ms(k8, reps=20), time_ms(k9, reps=20)
     a_dev, b_dev = device_ms(k8), device_ms(k9)
+    a_glob = device_ms(lambda: k8("global"))
+    b_glob = device_ms(lambda: k9("global"))
+    log(f"K8/K9 global route at the train shape: max_abs_err "
+        f"{max(global_errs.values()):.3e}, device K8 {a_glob:.4f} ms, K9 "
+        f"{b_glob:.4f} ms (the ring's: {a_dev:.4f}, {b_dev:.4f})")
     pa_ms = time_ms(lambda: ctc.plain_alpha(lp, ext, tl, ll), reps=3,
                     warmup=1)
     pb_ms = time_ms(lambda: ctc.plain_beta(lp, ext, tl, ll, alphas, loss,
@@ -1352,16 +1463,22 @@ def phase_ctc(torch, results):
         f"{port_dev:.4f} ms ({port_ms:.4f}); F.ctc_loss forward + backward "
         f"device {lib_dev:.4f} ms ({lib_ms:.4f})")
     results["ctc_alpha"] = dict(
-        route="cuda", max_abs_err=max(errs["alphas"], errs["loss"]),
+        route="cuda", max_abs_err=max(errs["alphas"], errs["loss"],
+                                      global_errs["alphas"],
+                                      global_errs["loss"]),
         ms=a_ms, plain_ms=pa_ms, bound_ms=a_bound, bound_by=a_by,
         library_ms=lib_fwd_ms,
-        extra=dict(device_ms=a_dev, chain_floor_ms=floor_ms,
+        extra=dict(ctc_route=ctc.route(s, c, False), device_ms=a_dev,
+                   global_route_device_ms=a_glob, chain_floor_ms=floor_ms,
                    library_device_ms=lib_fwd_dev))
     results["ctc_beta"] = dict(
-        route="cuda", max_abs_err=max(errs["betas"], errs["dlogits"]),
+        route="cuda", max_abs_err=max(errs["betas"], errs["dlogits"],
+                                      global_errs["betas"],
+                                      global_errs["dlogits"]),
         ms=b_ms, plain_ms=pb_ms, bound_ms=b_bound, bound_by=b_by,
         library_ms=lib_bwd_ms,
-        extra=dict(device_ms=b_dev, chain_floor_ms=floor_ms,
+        extra=dict(ctc_route=ctc.route(s, c, True), device_ms=b_dev,
+                   global_route_device_ms=b_glob, chain_floor_ms=floor_ms,
                    library_device_ms=lib_bwd_dev, layer_ms=port_ms,
                    layer_device_ms=port_dev, library_layer_ms=lib_ms,
                    library_layer_device_ms=lib_dev))
@@ -1768,6 +1885,292 @@ def phase_train_cli(torch, cell="gru"):
         log(f"transcribe on the trained {cell} checkpoint: {len(text)} "
             f"chars in "
             f"{dt:.3f} s: {text[:60]!r}")
+
+
+def phase_train_augmented(torch, floor: dict) -> dict:
+    """The GRU-800 train step at batch 20 x 7.5 s on the int16 wire, 5
+    steps each without augmentation and with the device augmentation of
+    the train CLI's ``--device-noise --aug-prob-spect 0.5 --aug-prob-8khz
+    0.2`` (noise prob 0.4, limit 0.2, a bank of 4 clips of twice the
+    batch's width), alternating, in one process: CUDA-event medians of
+    steps 2-5 of each, then one profiled step of each (busy and idle)."""
+    from deepspeech_tpu_torch.audio.features import AudioConf
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_train_step)
+
+    rng = np.random.default_rng(SEED + 24)
+    model, _ = default_model(torch, SEED + 24)
+    batch = train_batch(torch, rng, LABELS)
+    width = 2 * batch["audio"].shape[1]
+    bank = 0.3 * torch.randn(4, width, device="cuda")
+    bank_lengths = torch.full((4,), width, dtype=torch.int32, device="cuda")
+    aug = dict(batch, noise_bank=bank, noise_bank_lengths=bank_lengths)
+    configs = {
+        "plain": (StepConfig(), batch),
+        "augmented": (StepConfig(
+            audio_conf=AudioConf(aug_prob_spect=0.5, aug_prob_8khz=0.2),
+            device_noise_prob=0.4, device_noise_limit=0.2), aug)}
+    optimizer = build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
+    state = TrainState.create(model, optimizer)
+    steps = {k: make_train_step(model, optimizer, cfg)
+             for k, (cfg, _) in configs.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times: dict = {k: [] for k in configs}
+    for i in range(5):
+        for name, (_, b) in configs.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = steps[name](state, b, generator=gen)
+            end.record()
+            end.synchronize()
+            if not np.isfinite(m["loss"].item()) or bool(m["step_skipped"]):
+                raise AssertionError(f"{name} step {i}: loss "
+                                     f"{m['loss'].item()}")
+            times[name].append(start.elapsed_time(end))
+    out = {k: float(np.median(v[1:])) for k, v in times.items()}
+    log(f"gru-800 train step with the device augmentation (noise mix, "
+        f"SpecAugment p 0.5, 8 kHz p 0.2): {out['augmented']:.3f} ms "
+        f"against {out['plain']:.3f} ms without (medians of steps 2-5, "
+        f"alternating): {out['augmented'] - out['plain']:+.3f} ms")
+    for name, (_, b) in configs.items():
+        profile_run(torch, f"gru-800 train step, {name}",
+                    lambda: steps[name](state, b, generator=gen), out[name],
+                    floor)
+    return out
+
+
+class _StepClock:
+    """An observer of the train CLI: the host clock at each hook, and the
+    (epoch, iteration) of each batch start."""
+
+    def __init__(self):
+        self.starts, self.epochs, self.t = [], [], []
+
+    def on_epoch_start(self, epoch, **kw):
+        self.epochs.append(epoch)
+
+    def on_epoch_end(self, epoch, **kw):
+        pass
+
+    def on_batch_start(self, epoch, iteration, **kw):
+        self.starts.append((epoch, iteration))
+        self.t.append(time.perf_counter())
+
+    def on_batch_end(self, epoch, iteration, **kw):
+        pass
+
+    def on_checkpoint(self, epoch, iteration, path, **kw):
+        pass
+
+
+def phase_train_cli_full(torch) -> dict:
+    """The rest of the train CLI at full width (6 x BiGRU-800, bf16) on a
+    synthetic manifest of CLI_FULL_UTTS utterances of 6.8-7.5 s (batch
+    20: 3 steps an epoch) with synthetic noise wavs, in a temporary
+    directory: one epoch with every newly ported flag (--augment --aug-type
+    0, the device masks and noise mix, --checkpoint-per-samples 40 (2
+    batches) with
+    --checkpoint-anneal 1.1, --train-val-manifest, the JSONL log, --visdom,
+    --log-params, a torch.profiler trace of step 1), then a resume from its
+    mid-epoch checkpoint (epoch 1, iteration 2) for epoch 2. Holds the
+    launches of a step and of validation, the files written, the restored
+    optimizer leaves against the saved ones on the card, the annealed LR,
+    and that no epoch is re-run; then times the loader alone with and
+    without the host waveform pipeline, and the CLI's steps with and
+    without --augment."""
+    from deepspeech_tpu_torch.audio.features import AudioConf
+    from deepspeech_tpu_torch.audio.io import save_wav
+    from deepspeech_tpu_torch.cli.train import main as train_main
+    from deepspeech_tpu_torch.data import (AudioDataLoader, AudioDataset,
+                                           BucketingSampler, BucketSpec)
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.train import checkpoint as ckpt
+    from deepspeech_tpu_torch.train.optim import (build_optimizer,
+                                                  to_optax_leaves,
+                                                  tree_leaves)
+    from deepspeech_tpu_torch.train.step import TrainState
+
+    rng = np.random.default_rng(SEED + 25)
+    labels_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "labels.json")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        rows = []
+        for i in range(CLI_FULL_UTTS):
+            n = AUDIO_S - AUDIO_S // 30 * (i % 5)
+            words = ["".join(rng.choice(list(LABELS[2:28]),
+                                        rng.integers(2, 8)))
+                     for _ in range(rng.integers(10, 15))]
+            wav, txt = (os.path.join(d, f"u{i}.wav"),
+                        os.path.join(d, f"u{i}.txt"))
+            save_wav(wav, synthetic_audio(rng, n), SR)
+            with open(txt, "w") as f:
+                f.write(" ".join(words))
+            rows.append(f"{wav},{txt},{n / SR}")
+        train = os.path.join(d, "train.csv")
+        with open(train, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        val = os.path.join(d, "val.csv")
+        with open(val, "w") as f:
+            f.write("\n".join(rows[:6]) + "\n")
+        os.makedirs(os.path.join(d, "noise"))
+        for i in range(3):
+            save_wav(os.path.join(d, "noise", f"n{i}.wav"),
+                     (0.5 * rng.standard_normal(SR * (4 + 3 * i))).clip(
+                         -1, 1).astype(np.float32), SR)
+        noise = os.path.join(d, "noise", "*.wav")
+        logs, prof = os.path.join(d, "logs"), os.path.join(d, "prof")
+        base = ["--train-manifest", train, "--val-manifest", val,
+                "--labels-path", labels_path, "--batch-size", str(BATCH),
+                "--val-batch-size", str(BATCH), "--num-workers", "4",
+                "--hidden-size", str(HIDDEN), "--hidden-layers", str(LAYERS),
+                "--log-dir", logs]
+        full = ["--augment", "--aug-type", "0", "--aug-prob-spect", "0.5",
+                "--aug-prob-8khz", "0.2", "--noise-dir", noise,
+                "--device-noise", "--checkpoint-per-samples", str(2 * BATCH),
+                "--checkpoint-anneal", "1.1", "--train-val-manifest", val,
+                "--visdom", "--log-params", "--profile-dir", prof,
+                "--profile-start", "1", "--profile-steps", "1"]
+
+        def run(argv, label):
+            clock = _StepClock()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_main(base + argv, observers=[clock])
+            dt = time.perf_counter() - t0
+            for line in buf.getvalue().splitlines():
+                log(f"  train CLI ({label}): {line}")
+            if rc != 0:
+                raise AssertionError(f"train CLI ({label}) exited {rc}")
+            torch.cuda.synchronize()
+            return clock, buf.getvalue(), dt
+
+        first = os.path.join(d, "first")
+        reset_counts()
+        clock, text, dt = run(full + ["--epochs", "1", "--save-folder", first,
+                                      "--id", "full"], "every flag")
+        counts = read_counts()
+        out["launches"] = counts
+        # 3 train steps; validation at the mid-epoch checkpoint and at the
+        # epoch's end, each over the val and train-val manifests (vb
+        # batches each)
+        vb = -(-6 // BATCH)
+        want = expect_counts(stft_mag=3 + 4 * vb, ctc_alpha=3 + 4 * vb,
+                             ctc_beta=3, gru_fwd=(3 + 4 * vb) * LAYERS,
+                             gru_fwd_res=3 * LAYERS, gru_bwd=3 * LAYERS)
+        log(f"train CLI with every flag (6 x BiGRU-800 bf16, 3 steps + 4 "
+            f"validation batches): {dt:.3f} s host clock, launches {counts}")
+        if counts != want:
+            raise AssertionError(f"train CLI launches {counts}, expected "
+                                 f"{want}")
+        if clock.starts != [(0, 0), (0, 1), (0, 2)]:
+            raise AssertionError(f"batches {clock.starts}")
+        mid = os.path.join(first, "deepspeech_checkpoint_0001.ckpt")
+        wanted = [os.path.join(logs, "full.jsonl"),
+                  os.path.join(logs, "full.html")]
+        for name in ("deepspeech_checkpoint_0001", "best_model",
+                     "deepspeech_final"):
+            path = os.path.join(first, name + ".ckpt")
+            wanted += [path] + [path + x for x in (
+                ".curriculum.csv", ".val.curriculum.csv",
+                ".trainval.curriculum.csv")]
+        missing = [p for p in wanted if not os.path.exists(p)]
+        traces = os.listdir(prof) if os.path.isdir(prof) else []
+        if missing or len(traces) != 1:
+            raise AssertionError(f"missing {missing}, traces {traces}")
+        with open(os.path.join(logs, "full.jsonl")) as f:
+            names = {json.loads(line)["event"] for line in f}
+        if names != {"train", "params", "val_checkpoint", "trainval",
+                     "lr_find", "checkpoint", "epoch", "val"}:
+            raise AssertionError(f"JSONL events {sorted(names)}")
+        with open(os.path.join(prof, traces[0])) as f:
+            kernels = sum(1 for e in json.load(f)["traceEvents"]
+                          if e.get("cat") == "kernel")
+        package = ckpt.load(mid)
+        leaves = tree_leaves(package["optim_state"])
+        final = ckpt.load(os.path.join(first, "deepspeech_final.ckpt"))
+        lr_final = float(tree_leaves(final["optim_state"])[1])
+        if ((package["epoch"], package["iteration"], package["step"])
+                != (1, 2, 2) or leaves[1] != np.float32(3e-4)
+                or abs(lr_final / (3e-4 / 1.1 / 1.1) - 1) > 1e-6):
+            raise AssertionError(
+                f"mid checkpoint epoch {package['epoch']} iteration "
+                f"{package['iteration']} step {package['step']}, lr "
+                f"{leaves[1]}, final lr {lr_final}")
+        # the saved optimizer leaves restored on the card, bit for bit
+        model, _ = build_model("gru", CLASSES, HIDDEN, LAYERS,
+                               compute_dtype="bfloat16", device="cuda")
+        state = TrainState.create(model, build_optimizer("sgd"))
+        state = ckpt.restore_state(package, state)
+        got = to_optax_leaves(state.opt_state, model)
+        if len(got) != len(leaves) or not all(
+                np.array_equal(a, b) for a, b in zip(got, leaves)):
+            raise AssertionError("restored optimizer leaves differ")
+        del model, state
+        log(f"train CLI: {len(traces)} profiler trace ({kernels} device "
+            f"kernels in step 1), JSONL events {sorted(names)}, sidecars "
+            f"of 3 checkpoints, mid-epoch checkpoint at epoch 1 iteration "
+            f"2 with {len(leaves)} optimizer leaves restored on the card "
+            f"bit for bit, LR {leaves[1]:.3e} -> {lr_final:.3e} (anneal "
+            f"1.1 at the checkpoint, 1.1 at the epoch)")
+
+        # the resume: the rest of epoch 1, then epoch 2
+        second = os.path.join(d, "second")
+        reset_counts()
+        clock, text, dt = run(full + ["--epochs", "2", "--save-folder",
+                                      second, "--id", "resumed",
+                                      "--continue-from", mid], "resumed")
+        counts = read_counts()
+        # 4 steps; validations: the epochs' ends (2), the checkpoints of
+        # epoch 2 (2), each on both manifests
+        want = expect_counts(stft_mag=4 + 8 * vb, ctc_alpha=4 + 8 * vb,
+                             ctc_beta=4, gru_fwd=(4 + 8 * vb) * LAYERS,
+                             gru_fwd_res=4 * LAYERS, gru_bwd=4 * LAYERS)
+        if counts != want:
+            raise AssertionError(f"resumed CLI launches {counts}, expected "
+                                 f"{want}")
+        if (clock.epochs != [0, 1] or clock.starts
+                != [(0, 2), (1, 0), (1, 1), (1, 2)]):
+            raise AssertionError(f"resumed epochs {clock.epochs}, batches "
+                                 f"{clock.starts}")
+        final = ckpt.load(os.path.join(second, "deepspeech_final.ckpt"))
+        if final["step"] != 6 or len(final["loss_results"]) != 2:
+            raise AssertionError(f"resumed final step {final['step']}, "
+                                 f"history {final['loss_results']}")
+        log(f"train CLI resumed from the mid-epoch checkpoint: batches "
+            f"{clock.starts} (no epoch re-run), {dt:.3f} s host clock, "
+            f"launches {counts}")
+
+        # the host waveform pipeline against the step: the loader alone
+        conf = AudioConf(noise_dir=noise)
+        bucket = BucketSpec(reflect_tail=160, wire_dtype="int16")
+        for augment in (False, True):
+            ds = AudioDataset(conf, train, LABELS, augment=augment)
+            loader = AudioDataLoader(ds, BucketingSampler(len(ds), BATCH),
+                                     BATCH, bucket, 4)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader)
+            rate = n / (time.perf_counter() - t0)
+            out[f"loader_batches_per_s_augment_{augment}"] = rate
+            log(f"loader alone, --num-workers 4, batch {BATCH} x 6.8-7.5 s, "
+                f"augment {augment}: {rate:.2f} batches/s ({n} batches)")
+        # the CLI's steps with and without --augment (1 epoch, 3 steps)
+        for augment in (False, True):
+            flags = ["--augment", "--aug-type", "0", "--noise-dir",
+                     noise] if augment else []
+            clock, _, dt = run(flags + ["--epochs", "1", "--save-folder",
+                                        os.path.join(d, f"a{augment}"),
+                                        "--id", f"a{augment}"],
+                               f"augment {augment}")
+            rate = (len(clock.t) - 1) / (clock.t[-1] - clock.t[0])
+            out[f"cli_steps_per_s_augment_{augment}"] = rate
+            log(f"train CLI, augment {augment}: {rate:.2f} steps/s between "
+                f"the first and last batch starts of the epoch, {dt:.1f} s "
+                "the whole run")
+    return out
 
 
 def phase_wide_cli(torch):
@@ -2260,7 +2663,8 @@ def main() -> int:
     floor = step_floor(torch)
     phase_layer_bwd(torch, results, "gru")
     phase_ctc(torch, results)
-    mark("K1, K2, K5, K8/K9 held to their plain versions")
+    phase_ctc_long(torch, results)
+    mark("K1, K2, K5, K8/K9 (both routes) held to their plain versions")
     phase_topk(torch, results)
     model, meta = phase_forward(torch, {}, floor)
     phase_cli(torch, model, meta, {})
@@ -2282,8 +2686,11 @@ def main() -> int:
         mark("the beam decoders through the transcribe and test CLIs")
     del model
     phase_train(torch, train_counts, floor)
+    phase_train_augmented(torch, floor)
     phase_train_cli(torch)
     mark("the GRU train step and train CLI")
+    phase_train_cli_full(torch)
+    mark("the train CLI with every ported flag, and its resume")
     # the LSTM cell: K3 and K7, then its inference, train and CLI paths
     phase_layer_fwd(torch, results, "lstm")
     phase_layer_bwd(torch, results, "lstm")

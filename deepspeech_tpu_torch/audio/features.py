@@ -5,7 +5,10 @@ int(sr * window_size), hop = int(sr * window_stride), symmetric window,
 magnitude, mirror-fill to 161 bins when sr < 16 kHz, crop to 161, then one
 of the normalize modes ``mean`` / ``norm`` / ``frame`` / ``max_frame`` /
 ``none``. The batch path masks each utterance's statistics to its valid
-frames. Augmentation is not ported yet (ROADMAP.md).
+frames and, in training, applies the device spectrogram masks
+(``augment/spectrogram.py``) to the magnitudes before normalizing, as the
+reference does. The host (numpy) parity path, ``parse_audio_np``, is the
+JAX package's, copied: the dataset's ``emit="spect"`` runs it.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import dataclasses
 import functools
 
 import numpy as np
+import scipy.ndimage
 import scipy.signal
 import torch
 
@@ -68,6 +72,87 @@ class AudioConf:
         return cls(**kw)
 
 
+# ---------------------------------------------------------------------------
+# Host (numpy) parity path, copied from the JAX package.
+# ---------------------------------------------------------------------------
+
+def stft_magnitude_np(y: np.ndarray, n_fft: int, hop: int,
+                      window: np.ndarray) -> np.ndarray:
+    """librosa.stft-compatible |STFT| on host: (S,) -> (n_fft//2+1, T)."""
+    pad = n_fft // 2
+    y = np.pad(y.astype(np.float32), pad, mode="reflect")
+    t = (len(y) - n_fft) // hop + 1
+    idx = np.arange(n_fft)[None, :] + hop * np.arange(t)[:, None]
+    frames = y[idx] * window[None, :]
+    return np.abs(np.fft.rfft(frames, n=n_fft, axis=-1)).T.astype(np.float32)
+
+
+def mirror_fill_bins(spect: np.ndarray) -> np.ndarray:
+    """Mirror-fill to N_BINS rows when the sample rate yields fewer bins,
+    then crop (reference data_loader_aug.py:233-238, 249)."""
+    shape = spect.shape
+    if shape[0] < N_BINS:
+        out = np.zeros((N_BINS, *shape[1:]), dtype=spect.dtype)
+        out[:shape[0]] = spect
+        out[81:] = out[80:0:-1][: N_BINS - 81]
+        return out
+    return spect[:N_BINS]
+
+
+def audio_to_stft_np(y: np.ndarray, conf: AudioConf) -> np.ndarray:
+    """(S,) waveform -> (161, T) magnitude spectrogram (host)."""
+    window = make_window(conf.window, conf.n_fft)
+    spect = stft_magnitude_np(y, conf.n_fft, conf.hop, window)
+    return mirror_fill_bins(spect)
+
+
+def gaussian_smooth_np(x: np.ndarray, sigma: float) -> np.ndarray:
+    return scipy.ndimage.gaussian_filter1d(x, sigma)
+
+
+def normalize_spectrogram_np(spect: np.ndarray, mode: str) -> np.ndarray:
+    """Reference normalize_audio parity (data_loader_aug.py:274-313)."""
+    if mode == "mean":
+        spect = np.log1p(spect)
+        return spect - spect.mean()
+    if mode == "norm":
+        spect = np.log1p(spect)
+        spect = spect - spect.mean()
+        std = spect.std(axis=0, ddof=1, keepdims=True)  # torch std is unbiased
+        return spect / std.mean()
+    if mode == "frame":
+        spect = np.log1p(spect)
+        mean = spect.mean(axis=0, keepdims=True)
+        mean = gaussian_smooth_np(mean, 50)
+        return spect - mean.mean()
+    if mode == "max_frame":
+        spect = np.log1p(spect * 1048576)
+        mean = spect.mean(axis=0, keepdims=True)
+        mean = gaussian_smooth_np(mean, 20)
+        return spect - mean.mean()
+    if not mode or mode == "none":
+        return np.log1p(spect)
+    raise ValueError(f"No such normalization: {mode}")
+
+
+def parse_audio_np(y: np.ndarray, conf: AudioConf, normalize: str = "max_frame",
+                   jitter_rng: np.random.Generator | None = None) -> np.ndarray:
+    """Full host front-end: waveform -> normalized (161, T) spectrogram.
+
+    ``jitter_rng`` enables the reference's train-time max_frame jitter
+    (spect += U(-0.5, 0.5), data_loader_aug.py:213-214).
+    """
+    spect = audio_to_stft_np(y, conf)
+    spect = normalize_spectrogram_np(spect, normalize)
+    if jitter_rng is not None and normalize == "max_frame":
+        spect = spect + (jitter_rng.random(1, dtype=np.float32) - 0.5)
+    return spect
+
+
+# ---------------------------------------------------------------------------
+# Device batched path.
+# ---------------------------------------------------------------------------
+
 def masked_mean(seq: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Mean over the first ``length`` entries of each (B, T) row -> (B,).
 
@@ -112,9 +197,27 @@ def normalize_spectrogram_batch(spect: torch.Tensor,
     return out * m3
 
 
+def draw_masks(batch: int, n_frames: int, conf: AudioConf,
+               generator: torch.Generator) -> dict | None:
+    """The train step's spectrogram-mask draws for a batch of ``n_frames``
+    padded frames (None when neither probability is set): SpecAugment's,
+    then the band zero's, as the JAX ``featurize_batch`` splits its key."""
+    if not (conf.aug_prob_spect > 0 or conf.aug_prob_8khz > 0):
+        return None
+    from deepspeech_tpu_torch.augment.spectrogram import (draw_band_zero,
+                                                          draw_spec_augment)
+    out = {}
+    if conf.aug_prob_spect > 0:
+        out["spec"] = draw_spec_augment(batch, N_BINS, n_frames, generator)
+    if conf.aug_prob_8khz > 0:
+        out["band"] = draw_band_zero(batch, generator)
+    return out
+
+
 def featurize_batch(audio: torch.Tensor, audio_lengths: torch.Tensor,
                     conf: AudioConf, normalize: str = "max_frame",
-                    jitter: torch.Tensor | None = None):
+                    jitter: torch.Tensor | None = None,
+                    masks: dict | None = None):
     """Padded waveforms -> normalized spectrograms on the waveforms' device.
 
     audio: (B, S) f32, zero-padded; audio_lengths: (B,) valid sample counts.
@@ -122,11 +225,11 @@ def featurize_batch(audio: torch.Tensor, audio_lengths: torch.Tensor,
     the whole padded row, so a short utterance's last frame reflects into
     its zero padding, as the JAX package does for raw padded input.
     ``jitter`` (B,), with ``max_frame``: the train-time offset added to
-    every valid frame (reference data_loader_aug.py:213-214).
+    every valid frame (reference data_loader_aug.py:213-214). ``masks``
+    (``draw_masks``): the SpecAugment and 8 kHz band-zero draws, applied
+    to the magnitudes before normalization at ``conf``'s probabilities
+    (reference data_loader_aug.py:241-248).
     """
-    if conf.aug_prob_spect > 0 or conf.aug_prob_8khz > 0:
-        raise NotImplementedError(
-            "spectrogram augmentation is not ported yet (see ROADMAP.md)")
     window = make_window(conf.window, conf.n_fft)
     mag = stft_kernel.stft_mag(audio, conf.n_fft, conf.hop, window,
                                center=True)
@@ -140,6 +243,14 @@ def featurize_batch(audio: torch.Tensor, audio_lengths: torch.Tensor,
     else:
         mag = mag[..., :N_BINS, :]
     frame_lengths = 1 + audio_lengths.to(mag.device) // conf.hop
+    if masks:
+        from deepspeech_tpu_torch.augment.spectrogram import (
+            apply_band_zero_8khz, apply_spec_augment)
+        if "spec" in masks:
+            mag = apply_spec_augment(mag, frame_lengths, masks["spec"],
+                                     conf.aug_prob_spect)
+        if "band" in masks:
+            mag = apply_band_zero_8khz(mag, masks["band"], conf.aug_prob_8khz)
     spect = normalize_spectrogram_batch(mag, frame_lengths, normalize)
     if jitter is not None and normalize == "max_frame":
         mask = length_mask(frame_lengths, spect.shape[-1])

@@ -36,6 +36,19 @@ def load_audio_norm(path: str, channel: int = -1):
     return sound, sample_rate
 
 
+def load_audio(path: str, channel: int = -1):
+    """Non-peak-normalized float32 load (legacy twin, reference
+    data/data_loader.py:36-46; ``noise_inject`` reads its input with it)."""
+    sample_rate, sound = _read_any(path)
+    if np.issubdtype(sound.dtype, np.integer):
+        sound = sound.astype("float32") / float(np.iinfo(sound.dtype).max)
+    else:
+        sound = sound.astype("float32")
+    if sound.ndim > 1:
+        sound = sound.mean(axis=1) if channel == -1 else sound[:, channel]
+    return sound, sample_rate
+
+
 def save_wav(path: str, data: np.ndarray, sample_rate: int):
     """Write float32 [-1,1] audio as 16-bit PCM."""
     pcm = np.clip(data, -1.0, 1.0)

@@ -1,4 +1,4 @@
-"""Training CLI: the default single-device path of the JAX package's
+"""Training CLI: the single-device path of the JAX package's
 ``cli/train.py`` on the card.
 
     python -m deepspeech_tpu_torch.cli.train --train-manifest train.csv \\
@@ -8,28 +8,42 @@ Epochs over the train manifest: before each, the dataset's epoch list is
 set (all rows, or with ``--use-curriculum`` the rows drawn by curriculum
 probability, at least ``--curriculum-ratio`` of the manifest) and
 shuffled by the epoch, as the JAX CLI does; then SortaGrad order on epoch
-0 and shuffled bins after. One ``train_step`` per batch (featurize ->
-forward -> CTC -> backward -> clip -> NaN guard -> SGD/Adam); every
-batch's greedy ids are decoded on the host and their CER and WER go into
-the train curriculum store (``--curriculum`` preloads it from a CSV
-sidecar). A log line every 10 iterations, greedy validation loss/WER/CER
-at each epoch's end (which updates the val store), the LR annealed by
-``--learning-anneal``, ``best_model.ckpt`` by WER + CER and
-``deepspeech_final.ckpt`` in ``--save-folder``; every checkpoint writes
-the ``<ckpt>.curriculum.csv`` and ``<ckpt>.val.curriculum.csv`` sidecars.
-Checkpoints are the JAX package's zip container: both packages'
-``transcribe`` load them.
+0 and shuffled bins after. One ``train_step`` per batch (the noise mix ->
+featurize with its masks and jitter -> forward -> CTC -> backward -> clip
+-> NaN guard -> SGD/Adam); each step's metrics are read back after the
+next step is queued, as the JAX loop does, and its greedy ids decoded into
+the train curriculum store. A log line every 10 iterations, greedy
+validation loss/WER/CER at each epoch's end (which updates the val store;
+``--train-val-manifest`` adds a train-val pass with its own store), the
+LR annealed by ``--learning-anneal``, ``best_model.ckpt`` by WER + CER and
+``deepspeech_final.ckpt`` in ``--save-folder``; ``--checkpoint`` adds one
+a epoch, ``--checkpoint-per-samples`` mid-epoch ones (each validated,
+``--checkpoint-anneal`` dividing the LR). Every checkpoint writes the
+curriculum sidecars. Checkpoints are the JAX package's zip container with
+the optimizer state as optax's leaves: both packages' ``transcribe`` load
+them, and each package's ``--continue-from`` resumes the other's (mid-epoch
+ones inside their epoch, through ``AudioDataLoader.iter_from``);
+``--finetune`` takes the weights only.
 
-Not ported yet (each raises SystemExit naming ROADMAP.md): augmentation,
-``--steps-per-dispatch`` > 1, ``--mesh-model`` > 1,
-resuming (``--continue-from``, ``--finetune``), ``--profile-dir``,
-``--tensorboard``, ``--visdom``, ``--log-params``, ``--train-val-manifest``,
-``--checkpoint-per-samples`` and the multi-host rendezvous (``--dist-url``,
-``--dist-init``, ``--dist-rank``, ``--dist-world-size``), each at any value
-but its default. Every other flag of the JAX CLI parses: ``--enorm`` is a
-no-op there too, the flags that act only with a refused one are accepted
-as they are, and ``--id``/``--log-dir`` name the JSONL metric log, which
-is not written yet.
+Augmentation as the JAX CLI: ``--augment`` runs the host waveform
+pipeline (``--aug-type``) with the per-sample RNG seeded from (seed,
+epoch, index); ``--aug-prob-spect`` and ``--aug-prob-8khz`` mask the
+spectrogram on the card; ``--device-noise`` uploads the ``--noise-dir``
+bank once and mixes it in the step. The step draws from a
+``torch.Generator`` seeded with ``--seed``.
+
+The JSONL metric log goes to ``<--log-dir>/<--id>.jsonl`` with the JAX
+CLI's event names and keys (``--visdom`` adds the HTML dashboard,
+``--tensorboard`` mirrors to TensorBoard where it imports, ``--log-params``
+adds parameter and gradient summaries every 100 steps); ``--profile-dir``
+writes a ``torch.profiler`` Chrome trace of ``--profile-steps`` steps from
+``--profile-start``. ``main(argv, observers)`` fires the observers' hooks
+as the JAX CLI does.
+
+Not ported yet (each raises SystemExit naming ROADMAP.md): the multi-host
+rendezvous (``--dist-url``, ``--dist-init``, ``--dist-rank``,
+``--dist-world-size``) at any value but its default,
+``--steps-per-dispatch`` > 1 and ``--mesh-model`` > 1.
 """
 
 from __future__ import annotations
@@ -50,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-manifest", default="data/train_manifest.csv")
     p.add_argument("--val-manifest", default="data/val_manifest.csv")
     p.add_argument("--train-val-manifest", default="",
-                   help="not ported yet")
+                   help="held-out slice of train data for quality tracking")
     p.add_argument("--cache-dir", default="data/cache/",
                    help="accepted for flag parity; unused")
     p.add_argument("--curriculum", default="",
@@ -96,24 +110,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--learning-anneal", default=1.1, type=float)
     p.add_argument("--checkpoint-anneal", default=1.0, type=float,
                    help="LR anneal at each mid-epoch checkpoint (acts with "
-                        "--checkpoint-per-samples, not ported yet)")
+                        "--checkpoint-per-samples)")
     p.add_argument("--silent", action="store_true")
     # checkpointing
     p.add_argument("--checkpoint", action="store_true",
                    help="save a checkpoint every epoch")
     p.add_argument("--checkpoint-per-samples", default=0, type=int,
-                   help="not ported yet")
+                   help="a mid-epoch checkpoint every this many samples")
     p.add_argument("--save-folder", default="models/")
-    p.add_argument("--continue-from", default="", help="not ported yet")
-    p.add_argument("--finetune", action="store_true", help="not ported yet")
-    # augmentation (not ported yet)
+    p.add_argument("--continue-from", default="",
+                   help="resume from a checkpoint of either package")
+    p.add_argument("--finetune", action="store_true",
+                   help="with --continue-from: the weights only, a fresh "
+                        "optimizer")
+    # augmentation
     p.add_argument("--augment", action="store_true")
     p.add_argument("--noise-dir", default=None)
     p.add_argument("--noise-prob", default=0.4, type=float,
                    help="acts with --noise-dir or --device-noise")
     p.add_argument("--noise-min", default=0.0, type=float)
     p.add_argument("--noise-max", default=0.5, type=float)
-    p.add_argument("--device-noise", action="store_true")
+    p.add_argument("--device-noise", action="store_true",
+                   help="mix the --noise-dir pool (+ gaussian) into the "
+                        "waveforms in the train step at --noise-prob")
     p.add_argument("--device-noise-limit", default=0.2, type=float,
                    help="acts with --device-noise")
     p.add_argument("--aug-prob-8khz", default=0, type=float)
@@ -130,19 +149,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="longest utterances first on the SortaGrad epoch")
     # observability
     p.add_argument("--tensorboard", action="store_true",
-                   help="not ported yet")
+                   help="mirror the metric log to TensorBoard where "
+                        "torch.utils.tensorboard imports")
     p.add_argument("--visdom", dest="live_html", action="store_true",
-                   help="not ported yet")
+                   help="live loss/WER/CER curves in a self-refreshing "
+                        "<log-dir>/<id>.html dashboard")
     p.add_argument("--enorm", action="store_true",
                    help="accepted for reference-flag parity; no-op")
     p.add_argument("--log-dir", default="visualize/deepspeech_final",
-                   help="directory of the JSONL metric log (not written "
-                        "yet)")
+                   help="directory of the JSONL metric log")
     p.add_argument("--log-params", action="store_true",
-                   help="not ported yet")
+                   help="parameter and gradient summaries every 100 steps")
     p.add_argument("--id", default="Deepspeech training",
-                   help="name of the JSONL metric log (not written yet)")
-    p.add_argument("--profile-dir", default="", help="not ported yet")
+                   help="name of the JSONL metric log")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler Chrome trace to this dir")
     p.add_argument("--profile-start", default=10, type=int,
                    help="acts with --profile-dir")
     p.add_argument("--profile-steps", default=5, type=int,
@@ -176,31 +197,22 @@ def build_parser() -> argparse.ArgumentParser:
 # (attribute, flag, what is not ported): refused at any value other than
 # the parser's default (``--dist-rank`` defaults to -1, so no truthiness)
 _NOT_PORTED = (
-    ("augment", "--augment", "augmentation"),
-    ("noise_dir", "--noise-dir", "augmentation"),
-    ("device_noise", "--device-noise", "augmentation"),
-    ("aug_prob_8khz", "--aug-prob-8khz", "augmentation"),
-    ("aug_prob_spect", "--aug-prob-spect", "augmentation"),
-    ("continue_from", "--continue-from", "resuming"),
-    ("finetune", "--finetune", "resuming"),
-    ("profile_dir", "--profile-dir", "profiling"),
-    ("tensorboard", "--tensorboard", "logging"),
-    ("live_html", "--visdom", "logging"),
-    ("log_params", "--log-params", "logging"),
-    ("train_val_manifest", "--train-val-manifest", "train-val evaluation"),
-    ("checkpoint_per_samples", "--checkpoint-per-samples",
-     "mid-epoch checkpoints"),
     ("dist_url", "--dist-url", "multi-host training"),
     ("dist_init", "--dist-init", "multi-host training"),
     ("dist_rank", "--dist-rank", "multi-host training"),
     ("dist_world_size", "--dist-world-size", "multi-host training"),
 )
 
+# the metric history every checkpoint carries (JAX cli/train.py:474-480)
+HIST_KEYS = ("loss_results", "wer_results", "cer_results",
+             "checkpoint_loss_results", "checkpoint_wer_results",
+             "checkpoint_cer_results", "trainval_checkpoint_loss_results",
+             "trainval_checkpoint_wer_results",
+             "trainval_checkpoint_cer_results")
+
 
 def check_ported(args) -> None:
-    """Refuse the flags whose paths the port has not ported yet. The flags
-    that only act together with one of them (``--noise-prob``,
-    ``--aug-type``, ``--profile-start``, ...) are accepted as they are."""
+    """Refuse the flags whose paths the port has not ported yet."""
     parser = build_parser()
     for attr, flag, what in _NOT_PORTED:
         if getattr(args, attr) != parser.get_default(attr):
@@ -224,6 +236,21 @@ def _labels_path(path: str) -> str:
     return path
 
 
+def audio_conf_from_args(args, train: bool):
+    """The front end's AudioConf; the augmentation fields only for
+    training (JAX ``cli/train.py:187-196``)."""
+    from deepspeech_tpu_torch.audio.features import AudioConf
+
+    return AudioConf(
+        sample_rate=args.sample_rate, window_size=args.window_size,
+        window_stride=args.window_stride, window=args.window,
+        noise_dir=args.noise_dir if train else None,
+        noise_prob=args.noise_prob if train else 0,
+        noise_levels=(args.noise_min, args.noise_max),
+        aug_prob_8khz=args.aug_prob_8khz if train else 0,
+        aug_prob_spect=args.aug_prob_spect if train else 0)
+
+
 def epoch_loader(dataset, epoch: int, args, bucket):
     """The train loader of one epoch (JAX ``cli/train.py:612-633``): the
     dataset's epoch list first, then SortaGrad (no shuffle on epoch 0,
@@ -241,13 +268,73 @@ def epoch_loader(dataset, epoch: int, args, bucket):
                            args.num_workers)
 
 
-def main(argv=None) -> int:
+def noise_bank(args, dataset, conf, bucket, dev):
+    """The ``--device-noise`` bank on ``dev``, uploaded once (JAX
+    ``cli/train.py:414-436``): every ``--noise-dir`` clip stacked to twice
+    the longest utterance plus the reflect tail."""
+    import glob
+
+    from deepspeech_tpu_torch.augment.noise_device import build_noise_bank
+
+    paths = sorted(glob.glob(args.noise_dir))
+    max_dur = max((float(d or 0) for _, _, d in dataset.ids),
+                  default=0.0) or 30.0
+    width = bucket.pad_to(int(max_dur * conf.sample_rate)
+                          + bucket.reflect_tail, bucket.audio_step)
+    bank, lens = build_noise_bank(paths, conf.sample_rate, width,
+                                  pad=bucket.reflect_tail)
+    return len(paths), {"noise_bank": torch.from_numpy(bank).to(dev),
+                        "noise_bank_lengths": torch.from_numpy(lens).to(dev)}
+
+
+class Profiler:
+    """``--profile-dir``: a torch.profiler window over global steps
+    [start, start + steps), CPU and (on the card) CUDA activities, written
+    as one Chrome trace into the directory when it closes."""
+
+    def __init__(self, directory: str, start: int, steps: int, dev,
+                 say=print):
+        self.directory, self.start, self.steps = directory, start, steps
+        self.dev, self.say = dev, say
+        self.prof = None
+        self.path = None
+
+    def step(self, global_step: int):
+        if not self.directory:
+            return
+        if self.prof is None and global_step == self.start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.__enter__()
+            self.say(f"  profiler trace started -> {self.directory}")
+        elif (self.prof is not None and self.path is None
+              and global_step >= self.start + self.steps):
+            self.close()
+
+    def close(self):
+        if self.prof is None or self.path is not None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        self.prof.__exit__(None, None, None)
+        os.makedirs(self.directory, exist_ok=True)
+        self.path = os.path.join(
+            self.directory,
+            f"trace_steps_{self.start}_{self.start + self.steps}.json")
+        self.prof.export_chrome_trace(self.path)
+        self.say(f"  profiler trace stopped -> {self.path}")
+
+
+def main(argv=None, observers=()) -> int:
+    """Run training. ``observers``: ``deepspeech_tpu_torch.utils.Observer``
+    instances whose hooks fire at epoch, batch and checkpoint boundaries,
+    in the JAX CLI's order."""
     args = build_parser().parse_args(argv)
     check_ported(args)
-    if not args.silent:
-        print(f"--id {args.id!r}, --log-dir {args.log_dir!r}: the JSONL "
-              "metric log is not written yet (see ROADMAP.md)", flush=True)
     from deepspeech_tpu_torch.audio.features import AudioConf
+    from deepspeech_tpu_torch.convert import torch_to_jax
     from deepspeech_tpu_torch.data import (AudioDataLoader, AudioDataset,
                                            BucketingSampler, BucketSpec)
     from deepspeech_tpu_torch.decoders import GreedyDecoder
@@ -262,6 +349,8 @@ def main(argv=None) -> int:
     from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
                                                  make_eval_step,
                                                  make_train_step)
+    from deepspeech_tpu_torch.utils import (AverageMeter, MetricsLogger,
+                                            ObserverList, StopWatch)
 
     def say(*a):
         if not args.silent:
@@ -269,105 +358,304 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     torch.manual_seed(args.seed)
-    labels = Labels(load_labels(_labels_path(args.labels_path)))
-    audio_conf = AudioConf(sample_rate=args.sample_rate,
-                           window_size=args.window_size,
-                           window_stride=args.window_stride,
-                           window=args.window)
-    model, meta = build_model(
-        rnn_type=args.rnn_type, num_classes=len(labels.labels),
-        hidden_size=args.hidden_size, hidden_layers=args.hidden_layers,
-        bidirectional=args.bidirectional, bnm=args.batch_norm_momentum,
-        cnn_width=args.cnn_width, dropout=args.dropout,
-        compute_dtype=args.compute_dtype, device=dev)
+    # -- config / resume (JAX cli/train.py:255-318) ------------------------
+    package = None
+    if args.continue_from:
+        package = ckpt.load(args.continue_from)
+        labels_str = package["labels"]
+        audio_conf = AudioConf.from_dict(package["audio_conf"])
+        say(f"Resuming from {args.continue_from} "
+            f"(epoch {package.get('epoch', 0)})")
+    else:
+        labels_str = load_labels(_labels_path(args.labels_path))
+        audio_conf = audio_conf_from_args(args, train=True)
+    labels = Labels(labels_str)
+    # augs zeroed for the eval datasets (reference train.py:912-915)
+    test_conf = AudioConf.from_dict({**audio_conf.to_dict(),
+                                     "noise_dir": None, "noise_prob": 0,
+                                     "aug_prob_8khz": 0,
+                                     "aug_prob_spect": 0})
+    if package is not None:
+        meta = {k: package[k] for k in
+                ("rnn_type", "num_classes", "hidden_size", "hidden_layers",
+                 "bidirectional", "bnm", "cnn_width", "dropout", "context")
+                if k in package}
+        model, meta = build_model(**meta, compute_dtype=args.compute_dtype,
+                                  device=dev)
+    else:
+        model, meta = build_model(
+            rnn_type=args.rnn_type, num_classes=len(labels.labels),
+            hidden_size=args.hidden_size, hidden_layers=args.hidden_layers,
+            bidirectional=args.bidirectional, bnm=args.batch_norm_momentum,
+            cnn_width=args.cnn_width, dropout=args.dropout,
+            compute_dtype=args.compute_dtype, device=dev)
     optimizer = build_optimizer(args.optimizer, lr=args.lr,
                                 momentum=args.momentum,
                                 weight_decay=args.weight_decay,
                                 max_norm=args.max_norm)
     state = TrainState.create(model, optimizer)
-    cfg = StepConfig(audio_conf=audio_conf, normalize=args.norm)
-    train_step = make_train_step(model, optimizer, cfg)
-    eval_step = make_eval_step(model, cfg)
-    decoder = GreedyDecoder(labels.labels, blank_index=labels.blank_index)
-    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    start_epoch = start_iter = checkpoint_id = 0
+    best_quality = None
+    if package is not None:
+        if args.finetune:
+            state = ckpt.restore_params_only(package, state)
+        else:
+            state = ckpt.restore_state(package, state)
+            start_epoch = max(package.get("epoch", 1) - 1, 0)
+            start_iter = package.get("iteration") or 0
+            checkpoint_id = package.get("checkpoint") or 0
+            if start_iter == 0 and package.get("epoch") is not None:
+                # an epoch-boundary checkpoint: that epoch is complete;
+                # mid-epoch ones carry iteration >= 1 and restart inside
+                # their epoch (reference train.py:846-853)
+                start_epoch += 1
 
+    # -- data ----------------------------------------------------------------
     max_items = args.max_items or None
-    train_dataset = AudioDataset(audio_conf, args.train_manifest, labels,
-                                 max_items, args.curriculum or None)
-    val_dataset = AudioDataset(audio_conf, args.val_manifest, labels,
-                               max_items)
+    train_dataset = AudioDataset(
+        audio_conf, args.train_manifest, labels, max_items,
+        args.curriculum or None, normalize=args.norm, augment=args.augment,
+        seed=args.seed, aug_type=args.aug_type)
+    val_dataset = AudioDataset(test_conf, args.val_manifest, labels,
+                               max_items, normalize=args.norm)
+    trainval_dataset = None
+    if args.train_val_manifest:
+        trainval_dataset = AudioDataset(test_conf, args.train_val_manifest,
+                                        labels, max_items,
+                                        normalize=args.norm)
     bucket = BucketSpec(
         audio_step=int(audio_conf.sample_rate * args.bucket_audio_seconds),
         reflect_tail=audio_conf.n_fft // 2, wire_dtype=args.wire_dtype)
-    val_loader = AudioDataLoader(
-        val_dataset, BucketingSampler(len(val_dataset), args.val_batch_size),
-        args.val_batch_size, bucket, args.num_workers)
+
+    def eval_loader(dataset):
+        return AudioDataLoader(
+            dataset, BucketingSampler(len(dataset), args.val_batch_size),
+            args.val_batch_size, bucket, args.num_workers)
+
+    val_loader = eval_loader(val_dataset)
+    trainval_loader = (eval_loader(trainval_dataset)
+                       if trainval_dataset is not None else None)
+
+    noise_extra = {}  # the device noise bank, uploaded once
+    cfg = StepConfig(
+        audio_conf=audio_conf, normalize=args.norm,
+        device_noise_prob=(args.noise_prob
+                           if args.device_noise and args.noise_dir else 0.0),
+        device_noise_limit=args.device_noise_limit)
+    if cfg.device_noise_prob > 0:
+        n_clips, noise_extra = noise_bank(args, train_dataset, audio_conf,
+                                          bucket, dev)
+        say(f"device noise bank: {n_clips} clips, "
+            f"{noise_extra['noise_bank'].numel() * 4 / 1e6:.1f} MB on "
+            "device")
 
     def to_device(batch):
-        return {k: torch.from_numpy(v).to(dev, non_blocking=True)
-                for k, v in batch.items() if k != "paths"}
+        out = {k: torch.from_numpy(v).to(dev, non_blocking=True)
+               for k, v in batch.items() if k != "paths"}
+        out.update(noise_extra)
+        return out
 
+    train_step = make_train_step(model, optimizer, cfg)
+    eval_step = make_eval_step(model, StepConfig(audio_conf=test_conf,
+                                                 normalize=args.norm))
+    decoder = GreedyDecoder(labels.labels, blank_index=labels.blank_index)
+    obs = ObserverList(observers)
+    logger = MetricsLogger(args.log_dir, run_id=args.id.replace(" ", "_"),
+                           tensorboard=args.tensorboard,
+                           live_html=args.live_html)
     os.makedirs(args.save_folder, exist_ok=True)
-    history = {"loss_results": [], "wer_results": [], "cer_results": []}
-    best_quality = None
+    # on resume too, the step's draws start from --seed (JAX :468)
+    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    history = {k: list(package.get(k) or []) if package else []
+               for k in HIST_KEYS}
+    # completed checkpoint writes, reported at the JAX loop's drain points
+    # so that the log and the observers see them in its order
+    ckpt_done: list = []
 
-    def save(name, epoch, avg_loss=None):
-        path = os.path.join(args.save_folder, name)
+    def drain_ckpt_events():
+        while ckpt_done:
+            path_, ep_, it_ = ckpt_done.pop(0)
+            logger.log("checkpoint", path=path_, epoch=ep_, iteration=it_)
+            obs.emit("on_checkpoint", ep_ or 0, it_ or 0, path_)
+            say(f"  saved {path_}")
+
+    def save_package(path, epoch=None, iteration=None, avg_loss=None):
+        drain_ckpt_events()
         ckpt.save(path, ckpt.package_from_model(
             model, meta, labels.labels, audio_conf.to_dict(),
-            step=int(state.step), epoch=epoch, iteration=0,
-            avg_loss=avg_loss, history=history))
+            step=int(state.step), epoch=epoch, iteration=iteration,
+            avg_loss=avg_loss, history=history, opt_state=state.opt_state,
+            checkpoint=checkpoint_id))
         train_dataset.save_curriculum(path + ".curriculum.csv")
+        # validation curriculum sidecars (reference
+        # save_validation_curriculums, train.py:515-532)
         val_dataset.save_curriculum(path + ".val.curriculum.csv")
-        say(f"  saved {path}")
+        if trainval_dataset is not None:
+            trainval_dataset.save_curriculum(path + ".trainval.curriculum.csv")
+        ckpt_done.append((path, epoch, iteration))
 
-    for epoch in range(args.epochs):
+    def run_validation(epoch, tag="val"):
+        summary = evaluate(val_loader, eval_step, decoder, labels, to_device,
+                           dataset=val_dataset, update_curriculum=True)
+        say(f"[{tag}] epoch {epoch + 1}: loss {summary['loss']:.3f} "
+            f"WER {summary['wer']:.2f} CER {summary['cer']:.2f} "
+            f"(utt-avg {summary['utt_wer']:.2f}/{summary['utt_cer']:.2f})")
+        logger.log(tag, step=epoch, **summary)
+        if tag == "val_checkpoint":
+            for k in ("loss", "wer", "cer"):
+                history[f"checkpoint_{k}_results"].append(float(summary[k]))
+        if trainval_loader is not None:
+            tv = evaluate(trainval_loader, eval_step, decoder, labels,
+                          to_device, dataset=trainval_dataset,
+                          update_curriculum=True)
+            say(f"[trainval] epoch {epoch + 1}: WER {tv['wer']:.2f} "
+                f"CER {tv['cer']:.2f}")
+            logger.log("trainval", step=epoch, **tv)
+            if tag == "val_checkpoint":
+                for k in ("loss", "wer", "cer"):
+                    history[f"trainval_checkpoint_{k}_results"].append(
+                        float(tv[k]))
+        return summary
+
+    profiler = Profiler(args.profile_dir, args.profile_start,
+                        args.profile_steps, dev, say)
+    samples_since_ckpt = 0
+    global_step = 0
+    last_wer = 0.0
+    for epoch in range(start_epoch, args.epochs):
         loader = epoch_loader(train_dataset, epoch, args, bucket)
-        loss_sum = loss_count = 0.0
-        t0 = time.perf_counter()
-        for it, batch in enumerate(loader):
-            m = train_step(state, to_device(batch), generator=generator)
+        loss_meter = AverageMeter()
+        watch = StopWatch()
+        epoch_t0 = time.perf_counter()
+        it = start_iter
+        start_iter = 0
+        obs.emit("on_epoch_start", epoch)
+        pending = None  # step N-1's metrics, read after step N is queued
+
+        def account_step(m, pbatch, pit):
+            """Read back and account one step (JAX ``account_step``):
+            meters, the greedy decode into the train curriculum, the
+            hooks and logs."""
+            nonlocal last_wer
             loss = float(m["loss"])
             if not np.isfinite(loss):
                 loss = 1000.0  # reporting clamp (reference train.py:609-611)
-            n_valid = float(batch["valid"].sum())
-            loss_sum += loss * n_valid
-            loss_count += n_valid
+            loss_meter.update(loss, int(np.asarray(pbatch["valid"]).sum()))
             # every batch's greedy decode feeds the train curriculum store
-            # (JAX cli/train.py:581-589)
-            results = decode_batch_greedy(decoder, m, batch, labels)
+            results = decode_batch_greedy(decoder, m, pbatch, labels)
             for i, (tr, ref, w, c, wr, cr) in enumerate(results):
-                train_dataset.update_curriculum(batch["paths"][i], ref, tr,
+                train_dataset.update_curriculum(pbatch["paths"][i], ref, tr,
                                                 None, c / cr, w / wr)
-            if it % 10 == 0:
-                wer = np.mean([w / wr for _, _, w, _, wr, _ in results])
-                say(f"epoch {epoch + 1} iter {it + 1}/{len(loader)} "
-                    f"loss {loss:.3f} (avg {loss_sum / loss_count:.3f}) "
-                    f"wer {100 * wer:.1f} grad_norm "
-                    f"{float(m['grad_norm']):.2f} "
-                    f"skipped {bool(m['step_skipped'])} "
-                    f"lr {get_lr(state.opt_state):.2e}")
-        avg_loss = loss_sum / max(loss_count, 1.0)
-        say(f"epoch {epoch + 1} done in {time.perf_counter() - t0:.1f}s "
-            f"avg loss {avg_loss:.3f}")
-        summary = evaluate(val_loader, eval_step, decoder, labels, to_device,
-                           dataset=val_dataset, update_curriculum=True)
-        say(f"[val] epoch {epoch + 1}: loss {summary['loss']:.3f} "
-            f"WER {summary['wer']:.2f} CER {summary['cer']:.2f} "
-            f"(utt-avg {summary['utt_wer']:.2f}/{summary['utt_cer']:.2f})")
-        history["loss_results"].append(avg_loss)
-        history["wer_results"].append(summary["wer"])
-        history["cer_results"].append(summary["cer"])
+            if results:
+                last_wer = float(np.mean([w / wr for _, _, w, _, wr, _
+                                          in results]))
+            obs.emit("on_batch_end", epoch, pit, loss=loss)
+            watch.mark_batch()
+            lr = get_lr(state.opt_state)
+            if pit % 10 == 0:
+                drain_ckpt_events()
+                say(f"epoch {epoch + 1} iter {pit + 1}/{len(loader)} "
+                    f"loss {loss:.3f} (avg {loss_meter.avg:.3f}) "
+                    f"wer {100 * last_wer:.1f} "
+                    f"batch {watch.batch_time.avg:.2f}s "
+                    f"data {watch.data_time.avg:.2f}s lr {lr:.2e}")
+                logger.log("train", step=epoch * len(loader) + pit,
+                           loss=loss, avg_loss=loss_meter.avg, lr=lr,
+                           skipped=bool(m["step_skipped"]))
+            if "grads" in m:
+                names = [n for n, _ in model.named_parameters()]
+                grads = dict(model.state_dict())
+                grads.update(zip(names, m["grads"]))
+                logger.log_params(torch_to_jax(model.state_dict())[0],
+                                  torch_to_jax(grads)[0],
+                                  epoch * len(loader) + pit)
+
+        def process_pending():
+            nonlocal pending
+            if pending is not None:
+                m, pbatch, pit = pending
+                pending = None
+                account_step(m, pbatch, pit)
+
+        def maybe_sample_checkpoint():
+            nonlocal checkpoint_id, samples_since_ckpt
+            if not (args.checkpoint_per_samples
+                    and samples_since_ckpt >= args.checkpoint_per_samples):
+                return
+            # flush the pipeline so the checkpoint's curriculum sidecars
+            # and loss average include every step up to this one
+            process_pending()
+            checkpoint_id += 1
+            save_package(os.path.join(
+                args.save_folder,
+                f"deepspeech_checkpoint_{checkpoint_id:04d}.ckpt"),
+                epoch=epoch, iteration=it, avg_loss=loss_meter.avg)
+            run_validation(epoch, tag="val_checkpoint")
+            samples_since_ckpt = 0
+            if args.checkpoint_anneal != 1.0:
+                old_lr = get_lr(state.opt_state)
+                new_lr = old_lr / args.checkpoint_anneal
+                set_lr(state.opt_state, new_lr)
+                say(f"  checkpoint anneal -> lr {new_lr:.2e}")
+                # the LR-finder stream (reference train.py:254-314)
+                logger.log("lr_find", step=checkpoint_id, lr=old_lr,
+                           loss=loss_meter.avg)
+
+        batches = loader.iter_from(it)
+
+        def pull():
+            b = next(batches, None)
+            if b is None:
+                return None
+            watch.mark_data()
+            return b, to_device(b)
+
+        nxt = pull()
+        while nxt is not None:
+            batch, dev_batch = nxt
+            profiler.step(global_step)
+            obs.emit("on_batch_start", epoch, it)
+            m = train_step(state, dev_batch, generator=generator,
+                           return_grads=args.log_params and it % 100 == 0)
+            nxt = pull()  # batch N+1 loads while step N runs
+            process_pending()  # account step N-1 while step N runs
+            pending = (m, batch, it)
+            it += 1
+            global_step += 1
+            samples_since_ckpt += int(np.asarray(batch["valid"]).sum())
+            maybe_sample_checkpoint()
+        process_pending()
+
+        epoch_time = time.perf_counter() - epoch_t0
+        say(f"epoch {epoch + 1} done in {epoch_time:.1f}s "
+            f"avg loss {loss_meter.avg:.3f}")
+        logger.log("epoch", step=epoch, loss=loss_meter.avg,
+                   seconds=epoch_time)
+        obs.emit("on_epoch_end", epoch, loss=loss_meter.avg,
+                 seconds=epoch_time)
+        summary = run_validation(epoch)
+        history["loss_results"].append(float(loss_meter.avg))
+        history["wer_results"].append(float(summary["wer"]))
+        history["cer_results"].append(float(summary["cer"]))
         if args.checkpoint:
-            save(f"deepspeech_epoch_{epoch + 1:03d}.ckpt", epoch, avg_loss)
+            save_package(os.path.join(
+                args.save_folder, f"deepspeech_epoch_{epoch + 1:03d}.ckpt"),
+                epoch=epoch, iteration=0, avg_loss=loss_meter.avg)
         new_lr = get_lr(state.opt_state) / args.learning_anneal
         set_lr(state.opt_state, new_lr)
         say(f"  learning rate annealed -> {new_lr:.2e}")
+        # best model by WER + CER (reference train.py:769-787)
         quality = summary["wer"] + summary["cer"]
         if best_quality is None or quality < best_quality:
             best_quality = quality
-            save("best_model.ckpt", epoch, avg_loss)
-    save("deepspeech_final.ckpt", args.epochs - 1)
+            save_package(os.path.join(args.save_folder, "best_model.ckpt"),
+                         epoch=epoch, iteration=0, avg_loss=loss_meter.avg)
+
+    profiler.close()
+    save_package(os.path.join(args.save_folder, "deepspeech_final.ckpt"),
+                 epoch=args.epochs - 1, iteration=0)
+    drain_ckpt_events()
+    logger.close()
     return 0
 
 

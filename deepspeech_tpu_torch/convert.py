@@ -47,6 +47,16 @@ def _set(tree: dict, path, key, value):
     tree[key] = value
 
 
+def tree_items(tree: dict, prefix: tuple = ()):
+    """(key path, leaf) of a nested dict of arrays, keys sorted at every
+    level: the order ``jax.tree_util`` flattens the JAX trees in."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from tree_items(tree[key], prefix + (key,))
+        else:
+            yield prefix + (key,), tree[key]
+
+
 def jax_to_torch(params: dict, batch_stats: dict) -> dict:
     """JAX variable trees (numpy leaves) -> the port's state_dict."""
     sd = {}

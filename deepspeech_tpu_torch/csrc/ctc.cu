@@ -59,9 +59,20 @@
 // most of chip_smoke.py's tolerance, CTC_TOL).
 //
 // Shared memory: K8 2S + RING CH C floats, K9 4S + RING CH (C + S) floats
-// and 2C + 1 + S ints; the wrapper picks CH (ops/cuda/ctc.py:ring_plan) and
-// refuses a shape that does not fit (K9 above S ~4,400); the launch then
-// returns an error too.
+// and 2C + 1 + S ints; the wrapper picks CH (ops/cuda/ctc.py:ring_plan).
+//
+// Two routes, chosen before the launch by a fixed rule on (S, C)
+// (ops/cuda/ctc.py:route): the staged ring above wherever ring_plan fits
+// one block's shared memory (K9 up to S ~4,400 at C 30, K8 up to ~27,000),
+// and the global route otherwise (ctc_alpha_global, ctc_beta_global). The
+// global route keeps every row of per-state values in global memory (L2):
+// K8's previous and current alpha rows are the alphas output itself; K9's
+// beta rows, its two sorted gamma rows, the state words and the class sort
+// sit in a workspace the wrapper allocates, and its alphas are read from
+// the alphas input. Only the log-prob ring stays in shared memory (RING CH
+// C floats). The frame chain is the ring route's: the same logaddexp3, the
+// same -1e30 clamps and freeze, the same gamma lag and reduction warps,
+// with each thread walking its states by a stride, so any S is taken.
 #include "common.cuh"
 
 namespace {
@@ -505,6 +516,252 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// The global route of K8: alpha row t is out row t, read back as frame
+// t + 1's previous row; words (S) holds the state words. Dynamic shared
+// memory: the log-prob ring, RING CH C floats.
+__global__ void __launch_bounds__(1024)
+    ctc_alpha_global(const float* __restrict__ lp, const int* __restrict__ ext,
+                     const int* __restrict__ tls, const int* __restrict__ lens,
+                     float* alphas, float* __restrict__ loss, unsigned* words,
+                     int Tn, int S, int C, int CH) {
+  extern __shared__ float ring[];
+  const int b = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
+  const int len = min(max(lens[b], 0), Tn);
+  const int tl = tls[b];
+  const float* row = lp + static_cast<size_t>(b) * Tn * C;
+  float* out = alphas + static_cast<size_t>(b) * Tn * S;
+  unsigned* wd = words + static_cast<size_t>(b) * S;
+  const int* ex = ext + static_cast<size_t>(b) * S;
+  for (int s = tid; s < S; s += nthr) wd[s] = state_word(ex, s, S, tl);
+  for (int j = 0; j < AHEAD; ++j) {
+    stage_chunk(ring, row, C, j, CH, len, false, tid, nthr);
+    cp_async_commit();
+  }
+  cp_async_wait<AHEAD - 1>();
+  __syncthreads();
+  int j = 0, q = 0;  // the chunk and the frame's slot in it
+  for (int t = 0; t < len; ++t) {
+    if (q == 0) {
+      stage_chunk(ring, row, C, j + AHEAD, CH, len, false, tid, nthr);
+      cp_async_commit();
+    }
+    const float* em = ring + static_cast<size_t>((j % RING) * CH + q) * C;
+    const float* prev = out + static_cast<size_t>(t > 0 ? t - 1 : 0) * S;
+    float* cur = out + static_cast<size_t>(t) * S;
+    for (int s = tid; s < S; s += nthr) {
+      const unsigned w = wd[s];
+      float nw;
+      if (t == 0) {  // the seed, as the ring route's prev holds it
+        nw = (s < 2 ? 0.f : NEG) + flag(w, VALID);
+      } else {
+        const float diag = s >= 1 ? prev[s - 1] : NEG;
+        const float skp = (s >= 2 ? prev[s - 2] : NEG) + flag(w, SKIP);
+        nw = logaddexp3(prev[s], diag, skp);
+      }
+      cur[s] = nanmax(nw + em[w & CLS] + flag(w, VALID), NEG);
+    }
+    if (++q == CH) {
+      q = 0;
+      ++j;
+      cp_async_wait<AHEAD - 1>();
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  // frames past the length hold the last row (the seed where len is 0)
+  const float* last = len > 0 ? out + static_cast<size_t>(len - 1) * S
+                              : nullptr;
+  for (int t = len; t < Tn; ++t)
+    for (int s = tid; s < S; s += nthr)
+      out[static_cast<size_t>(t) * S + s] =
+          last ? last[s] : (s < 2 ? 0.f : NEG) + flag(wd[s], VALID);
+  __syncthreads();
+  if (tid == 0) {  // the last row (the seed where T is 0)
+    const int ib = min(max(2 * tl, 0), S - 1), il = min(2 * tl - 1, S - 1);
+    const float* fin = out + static_cast<size_t>(max(Tn - 1, 0)) * S;
+    const float eb = Tn > 0 ? fin[ib]
+                            : (ib < 2 ? 0.f : NEG) + flag(wd[ib], VALID);
+    const float el = tl <= 0 ? NEG
+                     : Tn > 0 ? fin[il]
+                              : (il < 2 ? 0.f : NEG) + flag(wd[il], VALID);
+    const float m = nanmax(eb, el);
+    const bool dead = m <= NEG;
+    const float ms = dead ? 0.f : m;
+    const float sum = expf(eb - ms) + expf(el - ms);
+    loss[b] = dead ? __int_as_float(0x7f800000) : -(ms + logf(sum));
+  }
+}
+
+// The workspace of K9's global route, per row, in 4-byte words: the beta
+// rows prev and cur, two sorted gamma rows (S each), the state words and
+// the sorted places (S each), begin (C + 1) and cursor (C).
+__host__ __device__ inline size_t beta_ws_words(int S, int C) {
+  return 6 * static_cast<size_t>(S) + 2 * static_cast<size_t>(C) + 1;
+}
+
+// The global route of K9: ctc_beta's walk with its per-state rows in the
+// workspace ws and the alphas read from global memory; the chain threads
+// walk their states by a stride of NC. Dynamic shared memory: the log-prob
+// ring, RING CH C floats.
+__global__ void __launch_bounds__(1024)
+    ctc_beta_global(const float* __restrict__ lp, const int* __restrict__ ext,
+                    const int* __restrict__ tls, const int* __restrict__ lens,
+                    const float* __restrict__ alphas,
+                    const float* __restrict__ loss,
+                    const float* __restrict__ g, float* __restrict__ dlogits,
+                    float* __restrict__ betas, unsigned* ws, int Tn, int S,
+                    int C, int CH, int NC) {
+  extern __shared__ float lring[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  unsigned* base = ws + static_cast<size_t>(b) * beta_ws_words(S, C);
+  float* prev = reinterpret_cast<float*>(base);
+  float* cur = prev + S;
+  float* gam = prev + 2 * static_cast<size_t>(S);
+  unsigned* wd = base + 4 * static_cast<size_t>(S);
+  int* posn = reinterpret_cast<int*>(base + 5 * static_cast<size_t>(S));
+  int* begin = posn + S;
+  int* cursor = begin + C + 1;
+  const int len = min(max(lens[b], 0), Tn);
+  const int tl = tls[b];
+  const float lossb = loss[b], gb = g[b];
+  const bool ok = isfinite(lossb);
+  const float* row = lp + static_cast<size_t>(b) * Tn * C;
+  const float* arow = alphas + static_cast<size_t>(b) * Tn * S;
+  const int* ex = ext + static_cast<size_t>(b) * S;
+  float* dl = dlogits + static_cast<size_t>(b) * Tn * C;
+  float* bo = betas ? betas + static_cast<size_t>(b) * Tn * S : nullptr;
+
+  const float past = ok ? 0.f * gb : 0.f;
+  for (size_t k = static_cast<size_t>(len) * C + tid;
+       k < static_cast<size_t>(Tn) * C; k += blockDim.x)
+    dl[k] = past;
+  if (bo)
+    for (size_t k = static_cast<size_t>(len) * S + tid;
+         k < static_cast<size_t>(Tn) * S; k += blockDim.x)
+      bo[k] = NEG;
+  const bool chain = tid < NC;
+  const int lane = tid & 31, warp = (tid - NC) >> 5;
+  const int nl = max(min(tl, (S - 1) / 2), 0);
+  const int nb = nl + 1;
+  const int blank = ex[0];
+  if (chain) {
+    for (int j = 0; j < AHEAD; ++j) {
+      stage_chunk(lring, row, C, j, CH, len, true, tid, NC);
+      cp_async_commit();
+    }
+    for (int s = tid; s < S; s += NC) {
+      prev[s] = NEG;
+      wd[s] = state_word(ex, s, S, tl);
+    }
+  } else if (warp == 0) {
+    for (int s = lane; s < S; s += 32)
+      if (!(s & 1) || s > 2 * nl) posn[s] = s <= 2 * nl ? s / 2 : -1;
+  } else {
+    sort_labels(ex, nl, C, nb, begin, cursor, posn, lane);
+  }
+  __syncthreads();
+  if (chain) cp_async_wait<AHEAD - 1>();
+  __syncthreads();
+
+  if (chain) {
+    const float* l1 = lring;  // frame t + 1's staged log-prob row
+    int j = 0, q = 0;
+    for (int r = 0; r < len; ++r) {
+      const int t = len - 1 - r;
+      if (q == 0) {
+        stage_chunk(lring, row, C, j + AHEAD, CH, len, true, tid, NC);
+        cp_async_commit();
+      }
+      const float* lt =
+          lring + static_cast<size_t>((j % RING) * CH + CH - 1 - q) * C;
+      float* gr = gam + static_cast<size_t>((t + 1) & 1) * S;
+      const float* a1 = arow + static_cast<size_t>(t + 1) * S;
+      for (int s = tid; s < S; s += NC) {
+        const unsigned w = wd[s];
+        if (r > 0) {  // gamma of frame t + 1, beside the chain
+          const float lg = a1[s] + prev[s] - l1[w & CLS] + lossb;
+          const int p = posn[s];
+          if (p >= 0) gr[p] = (ok && lg > -80.f) ? expf(fminf(lg, 0.f)) : 0.f;
+        }
+        float bh;
+        if (r == 0) {
+          bh = flag(w, END);
+        } else {
+          const float diag = s + 1 < S ? prev[s + 1] : NEG;
+          const float skp =
+              s + 2 < S ? prev[s + 2] + flag(w, SKIP2) : NEG + NEG;
+          bh = logaddexp3(prev[s], diag, skp);
+        }
+        bh = nanmax(bh + lt[w & CLS] + flag(w, VALID), NEG);
+        cur[s] = bh;
+        if (bo) bo[static_cast<size_t>(t) * S + s] = bh;
+      }
+      l1 = lt;
+      if (++q == CH) {
+        q = 0;
+        ++j;
+        cp_async_wait<AHEAD - 1>();
+      }
+      __syncthreads();
+      float* tmp = prev;
+      prev = cur;
+      cur = tmp;
+    }
+    if (len > 0)  // gamma of frame 0
+      for (int s = tid; s < S; s += NC) {
+        const unsigned w = wd[s];
+        const float lg = arow[s] + prev[s] - l1[w & CLS] + lossb;
+        const int p = posn[s];
+        if (p >= 0) gam[p] = (ok && lg > -80.f) ? expf(fminf(lg, 0.f)) : 0.f;
+      }
+    __syncthreads();
+    __syncthreads();
+    cp_async_wait<0>();
+  } else {
+    int j2 = 0, q2 = 0;
+    const int own = warp == 0 ? blank : lane;
+    const int lo0 = own < C ? nb + begin[own] : 0;
+    const int hi0 = own < C ? nb + begin[own + 1] : 0;
+    for (int r = 0; r < len + 2; ++r) {
+      const int t = len - 1 - r;
+      if (t + 2 < len) {
+        const float* lt =
+            lring + static_cast<size_t>((j2 % RING) * CH + CH - 1 - q2) * C;
+        const float* gs = gam + static_cast<size_t>(t & 1) * S;
+        float* d = dl + static_cast<size_t>(t + 2) * C;
+        if (warp == 0) {
+          const float p = expf(lt[blank]);
+          float bs = 0.f;
+#pragma unroll 4
+          for (int k = lane; k < nb; k += 32) bs += gs[k];
+#pragma unroll
+          for (int k = 16; k > 0; k >>= 1)
+            bs += __shfl_xor_sync(0xffffffffu, bs, k);
+          if (lane == 0)
+            d[blank] = ok ? (p - (bs + segment_sum(gs, lo0, hi0))) * gb : 0.f;
+        } else {
+          if (lane < C && lane != blank) {
+            const float p = expf(lt[lane]);
+            d[lane] = ok ? (p - segment_sum(gs, lo0, hi0)) * gb : 0.f;
+          }
+          for (int c = lane + 32; c < C; c += 32)
+            if (c != blank) {
+              const float p = expf(lt[c]);
+              const float o =
+                  segment_sum(gs, nb + begin[c], nb + begin[c + 1]);
+              d[c] = ok ? (p - o) * gb : 0.f;
+            }
+        }
+        if (++q2 == CH) {
+          q2 = 0;
+          ++j2;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 // The chain's floor: the same block does, for T frames, only one
 // logaddexp3 on shared memory and the barrier. out (B, S) f32 takes the
 // last row so that the work is not dropped.
@@ -579,6 +836,34 @@ int beta_launch(const float* lp, const int* ext, const int* tls,
   return static_cast<int>(cudaGetLastError());
 }
 
+int global_launch(const float* lp, const int* ext, const int* tls,
+                  const int* lens, float* alphas, float* loss, unsigned* words,
+                  int B, int Tn, int S, int C, int CH, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(RING) * CH * C * sizeof(float);
+  const int err = allow_smem(reinterpret_cast<const void*>(ctc_alpha_global),
+                             smem);
+  if (err != 0) return err;
+  ctc_alpha_global<<<B, threads_for(S), smem, stream>>>(
+      lp, ext, tls, lens, alphas, loss, words, Tn, S, C, CH);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int beta_global_launch(const float* lp, const int* ext, const int* tls,
+                       const int* lens, const float* alphas,
+                       const float* loss, const float* g, float* dlogits,
+                       float* betas, unsigned* ws, int B, int Tn, int S,
+                       int C, int CH, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(RING) * CH * C * sizeof(float);
+  const int err = allow_smem(reinterpret_cast<const void*>(ctc_beta_global),
+                             smem);
+  if (err != 0) return err;
+  const int nc = chain_threads(S);
+  ctc_beta_global<<<B, nc + 64, smem, stream>>>(lp, ext, tls, lens, alphas,
+                                                loss, g, dlogits, betas, ws,
+                                                Tn, S, C, CH, nc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Only states-a-thread counts of 1-32 are built: S up to 32,768, beyond
@@ -615,6 +900,29 @@ DS_EXPORT int ctc_beta_f32(const float* lp, const int* ext, const int* tls,
                  Tn, S, C, CH, static_cast<cudaStream_t>(stream))
   DS_NPT_SWITCH(npt_for(S, chain_threads(S)), CALL)
 #undef CALL
+}
+
+// The global routes: words (B, S) and ws (B, 6 S + 2 C + 1) are 4-byte
+// scratch the caller allocates (ops/cuda/ctc.py).
+DS_EXPORT int ctc_alpha_global_f32(const float* lp, const int* ext,
+                                   const int* tls, const int* lens,
+                                   float* alphas, float* loss, void* words,
+                                   int B, int Tn, int S, int C, int CH,
+                                   void* stream) {
+  return global_launch(lp, ext, tls, lens, alphas, loss,
+                       static_cast<unsigned*>(words), B, Tn, S, C, CH,
+                       static_cast<cudaStream_t>(stream));
+}
+
+DS_EXPORT int ctc_beta_global_f32(const float* lp, const int* ext,
+                                  const int* tls, const int* lens,
+                                  const float* alphas, const float* loss,
+                                  const float* g, float* dlogits, float* betas,
+                                  void* ws, int B, int Tn, int S, int C,
+                                  int CH, void* stream) {
+  return beta_global_launch(lp, ext, tls, lens, alphas, loss, g, dlogits,
+                            betas, static_cast<unsigned*>(ws), B, Tn, S, C,
+                            CH, static_cast<cudaStream_t>(stream));
 }
 
 // Only chip_smoke.py calls this: the frame chain's floor (see above).

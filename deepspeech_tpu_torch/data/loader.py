@@ -96,7 +96,8 @@ def collate_batch(samples: list[dict], batch_size: int | None = None,
 
 class AudioDataLoader:
     """Iterates a sampler's index bins over a dataset with threaded loading
-    and bounded prefetch; one pass is one epoch."""
+    and bounded prefetch. One pass is one epoch, or with ``iter_from`` the
+    rest of one from a bin (mid-epoch resume, reference train.py:658)."""
 
     def __init__(self, dataset, sampler, batch_size: int | None = None,
                  bucket: BucketSpec = BucketSpec(), num_workers: int = 4,
@@ -112,7 +113,11 @@ class AudioDataLoader:
         return len(self.sampler)
 
     def __iter__(self):
-        bins = list(self.sampler)
+        return self.iter_from(0)
+
+    def iter_from(self, start_bin: int = 0):
+        """The batches of the sampler's bins from ``start_bin`` on."""
+        bins = list(self.sampler)[start_bin:]
         if not bins:
             return
         out: queue.Queue = queue.Queue(maxsize=self.prefetch)

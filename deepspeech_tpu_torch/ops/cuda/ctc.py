@@ -16,6 +16,12 @@ the row staged in shared memory, and derive the skip / valid / end state
 tables (``tables``) from ext and the target lengths. Both recursions clamp
 at -1e30 and freeze past each row's length, in the TPU kernels' order of
 operations.
+
+Each kernel has two routes, chosen before the launch by a fixed rule on
+(S, C) (``route``): the staged ring, which holds the per-state rows in
+shared memory (``ring_plan``), wherever it fits one block, and the global
+route otherwise, which keeps those rows in global memory and only the
+log-prob ring in shared memory (``global_plan``), so that any S is taken.
 """
 
 from __future__ import annotations
@@ -50,26 +56,59 @@ def _kernel():
     lib.ctc_alpha_f32.restype = _I
     lib.ctc_beta_f32.argtypes = [_P] * 9 + [_I] * 5 + [_P]
     lib.ctc_beta_f32.restype = _I
+    lib.ctc_alpha_global_f32.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+    lib.ctc_alpha_global_f32.restype = _I
+    lib.ctc_beta_global_f32.argtypes = [_P] * 10 + [_I] * 5 + [_P]
+    lib.ctc_beta_global_f32.restype = _I
     return lib
 
 
-def ring_plan(s: int, c: int, beta: bool) -> tuple[int, int]:
-    """(chunk frames, dynamic shared-memory bytes) of K8 (``beta`` False:
-    the previous and current rows and a ring of log-prob rows) or K9 (also
-    two gamma rows, a ring of alpha rows and the label states sorted by
-    class). Raises where even the least chunk does not fit one block's
-    shared memory."""
+def _ring_smem(s: int, c: int, beta: bool) -> tuple[int, int]:
     if beta:
         per_frame, fixed = RING * (c + s), 4 * s + 2 * c + 1 + s
     else:
         per_frame, fixed = RING * c, 2 * s
     chunk = max(MIN_CHUNK, min(MAX_CHUNK, RING_BYTES // (4 * per_frame)))
-    smem = 4 * (fixed + chunk * per_frame)
+    return chunk, 4 * (fixed + chunk * per_frame)
+
+
+def ring_plan(s: int, c: int, beta: bool) -> tuple[int, int]:
+    """(chunk frames, dynamic shared-memory bytes) of K8's ring route
+    (``beta`` False: the previous and current rows and a ring of log-prob
+    rows) or K9's (also two gamma rows, a ring of alpha rows and the label
+    states sorted by class). Raises where even the least chunk does not
+    fit one block's shared memory."""
+    chunk, smem = _ring_smem(s, c, beta)
     if smem > SMEM_MAX:
         raise ValueError(
             f"ctc_{'beta' if beta else 'alpha'}: S {s}, C {c} need {smem} "
             f"bytes of shared memory, more than one block's {SMEM_MAX}")
     return chunk, smem
+
+
+def global_plan(c: int) -> tuple[int, int]:
+    """(chunk frames, dynamic shared-memory bytes) of either kernel's
+    global route: only the ring of log-prob rows. Raises for a class count
+    whose least ring does not fit one block."""
+    chunk = max(MIN_CHUNK, min(MAX_CHUNK, RING_BYTES // (4 * RING * c)))
+    smem = 4 * RING * chunk * c
+    if smem > SMEM_MAX:
+        raise ValueError(f"ctc: C {c} needs {smem} bytes of shared memory "
+                         f"for its log-prob ring, more than {SMEM_MAX}")
+    return chunk, smem
+
+
+def route(s: int, c: int, beta: bool) -> str:
+    """"ring" where ``ring_plan`` fits one block's shared memory, else
+    "global"; K8 (``beta`` False) or K9 at S states and C classes."""
+    return "ring" if _ring_smem(s, c, beta)[1] <= SMEM_MAX else "global"
+
+
+def beta_workspace_words(s: int, c: int) -> int:
+    """4-byte words of K9's global-route workspace a row (csrc/ctc.cu
+    ``beta_ws_words``): two beta rows, two sorted gamma rows, the state
+    words and the sorted places, then the class table."""
+    return 6 * s + 2 * c + 1
 
 
 def logaddexp3(a: torch.Tensor, b: torch.Tensor,
@@ -228,15 +267,27 @@ def _i32(x):
     return x.to(torch.int32).contiguous()
 
 
-def ctc_alpha(log_probs, ext, target_lengths, lengths):
-    """K8: (alphas (B, T, S), loss (B,)); arguments as ``plain_alpha``."""
+def _route(s: int, c: int, beta: bool, how: str | None) -> str:
+    how = how or route(s, c, beta)
+    if how not in ("ring", "global"):
+        raise ValueError(f"ctc: unknown route {how!r}")
+    return how
+
+
+def ctc_alpha(log_probs, ext, target_lengths, lengths,
+              how: str | None = None):
+    """K8: (alphas (B, T, S), loss (B,)); arguments as ``plain_alpha``.
+    ``how`` names the route ("ring" or "global"); by default ``route``
+    picks it."""
     if log_probs.device.type == "cpu":
         return plain_alpha(log_probs, ext, target_lengths, lengths)
     _check("ctc_alpha", log_probs, ext, target_lengths=target_lengths,
            lengths=lengths)
     b, t, c = log_probs.shape
     s = ext.shape[1]
-    chunk, _ = ring_plan(s, c, beta=False)
+    how = _route(s, c, False, how)
+    chunk, _ = (ring_plan(s, c, beta=False) if how == "ring"
+                else global_plan(c))
     lp = log_probs.contiguous()
     ext, tls, lens = _i32(ext), _i32(target_lengths), _i32(lengths)
     alphas = lp.new_empty((b, t, s))
@@ -244,20 +295,27 @@ def ctc_alpha(log_probs, ext, target_lengths, lengths):
     lib = _kernel()
     stream = torch.cuda.current_stream(lp.device).cuda_stream
     with torch.cuda.device(lp.device):
-        code = lib.ctc_alpha_f32(lp.data_ptr(), ext.data_ptr(),
-                                 tls.data_ptr(), lens.data_ptr(),
-                                 alphas.data_ptr(), loss.data_ptr(), b, t, s,
-                                 c, chunk, stream)
-    build.check(lib, code, "ctc_alpha kernel")
+        if how == "ring":
+            code = lib.ctc_alpha_f32(lp.data_ptr(), ext.data_ptr(),
+                                     tls.data_ptr(), lens.data_ptr(),
+                                     alphas.data_ptr(), loss.data_ptr(), b,
+                                     t, s, c, chunk, stream)
+        else:
+            words = torch.empty((b, s), dtype=torch.int32, device=lp.device)
+            code = lib.ctc_alpha_global_f32(
+                lp.data_ptr(), ext.data_ptr(), tls.data_ptr(),
+                lens.data_ptr(), alphas.data_ptr(), loss.data_ptr(),
+                words.data_ptr(), b, t, s, c, chunk, stream)
+    build.check(lib, code, f"ctc_alpha kernel ({how} route)")
     global alpha_launches
     alpha_launches += 1
     return alphas, loss
 
 
 def ctc_beta(log_probs, ext, target_lengths, lengths, alphas, loss, g,
-             with_betas: bool = False):
+             with_betas: bool = False, how: str | None = None):
     """K9: dlogits (B, T, C) (and, with ``with_betas``, beta + emission);
-    arguments as ``plain_beta``."""
+    arguments as ``plain_beta``; ``how`` as ``ctc_alpha``'s."""
     if log_probs.device.type == "cpu":
         return plain_beta(log_probs, ext, target_lengths, lengths, alphas,
                           loss, g, with_betas)
@@ -269,7 +327,9 @@ def ctc_beta(log_probs, ext, target_lengths, lengths, alphas, loss, g,
         raise ValueError(f"ctc_beta: alphas {alphas.dtype} "
                          f"{tuple(alphas.shape)}, expected float32 "
                          f"{(b, t, s)}")
-    chunk, _ = ring_plan(s, c, beta=True)
+    how = _route(s, c, True, how)
+    chunk, _ = (ring_plan(s, c, beta=True) if how == "ring"
+                else global_plan(c))
     lp, alphas = log_probs.contiguous(), alphas.contiguous()
     loss = loss.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
@@ -278,13 +338,18 @@ def ctc_beta(log_probs, ext, target_lengths, lengths, alphas, loss, g,
     betas = lp.new_empty((b, t, s)) if with_betas else None
     lib = _kernel()
     stream = torch.cuda.current_stream(lp.device).cuda_stream
-    with torch.cuda.device(lp.device):
-        code = lib.ctc_beta_f32(
-            lp.data_ptr(), ext.data_ptr(), tls.data_ptr(), lens.data_ptr(),
+    args = (lp.data_ptr(), ext.data_ptr(), tls.data_ptr(), lens.data_ptr(),
             alphas.data_ptr(), loss.data_ptr(), g.data_ptr(),
-            dlogits.data_ptr(), betas.data_ptr() if with_betas else None, b,
-            t, s, c, chunk, stream)
-    build.check(lib, code, "ctc_beta kernel")
+            dlogits.data_ptr(), betas.data_ptr() if with_betas else None)
+    with torch.cuda.device(lp.device):
+        if how == "ring":
+            code = lib.ctc_beta_f32(*args, b, t, s, c, chunk, stream)
+        else:
+            ws = torch.empty((b, beta_workspace_words(s, c)),
+                             dtype=torch.int32, device=lp.device)
+            code = lib.ctc_beta_global_f32(*args, ws.data_ptr(), b, t, s, c,
+                                           chunk, stream)
+    build.check(lib, code, f"ctc_beta kernel ({how} route)")
     global beta_launches
     beta_launches += 1
     return (dlogits, betas) if with_betas else dlogits

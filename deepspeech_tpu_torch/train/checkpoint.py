@@ -2,9 +2,11 @@
 
 A zip (the ``.npz`` layout) holding ``__meta__.json``, the package structure
 with each array leaf replaced by ``{"__array__": i}``, plus one ``a{i}.npy``
-entry per array. Loads run no code (no pickle). Each package reads the
-other's files: the weights are the JAX trees (``params``, ``batch_stats``),
-which ``convert.py`` maps to and from the port's state_dict.
+entry per array. Loads run no code (no pickle). Each package reads and
+resumes the other's files: the weights are the JAX trees (``params``,
+``batch_stats``), which ``convert.py`` maps to and from the port's
+state_dict, and ``optim_state`` is optax's leaf list
+(``train/optim.py``).
 """
 
 from __future__ import annotations
@@ -25,18 +27,24 @@ def package_from_model(model, meta: dict, labels: str, audio_conf: dict,
                        step: int = 0, epoch: int | None = None,
                        iteration: int | None = None,
                        avg_loss: float | None = None,
-                       history: dict | None = None) -> dict:
+                       history: dict | None = None,
+                       opt_state: dict | None = None,
+                       checkpoint: int | None = None) -> dict:
     """A checkpoint package of the port's model: the JAX trees of its
-    weights and BatchNorm stats, with the JAX package's bookkeeping keys
-    (``epoch`` is stored 1-based, as there). The optimizer state is not
-    written: resuming it is a later slice."""
+    weights and BatchNorm stats, the optimizer state as optax's leaves
+    (``optim.to_optax_leaves``; None without ``opt_state``), the mid-epoch
+    ``checkpoint`` id, and the JAX package's bookkeeping keys (``epoch`` is
+    stored 1-based, as there; ``history`` holds the metric lists)."""
     from deepspeech_tpu_torch.convert import torch_to_jax
+    from deepspeech_tpu_torch.train.optim import to_optax_leaves
 
     params, batch_stats = torch_to_jax(model.state_dict())
     package = {"version": FORMAT_VERSION, "labels": labels,
                "audio_conf": dict(audio_conf), **meta, "params": params,
-               "batch_stats": batch_stats, "optim_state": None,
-               "step": int(step), "checkpoint": None}
+               "batch_stats": batch_stats,
+               "optim_state": (None if opt_state is None
+                               else to_optax_leaves(opt_state, model)),
+               "step": int(step), "checkpoint": checkpoint}
     if epoch is not None:
         package["epoch"] = epoch + 1
     if iteration is not None:
@@ -46,6 +54,36 @@ def package_from_model(model, meta: dict, labels: str, audio_conf: dict,
     if history:
         package.update({k: [float(x) for x in v] for k, v in history.items()})
     return package
+
+
+def restore_params_only(package: dict, state):
+    """The package's weights and BatchNorm stats into ``state.model``
+    (``--finetune``, reference train.py:841); the optimizer state is left
+    as it is. ``load_state_dict`` refuses a tensor whose name or shape
+    does not fit the model."""
+    from deepspeech_tpu_torch.convert import jax_to_torch
+
+    sd = jax_to_torch(package["params"], package["batch_stats"])
+    state.model.load_state_dict(sd)
+    return state
+
+
+def restore_state(package: dict, state):
+    """The whole train state from a package of either package: weights and
+    stats (``restore_params_only``), the optimizer state from optax's
+    leaves (asserting their count and shapes, as the JAX
+    ``restore_state`` does) and the step counter."""
+    import torch
+
+    from deepspeech_tpu_torch.train.optim import Optimizer, from_optax_leaves
+
+    restore_params_only(package, state)
+    kind = "sgd" if "trace" in state.opt_state else "adam"
+    state.opt_state = from_optax_leaves(package["optim_state"], state.model,
+                                        Optimizer(kind))
+    state.step = torch.tensor(int(package.get("step", 0)), dtype=torch.int64,
+                              device=state.step.device)
+    return state
 
 
 def _extract_arrays(obj, arrays: list):

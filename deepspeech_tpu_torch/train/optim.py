@@ -8,13 +8,26 @@ update is functional: ``update(grads, state, params)`` returns new
 parameter tensors and a new state and changes nothing in place, so the
 train step can keep the old ones on a skipped step (``select``, a
 per-tensor where that needs no host sync). The learning rate lives in the
-state (``get_lr`` / ``set_lr``), as optax's injected hyperparameter does.
+state (``get_lr`` / ``set_lr``), as optax's injected hyperparameter does,
+beside that wrapper's step count (``inject_count``, a 0-d int32 that
+advances with every applied update, as optax's does).
+
+Checkpoints hold the state as optax's leaves (``to_optax_leaves``,
+``from_optax_leaves``), so each package resumes the other's:
+
+* SGD, with or without weight decay: [inject count int32, learning rate
+  f32, the momentum traces];
+* Adam: [inject count, learning rate, Adam's count int32, mu, nu];
+
+each per-parameter list in the JAX params tree's leaf order (its dict
+keys sorted at every level), in the JAX layouts (``convert.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
@@ -43,12 +56,14 @@ class Optimizer:
     max_norm: float = 100.0
 
     def init(self, params: list) -> dict:
-        state = {"lr": self.lr}
+        dev = params[0].device
+        state = {"lr": self.lr,
+                 "inject_count": torch.zeros((), dtype=torch.int32,
+                                             device=dev)}
         if self.kind == "sgd":
             state["trace"] = [torch.zeros_like(p) for p in params]
         else:
-            state["count"] = torch.zeros((), dtype=torch.int64,
-                                         device=params[0].device)
+            state["count"] = torch.zeros((), dtype=torch.int32, device=dev)
             state["mu"] = [torch.zeros_like(p) for p in params]
             state["nu"] = [torch.zeros_like(p) for p in params]
         return state
@@ -58,7 +73,7 @@ class Optimizer:
         if self.max_norm and self.max_norm > 0:
             grads, _ = clip_by_global_norm(grads, self.max_norm)
         lr = state["lr"]
-        new = {"lr": lr}
+        new = {"lr": lr, "inject_count": state["inject_count"] + 1}
         if self.kind == "sgd":
             if self.weight_decay > 0:
                 grads = [g + self.weight_decay * p
@@ -113,3 +128,90 @@ def set_lr(opt_state: dict, lr: float) -> dict:
     """opt_state with a new learning rate (reference train.py:322-326)."""
     opt_state["lr"] = float(lr)
     return opt_state
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested list / tuple / dict tree in the order
+    ``jax.tree_util.tree_leaves`` gives: sequences in order, dict keys
+    sorted, None holding no leaf (how a checkpoint's JSON structure holds
+    optax's namedtuples and dicts)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def _params_leaves(tensors: list, model) -> list:
+    from deepspeech_tpu_torch.convert import torch_to_jax
+
+    sd = dict(model.state_dict())
+    names = [n for n, _ in model.named_parameters()]
+    if len(names) != len(tensors):
+        raise ValueError(f"{len(tensors)} tensors for {len(names)} "
+                         "parameters")
+    sd.update(zip(names, tensors))
+    return tree_leaves(torch_to_jax(sd)[0])
+
+
+def to_optax_leaves(opt_state: dict, model) -> list:
+    """The optimizer state as optax's leaves (module docstring), numpy
+    arrays on the host."""
+    head = [np.asarray(opt_state["inject_count"].cpu(), np.int32),
+            np.asarray(opt_state["lr"], np.float32)]
+    if "trace" in opt_state:
+        return head + _params_leaves(opt_state["trace"], model)
+    return (head + [np.asarray(opt_state["count"].cpu(), np.int32)]
+            + _params_leaves(opt_state["mu"], model)
+            + _params_leaves(opt_state["nu"], model))
+
+
+def from_optax_leaves(leaves: list, model, optimizer: Optimizer) -> dict:
+    """optax's leaves (a flat list, or the nested tree a JAX checkpoint
+    holds) -> the port's optimizer state for ``optimizer`` on the model's
+    device. Asserts the leaf count and every leaf's shape, as the JAX
+    ``restore_state`` does."""
+    from deepspeech_tpu_torch.convert import (jax_to_torch, torch_to_jax,
+                                              tree_items)
+
+    leaves = [np.asarray(x) for x in tree_leaves(leaves)]
+    params, stats = torch_to_jax(model.state_dict())
+    items = list(tree_items(params))
+    n = len(items)
+    lists = 1 if optimizer.kind == "sgd" else 2
+    head = 2 if optimizer.kind == "sgd" else 3
+    if len(leaves) != head + lists * n:
+        raise AssertionError(
+            f"checkpoint/optimizer mismatch: {len(leaves)} stored leaves vs "
+            f"{head + lists * n} expected")
+    names = [name for name, _ in model.named_parameters()]
+    dev = next(model.parameters()).device
+    shapes = [()] * head + [leaf.shape for _, leaf in items] * lists
+    for leaf, shape in zip(leaves, shapes):
+        if leaf.shape != shape:
+            raise AssertionError(f"checkpoint leaf shape {leaf.shape} != "
+                                 f"expected {shape}")
+
+    def per_param(flat):
+        tree: dict = {}
+        for (path, _), leaf in zip(items, flat):
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = leaf
+        sd = jax_to_torch(tree, stats)
+        return [sd[name].to(dev) for name in names]
+
+    state = {"inject_count": torch.tensor(int(leaves[0]),
+                                          dtype=torch.int32, device=dev),
+             "lr": float(leaves[1])}
+    if optimizer.kind == "sgd":
+        state["trace"] = per_param(leaves[head:])
+    else:
+        state["count"] = torch.tensor(int(leaves[2]), dtype=torch.int32,
+                                      device=dev)
+        state["mu"] = per_param(leaves[head:head + n])
+        state["nu"] = per_param(leaves[head + n:])
+    return state

@@ -30,7 +30,9 @@ from typing import Callable
 
 import torch
 
-from deepspeech_tpu_torch.audio.features import AudioConf, featurize_batch
+from deepspeech_tpu_torch.audio.features import (AudioConf, draw_masks,
+                                                 featurize_batch)
+from deepspeech_tpu_torch.augment.noise_device import apply_noise, draw_noise
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.ctc import ctc_loss
 from deepspeech_tpu_torch.train.optim import Optimizer, global_norm, select
@@ -57,6 +59,11 @@ class StepConfig:
     audio_conf: AudioConf = AudioConf()
     normalize: str = "max_frame"
     max_frame_jitter: bool = True  # reference data_loader_aug.py:213-214
+    # the in-step noise mix (augment/noise_device.py; reference
+    # audio_aug.py:79-107 AddNoise semantics): active when > 0 and the
+    # batch carries a "noise_bank", which the train CLI uploads once
+    device_noise_prob: float = 0.0
+    device_noise_limit: float = 0.2
 
 
 def descale_audio(batch: dict) -> torch.Tensor:
@@ -73,11 +80,40 @@ def descale_audio(batch: dict) -> torch.Tensor:
     return audio.float() * scale
 
 
+def draw_augment(batch: dict, cfg: StepConfig,
+                 generator: torch.Generator) -> dict:
+    """The train step's random draws, in the JAX step's key order
+    (``train/step.py:67-98``: jitter, then the spectrogram masks, then the
+    noise mix): ``jitter`` (B,) ~ U(-0.5, 0.5), ``masks``
+    (``features.draw_masks``) and ``noise`` (``noise_device.draw_noise``),
+    each None where it is off."""
+    b, s = batch["audio"].shape
+    dev = generator.device
+    out = {"jitter": None, "masks": None, "noise": None}
+    if cfg.max_frame_jitter:
+        out["jitter"] = torch.rand(b, generator=generator, device=dev) - 0.5
+    out["masks"] = draw_masks(b, 1 + s // cfg.audio_conf.hop, cfg.audio_conf,
+                              generator)
+    if cfg.device_noise_prob > 0 and "noise_bank" in batch:
+        out["noise"] = draw_noise(b, s, batch["noise_bank"].shape[0],
+                                  generator)
+    return out
+
+
 def featurize(batch: dict, cfg: StepConfig,
-              jitter: torch.Tensor | None = None):
-    """Wire batch -> (spect (B, 161, T), frame lengths (B,))."""
-    return featurize_batch(descale_audio(batch), batch["audio_lengths"],
-                           cfg.audio_conf, cfg.normalize, jitter=jitter)
+              jitter: torch.Tensor | None = None, masks: dict | None = None,
+              noise: dict | None = None):
+    """Wire batch -> (spect (B, 161, T), frame lengths (B,)). ``noise``
+    (draws) mixes the batch's noise bank into the waveforms first, then
+    ``masks`` and ``jitter`` act in the featurizer."""
+    audio = descale_audio(batch)
+    if noise is not None:
+        audio = apply_noise(audio, batch["audio_lengths"], noise,
+                            batch["noise_bank"], batch["noise_bank_lengths"],
+                            cfg.device_noise_prob, cfg.device_noise_limit,
+                            reflect_pad=cfg.audio_conf.n_fft // 2)
+    return featurize_batch(audio, batch["audio_lengths"], cfg.audio_conf,
+                           cfg.normalize, jitter=jitter, masks=masks)
 
 
 def _loss(logits, out_lens, batch):
@@ -95,27 +131,34 @@ def _loss(logits, out_lens, batch):
 
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                     cfg: StepConfig = StepConfig()) -> Callable:
-    """-> train_step(state, batch, jitter=None, generator=None) -> metrics.
+    """-> train_step(state, batch, jitter=None, generator=None,
+    return_grads=False) -> metrics.
 
     batch: dict of tensors on the model's device: audio (B, S) f32 (or the
     int16 / int8 wire with audio_scale (B,)), audio_lengths, targets
-    (B, L), target_lengths, optional valid (B,). The max-frame jitter (B,)
-    is ``jitter`` when given, else drawn from ``generator`` when given
-    (U(-0.5, 0.5) per row), else none. metrics: loss, per_sample, greedy
-    ids, out_lens, grad_norm, step_skipped, all on the device."""
+    (B, L), target_lengths, optional valid (B,), and with the noise mix on
+    the bank, noise_bank (N, S2) and noise_bank_lengths (N,). With a
+    ``generator`` the step draws its augmentation from it
+    (``draw_augment``: the jitter, the masks, the noise); ``jitter`` (B,),
+    when given, replaces the drawn jitter. metrics: loss, per_sample,
+    greedy ids, out_lens, grad_norm, step_skipped, all on the device, and
+    with ``return_grads`` the gradients (a list in the model's parameter
+    order) too."""
 
     def train_step(state: TrainState, batch: dict,
                    jitter: torch.Tensor | None = None,
-                   generator: torch.Generator | None = None) -> dict:
+                   generator: torch.Generator | None = None,
+                   return_grads: bool = False) -> dict:
         model.train()
         params = list(model.parameters())
-        if (jitter is None and generator is not None
-                and cfg.max_frame_jitter):
-            b = batch["audio"].shape[0]
-            jitter = torch.rand(b, generator=generator,
-                                device=generator.device) - 0.5
+        draws = {"masks": None, "noise": None}
+        if generator is not None:
+            draws = draw_augment(batch, cfg, generator)
+            if jitter is None:
+                jitter = draws["jitter"]
         with fp32_matmul():
-            spect, lengths = featurize(batch, cfg, jitter)
+            spect, lengths = featurize(batch, cfg, jitter, draws["masks"],
+                                       draws["noise"])
             logits, _, out_lens = model(spect, lengths)
             has_nan = torch.isnan(logits).any()
             logits = torch.where(torch.isnan(logits), 0.0, logits)
@@ -131,10 +174,13 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                 p.copy_(n)
             state.opt_state = select(ok, new_opt, state.opt_state)
             state.step += 1
-        return dict(loss=loss.detach(), per_sample=per_sample.detach(),
-                    greedy=logits.detach().argmax(-1).to(torch.int32),
-                    out_lens=out_lens, grad_norm=grad_norm,
-                    step_skipped=~ok)
+        out = dict(loss=loss.detach(), per_sample=per_sample.detach(),
+                   greedy=logits.detach().argmax(-1).to(torch.int32),
+                   out_lens=out_lens, grad_norm=grad_norm,
+                   step_skipped=~ok)
+        if return_grads:
+            out["grads"] = list(grads)
+        return out
 
     return train_step
 

@@ -27,10 +27,18 @@ arithmetic and their index walks have models here:
   case, the port's by 2.6e-3, XLA's autodiff by 1.5e-4. A row whose loss
   is not finite has a gradient of exactly 0 (XLA's autodiff gives NaN on a
   NaN row, so that row is held to 0 only).
-- The staging ring's walk (``ring_plan``'s chunk, the kernels' chunk and
-  slot arithmetic): every frame a kernel reads is staged, landed and not
-  yet overwritten, for T below one chunk, T not a multiple of it, and long
-  T, forward (K8) and reversed with K9's two-frame lag.
+- The staging ring's walk (``ring_plan``'s chunk, the global route's
+  ``global_plan`` chunk, the kernels' chunk and slot arithmetic): every
+  frame a kernel reads is staged, landed and not yet overwritten, for T
+  below one chunk, T not a multiple of it, and long T, forward (K8) and
+  reversed with K9's two-frame lag.
+- The route rule (``ctc.route``): the ring wherever ``ring_plan`` fits one
+  block, the global route above (K9 from S 4,448 at C 30, K8 from
+  27,137); ``ring_plan`` still raises past its limit. And the port's
+  ``ctc_loss`` at S 4,501 (B 1, T 2,300, L 2,250) against the XLA scan at
+  tests/test_torch_ctc.py's tolerances, on logits peaked along one
+  alignment (a loss of ~61 nats: on random logits the closed form's f32
+  cancellation, as at S 1041 above, would set the gradient's error).
 """
 
 import os
@@ -374,6 +382,8 @@ def test_staging_ring_walk(n, s, c):
         assert smem <= ctc_k.SMEM_MAX
         ring_walk(n, chunk, reverse=beta, lag=2 if beta else 0)
         ring_walk(n, ctc_k.MIN_CHUNK, reverse=beta, lag=2 if beta else 0)
+        ring_walk(n, ctc_k.global_plan(c)[0], reverse=beta,
+                  lag=2 if beta else 0)
 
 
 def test_ring_plan_shapes():
@@ -386,3 +396,50 @@ def test_ring_plan_shapes():
     with pytest.raises(ValueError, match="shared memory"):
         ctc_k.ring_plan(6000, 30, True)
     assert ctc_k.ring_plan(6000, 30, False)[0] == ctc_k.MAX_CHUNK
+    # the route: the ring up to its limit, the global route above it
+    for s, c, beta in ((301, 30, True), (4447, 30, True), (6000, 30, True),
+                       (27136, 30, False), (27137, 30, False),
+                       (100_001, 30, False), (9001, 30, True)):
+        fits = ctc_k._ring_smem(s, c, beta)[1] <= ctc_k.SMEM_MAX
+        assert ctc_k.route(s, c, beta) == ("ring" if fits else "global")
+        if not fits:
+            with pytest.raises(ValueError, match="shared memory"):
+                ctc_k.ring_plan(s, c, beta)
+    assert ctc_k.route(4447, 30, True) == "ring"
+    assert ctc_k.route(4448, 30, True) == "global"
+    assert ctc_k.route(27136, 30, False) == "ring"
+    assert ctc_k.route(27137, 30, False) == "global"
+    # the global route holds only the log-prob ring, for any S
+    assert ctc_k.global_plan(30) == (32, 4 * 4 * 32 * 30)
+    with pytest.raises(ValueError, match="shared memory"):
+        ctc_k.global_plan(8000)
+
+
+def test_long_labels_match_xla():
+    rng = np.random.default_rng(0)
+    lmax, t, c = 2250, 2300, 30
+    targets = np.empty(lmax, np.int32)
+    prev = 0
+    for i in range(lmax):  # no repeats: one frame a label suffices
+        prev = targets[i] = (prev + rng.integers(1, c - 1)) % (c - 1) + 1
+    logits = rng.standard_normal((1, t, c)).astype(F32)
+    logits[0, np.arange(lmax), targets] += 8.0
+    logits[0, lmax:, 0] += 8.0
+    args = (np.array([t], np.int32), targets[None],
+            np.array([lmax], np.int32))
+    assert ctc_k.route(2 * lmax + 1, c, True) == "global"
+    lg = torch.from_numpy(logits).requires_grad_(True)
+    per = port_ctc.ctc_loss(lg, *(torch.from_numpy(a) for a in args))
+    per.sum().backward()
+    import jax
+
+    def f(x):
+        p = jax_ctc_loss(x, *(jnp.asarray(a) for a in args), impl="xla")
+        return p.sum(), p
+
+    (_, want), want_g = jax.value_and_grad(f, has_aux=True)(
+        jnp.asarray(logits))
+    np.testing.assert_allclose(per.detach().numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(lg.grad.numpy(), np.asarray(want_g),
+                               rtol=1e-3, atol=1e-4)

@@ -15,14 +15,16 @@ backward's dg, dnh 1e-4 in f32 and 2e-2 relative to the largest in bf16
 (a one-ulp flip of a bf16 operand moves the carried dh), its bias grads
 1e-3 relative in f32 and 2e-2 in bf16 (sums over T x B in other orders);
 CTC alphas, the debug betas, loss and dlogits 1e-4 (at S > 1024, T 1,500,
-one row, 64 rows and with a NaN row too); small-model logits
+one row, 64 rows and with a NaN row too, on both routes; at S 4,501 and
+9,001 on the global route and at S 4,401 on the ring); small-model logits
 2e-2. The LSTM kernels (K3, K7) hold the GRU's tolerances, the cell
 stream c relative to its largest value, since |c| is not bounded by 1.
 The bf16 backwards (K5, K7 on tensor cores) are held in each variant at
 the widths of both models, and beyond one batch chunk.
 The top-k (K10) and the device beam search through it are exact: bit for
 bit against the plain top-k, on rows of ties, signed zeros, infinities and
-NaNs of both signs.
+NaNs of both signs. The device masks and the noise mix on the card equal
+the same functions on the CPU from the same draws.
 """
 
 import numpy as np
@@ -207,19 +209,20 @@ def test_gru_bwd_kernel_matches_plain(dev, dtype, ndir, t, b, f, h):
     assert not got[0][:, pad].any() and not got[1][:, pad].any()
 
 
-def _hold_ctc(dev, logits, ll, targets, tl):
-    """K8 and K9, one launch each, against plain_alpha / plain_beta on the
-    same inputs: alphas, loss, the debug betas and dlogits, non-finite
-    entries in the same places. -> the kernels' loss and dlogits."""
+def _hold_ctc(dev, logits, ll, targets, tl, how=None):
+    """K8 and K9, one launch each (on the route ``how``, by default the
+    rule's), against plain_alpha / plain_beta on the same inputs: alphas,
+    loss, the debug betas and dlogits, non-finite entries in the same
+    places. -> the kernels' loss and dlogits."""
     from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
     from deepspeech_tpu_torch.ops.cuda import ctc
 
     lp, ext = ctc_loss_mod._prep(logits, targets, 0)
     g = torch.linspace(0.5, 1.5, len(ll), device=dev)
     before = (ctc.alpha_launches, ctc.beta_launches)
-    alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll)
+    alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll, how=how)
     dl, betas = ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, g,
-                             with_betas=True)
+                             with_betas=True, how=how)
     assert (ctc.alpha_launches, ctc.beta_launches) == (before[0] + 1,
                                                        before[1] + 1)
     ref_a, ref_l = ctc.plain_alpha(lp, ext, tl, ll)
@@ -266,13 +269,14 @@ def test_ctc_kernels_match_plain(dev, t):
 # (B, T, L): S > 1024 (several states a thread), T 1,500 (many staging
 # chunks), T not a multiple of K8's or K9's chunk, one row, 64 rows; and a
 # row with a NaN logit
+@pytest.mark.parametrize("how", ["ring", "global"])
 @pytest.mark.parametrize("b,t,lmax,nan", [(2, 1100, 520, False),
                                           (3, 1500, 200, False),
                                           (4, 77, 20, False),
                                           (1, 61, 15, False),
                                           (64, 90, 25, False),
                                           (5, 50, 12, True)])
-def test_ctc_kernels_edge_shapes(dev, b, t, lmax, nan):
+def test_ctc_kernels_edge_shapes(dev, b, t, lmax, nan, how):
     rng = np.random.default_rng(b * t)
     c = 30
     logits = torch.from_numpy(rng.standard_normal((b, t, c)).astype(
@@ -285,10 +289,38 @@ def test_ctc_kernels_edge_shapes(dev, b, t, lmax, nan):
     tl[0] = lmax
     if nan:
         logits[1, t // 2, 4] = float("nan")
-    loss, dl = _hold_ctc(dev, logits, ll, targets, tl)
+    loss, dl = _hold_ctc(dev, logits, ll, targets, tl, how)
     assert torch.isfinite(loss[0])
     if nan:
         assert torch.isnan(loss[1]) and not dl[1].any()
+
+
+# Long label sequences: L 2,250 (S 4,501) and 4,500 (S 9,001), past the
+# ring route of K9; K8 held on its global route there too. And S 4,401,
+# where the rule still takes the ring for both.
+@pytest.mark.parametrize("lmax,how", [(2250, None), (2250, "global"),
+                                      (4500, None), (2200, None)])
+def test_ctc_long_labels(dev, lmax, how):
+    from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
+    from deepspeech_tpu_torch.ops.cuda import ctc
+
+    s, c = 2 * lmax + 1, 30
+    assert ctc.route(s, c, True) == ("ring" if s <= 4401 else "global")
+    t = lmax + lmax // 10 + 40  # room for the repeats' blanks
+    rng = np.random.default_rng(lmax)
+    logits = torch.from_numpy(rng.standard_normal((2, t, c)).astype(
+        np.float32)).to(dev)
+    ll = torch.tensor([t, t - 13], device=dev)
+    targets = torch.from_numpy(rng.integers(1, c, (2, lmax))).to(dev)
+    tl = torch.tensor([lmax, lmax - 7], device=dev)
+    loss, dl = _hold_ctc(dev, logits, ll, targets, tl, how)
+    assert torch.isfinite(loss).all()
+    lg = logits.clone().requires_grad_(True)
+    per = ctc_loss_mod.ctc_loss(lg, ll, targets, tl)
+    per.sum().backward()
+    torch.testing.assert_close(per, loss, rtol=0, atol=0)
+    torch.testing.assert_close(lg.grad, dl / torch.linspace(
+        0.5, 1.5, 2, device=dev)[:, None, None], rtol=1e-4, atol=1e-4)
 
 
 def _lstm_case(dev, dtype, ndir, t, b, f, h, seed):
@@ -770,3 +802,37 @@ def test_projection_kernel_matches_plain(dev, t, b, f, n, offset):
     assert gru.proj_launches == before + 1
     torch.testing.assert_close(got, gru.projection(x.cpu(), w.cpu()).to(dev),
                                rtol=1e-5, atol=1e-4)
+
+
+def test_device_masks_and_noise_mix_match_cpu(dev):
+    """SpecAugment, the 8 kHz band zero and the two-pass noise mix on the
+    card from fixed draws (made on the CPU) equal the same functions on
+    the CPU: the masks exactly, the mix to 1e-6."""
+    from deepspeech_tpu_torch.augment import noise_device, spectrogram
+
+    gen = torch.Generator().manual_seed(0)
+    b, t, s = 20, 376, 120_000
+    mag = torch.rand(b, 161, t, generator=gen) + 0.1
+    lens = torch.randint(t // 3, t + 1, (b,), generator=gen)
+    spec = spectrogram.draw_spec_augment(b, 161, t, gen)
+    band = spectrogram.draw_band_zero(b, gen)
+    want = spectrogram.apply_band_zero_8khz(
+        spectrogram.apply_spec_augment(mag, lens, spec, 0.7), band, 0.4)
+    got = spectrogram.apply_band_zero_8khz(
+        spectrogram.apply_spec_augment(
+            mag.to(dev), lens.to(dev),
+            {k: v.to(dev) for k, v in spec.items()}, 0.7),
+        band.to(dev), 0.4)
+    assert torch.equal(got.cpu(), want)
+
+    audio = torch.randn(b, s, generator=gen) * 0.3
+    alens = torch.randint(s // 2, s - 160, (b,), generator=gen)
+    bank = torch.randn(3, 2 * s, generator=gen) * 0.2
+    blens = torch.tensor([2 * s, s, 1000])
+    draws = noise_device.draw_noise(b, s, 3, gen)
+    want = noise_device.apply_noise(audio, alens, draws, bank, blens, 0.6,
+                                    0.2, reflect_pad=160)
+    got = noise_device.apply_noise(
+        audio.to(dev), alens.to(dev), {k: v.to(dev) for k, v in draws.items()},
+        bank.to(dev), blens.to(dev), 0.6, 0.2, reflect_pad=160)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)

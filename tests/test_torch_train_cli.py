@@ -7,8 +7,11 @@ and writes ``deepspeech_final.ckpt`` and ``best_model.ckpt``. The final
 checkpoint answers a ``transcribe`` request through both packages' CLIs
 with the same JSON. ``collate_batch`` gives the JAX package's arrays on
 each wire, the step's featurize from each wire the JAX step's
-spectrogram, the sampler the JAX bins and ``get_cer_wer`` its WER/CER;
-unported flags exit naming ROADMAP.md.
+spectrogram, the sampler the JAX bins and ``get_cer_wer`` its WER/CER.
+Every flag the port has ported runs on the CPU in-process and shows its
+effect (augmentation, resuming, mid-epoch checkpoints, train-val, the
+metric log and dashboard, TensorBoard, profiling); the multi-GPU flags
+exit naming ROADMAP.md.
 """
 
 import json
@@ -78,7 +81,13 @@ def test_train_cli_runs_one_epoch(trained):
         assert (save / name).exists(), name
     package = ckpt.load(str(save / "deepspeech_final.ckpt"))
     assert package["step"] == 2 and package["epoch"] == 1
-    assert package["hidden_size"] == 16 and package["optim_state"] is None
+    # the optimizer state as optax's leaves: the inject count, the LR and
+    # one momentum trace a parameter
+    from deepspeech_tpu_torch.train.optim import tree_leaves
+
+    leaves = package["optim_state"]
+    assert package["hidden_size"] == 16 and int(leaves[0]) == 2
+    assert len(leaves) == 2 + len(tree_leaves(package["params"]))
     assert len(package["loss_results"]) == 1
 
 
@@ -125,19 +134,108 @@ def test_cer_wer_match_jax(hyp, ref):
     assert get_cer_wer(hyp, ref) == jax_get_cer_wer(hyp, ref)
 
 
-@pytest.mark.parametrize("flags", [["--augment"], ["--finetune"],
-                                   ["--train-val-manifest", "v.csv"],
-                                   ["--checkpoint-per-samples", "10"],
-                                   ["--aug-prob-spect", "0.5"],
-                                   ["--noise-dir", "n/"],
-                                   ["--steps-per-dispatch", "2"],
-                                   ["--mesh-model", "2"],
-                                   ["--continue-from", "m.ckpt"],
-                                   ["--profile-dir", "p/"],
-                                   ["--tensorboard"], ["--visdom"]])
+@pytest.mark.parametrize("flags", [["--steps-per-dispatch", "2"],
+                                   ["--mesh-model", "2"]])
 def test_unported_flags_exit(flags):
     with pytest.raises(SystemExit, match="ROADMAP"):
         train_main(["--device", "cpu", *flags])
+
+
+def _calls(monkeypatch, module, name):
+    """Count the calls of ``module.name`` (patched in place)."""
+    calls = []
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def _has_tensorboard():
+    try:
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+    except Exception:
+        return False
+    return True
+
+
+# The flags that were refused before they were ported; each runs one epoch
+# (2 steps) of the 4-utterance manifest on the CPU and shows its effect.
+PORTED_FLAGS = ["--augment", "--finetune", "--train-val-manifest",
+                "--checkpoint-per-samples", "--aug-prob-spect", "--noise-dir",
+                "--continue-from", "--profile-dir", "--tensorboard",
+                "--visdom", "--log-params"]
+
+
+@pytest.mark.parametrize("flag", PORTED_FLAGS)
+def test_ported_flag_runs(trained, tmp_path, monkeypatch, capsys, flag):
+    from deepspeech_tpu_torch.augment import spectrogram, waveform
+    from deepspeech_tpu_torch.train import step
+
+    base_save, _, wav = trained
+    d = base_save.parent
+    manifest = str(d / "manifest.csv")
+    base = str(base_save / "deepspeech_final.ckpt")
+    save, logs = tmp_path / "models", tmp_path / "logs"
+    extra = {
+        "--augment": ["--augment", "--noise-prob", "1.0"],
+        "--finetune": ["--finetune", "--continue-from", base],
+        "--train-val-manifest": ["--train-val-manifest", manifest],
+        "--checkpoint-per-samples": ["--checkpoint-per-samples", "2"],
+        "--aug-prob-spect": ["--aug-prob-spect", "0.5"],
+        "--noise-dir": ["--noise-dir", wav, "--device-noise"],
+        "--continue-from": ["--continue-from", base, "--epochs", "2"],
+        "--profile-dir": ["--profile-dir", str(tmp_path / "prof"),
+                          "--profile-start", "0", "--profile-steps", "1"],
+        "--tensorboard": ["--tensorboard"],
+        "--visdom": ["--visdom"],
+        "--log-params": ["--log-params"],
+    }[flag]
+    pipeline = _calls(monkeypatch, waveform.OneOf, "__call__")
+    masks = _calls(monkeypatch, spectrogram, "apply_spec_augment")
+    mixes = _calls(monkeypatch, step, "apply_noise")
+    assert train_main(["--device", "cpu", "--train-manifest", manifest,
+                       "--val-manifest", manifest, "--epochs", "1",
+                       "--batch-size", "2", "--val-batch-size", "2",
+                       "--hidden-size", "16", "--hidden-layers", "1",
+                       "--compute-dtype", "float32", "--num-workers", "1",
+                       "--save-folder", str(save), "--log-dir", str(logs),
+                       "--id", "flag", *extra]) == 0
+    out = capsys.readouterr().out
+    final = ckpt.load(str(save / "deepspeech_final.ckpt"))
+    with open(logs / "flag.jsonl") as f:
+        names = [json.loads(line)["event"] for line in f]
+    if flag == "--augment":
+        assert len(pipeline) == 4  # one pipeline call an utterance
+    elif flag == "--finetune":  # the weights only: a fresh optimizer
+        assert final["step"] == 2 and int(final["optim_state"][0]) == 2
+    elif flag == "--train-val-manifest":
+        assert "[trainval] epoch 1" in out and "trainval" in names
+        assert (save / "deepspeech_final.ckpt.trainval.curriculum.csv"
+                ).exists()
+    elif flag == "--checkpoint-per-samples":
+        mid = ckpt.load(str(save / "deepspeech_checkpoint_0001.ckpt"))
+        assert (mid["iteration"], mid["checkpoint"]) == (1, 1)
+        assert "val_checkpoint" in names
+    elif flag == "--aug-prob-spect":
+        assert len(masks) == 2 and final["audio_conf"]["aug_prob_spect"] == 0.5
+    elif flag == "--noise-dir":
+        assert "device noise bank: 1 clips" in out and len(mixes) == 2
+    elif flag == "--continue-from":
+        assert "Resuming from" in out and final["step"] == 2 + 2
+        assert int(final["optim_state"][0]) == 4
+    elif flag == "--profile-dir":
+        assert len(os.listdir(tmp_path / "prof")) == 1
+    elif flag == "--tensorboard":  # where TensorBoard imports, it mirrors
+        tb = logs / "flag"
+        assert tb.exists() == _has_tensorboard()
+    elif flag == "--visdom":
+        assert (logs / "flag.html").read_text().startswith("<!doctype html>")
+    elif flag == "--log-params":
+        assert "params" in names
 
 
 def _valid_value(action):
@@ -176,7 +274,7 @@ def test_every_jax_train_option_parses():
 
 # (flag, a value other than the default) of the flags that act on their own
 # and have no ported path
-REFUSED = [["--log-params"], ["--dist-url", "tcp://localhost:1234"],
+REFUSED = [["--dist-url", "tcp://localhost:1234"],
            ["--dist-init"], ["--dist-rank", "0"], ["--rank", "1"],
            ["--dist-world-size", "2"], ["--world-size", "2"]]
 
@@ -187,10 +285,12 @@ def test_unported_rendezvous_and_log_flags_exit(flags):
         train_main(["--device", "cpu", *flags])
 
 
-def test_refused_and_dependent_flags_pass_at_their_defaults(capsys):
+def test_refused_and_dependent_flags_pass_at_their_defaults(trained,
+                                                            tmp_path):
     """At the JAX defaults (``--dist-rank -1`` is one) the refused flags
-    pass the check, and so do the flags that act only with a refused one,
-    at any value; ``--enorm``, ``--id`` and ``--log-dir`` are accepted."""
+    pass the check, and so do the flags that act only with another one,
+    at any value; ``--enorm`` is accepted, and ``--id`` and ``--log-dir``
+    name the JSONL metric log the run writes."""
     from deepspeech_tpu_torch.cli.train import build_parser, check_ported
 
     argv = ["--dist-url", "", "--dist-rank", "-1", "--rank", "-1",
@@ -199,14 +299,18 @@ def test_refused_and_dependent_flags_pass_at_their_defaults(capsys):
             "0.7", "--device-noise-limit", "0.5", "--aug-type", "2",
             "--checkpoint-anneal", "1.2", "--profile-start", "3",
             "--profile-steps", "9", "--enorm", "--id", "cli-e2e",
-            "--log-dir", "logs"]
+            "--log-dir", str(tmp_path / "logs")]
     check_ported(build_parser().parse_args(argv))
-    # the CLI goes on past the check and says the metric log is not
-    # written; it stops only where the card is asked for (or the manifest
-    # is missing)
-    with pytest.raises((RuntimeError, FileNotFoundError, OSError)):
-        train_main(argv + ["--train-manifest", "/nonexistent/m.csv"])
-    assert "metric log is not written yet" in capsys.readouterr().out
+    manifest = str(trained[0].parent / "manifest.csv")
+    assert train_main(argv + ["--device", "cpu", "--epochs", "0",
+                              "--hidden-size", "16", "--hidden-layers", "1",
+                              "--train-manifest", manifest,
+                              "--val-manifest", manifest, "--save-folder",
+                              str(tmp_path / "models")]) == 0
+    with open(tmp_path / "logs" / "cli-e2e.jsonl") as f:
+        (event,) = [json.loads(line) for line in f]
+    assert event["event"] == "checkpoint"
+    assert event["path"].endswith("deepspeech_final.ckpt")
 
 
 def test_train_defaults_to_the_card(tmp_path):
