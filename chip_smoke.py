@@ -91,7 +91,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    optimizer leaves restored on the card bit for bit, the annealed LR, the
    batches of the resume (no epoch re-run); the loader's batches/s with and
    without the host waveform pipeline, and the CLI's steps/s with and
-   without --augment;
+   without --augment, each over RATE_STEPS batches after RATE_WARM on the
+   manifest repeated;
 14. K3 (lstm_fwd), both variants, against its plain version at the K2
    shapes (the training variant's residuals c and g too; bf16 in each
    recurrence variant, with the GEMM beside cuBLAS), beside cuDNN's
@@ -241,8 +242,11 @@ WIDE, WIDE_BATCH = 1600, {"gru": 64, "lstm": 20}
 # the config-4 train CLI: utterances of 6.8-7.5 s, validation on the first
 # half
 CLI_UTTS = 128
-# the full train CLI phase: 60 utterances of 6.8-7.5 s, 3 steps an epoch
+# the full train CLI phase: 60 utterances of 6.8-7.5 s, 3 steps an epoch;
+# the host's rates (the loader alone, the CLI's steps) over RATE_STEPS
+# batches after RATE_WARM, on that manifest repeated
 CLI_FULL_UTTS = 60
+RATE_WARM, RATE_STEPS = 5, 30
 SEARCHES = (("width 10", 10, False, BATCH), ("width 128", 128, False, 2),
             ("width 10 + LM", 10, True, BATCH))
 # the synthetic LM's weights (the CLIs' defaults) and size
@@ -1226,9 +1230,8 @@ def hold_ctc(torch, logits, ll, targets, tl, rows: dict, how=None) -> dict:
     g = torch.from_numpy(rng.uniform(0.5, 1.5, len(ll)).astype(
         np.float32)).cuda()
     before = (ctc.alpha_launches, ctc.beta_launches)
-    alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll, how=how)
-    dl, betas = ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, g,
-                             with_betas=True, how=how)
+    alphas, loss = ctc._alpha(lp, ext, tl, ll, how)
+    dl, betas = ctc._beta(lp, ext, tl, ll, alphas, loss, g, True, how)
     if (ctc.alpha_launches, ctc.beta_launches) != (before[0] + 1,
                                                    before[1] + 1):
         raise AssertionError("K8/K9 did not launch once each")
@@ -1315,12 +1318,12 @@ def phase_ctc_long(torch, results):
         ones = torch.ones(len(ll), device="cuda")
         for how in hows:
             name = how or rule
-            alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll, how=how)
+            alphas, loss = ctc._alpha(lp, ext, tl, ll, how)
             out[f"S {s} K8 {name} device_ms"] = device_ms(
-                lambda: ctc.ctc_alpha(lp, ext, tl, ll, how=how), reps=10)
+                lambda: ctc._alpha(lp, ext, tl, ll, how), reps=10)
             out[f"S {s} K9 {name} device_ms"] = device_ms(
-                lambda: ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, ones,
-                                     how=how), reps=10)
+                lambda: ctc._beta(lp, ext, tl, ll, alphas, loss, ones, False,
+                                  how), reps=10)
         lpt = lp.transpose(0, 1).detach().requires_grad_(True)
 
         def torch_fwd():
@@ -1402,10 +1405,10 @@ def phase_ctc(torch, results):
     ones = torch.ones(b, device="cuda")
 
     def k8(how=None):
-        return ctc.ctc_alpha(lp, ext, tl, ll, how=how)
+        return ctc._alpha(lp, ext, tl, ll, how)
 
     def k9(how=None):
-        return ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, ones, how=how)
+        return ctc._beta(lp, ext, tl, ll, alphas, loss, ones, False, how)
 
     a_ms, b_ms = time_ms(k8, reps=20), time_ms(k9, reps=20)
     a_dev, b_dev = device_ms(k8), device_ms(k9)
@@ -1977,9 +1980,10 @@ def phase_train_cli_full(torch) -> dict:
     mid-epoch checkpoint (epoch 1, iteration 2) for epoch 2. Holds the
     launches of a step and of validation, the files written, the restored
     optimizer leaves against the saved ones on the card, the annealed LR,
-    and that no epoch is re-run; then times the loader alone with and
-    without the host waveform pipeline, and the CLI's steps with and
-    without --augment."""
+    and that no epoch is re-run; then, on the manifest repeated to
+    RATE_WARM + RATE_STEPS + 1 batches, the loader's batches/s alone and
+    the CLI's steps/s over the last RATE_STEPS gaps between batches, each
+    with and without the host waveform pipeline (--augment)."""
     from deepspeech_tpu_torch.audio.features import AudioConf
     from deepspeech_tpu_torch.audio.io import save_wav
     from deepspeech_tpu_torch.cli.train import main as train_main
@@ -2144,32 +2148,45 @@ def phase_train_cli_full(torch) -> dict:
             f"{clock.starts} (no epoch re-run), {dt:.3f} s host clock, "
             f"launches {counts}")
 
-        # the host waveform pipeline against the step: the loader alone
+        # the host waveform pipeline against the step, in steady state:
+        # the manifest repeated, the first RATE_WARM batches dropped
+        need = RATE_WARM + RATE_STEPS + 1
+        rate_csv = os.path.join(d, "rate.csv")
+        with open(rate_csv, "w") as f:
+            f.write("\n".join(rows * -(-need * BATCH // len(rows))) + "\n")
+
+        def rate(ts, what):
+            if len(ts) < need:
+                raise AssertionError(f"{what}: {len(ts)} batches, expected "
+                                     f"{need} or more")
+            return (len(ts) - 1 - RATE_WARM) / (ts[-1] - ts[RATE_WARM])
+
         conf = AudioConf(noise_dir=noise)
         bucket = BucketSpec(reflect_tail=160, wire_dtype="int16")
         for augment in (False, True):
-            ds = AudioDataset(conf, train, LABELS, augment=augment)
+            ds = AudioDataset(conf, rate_csv, LABELS, augment=augment)
             loader = AudioDataLoader(ds, BucketingSampler(len(ds), BATCH),
                                      BATCH, bucket, 4)
-            t0 = time.perf_counter()
-            n = sum(1 for _ in loader)
-            rate = n / (time.perf_counter() - t0)
-            out[f"loader_batches_per_s_augment_{augment}"] = rate
+            ts = [time.perf_counter() for _ in loader]
+            r = rate(ts, "loader")
+            out[f"loader_batches_per_s_augment_{augment}"] = r
             log(f"loader alone, --num-workers 4, batch {BATCH} x 6.8-7.5 s, "
-                f"augment {augment}: {rate:.2f} batches/s ({n} batches)")
-        # the CLI's steps with and without --augment (1 epoch, 3 steps)
+                f"augment {augment}: {r:.3f} batches/s over batches "
+                f"{RATE_WARM}-{len(ts) - 1} of {len(ts)}")
+        # the CLI's steps with and without --augment (1 epoch)
         for augment in (False, True):
             flags = ["--augment", "--aug-type", "0", "--noise-dir",
                      noise] if augment else []
-            clock, _, dt = run(flags + ["--epochs", "1", "--save-folder",
-                                        os.path.join(d, f"a{augment}"),
-                                        "--id", f"a{augment}"],
-                               f"augment {augment}")
-            rate = (len(clock.t) - 1) / (clock.t[-1] - clock.t[0])
-            out[f"cli_steps_per_s_augment_{augment}"] = rate
-            log(f"train CLI, augment {augment}: {rate:.2f} steps/s between "
-                f"the first and last batch starts of the epoch, {dt:.1f} s "
-                "the whole run")
+            # the later --train-manifest overrides base's
+            clock, _, dt = run(["--train-manifest", rate_csv] + flags + [
+                "--epochs", "1", "--save-folder",
+                os.path.join(d, f"a{augment}"), "--id", f"a{augment}"],
+                f"augment {augment}")
+            r = rate(clock.t, "train CLI")
+            out[f"cli_steps_per_s_augment_{augment}"] = r
+            log(f"train CLI, augment {augment}: {r:.3f} steps/s between the "
+                f"starts of batches {RATE_WARM}-{len(clock.t) - 1} of "
+                f"{len(clock.t)}, {dt:.1f} s the whole run")
     return out
 
 

@@ -70,9 +70,12 @@
 // beta rows, its two sorted gamma rows, the state words and the class sort
 // sit in a workspace the wrapper allocates, and its alphas are read from
 // the alphas input. Only the log-prob ring stays in shared memory (RING CH
-// C floats). The frame chain is the ring route's: the same logaddexp3, the
-// same -1e30 clamps and freeze, the same gamma lag and reduction warps,
-// with each thread walking its states by a stride, so any S is taken.
+// C floats). The frame chain is the ring route's, with each thread walking
+// its states by a stride, so any S is taken: both routes run one copy of
+// the per-state arithmetic (alpha_trans, beta_trans, emit_clamp, gamma_of,
+// end_loss), of K9's prologue (fill_past, place_states) and of its
+// reduction warps (reduce_frames), and differ only in where the per-state
+// rows live.
 #include "common.cuh"
 
 namespace {
@@ -115,6 +118,48 @@ __device__ unsigned state_word(const int* ext, int s, int S, int tl) {
   if ((s & 1) && s + 2 < S && ext[s + 2] != cls) w |= SKIP2;
   if (s == 2 * tl || (s == 2 * tl - 1 && tl > 0)) w |= END;
   return w;
+}
+
+// The per-state arithmetic both routes share; prev is the previous row in
+// shared memory (the ring route) or global memory (the global route).
+// alpha before frame 0: the two start states, where valid
+__device__ __forceinline__ float alpha_seed(int s, unsigned w) {
+  return (s < 2 ? 0.f : NEG) + flag(w, VALID);
+}
+
+__device__ __forceinline__ float alpha_trans(const float* prev, int s,
+                                             unsigned w) {
+  const float diag = s >= 1 ? prev[s - 1] : NEG;
+  const float skp = (s >= 2 ? prev[s - 2] : NEG) + flag(w, SKIP);
+  return logaddexp3(prev[s], diag, skp);
+}
+
+__device__ __forceinline__ float beta_trans(const float* prev, int s, int S,
+                                            unsigned w) {
+  const float diag = s + 1 < S ? prev[s + 1] : NEG;
+  const float skp = s + 2 < S ? prev[s + 2] + flag(w, SKIP2) : NEG + NEG;
+  return logaddexp3(prev[s], diag, skp);
+}
+
+// a transition plus the emission e, masked by valid and clamped at -1e30
+__device__ __forceinline__ float emit_clamp(float x, float e, unsigned w) {
+  return nanmax(x + e + flag(w, VALID), NEG);
+}
+
+// gamma from alpha, beta + emit and the emit of one state and frame
+__device__ __forceinline__ float gamma_of(float a, float be, float em,
+                                          float lossb, bool ok) {
+  const float lg = a + be - em + lossb;
+  return (ok && lg > -80.f) ? expf(fminf(lg, 0.f)) : 0.f;
+}
+
+// -log(alpha_last(2 tl) + alpha_last(2 tl - 1)), +inf where both are dead
+__device__ __forceinline__ float end_loss(float eb, float el) {
+  const float m = nanmax(eb, el);
+  const bool dead = m <= NEG;
+  const float ms = dead ? 0.f : m;
+  const float sum = expf(eb - ms) + expf(el - ms);
+  return dead ? __int_as_float(0x7f800000) : -(ms + logf(sum));
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -162,13 +207,9 @@ __device__ __forceinline__ void alpha_frame(const float* prev, float* cur,
   for (int i = 0; i < NPT; ++i) {
     const int s = threadIdx.x + i * nthr;
     if (s >= S) continue;
-    float nw = prev[s];
-    if (!FIRST) {
-      const float diag = s >= 1 ? prev[s - 1] : NEG;
-      const float skp = (s >= 2 ? prev[s - 2] : NEG) + flag(w[i], SKIP);
-      nw = logaddexp3(nw, diag, skp);
-    }
-    nw = nanmax(nw + em[w[i] & CLS] + flag(w[i], VALID), NEG);
+    const float nw =
+        emit_clamp(FIRST ? prev[s] : alpha_trans(prev, s, w[i]),
+                   em[w[i] & CLS], w[i]);
     cur[s] = nw;
     out[static_cast<size_t>(t) * S + s] = nw;
   }
@@ -198,7 +239,7 @@ __global__ void __launch_bounds__(1024)
     const int s = tid + i * nthr;
     w[i] = s < S ? state_word(ext + static_cast<size_t>(b) * S, s, S, tl)
                  : 0u;
-    if (s < S) prev[s] = (s < 2 ? 0.f : NEG) + flag(w[i], VALID);
+    if (s < S) prev[s] = alpha_seed(s, w[i]);
   }
   for (int j = 0; j < AHEAD; ++j) {
     stage_chunk(ring, row, C, j, CH, len, false, tid, nthr);
@@ -234,15 +275,9 @@ __global__ void __launch_bounds__(1024)
       const int s = tid + i * nthr;
       if (s < S) out[static_cast<size_t>(t) * S + s] = prev[s];
     }
-  if (tid == 0) {  // -log(alpha_last(2 tl) + alpha_last(2 tl - 1))
-    const float eb = prev[min(max(2 * tl, 0), S - 1)];
-    const float el = tl > 0 ? prev[min(2 * tl - 1, S - 1)] : NEG;
-    const float m = nanmax(eb, el);
-    const bool dead = m <= NEG;
-    const float ms = dead ? 0.f : m;
-    const float sum = expf(eb - ms) + expf(el - ms);
-    loss[b] = dead ? __int_as_float(0x7f800000) : -(ms + logf(sum));
-  }
+  if (tid == 0)
+    loss[b] = end_loss(prev[min(max(2 * tl, 0), S - 1)],
+                       tl > 0 ? prev[min(2 * tl - 1, S - 1)] : NEG);
 }
 
 // One warp sorts the row's valid label states (1, 3, ..., 2 nl - 1) by
@@ -302,6 +337,88 @@ __device__ __forceinline__ float segment_sum(const float* gs, int lo, int hi) {
   return o;
 }
 
+// K9's frames past the length: dlogits `past` (0 times g, as the closed
+// form's frame mask is applied before the scaling), betas -1e30.
+__device__ __forceinline__ void fill_past(float* dl, float* bo, int len,
+                                          int Tn, int C, int S, float past) {
+  for (size_t k = static_cast<size_t>(len) * C + threadIdx.x;
+       k < static_cast<size_t>(Tn) * C; k += blockDim.x)
+    dl[k] = past;
+  if (bo)
+    for (size_t k = static_cast<size_t>(len) * S + threadIdx.x;
+         k < static_cast<size_t>(Tn) * S; k += blockDim.x)
+      bo[k] = NEG;
+}
+
+// K9's reduction warps in the prologue: warp 0 places the blank states
+// (none past nl), warp 1 sorts the label states by class.
+__device__ __forceinline__ void place_states(const int* ex, int S, int nl,
+                                             int C, int nb, int* begin,
+                                             int* cursor, int* posn,
+                                             int warp, int lane) {
+  if (warp == 0) {
+    for (int s = lane; s < S; s += 32)
+      if (!(s & 1) || s > 2 * nl) posn[s] = s <= 2 * nl ? s / 2 : -1;
+  } else {
+    sort_labels(ex, nl, C, nb, begin, cursor, posn, lane);
+  }
+}
+
+// K9's reduction warps over the frames: for frame t + 2 in the step of
+// frame t, warp 0 sums the blank segment of the sorted gamma row (lane-
+// strided partial sums and a butterfly, then any label of the blank's
+// class) into the blank's dlogit, warp 1 each other class's contiguous
+// segment into its dlogit. gam holds the two sorted rows by frame parity,
+// lring the staged log-prob rows; one __syncthreads a frame, as the chain
+// threads' walk.
+__device__ __forceinline__ void reduce_frames(
+    const float* lring, const float* gam, float* dl, const int* begin,
+    int len, int CH, int C, int S, int nb, int blank, int warp, int lane,
+    bool ok, float gb) {
+  int j2 = 0, q2 = 0;  // the chunk and place of frame t + 2
+  // the segment of the blank (warp 0) or of class `lane` (warp 1), read
+  // once; classes past the 32nd read theirs each frame
+  const int own = warp == 0 ? blank : lane;
+  const int lo0 = own < C ? nb + begin[own] : 0;
+  const int hi0 = own < C ? nb + begin[own + 1] : 0;
+  for (int r = 0; r < len + 2; ++r) {
+    const int t = len - 1 - r;
+    if (t + 2 < len) {  // frame t + 2: its gamma row is complete
+      const float* lt =
+          lring + static_cast<size_t>((j2 % RING) * CH + CH - 1 - q2) * C;
+      const float* gs = gam + static_cast<size_t>(t & 1) * S;
+      float* d = dl + static_cast<size_t>(t + 2) * C;
+      if (warp == 0) {
+        const float p = expf(lt[blank]);
+        float bs = 0.f;
+#pragma unroll 4
+        for (int k = lane; k < nb; k += 32) bs += gs[k];
+#pragma unroll
+        for (int k = 16; k > 0; k >>= 1)
+          bs += __shfl_xor_sync(0xffffffffu, bs, k);
+        if (lane == 0)
+          d[blank] = ok ? (p - (bs + segment_sum(gs, lo0, hi0))) * gb : 0.f;
+      } else {
+        if (lane < C && lane != blank) {
+          const float p = expf(lt[lane]);
+          d[lane] = ok ? (p - segment_sum(gs, lo0, hi0)) * gb : 0.f;
+        }
+        for (int c = lane + 32; c < C; c += 32)
+          if (c != blank) {
+            const float p = expf(lt[c]);
+            const float o = segment_sum(gs, nb + begin[c], nb + begin[c + 1]);
+            d[c] = ok ? (p - o) * gb : 0.f;
+          }
+      }
+      if (++q2 == CH) {
+        q2 = 0;
+        ++j2;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // One frame of K9's chain threads: beta of frame t (STEP; FIRST: the
 // row's last valid frame, which starts from the end states) and, beside
 // it, gamma of frame t + 1 (GRAD) at each state's place in the sorted row
@@ -317,23 +434,11 @@ __device__ __forceinline__ void beta_frame(
   for (int i = 0; i < NPT; ++i) {
     const int s = threadIdx.x + i * NC;
     if (s >= S) continue;
-    float gm = 0.f;
-    if (GRAD) {
-      const float lg = a1[s] + be1[i] - em1[i] + lossb;
-      gm = (ok && lg > -80.f) ? expf(fminf(lg, 0.f)) : 0.f;
-    }
+    const float gm = GRAD ? gamma_of(a1[s], be1[i], em1[i], lossb, ok) : 0.f;
     if (STEP) {
-      float bh;
-      if (FIRST) {
-        bh = flag(w[i], END);
-      } else {
-        const float diag = s + 1 < S ? prev[s + 1] : NEG;
-        const float skp =
-            s + 2 < S ? prev[s + 2] + flag(w[i], SKIP2) : NEG + NEG;
-        bh = logaddexp3(prev[s], diag, skp);
-      }
       const float e = lt[w[i] & CLS];
-      bh = nanmax(bh + e + flag(w[i], VALID), NEG);
+      const float bh = emit_clamp(
+          FIRST ? flag(w[i], END) : beta_trans(prev, s, S, w[i]), e, w[i]);
       cur[s] = bh;
       if (bo) bo[static_cast<size_t>(t) * S + s] = bh;
       be1[i] = bh;
@@ -388,21 +493,11 @@ __global__ void __launch_bounds__(1024)
   float* dl = dlogits + static_cast<size_t>(b) * Tn * C;
   float* bo = betas ? betas + static_cast<size_t>(b) * Tn * S : nullptr;
 
-  // frames past the length: dlogits 0 (times g, as the closed form's
-  // frame mask is applied before the scaling), betas -1e30
-  const float past = ok ? 0.f * gb : 0.f;
-  for (size_t k = static_cast<size_t>(len) * C + tid;
-       k < static_cast<size_t>(Tn) * C; k += blockDim.x)
-    dl[k] = past;
-  if (bo)
-    for (size_t k = static_cast<size_t>(len) * S + tid;
-         k < static_cast<size_t>(Tn) * S; k += blockDim.x)
-      bo[k] = NEG;
+  fill_past(dl, bo, len, Tn, C, S, ok ? 0.f * gb : 0.f);
   const bool chain = tid < NC;
   const int lane = tid & 31, warp = (tid - NC) >> 5;  // warp: reduction's
   const int nl = max(min(tl, (S - 1) / 2), 0);  // valid label states
   const int nb = nl + 1;                        // valid blank states
-  const int blank = ex[0];
   if (chain) {
     for (int j = 0; j < AHEAD; ++j) {
       stage_chunk(lring, row, C, j, CH, len, true, tid, NC);
@@ -410,11 +505,8 @@ __global__ void __launch_bounds__(1024)
       cp_async_commit();
     }
     for (int s = tid; s < S; s += NC) prev[s] = NEG;
-  } else if (warp == 0) {  // the blank states' places, no place past nl
-    for (int s = lane; s < S; s += 32)
-      if (!(s & 1) || s > 2 * nl) posn[s] = s <= 2 * nl ? s / 2 : -1;
   } else {
-    sort_labels(ex, nl, C, nb, begin, cursor, posn, lane);
+    place_states(ex, S, nl, C, nb, begin, cursor, posn, warp, lane);
   }
   __syncthreads();
 
@@ -470,49 +562,8 @@ __global__ void __launch_bounds__(1024)
     __syncthreads();
     cp_async_wait<0>();
   } else {
-    int j2 = 0, q2 = 0;  // the chunk and place of frame t + 2
-    // the segment of the blank (warp 0) or of class `lane` (warp 1), read
-    // once; classes past the 32nd read theirs each frame
-    const int own = warp == 0 ? blank : lane;
-    const int lo0 = own < C ? nb + begin[own] : 0;
-    const int hi0 = own < C ? nb + begin[own + 1] : 0;
-    for (int r = 0; r < len + 2; ++r) {
-      const int t = len - 1 - r;
-      if (t + 2 < len) {  // frame t + 2: its gamma row is complete
-        const float* lt =
-            lring + static_cast<size_t>((j2 % RING) * CH + CH - 1 - q2) * C;
-        const float* gs = gam + (t & 1) * S;
-        float* d = dl + static_cast<size_t>(t + 2) * C;
-        if (warp == 0) {
-          const float p = expf(lt[blank]);
-          float bs = 0.f;
-#pragma unroll 4
-          for (int k = lane; k < nb; k += 32) bs += gs[k];
-#pragma unroll
-          for (int k = 16; k > 0; k >>= 1)
-            bs += __shfl_xor_sync(0xffffffffu, bs, k);
-          if (lane == 0)
-            d[blank] = ok ? (p - (bs + segment_sum(gs, lo0, hi0))) * gb : 0.f;
-        } else {
-          if (lane < C && lane != blank) {
-            const float p = expf(lt[lane]);
-            d[lane] = ok ? (p - segment_sum(gs, lo0, hi0)) * gb : 0.f;
-          }
-          for (int c = lane + 32; c < C; c += 32)
-            if (c != blank) {
-              const float p = expf(lt[c]);
-              const float o =
-                  segment_sum(gs, nb + begin[c], nb + begin[c + 1]);
-              d[c] = ok ? (p - o) * gb : 0.f;
-            }
-        }
-        if (++q2 == CH) {
-          q2 = 0;
-          ++j2;
-        }
-      }
-      __syncthreads();
-    }
+    reduce_frames(lring, gam, dl, begin, len, CH, C, S, nb, ex[0], warp,
+                  lane, ok, gb);
   }
 }
 
@@ -550,15 +601,8 @@ __global__ void __launch_bounds__(1024)
     float* cur = out + static_cast<size_t>(t) * S;
     for (int s = tid; s < S; s += nthr) {
       const unsigned w = wd[s];
-      float nw;
-      if (t == 0) {  // the seed, as the ring route's prev holds it
-        nw = (s < 2 ? 0.f : NEG) + flag(w, VALID);
-      } else {
-        const float diag = s >= 1 ? prev[s - 1] : NEG;
-        const float skp = (s >= 2 ? prev[s - 2] : NEG) + flag(w, SKIP);
-        nw = logaddexp3(prev[s], diag, skp);
-      }
-      cur[s] = nanmax(nw + em[w & CLS] + flag(w, VALID), NEG);
+      cur[s] = emit_clamp(t == 0 ? alpha_seed(s, w) : alpha_trans(prev, s, w),
+                          em[w & CLS], w);
     }
     if (++q == CH) {
       q = 0;
@@ -574,21 +618,15 @@ __global__ void __launch_bounds__(1024)
   for (int t = len; t < Tn; ++t)
     for (int s = tid; s < S; s += nthr)
       out[static_cast<size_t>(t) * S + s] =
-          last ? last[s] : (s < 2 ? 0.f : NEG) + flag(wd[s], VALID);
+          last ? last[s] : alpha_seed(s, wd[s]);
   __syncthreads();
   if (tid == 0) {  // the last row (the seed where T is 0)
     const int ib = min(max(2 * tl, 0), S - 1), il = min(2 * tl - 1, S - 1);
     const float* fin = out + static_cast<size_t>(max(Tn - 1, 0)) * S;
-    const float eb = Tn > 0 ? fin[ib]
-                            : (ib < 2 ? 0.f : NEG) + flag(wd[ib], VALID);
-    const float el = tl <= 0 ? NEG
-                     : Tn > 0 ? fin[il]
-                              : (il < 2 ? 0.f : NEG) + flag(wd[il], VALID);
-    const float m = nanmax(eb, el);
-    const bool dead = m <= NEG;
-    const float ms = dead ? 0.f : m;
-    const float sum = expf(eb - ms) + expf(el - ms);
-    loss[b] = dead ? __int_as_float(0x7f800000) : -(ms + logf(sum));
+    loss[b] = end_loss(Tn > 0 ? fin[ib] : alpha_seed(ib, wd[ib]),
+                       tl <= 0  ? NEG
+                       : Tn > 0 ? fin[il]
+                                : alpha_seed(il, wd[il]));
   }
 }
 
@@ -631,19 +669,11 @@ __global__ void __launch_bounds__(1024)
   float* dl = dlogits + static_cast<size_t>(b) * Tn * C;
   float* bo = betas ? betas + static_cast<size_t>(b) * Tn * S : nullptr;
 
-  const float past = ok ? 0.f * gb : 0.f;
-  for (size_t k = static_cast<size_t>(len) * C + tid;
-       k < static_cast<size_t>(Tn) * C; k += blockDim.x)
-    dl[k] = past;
-  if (bo)
-    for (size_t k = static_cast<size_t>(len) * S + tid;
-         k < static_cast<size_t>(Tn) * S; k += blockDim.x)
-      bo[k] = NEG;
+  fill_past(dl, bo, len, Tn, C, S, ok ? 0.f * gb : 0.f);
   const bool chain = tid < NC;
   const int lane = tid & 31, warp = (tid - NC) >> 5;
   const int nl = max(min(tl, (S - 1) / 2), 0);
   const int nb = nl + 1;
-  const int blank = ex[0];
   if (chain) {
     for (int j = 0; j < AHEAD; ++j) {
       stage_chunk(lring, row, C, j, CH, len, true, tid, NC);
@@ -653,11 +683,8 @@ __global__ void __launch_bounds__(1024)
       prev[s] = NEG;
       wd[s] = state_word(ex, s, S, tl);
     }
-  } else if (warp == 0) {
-    for (int s = lane; s < S; s += 32)
-      if (!(s & 1) || s > 2 * nl) posn[s] = s <= 2 * nl ? s / 2 : -1;
   } else {
-    sort_labels(ex, nl, C, nb, begin, cursor, posn, lane);
+    place_states(ex, S, nl, C, nb, begin, cursor, posn, warp, lane);
   }
   __syncthreads();
   if (chain) cp_async_wait<AHEAD - 1>();
@@ -679,20 +706,12 @@ __global__ void __launch_bounds__(1024)
       for (int s = tid; s < S; s += NC) {
         const unsigned w = wd[s];
         if (r > 0) {  // gamma of frame t + 1, beside the chain
-          const float lg = a1[s] + prev[s] - l1[w & CLS] + lossb;
           const int p = posn[s];
-          if (p >= 0) gr[p] = (ok && lg > -80.f) ? expf(fminf(lg, 0.f)) : 0.f;
+          if (p >= 0) gr[p] = gamma_of(a1[s], prev[s], l1[w & CLS], lossb, ok);
         }
-        float bh;
-        if (r == 0) {
-          bh = flag(w, END);
-        } else {
-          const float diag = s + 1 < S ? prev[s + 1] : NEG;
-          const float skp =
-              s + 2 < S ? prev[s + 2] + flag(w, SKIP2) : NEG + NEG;
-          bh = logaddexp3(prev[s], diag, skp);
-        }
-        bh = nanmax(bh + lt[w & CLS] + flag(w, VALID), NEG);
+        const float bh = emit_clamp(
+            r == 0 ? flag(w, END) : beta_trans(prev, s, S, w), lt[w & CLS],
+            w);
         cur[s] = bh;
         if (bo) bo[static_cast<size_t>(t) * S + s] = bh;
       }
@@ -709,56 +728,16 @@ __global__ void __launch_bounds__(1024)
     }
     if (len > 0)  // gamma of frame 0
       for (int s = tid; s < S; s += NC) {
-        const unsigned w = wd[s];
-        const float lg = arow[s] + prev[s] - l1[w & CLS] + lossb;
         const int p = posn[s];
-        if (p >= 0) gam[p] = (ok && lg > -80.f) ? expf(fminf(lg, 0.f)) : 0.f;
+        if (p >= 0)
+          gam[p] = gamma_of(arow[s], prev[s], l1[wd[s] & CLS], lossb, ok);
       }
     __syncthreads();
     __syncthreads();
     cp_async_wait<0>();
   } else {
-    int j2 = 0, q2 = 0;
-    const int own = warp == 0 ? blank : lane;
-    const int lo0 = own < C ? nb + begin[own] : 0;
-    const int hi0 = own < C ? nb + begin[own + 1] : 0;
-    for (int r = 0; r < len + 2; ++r) {
-      const int t = len - 1 - r;
-      if (t + 2 < len) {
-        const float* lt =
-            lring + static_cast<size_t>((j2 % RING) * CH + CH - 1 - q2) * C;
-        const float* gs = gam + static_cast<size_t>(t & 1) * S;
-        float* d = dl + static_cast<size_t>(t + 2) * C;
-        if (warp == 0) {
-          const float p = expf(lt[blank]);
-          float bs = 0.f;
-#pragma unroll 4
-          for (int k = lane; k < nb; k += 32) bs += gs[k];
-#pragma unroll
-          for (int k = 16; k > 0; k >>= 1)
-            bs += __shfl_xor_sync(0xffffffffu, bs, k);
-          if (lane == 0)
-            d[blank] = ok ? (p - (bs + segment_sum(gs, lo0, hi0))) * gb : 0.f;
-        } else {
-          if (lane < C && lane != blank) {
-            const float p = expf(lt[lane]);
-            d[lane] = ok ? (p - segment_sum(gs, lo0, hi0)) * gb : 0.f;
-          }
-          for (int c = lane + 32; c < C; c += 32)
-            if (c != blank) {
-              const float p = expf(lt[c]);
-              const float o =
-                  segment_sum(gs, nb + begin[c], nb + begin[c + 1]);
-              d[c] = ok ? (p - o) * gb : 0.f;
-            }
-        }
-        if (++q2 == CH) {
-          q2 = 0;
-          ++j2;
-        }
-      }
-      __syncthreads();
-    }
+    reduce_frames(lring, gam, dl, begin, len, CH, C, S, nb, ex[0], warp,
+                  lane, ok, gb);
   }
 }
 

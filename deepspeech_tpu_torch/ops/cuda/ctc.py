@@ -274,13 +274,18 @@ def _route(s: int, c: int, beta: bool, how: str | None) -> str:
     return how
 
 
-def ctc_alpha(log_probs, ext, target_lengths, lengths,
-              how: str | None = None):
+def ctc_alpha(log_probs, ext, target_lengths, lengths):
     """K8: (alphas (B, T, S), loss (B,)); arguments as ``plain_alpha``.
-    ``how`` names the route ("ring" or "global"); by default ``route``
-    picks it."""
+    ``route`` picks the kernel's route."""
     if log_probs.device.type == "cpu":
         return plain_alpha(log_probs, ext, target_lengths, lengths)
+    return _alpha(log_probs, ext, target_lengths, lengths, None)
+
+
+def _alpha(log_probs, ext, target_lengths, lengths, how: str | None):
+    """K8's launch on the route ``how`` ("ring" or "global"; None:
+    ``route``'s choice). The tests and chip_smoke.py name a route to hold
+    each one; the model's path takes ``ctc_alpha``."""
     _check("ctc_alpha", log_probs, ext, target_lengths=target_lengths,
            lengths=lengths)
     b, t, c = log_probs.shape
@@ -313,12 +318,19 @@ def ctc_alpha(log_probs, ext, target_lengths, lengths,
 
 
 def ctc_beta(log_probs, ext, target_lengths, lengths, alphas, loss, g,
-             with_betas: bool = False, how: str | None = None):
+             with_betas: bool = False):
     """K9: dlogits (B, T, C) (and, with ``with_betas``, beta + emission);
-    arguments as ``plain_beta``; ``how`` as ``ctc_alpha``'s."""
+    arguments as ``plain_beta``. ``route`` picks the kernel's route."""
     if log_probs.device.type == "cpu":
         return plain_beta(log_probs, ext, target_lengths, lengths, alphas,
                           loss, g, with_betas)
+    return _beta(log_probs, ext, target_lengths, lengths, alphas, loss, g,
+                 with_betas, None)
+
+
+def _beta(log_probs, ext, target_lengths, lengths, alphas, loss, g,
+          with_betas: bool, how: str | None):
+    """K9's launch on the route ``how``, as ``_alpha``'s."""
     _check("ctc_beta", log_probs, ext, target_lengths=target_lengths,
            lengths=lengths, alphas=alphas, loss=loss, g=g)
     b, t, c = log_probs.shape

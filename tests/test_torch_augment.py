@@ -23,6 +23,7 @@ The device masks and the noise mix draw with ``jax.random`` there and a
   step draws jitter, masks and noise in the JAX step's key order.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -160,22 +161,41 @@ def test_noise_inject_cli_writes_the_root_clis_wav(data, tmp_path):
 
 
 # ---- device augmentation: the same function from the same draws ----
+# The JAX functions run under jit, as the JAX train step runs them, which
+# also compiles each once instead of op by op.
 
-def _jax_spec_draws(key, b, t):
-    """The draws jax spec_augment makes from ``key`` (its split chain)."""
-    rows = {"u": [], "freq_width": [], "freq_center": [], "time_width": [],
-            "time_center": []}
-    for k in jax.random.split(key, b):
+_spec_augment = jax.jit(jax_spec.spec_augment, static_argnums=3)
+_band_zero = jax.jit(jax_spec.band_zero_8khz, static_argnums=2)
+
+
+@functools.partial(jax.jit, static_argnames=("prob", "limit", "reflect_pad"))
+def _add_noise(audio, lens, key, bank, bank_lens, prob, limit,
+               reflect_pad=0):
+    return jax_noise.add_noise_batch(audio, lens, key, bank, bank_lens, prob,
+                                     limit, reflect_pad=reflect_pad)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _jax_spec_keys(key, b, t):
+    def row(k):
         k_sel, k_freq, k_time = jax.random.split(k, 3)
-        rows["u"].append(float(jax.random.uniform(k_sel)))
+        out = {"u": jax.random.uniform(k_sel)}
         for name, kk, width, size in (("freq", k_freq, 20, 161),
                                       ("time", k_time, 50, t)):
             _, k_width, k_center = jax.random.split(kk, 3)
-            rows[f"{name}_width"].append(np.asarray(jax.random.randint(
-                k_width, (2,), 0, width + 1)))
-            rows[f"{name}_center"].append(np.asarray(jax.random.randint(
-                k_center, (2,), 0, size + 1)))
-    return {k: torch.tensor(np.asarray(v)) for k, v in rows.items()}
+            out[f"{name}_width"] = jax.random.randint(k_width, (2,), 0,
+                                                      width + 1)
+            out[f"{name}_center"] = jax.random.randint(k_center, (2,), 0,
+                                                       size + 1)
+        return out
+
+    return jax.vmap(row)(jax.random.split(key, b))
+
+
+def _jax_spec_draws(key, b, t):
+    """The draws jax spec_augment makes from ``key`` (its split chain)."""
+    return {k: torch.tensor(np.asarray(v))
+            for k, v in _jax_spec_keys(key, b, t).items()}
 
 
 def _mags(b, t, seed=0):
@@ -191,8 +211,8 @@ def test_spec_augment_from_the_jax_draws(prob):
     b, t = 12, 90
     mag, lens = _mags(b, t)
     key = jax.random.PRNGKey(3)
-    want = np.asarray(jax_spec.spec_augment(jnp.asarray(mag),
-                                            jnp.asarray(lens), key, prob))
+    want = np.asarray(_spec_augment(jnp.asarray(mag), jnp.asarray(lens), key,
+                                    prob))
     draws = _jax_spec_draws(key, b, t)
     got = spectrogram.apply_spec_augment(torch.from_numpy(mag),
                                          torch.from_numpy(lens), draws, prob)
@@ -203,7 +223,7 @@ def test_spec_augment_from_the_jax_draws(prob):
 def test_band_zero_from_the_jax_draws():
     mag, _ = _mags(16, 20)
     key = jax.random.PRNGKey(4)
-    want = np.asarray(jax_spec.band_zero_8khz(jnp.asarray(mag), key, 0.4))
+    want = np.asarray(_band_zero(jnp.asarray(mag), key, 0.4))
     u = torch.tensor(np.asarray(jax.random.uniform(key, (16,))))
     got = spectrogram.apply_band_zero_8khz(torch.from_numpy(mag), u, 0.4)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -244,9 +264,9 @@ def _noise_batch(data, tmp_path, b=6, s=12000):
 def test_noise_mix_from_the_jax_draws(data, tmp_path, prob):
     audio, alens, bank, lens = _noise_batch(data, tmp_path)
     key = jax.random.PRNGKey(8)
-    want = np.asarray(jax_noise.add_noise_batch(
+    want = np.asarray(_add_noise(
         jnp.asarray(audio), jnp.asarray(alens), key, jnp.asarray(bank),
-        jnp.asarray(lens), prob, 0.3, reflect_pad=160))
+        jnp.asarray(lens), prob=prob, limit=0.3, reflect_pad=160))
     draws = _jax_noise_draws(key, *audio.shape, bank.shape[0])
     got = noise_device.apply_noise(
         torch.from_numpy(audio), torch.from_numpy(alens), draws,
@@ -266,8 +286,9 @@ def test_featurize_with_masks_matches_jax():
     lens = np.asarray([9000, 8000, 6100, 7000, 4000], np.int32)
     conf = dict(aug_prob_spect=0.8, aug_prob_8khz=0.5)
     key = jax.random.PRNGKey(6)
-    want, want_lens = jax_featurize(jnp.asarray(audio), jnp.asarray(lens),
-                                    JaxAudioConf(**conf), aug_key=key)
+    want, want_lens = jax.jit(lambda a, n, k: jax_featurize(
+        a, n, JaxAudioConf(**conf), aug_key=k))(jnp.asarray(audio),
+                                                jnp.asarray(lens), key)
     k_spec, k_8k = jax.random.split(key)
     t = 1 + s // 160
     masks = {"spec": _jax_spec_draws(k_spec, b, t),
@@ -286,9 +307,8 @@ def test_spec_augment_draws_match_jax_in_distribution():
     b, t, prob = 1000, 40, 0.6
     ones = np.ones((b, 161, t), np.float32)
     lens = np.full(b, t, np.int32)
-    want = np.asarray(jax_spec.spec_augment(jnp.asarray(ones),
-                                            jnp.asarray(lens),
-                                            jax.random.PRNGKey(0), prob))
+    want = np.asarray(_spec_augment(jnp.asarray(ones), jnp.asarray(lens),
+                                    jax.random.PRNGKey(0), prob))
     gen = torch.Generator().manual_seed(0)
     got = spectrogram.spec_augment(torch.from_numpy(ones),
                                    torch.from_numpy(lens), gen, prob).numpy()
@@ -314,7 +334,7 @@ def test_noise_mix_draws_match_jax_in_distribution(data):
     bank, lens = jax_noise.build_noise_bank([data["noise"]], SR, n)
     audio = np.tile(y, (trials, 1))
     alens = np.full(trials, n, np.int32)
-    want = np.asarray(jax_noise.add_noise_batch(
+    want = np.asarray(_add_noise(
         jnp.asarray(audio), jnp.asarray(alens), jax.random.PRNGKey(7),
         jnp.asarray(bank), jnp.asarray(lens), prob=0.7, limit=0.5))
     got = noise_device.add_noise_batch(

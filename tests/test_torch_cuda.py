@@ -220,9 +220,8 @@ def _hold_ctc(dev, logits, ll, targets, tl, how=None):
     lp, ext = ctc_loss_mod._prep(logits, targets, 0)
     g = torch.linspace(0.5, 1.5, len(ll), device=dev)
     before = (ctc.alpha_launches, ctc.beta_launches)
-    alphas, loss = ctc.ctc_alpha(lp, ext, tl, ll, how=how)
-    dl, betas = ctc.ctc_beta(lp, ext, tl, ll, alphas, loss, g,
-                             with_betas=True, how=how)
+    alphas, loss = ctc._alpha(lp, ext, tl, ll, how)
+    dl, betas = ctc._beta(lp, ext, tl, ll, alphas, loss, g, True, how)
     assert (ctc.alpha_launches, ctc.beta_launches) == (before[0] + 1,
                                                        before[1] + 1)
     ref_a, ref_l = ctc.plain_alpha(lp, ext, tl, ll)

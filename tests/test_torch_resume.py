@@ -27,6 +27,7 @@
   HTML; ``--profile-dir`` writes a Chrome trace.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -104,10 +105,19 @@ def events(log_dir, run_id):
 
 # ---- the optimizer state as optax's leaves ----
 
+@functools.cache
+def _jax_model(classes, layers, seed):
+    """A JAX GRU DS2 (H 16) and its variables, initialised once, under jit
+    (one compile instead of one for each op of an eager init)."""
+    model, _ = jax_build_model("gru", classes, 16, layers)
+    variables = jax.jit(model.init, static_argnums=3)(
+        jax.random.PRNGKey(seed), jnp.zeros((1, 161, 51)), jnp.asarray([51]),
+        False)
+    return model, variables
+
+
 def _models(kind, kw):
-    model, _ = jax_build_model("gru", 29, 16, 2)
-    variables = model.init(jax.random.PRNGKey(1), jnp.zeros((1, 161, 51)),
-                           jnp.asarray([51]), False)
+    model, variables = _jax_model(29, 2, 1)
     tx = jax_build_optimizer(kind, lr=0.01, **kw)
     jstate = JaxTrainState.create(variables, tx)
     port, _ = build_model("gru", 29, 16, 2, device="cpu")
@@ -268,9 +278,7 @@ def test_jax_cli_resumes_the_port_checkpoint(runs):
     # the JAX restore_state takes the port's package: the leaf count and
     # shapes hold, the values bit for bit
     package = ckpt.load(runs["mid"])
-    model, _ = jax_build_model("gru", len(package["labels"]), 16, 1)
-    variables = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 161, 51)),
-                           jnp.asarray([51]), False)
+    _, variables = _jax_model(len(package["labels"]), 1, 0)
     state = JaxTrainState.create(variables, jax_build_optimizer("sgd"))
     restored = jax_ckpt.restore_state(package, state)
     for a, b in zip(jax.tree_util.tree_leaves(restored.opt_state),
@@ -369,9 +377,7 @@ def test_one_step_after_a_restore_matches_jax(runs):
     tolerances."""
     package = ckpt.load(runs["mid"])
     classes = len(package["labels"])
-    jmodel, _ = jax_build_model("gru", classes, 16, 1)
-    variables = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 161, 51)),
-                            jnp.asarray([51]), False)
+    jmodel, variables = _jax_model(classes, 1, 0)
     tx = jax_build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
     jstate = jax_ckpt.restore_state(package, JaxTrainState.create(variables,
                                                                   tx))
