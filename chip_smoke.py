@@ -93,6 +93,26 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    without the host waveform pipeline, and the CLI's steps/s with and
    without --augment, each over RATE_STEPS batches after RATE_WARM on the
    manifest repeated;
+13b. the serving path: the default train config with --no-bidirectional
+   (6 x GRU-800, context 20, f32) from seeded weights as a checkpoint,
+   the serve CLI on SERVE_UTTS synthetic utterances of 2-7.5 s with 8
+   slots and 0.96 s chunks, with --decoder greedy and device_beam: K1
+   once a tick and K10 once a beam step (48 a tick), tick latency p50 and
+   p95 after the first tick, audio-s/s; the same pool in-process, its
+   texts equal to the CLI's and held to one stream of each utterance
+   (equal, or apart only where that stream's top two logits tie within
+   their difference), 10 of its ticks on the host clock and profiled
+   (device ops, busy, idle); the stream with frozen normalization against
+   the batch forward (K2, f32) of 4 of the utterances;
+13c. the CNN zoo: a train step at phase 12's batch for cnn (width 256,
+   epilog 800, 6 body layers) and cnn_jasper, f32: K1, K8 and K9 once a
+   step; the loss and grad norm against the whole step through the plain
+   versions, K1's magnitudes against its plain version, each gradient
+   against the plain step from the same spectrogram; 5 steps and a
+   profiled one; cnn_residual through the pool (running SE), its texts
+   held to one stream each; transcribe --chunk-seconds 0.96 --se-mode
+   two_pass on cnn_jasper, its logits against the batch forward and its
+   text against the batch greedy text;
 14. K3 (lstm_fwd), both variants, against its plain version at the K2
    shapes (the training variant's residuals c and g too; bf16 in each
    recurrence variant, with the GEMM beside cuBLAS), beside cuDNN's
@@ -152,7 +172,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    recurrence variant the rule chose, each variant's time, a step's time
    and the projection GEMM's beside cuBLAS, K2's its wide layer 0, K8's
    and K9's their device time, the chain floor and F.ctc_loss's device
-   time, K9's the layer's times too), then the device line last.
+   time, K9's the layer's times too), after a line of the serving and
+   CNN figures, then the device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
 non-zero. Times are CUDA-event medians with warm L2; K1's and K10's (and
@@ -249,6 +270,26 @@ CLI_FULL_UTTS = 60
 RATE_WARM, RATE_STEPS = 5, 30
 SEARCHES = (("width 10", 10, False, BATCH), ("width 128", 128, False, 2),
             ("width 10 + LM", 10, True, BATCH))
+# the serving path (phase_serve): the default train config with
+# --no-bidirectional (6 x GRU-800, context 20), f32, on SERVE_UTTS synthetic
+# utterances of 2-7.5 s, 8 slots, 0.96 s chunks (96 frames, 48 outputs and
+# beam steps a tick); 10 ticks profiled
+SERVE_UTTS, SERVE_SLOTS, SERVE_CHUNK_S, SERVE_PROFILE_TICKS = 16, 8, 0.96, 10
+# a stream's logits against the batch forward of the same utterance (and a
+# pool lane's against one stream), x max(1, max|logits|): f32 throughout,
+# the chunk recurrence's and K2's sums in other orders
+STREAM_TOL = 1e-3
+# the CNN train step in f32 against the plain path. The whole step through
+# the plain versions moves the loss and the grad norm by ~1e-7, but K1's
+# ~1e-6 differences flip the ReLUs of the units nearest 0, each flip
+# dropping one position's term from the gradients below it (the first
+# run: one element by 4.9% of its tensor's largest). So the loss and the
+# norm are held relative on the whole plain path; K1's magnitudes of the
+# batch alone, at STFT_TOL (log1p(2^20 m) magnifies the f32 round-off of
+# the bins near 0: the log-spectrograms differ by ~1e-2, reported); and
+# each gradient, x max(1, max|grad|), against the plain path run from the
+# same spectrogram (K8/K9 against their twins, f32 sums in other orders)
+CNN_LOSS_TOL, CNN_GRAD_TOL = 1e-3, 1e-4
 # the synthetic LM's weights (the CLIs' defaults) and size
 LM_ALPHA, LM_BETA, LM_WORDS = 0.8, 1.0, 3000
 PROFILE_STEPS = 40  # beam steps under the profiler, per search
@@ -319,7 +360,7 @@ def random_weights(model, rng) -> dict:
     from deepspeech_tpu_torch.ops.rnn import CELL_GATES
 
     params, stats = torch_to_jax(model.state_dict())
-    gates = CELL_GATES[model.rnns[0].cell]
+    gates = CELL_GATES[model.rnns[0].cell] if hasattr(model, "rnns") else 1
 
     def fill(tree, path=()):
         for k, v in tree.items():
@@ -330,6 +371,12 @@ def random_weights(model, rng) -> dict:
             if k == "kernel" and v.ndim == 4:
                 fan_in = v.shape[0] * v.shape[1] * v.shape[2]
                 tree[k] = rng.standard_normal(v.shape) / np.sqrt(fan_in)
+            elif k == "kernel" and v.ndim == 3:  # a CNN's (k, in, out)
+                fan_in = v.shape[0] * v.shape[1]
+                tree[k] = rng.standard_normal(v.shape) / np.sqrt(fan_in)
+            elif k == "weight":  # the lookahead's (H, context + 1)
+                s = 1.0 / np.sqrt(v.shape[1])
+                tree[k] = rng.uniform(-s, s, v.shape)
             elif k == "kernel":
                 tree[k] = rng.standard_normal(v.shape) / np.sqrt(v.shape[0])
             elif k in ("w_ih", "b_ih", "w_hh", "b_hh"):
@@ -1904,7 +1951,7 @@ def phase_train_augmented(torch, floor: dict) -> dict:
 
     rng = np.random.default_rng(SEED + 24)
     model, _ = default_model(torch, SEED + 24)
-    batch = train_batch(torch, rng, LABELS)
+    batch = train_batch(torch, rng, LABELS, BATCH)
     width = 2 * batch["audio"].shape[1]
     bank = 0.3 * torch.randn(4, width, device="cuda")
     bank_lengths = torch.full((4,), width, dtype=torch.int32, device="cuda")
@@ -2641,6 +2688,473 @@ def phase_beam_cli(torch, model, meta, arpa: str, dslm: str) -> None:
                                  f"{want}); summary {summary} vs {mine}")
 
 
+def serve_utterances(rng, n: int | None = None) -> list:
+    """``n`` (SERVE_UTTS) synthetic utterances of 2 to 7.5 s."""
+    return [synthetic_audio(rng, int(s * SR))
+            for s in np.linspace(2.0, 7.5, n or SERVE_UTTS)]
+
+
+def write_requests(d: str, ys: list) -> str:
+    """The utterances as wavs under ``d`` and a manifest of them."""
+    from deepspeech_tpu_torch.audio.io import save_wav
+
+    manifest = os.path.join(d, "requests.csv")
+    with open(manifest, "w") as f:
+        for i, y in enumerate(ys):
+            wav = os.path.join(d, f"req{i:02d}.wav")
+            save_wav(wav, y, SR)
+            f.write(f"{wav},\n")
+    return manifest
+
+
+def serve_cli(path: str, manifest: str, out: str, *flags: str):
+    """One run of the serve CLI -> (records, ticks, audio-s/s, summary)."""
+    from deepspeech_tpu_torch.cli.serve import main
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = main(["--model-path", path, "--manifest", manifest,
+                   "--slots", str(SERVE_SLOTS), "--chunk-seconds",
+                   str(SERVE_CHUNK_S), "--output", out, *flags])
+    if rc != 0:
+        raise AssertionError(f"serve exited {rc}")
+    summary = err.getvalue().strip().splitlines()[-1]
+    m = re.search(r"over (\d+) ticks .* = (\d+) audio-s/s", summary)
+    if not m:
+        raise AssertionError(f"no serve summary: {summary!r}")
+    with open(out) as f:
+        records = [json.loads(line) for line in f]
+    return records, int(m.group(1)), int(m.group(2)), summary
+
+
+def drive_pool(pool, ys: list, on_tick=None) -> dict:
+    """The serve CLI's loop over ``ys`` (fill the free slots, tick, collect
+    the finished) -> {index: (text, logits)}; ``on_tick(i)`` runs before
+    tick i."""
+    pending, slot_of, out, i = list(range(len(ys))), {}, {}, 0
+
+    def collect():  # before a freed slot is leased again
+        for s in list(slot_of):
+            if pool.done(s):
+                out[slot_of.pop(s)] = (pool.text(s),
+                                       pool.collected_logits(s))
+
+    while pending or pool.busy():
+        collect()
+        while pending:
+            try:
+                s = pool.open()
+            except RuntimeError:
+                break
+            j = pending.pop(0)
+            pool.write(s, ys[j])
+            pool.close(s)
+            slot_of[s] = j
+        if on_tick is not None:
+            on_tick(i)
+        pool.tick()
+        i += 1
+    collect()
+    return out
+
+
+def hold_texts(label: str, got: dict, single) -> None:
+    """Each pool text against one stream of the same audio: equal, or
+    differing only where the stream's top two logits lie within the
+    logits' difference (a tie the two batch shapes may break apart)."""
+    for j, (text, logits) in sorted(got.items()):
+        ref_text, ref_logits = single(j)
+        if logits.shape != ref_logits.shape:
+            raise AssertionError(f"{label} {j}: logits {logits.shape} vs "
+                                 f"{ref_logits.shape}")
+        err = float(np.abs(logits - ref_logits).max())
+        scale = max(1.0, float(np.abs(ref_logits).max()))
+        if not err <= STREAM_TOL * scale:
+            raise AssertionError(f"{label} {j}: logits max_abs_err {err}")
+        if text != ref_text:
+            top2 = np.sort(ref_logits, -1)[:, -2:]
+            flips = logits.argmax(-1) != ref_logits.argmax(-1)
+            if not (top2[flips, 1] - top2[flips, 0] <= 2 * err).all():
+                raise AssertionError(f"{label} {j}: {text!r} != {ref_text!r}")
+            log(f"{label} {j}: text differs at {int(flips.sum())} tied "
+                f"frames")
+
+
+def phase_serve(torch, floor: dict) -> dict:
+    """The serving path: the unidirectional DS2 (6 x GRU-800, context 20,
+    f32) from seeded weights as a checkpoint, the serve CLI on
+    SERVE_UTTS synthetic utterances with greedy and with device-beam
+    decoding (K1 once a tick, K10 once a beam step), tick latency and
+    audio-s/s; the same pool's texts held to one stream each, 10 ticks
+    profiled; the stream with frozen normalization held to the batch
+    forward (K2, f32) of the same utterances."""
+    from deepspeech_tpu_torch.audio.features import (AudioConf,
+                                                     featurize_batch,
+                                                     make_window)
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.ops.cuda import stft
+    from deepspeech_tpu_torch.serve import StreamingTranscriber, StreamPool
+    from deepspeech_tpu_torch.text.labels import Labels
+    from deepspeech_tpu_torch.train import checkpoint as ckpt
+
+    rng = np.random.default_rng(SEED + 40)
+    model, meta = build_model("gru", CLASSES, HIDDEN, LAYERS,
+                              bidirectional=False, device="cuda")
+    random_weights(model, rng)
+    model.eval()
+    ys = serve_utterances(rng)
+    audio_s = sum(len(y) for y in ys) / SR
+    conf, labels = AudioConf(), Labels(LABELS)
+    chunk = int(SERVE_CHUNK_S * SR / conf.hop)
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ds2_uni.ckpt")
+        ckpt.save(path, ckpt.package_from_model(model, meta, LABELS,
+                                                conf.to_dict()))
+        manifest = write_requests(d, ys)
+        ticks_ms: list = []
+        tick = StreamPool.tick
+
+        def timed(self):
+            t0 = time.perf_counter()
+            frags = tick(self)
+            ticks_ms.append((time.perf_counter() - t0) * 1e3)
+            return frags
+
+        StreamPool.tick = timed
+        try:
+            for decoder in ("greedy", "device_beam"):
+                ticks_ms.clear()
+                reset_counts()
+                records, ticks, rate, summary = serve_cli(
+                    path, manifest, os.path.join(d, f"{decoder}.jsonl"),
+                    "--decoder", decoder)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                beam = decoder == "device_beam"
+                want = expect_counts(stft_mag=ticks,
+                                     topk=ticks * chunk // 2 if beam else 0)
+                log(f"serve CLI ({decoder}): {summary}; launches {counts}")
+                if counts != want or len(records) != len(ys):
+                    raise AssertionError(f"serve {decoder}: launches "
+                                         f"{counts} (expected {want}), "
+                                         f"{len(records)} records")
+                lat = np.asarray(ticks_ms[1:])
+                out[decoder] = dict(
+                    ticks=ticks, audio_s_per_s=rate,
+                    k1_per_tick=counts["stft_mag"] / ticks,
+                    k10_per_tick=counts["topk"] / ticks,
+                    tick_p50_ms=float(np.percentile(lat, 50)),
+                    tick_p95_ms=float(np.percentile(lat, 95)),
+                    texts={r["wav"]: r["transcription"] for r in records})
+                log(f"serve ({decoder}, {SERVE_SLOTS} slots, "
+                    f"{SERVE_CHUNK_S} s chunks, {audio_s:.1f} audio-s): "
+                    f"{ticks} ticks, K1 {out[decoder]['k1_per_tick']:.0f} "
+                    f"and K10 {out[decoder]['k10_per_tick']:.0f} a tick; "
+                    f"tick latency p50 {out[decoder]['tick_p50_ms']:.3f} ms "
+                    f"p95 {out[decoder]['tick_p95_ms']:.3f} ms (host clock, "
+                    f"ticks 2-{ticks}); {rate} audio-s/s")
+        finally:
+            StreamPool.tick = tick
+        wavs = sorted(out["greedy"]["texts"])
+
+    # the same pool in-process: its texts against one stream each, and 10
+    # of its ticks profiled
+    pool = StreamPool(model, labels, conf, chunk_frames=chunk,
+                      slots=SERVE_SLOTS, collect_logits=True)
+
+    def profile_ticks(i):
+        if i == 2:  # every slot busy from the first tick
+            t0 = time.perf_counter()
+            for _ in range(SERVE_PROFILE_TICKS):
+                pool.tick()
+            ms = (time.perf_counter() - t0) * 1e3
+            log(f"{SERVE_PROFILE_TICKS} serve ticks: {ms:.3f} ms on the host "
+                f"clock ({ms / SERVE_PROFILE_TICKS:.3f} ms a tick)")
+            profile_run(torch, f"{SERVE_PROFILE_TICKS} serve ticks "
+                        f"({SERVE_SLOTS} slots, greedy)",
+                        lambda: [pool.tick() for _ in range(
+                            SERVE_PROFILE_TICKS)], ms, floor)
+
+    got = drive_pool(pool, ys, profile_ticks)
+    # a lane's results do not depend on the other lanes: the CLI's texts
+    # are this pool's
+    cli = [out["greedy"]["texts"][w] for w in wavs]
+    if cli != [got[j][0] for j in range(len(ys))]:
+        raise AssertionError("the serve CLI's texts differ from the pool's")
+
+    def single(j):
+        st = StreamingTranscriber(model, labels, conf, chunk_frames=chunk)
+        st.feed(ys[j])
+        st.finish()
+        return st.texts[0], st.collected_logits()[0]
+
+    hold_texts("serve pool", got, single)
+    log(f"serve: the CLI's {len(ys)} texts equal the pool's, each held to "
+        f"one stream of its utterance")
+
+    # frozen normalization: the stream against the batch forward
+    window = make_window(conf.window, conf.n_fft)
+    worst = 0.0
+    for j in (0, 5, 10, 15):
+        y = torch.from_numpy(ys[j]).cuda()[None]
+        lens = torch.tensor([len(ys[j])], device="cuda")
+        with torch.no_grad():
+            mag = stft.stft_mag(y, conf.n_fft, conf.hop, window)[:, :161]
+            mean = torch.log1p(mag * 1048576.0).mean().item()
+            reset_counts()
+            spect, frames = featurize_batch(y, lens, conf)
+            ref, _, ref_lens = model(spect, frames)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        if counts != expect_counts(stft_mag=1, gru_fwd=LAYERS):
+            raise AssertionError(f"batch forward launches {counts}")
+        st = StreamingTranscriber(
+            model, labels, conf, chunk_frames=chunk,
+            frozen_norm=(np.array([mean], np.float32),
+                         np.array([1.0], np.float32)))
+        st.feed(ys[j])
+        st.finish()
+        stream = st.collected_logits()[0]
+        ref = ref[0, :int(ref_lens[0])].cpu().numpy()
+        if stream.shape != ref.shape:
+            raise AssertionError(f"stream {stream.shape} vs batch "
+                                 f"{ref.shape}")
+        err = float(np.abs(stream - ref).max())
+        scale = max(1.0, float(np.abs(ref).max()))
+        worst = max(worst, err / scale)
+        log(f"frozen-norm stream of utterance {j} ({len(ys[j]) / SR:.2f} s):"
+            f" logits max_abs_err vs the batch forward (K2, f32) {err:.3e} "
+            f"(scale {scale:.2f}, tolerance {STREAM_TOL * scale:.3e})")
+        if not err <= STREAM_TOL * scale:
+            raise AssertionError("the stream disagrees with the batch "
+                                 "forward")
+    out["frozen_norm_rel_err"] = worst
+    return out
+
+
+def cnn_step_grads(torch, model, batch, jitter, spect=None):
+    """A ConvStack's step_grads from ``batch`` (or from ``spect``, the
+    featurized batch): the dropout's keep masks from one seed in every
+    run -> (loss, grads by name, grad norm, spect)."""
+    from deepspeech_tpu_torch.ops import fp32_matmul
+    from deepspeech_tpu_torch.train.optim import global_norm
+    from deepspeech_tpu_torch.train.step import StepConfig, _loss, featurize
+
+    flags = []
+    hook = model.blocks[0].conv.weight.register_hook(
+        lambda g: flags.append(torch.backends.cudnn.allow_tf32))
+    model.train()
+    names, params = zip(*model.named_parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with fp32_matmul():
+        if spect is None:
+            spect, lengths = featurize(batch, StepConfig(), jitter)
+        else:
+            lengths = 1 + batch["audio_lengths"] // StepConfig().audio_conf.hop
+        logits, _, out_lens = model(spect, lengths, gen)
+        loss, _ = _loss(logits, out_lens, batch)
+        grads = torch.autograd.grad(loss, params)
+    hook.remove()
+    if flags != [False]:
+        raise AssertionError(f"cuDNN TF32 during the backward: {flags}")
+    return (loss.detach(), dict(zip(names, grads)), global_norm(grads),
+            spect.detach())
+
+
+def phase_cnn_train(torch, variant: str, floor: dict, **kw):
+    """One f32 train step of a CNN at BATCH x 7.5 s: loss, grad norm and
+    every gradient against the plain path, its launches (K1, K8, K9 once
+    each), 5 steps and a profiled one -> (model, meta, ms per step)."""
+    from deepspeech_tpu_torch.audio.features import make_window
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.ops.cuda import stft
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 descale_audio,
+                                                 make_train_step)
+
+    rng = np.random.default_rng(SEED + 50 + len(variant))
+    model, meta = build_model(variant, CLASSES, device="cuda", **kw)
+    random_weights(model, rng)
+    batch = train_batch(torch, rng, LABELS, BATCH)
+    jitter = torch.from_numpy(rng.uniform(-0.5, 0.5, BATCH).astype(
+        np.float32)).cuda()
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    loss, grads, norm, spect = cnn_step_grads(torch, model, batch, jitter)
+    model.load_state_dict(init)
+    with plain_path():
+        ref_loss, ref_grads, ref_norm, ref_spect = cnn_step_grads(
+            torch, model, batch, jitter)
+        model.load_state_dict(init)
+        _, same_grads, _, _ = cnn_step_grads(torch, model, batch, jitter,
+                                             spect)
+    model.load_state_dict(init)
+    torch.cuda.synchronize()
+    rel_loss = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    rel_norm = abs(norm.item() - ref_norm.item()) / ref_norm.item()
+    spect_err = max_err(spect, ref_spect)[0]
+    conf = StepConfig().audio_conf
+    window = make_window(conf.window, conf.n_fft)
+    audio = descale_audio(batch)
+    mag = stft.stft_mag(audio, conf.n_fft, conf.hop, window)
+    ref_mag = stft.plain(audio, conf.n_fft, conf.hop, window)
+    mag_ok = bool(((mag - ref_mag).abs() <= STFT_TOL["atol"]
+                   + STFT_TOL["rtol"] * ref_mag.abs()).all())
+    worst = max((max_err(grads[k], same_grads[k])[0]
+                 / max_err(grads[k], same_grads[k])[1], k) for k in grads)
+    flips = max((max_err(grads[k], ref_grads[k])[0]
+                 / max_err(grads[k], ref_grads[k])[1], k) for k in grads)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{variant} ({len(model.blocks)} blocks, {n_params / 1e6:.2f} M "
+        f"parameters) train step vs plain path: loss {loss.item():.4f} / "
+        f"{ref_loss.item():.4f} (rel {rel_loss:.2e}), grad norm "
+        f"{norm.item():.4f} / {ref_norm.item():.4f} (rel {rel_norm:.2e}); "
+        f"K1's magnitudes {'within' if mag_ok else 'outside'} {STFT_TOL} "
+        f"(max_abs_err {max_err(mag, ref_mag)[0]:.2e}; the "
+        f"log-spectrograms' {spect_err:.2e}); from the same spectrogram "
+        f"{len(grads)} grads, worst {worst[1]} at {worst[0]:.2e} x scale "
+        f"(tolerances {CNN_LOSS_TOL}, {CNN_GRAD_TOL} x scale); through the "
+        f"whole plain path (ReLU flips) worst {flips[1]} at "
+        f"{flips[0]:.2e}")
+    if not (rel_loss <= CNN_LOSS_TOL and rel_norm <= CNN_LOSS_TOL
+            and mag_ok and worst[0] <= CNN_GRAD_TOL):
+        raise AssertionError(f"{variant} train step disagrees with plain")
+    zero = [k for k, g in grads.items() if not g.abs().max().item() > 0]
+    if zero:
+        raise AssertionError(f"parameters without a gradient: {zero}")
+    optimizer = build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
+    state = TrainState.create(model, optimizer)
+    step = make_train_step(model, optimizer, StepConfig())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times = []
+    for i in range(5):
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch, generator=gen)
+        end.record()
+        end.synchronize()
+        counts = read_counts()
+        if counts != expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1):
+            raise AssertionError(f"{variant} train step launches {counts}")
+        times.append(start.elapsed_time(end))
+        if not np.isfinite(m["loss"].item()) or bool(m["step_skipped"]):
+            raise AssertionError(f"{variant} step {i}: loss "
+                                 f"{m['loss'].item()}")
+        log(f"{variant} train step {i + 1}: loss {m['loss'].item():.4f}, "
+            f"grad norm {m['grad_norm'].item():.3f}, {times[-1]:.3f} ms")
+    ms = float(np.median(times[1:]))
+    audio_s = float(batch["audio_lengths"].sum().item()) / SR
+    log(f"{variant} train path: launches {counts}; {ms:.3f} ms per step "
+        f"(median of steps 2-5, CUDA events, f32) for {audio_s:.2f} s of "
+        f"audio = {audio_s / (ms / 1e3):.1f} audio-s/s")
+    profile_run(torch, f"{variant} train step",
+                lambda: step(state, batch, generator=gen), ms, floor)
+    return model.eval(), meta, ms
+
+
+def phase_cnn(torch, floor: dict) -> dict:
+    """The CNN zoo on the card: the train step of ``cnn`` (width 256,
+    epilog 800, 6 repeats) and ``cnn_jasper``; ``cnn_residual`` through
+    the pool (running SE), its texts held to one stream each; transcribe
+    --chunk-seconds 0.96 --se-mode two_pass on cnn_jasper, its logits held
+    to the batch forward."""
+    from deepspeech_tpu_torch.audio.features import (AudioConf,
+                                                     featurize_batch)
+    from deepspeech_tpu_torch.audio.io import save_wav
+    from deepspeech_tpu_torch.cli.transcribe import main
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.serve import CNNStreamingTranscriber, StreamPool
+    from deepspeech_tpu_torch.text.labels import Labels
+    from deepspeech_tpu_torch.train import checkpoint as ckpt
+
+    out = {}
+    _, _, out["cnn_step_ms"] = phase_cnn_train(
+        torch, "cnn", floor, hidden_size=HIDDEN, hidden_layers=LAYERS,
+        cnn_width=256)
+    jasper, jmeta, out["cnn_jasper_step_ms"] = phase_cnn_train(
+        torch, "cnn_jasper", floor)
+
+    conf, labels = AudioConf(), Labels(LABELS)
+    chunk = int(SERVE_CHUNK_S * SR / conf.hop)
+    rng = np.random.default_rng(SEED + 60)
+    residual, _ = build_model("cnn_residual", CLASSES, HIDDEN, LAYERS,
+                              cnn_width=256, device="cuda")
+    random_weights(residual, rng)
+    residual.eval()
+    ys = serve_utterances(rng, SERVE_SLOTS)
+    pool = StreamPool(residual, labels, conf, chunk_frames=chunk,
+                      slots=SERVE_SLOTS, collect_logits=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    ticks = []
+    got = drive_pool(pool, ys, ticks.append)
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != expect_counts(stft_mag=len(ticks)):
+        raise AssertionError(f"cnn_residual pool launches {counts}")
+
+    def single(j):
+        st = CNNStreamingTranscriber(residual, labels, conf,
+                                     chunk_frames=chunk)
+        st.feed(ys[j])
+        st.finish()
+        return st.texts[0], st.collected_logits()[0]
+
+    hold_texts("cnn_residual pool", got, single)
+    audio_s = sum(len(y) for y in ys) / SR
+    log(f"cnn_residual pool (running SE, {SERVE_SLOTS} slots): {len(ticks)} "
+        f"ticks, launches {counts}, {audio_s / dt:.1f} audio-s/s (host "
+        f"clock); texts held to one stream each")
+
+    y = synthetic_audio(rng, AUDIO_S)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "jasper.ckpt")
+        ckpt.save(path, ckpt.package_from_model(jasper, jmeta, LABELS,
+                                                conf.to_dict()))
+        wav = os.path.join(d, "req.wav")
+        save_wav(wav, y, SR)
+        reset_counts()
+        text, dt = transcribe_once(main, path, wav, "--chunk-seconds",
+                                   str(SERVE_CHUNK_S), "--se-mode",
+                                   "two_pass")
+        torch.cuda.synchronize()
+        counts = read_counts()
+    reset_counts()
+    st = CNNStreamingTranscriber(jasper, labels, conf, chunk_frames=chunk,
+                                 se_mode="two_pass")
+    st.feed(y)
+    st.finish()
+    torch.cuda.synchronize()
+    direct = read_counts()  # K1 once a chunk, once for the second pass
+    yt = torch.from_numpy(y).cuda()[None]
+    with torch.no_grad():
+        spect, frames = featurize_batch(
+            yt, torch.tensor([len(y)], device="cuda"), conf)
+        ref, _, lens = jasper(spect, frames)
+    ref = ref[0, :int(lens[0])].cpu().numpy()
+    stream = st.collected_logits()[0]
+    err = float(np.abs(stream - ref).max()) if stream.shape == ref.shape \
+        else float("inf")
+    from deepspeech_tpu_torch.decoders import GreedyDecoder
+    want = GreedyDecoder(LABELS).decode_ids(ref.argmax(-1)[None],
+                                            [ref.shape[0]])[0][0][0]
+    log(f"transcribe --chunk-seconds {SERVE_CHUNK_S} --se-mode two_pass on "
+        f"cnn_jasper ({AUDIO_S / SR} s): {dt:.3f} s (host clock, checkpoint "
+        f"load included), launches {counts}; logits max_abs_err vs the batch "
+        f"forward {err:.3e}; text {'equals' if text == want else 'differs from'}"
+        f" the batch greedy text")
+    if (not err <= STREAM_TOL * max(1.0, float(np.abs(ref).max()))
+            or text != want or counts != direct
+            or counts != expect_counts(stft_mag=counts["stft_mag"])
+            or counts["stft_mag"] < 2):
+        raise AssertionError("two_pass transcribe disagrees with the batch "
+                             "forward")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2708,6 +3222,11 @@ def main() -> int:
     mark("the GRU train step and train CLI")
     phase_train_cli_full(torch)
     mark("the train CLI with every ported flag, and its resume")
+    serve = phase_serve(torch, floor)
+    mark("the serving path (the serve CLI, the pool, the frozen-norm "
+         "stream)")
+    cnn = phase_cnn(torch, floor)
+    mark("the CNN zoo (train steps, the pool, two_pass transcribe)")
     # the LSTM cell: K3 and K7, then its inference, train and CLI paths
     phase_layer_fwd(torch, results, "lstm")
     phase_layer_bwd(torch, results, "lstm")
@@ -2753,6 +3272,9 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], **r.get("extra", {})})
     log(card)
+    serve["greedy"].pop("texts")
+    serve["device_beam"].pop("texts")
+    log(json.dumps({"serve": serve, "cnn": cnn}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,8 +89,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden-size", default=800, type=int)
     p.add_argument("--hidden-layers", default=6, type=int)
     p.add_argument("--rnn-type", default="gru",
-                   help="gru, lstm or rnn (the CNN models are not ported "
-                        "yet)")
+                   help="gru, lstm, rnn, or a CNN: cnn, cnn_residual, "
+                        "glu_small, glu_large, large_cnn, cnn_jasper")
     p.add_argument("--cnn-width", default=256, type=int)
     p.add_argument("--dropout", default=0, type=float)
     p.add_argument("--no-bidirectional", dest="bidirectional",

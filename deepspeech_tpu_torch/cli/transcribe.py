@@ -6,8 +6,10 @@
 Same flags and JSON as the JAX package's ``transcribe``: ``--decoder
 greedy``, ``beam`` (host search) or ``device_beam`` (the search on
 ``--device``, reading the posteriors where the model left them), each
-with ``--lm-path`` (ARPA or DSLM). Not ported yet (raises SystemExit naming
-the later slice): ``--chunk-seconds > 0`` (streaming).
+with ``--lm-path`` (ARPA or DSLM). ``--chunk-seconds > 0`` streams the
+audio through the chunked runtime (``serve/``; a unidirectional DS2 or a
+CNN stack, ``--se-mode`` for the SE stacks), echoing each fragment to
+stderr; ``beam`` and ``device_beam`` then select the streaming device beam.
 """
 
 from __future__ import annotations
@@ -38,21 +40,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--norm", default="max_frame")
     p.add_argument("--se-mode", default="running",
                    choices=["running", "two_pass", "error"],
-                   help="squeeze-excitation handling for streamed CNN stacks "
-                        "(streaming is not ported yet)")
+                   help="squeeze-excitation handling for streamed CNN "
+                        "stacks: 'running' = causal running-mean gate "
+                        "(live approximation), 'two_pass' = provisional "
+                        "fragments + an exact batch recompute at end of "
+                        "stream (final JSON equals the batch model "
+                        "exactly), 'error' = refuse SE stacks")
     p.add_argument("--chunk-seconds", default=0.0, type=float,
-                   help="streaming; not ported yet")
+                   help="stream the audio through the low-latency chunked "
+                        "runtime (unidirectional models only), emitting "
+                        "text incrementally to stderr")
     add_decoder_args(p)
     add_reference_noop_args(p)
     return p
-
-
-def check_ported(args) -> None:
-    """Refuse the flags whose paths this package has not ported yet."""
-    if args.chunk_seconds > 0:
-        raise SystemExit("--chunk-seconds: streaming is not ported to "
-                         "PyTorch yet (the streaming/serve slice, "
-                         "ROADMAP.md)")
 
 
 @torch.inference_mode()
@@ -73,6 +73,60 @@ def transcribe(audio_path, audio_conf, model, decoder, norm="max_frame",
     spect, spect_lengths = featurize_batch(audio, lengths, audio_conf, norm)
     _, probs, out_lens = model(spect, spect_lengths)
     return decoder.decode(probs, out_lens)
+
+
+def transcribe_streaming(audio_path, audio_conf, model, labels,
+                         chunk_seconds, norm="max_frame", channel=-1,
+                         echo=None, decoder="greedy", beam_width=16,
+                         cutoff_top_n=40, cutoff_prob=1.0, top_paths=1,
+                         lm_path=None, alpha=0.8, beta=1.0,
+                         se_mode="running"):
+    """The chunked path (``serve/``): feeds the wav through the streaming
+    runtime in ``chunk_seconds`` pieces on the model's device, reporting
+    each incremental greedy fragment through ``echo``, and returns the
+    final transcript as (strings, offsets), the shape ``transcribe``
+    returns. With ``decoder`` beam or device_beam the streaming beam search
+    rides the same emission and the transcript is its best beam."""
+    from deepspeech_tpu_torch.audio.dsp import resample
+    from deepspeech_tpu_torch.audio.io import load_audio_norm
+    from deepspeech_tpu_torch.models.cnn import ConvStack
+    from deepspeech_tpu_torch.serve import (CNNStreamingTranscriber,
+                                            StreamingTranscriber)
+    from deepspeech_tpu_torch.serve.streaming_cnn import conv_stack_geometry
+
+    y, sr = load_audio_norm(audio_path, channel=channel)
+    if sr != audio_conf.sample_rate:
+        y = resample(y, sr, audio_conf.sample_rate)
+    extra = {}
+    if isinstance(model, ConvStack):
+        # chunked overlap-save: a multiple of the stack's total stride
+        stride = conv_stack_geometry(model.specs)[-1][0]
+        cls, extra = CNNStreamingTranscriber, {"se_mode": se_mode}
+    else:
+        stride, cls = 2, StreamingTranscriber
+    quantum = stride * 2 if stride % 2 else stride  # DS2 also needs even
+    chunk_frames = max(
+        4, quantum * max(1, round(chunk_seconds * audio_conf.sample_rate
+                                  / audio_conf.hop / quantum)))
+    use_beam = decoder in ("beam", "device_beam")
+    st = cls(model, labels, audio_conf, normalize=norm, **extra,
+             chunk_frames=chunk_frames,
+             decoder="beam" if use_beam else "greedy",
+             beam_width=beam_width, cutoff_top_n=cutoff_top_n,
+             cutoff_prob=cutoff_prob, lm_path=lm_path if use_beam else None,
+             lm_alpha=alpha, lm_beta=beta)
+    step = chunk_frames * audio_conf.hop
+    for pos in range(0, len(y), step):
+        for frag in st.feed(y[pos:pos + step]):
+            if frag and echo:
+                echo(frag)
+    for frag in st.finish():
+        if frag and echo:
+            echo(frag)
+    if use_beam:
+        return ([st.beam_texts(top_paths=top_paths)[0]],
+                [[np.zeros(0, np.int32)] * top_paths])
+    return [[st.texts[0]]], [[np.zeros(0, np.int32)]]
 
 
 def decode_results(decoded_output, decoded_offsets, args, package):
@@ -107,16 +161,30 @@ def decode_results(decoded_output, decoded_offsets, args, package):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    check_ported(args)
     from deepspeech_tpu_torch.cli.common import (build_decoder,
                                                  load_inference_model)
 
     model, labels, audio_conf, package = load_inference_model(
         args.continue_from, device=args.device)
     decoder = build_decoder(args, labels)
-    decoded_output, decoded_offsets = transcribe(
-        args.audio_path, audio_conf, model, decoder, norm=args.norm,
-        channel=args.channel, device=args.device)
+    if args.chunk_seconds > 0:
+        import sys
+
+        def echo(frag):
+            print(frag, end="", file=sys.stderr, flush=True)
+
+        decoded_output, decoded_offsets = transcribe_streaming(
+            args.audio_path, audio_conf, model, labels, args.chunk_seconds,
+            norm=args.norm, channel=args.channel, echo=echo,
+            decoder=args.decoder, beam_width=args.beam_width,
+            cutoff_top_n=args.cutoff_top_n, cutoff_prob=args.cutoff_prob,
+            top_paths=args.top_paths, lm_path=args.lm_path,
+            alpha=args.alpha, beta=args.beta, se_mode=args.se_mode)
+        print(file=sys.stderr)
+    else:
+        decoded_output, decoded_offsets = transcribe(
+            args.audio_path, audio_conf, model, decoder, norm=args.norm,
+            channel=args.channel, device=args.device)
     output = decode_results(decoded_output, decoded_offsets, args, package)
     output["input"] = {"channel": args.channel, "source": args.audio_path}
     output["model"] = {"model": args.continue_from}

@@ -1,8 +1,10 @@
 """Weight bridge between the JAX package's variable trees and the port.
 
 The JAX model's ``params`` and ``batch_stats`` are nested dicts of numpy
-arrays (as checkpoints hold them); the port's DeepSpeech2 takes a torch
-``state_dict``. The map:
+arrays (as checkpoints hold them); the port's models take a torch
+``state_dict``. The family is recognised from the keys (``block0`` in the
+JAX params, ``blocks.0.conv.weight`` in the state_dict: a ``ConvStack``).
+The DeepSpeech2 map:
 
 * ``conv/conv{i}/kernel`` (kh, kw, in, out) <-> ``conv.conv{i}.weight``
   (out, in, kh, kw), i.e. transpose (3, 2, 0, 1); ``bias`` as is;
@@ -12,6 +14,15 @@ arrays (as checkpoints hold them); the port's DeepSpeech2 takes a torch
 * ``rnn{i}/{w_ih,b_ih,w_hh,b_hh}`` <-> ``rnns.{i}.{...}``, same layout;
 * ``fc/kernel`` (H, C) <-> ``fc.weight`` (C, H);
 * ``lookahead/weight`` <-> ``lookahead.weight``.
+
+The ConvStack map (``models/cnn.py``):
+
+* ``block{i}/conv/kernel`` (k, in, out) <-> ``blocks.{i}.conv.weight``
+  (out, in, k); ``bias`` where the block has one;
+* ``block{i}/bn``: as the BatchNorms above;
+* ``block{i}/se_reduce``, ``se_expand``: Dense ``kernel`` (in, out) <->
+  Linear ``weight`` (out, in), ``bias`` as is;
+* ``fc/kernel`` (1, in, C) <-> ``fc.weight`` (C, in, 1); ``fc/bias``.
 """
 
 from __future__ import annotations
@@ -57,8 +68,65 @@ def tree_items(tree: dict, prefix: tuple = ()):
             yield prefix + (key,), tree[key]
 
 
+def _f32(sd: dict) -> dict:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in sd.items()}
+
+
+def _cnn_to_torch(params: dict, batch_stats: dict) -> dict:
+    sd = {}
+    i = 0
+    while f"block{i}" in params:
+        p, t = params[f"block{i}"], f"blocks.{i}"
+        sd[f"{t}.conv.weight"] = np.asarray(p["conv"]["kernel"]).transpose(
+            2, 1, 0)
+        if "bias" in p["conv"]:
+            sd[f"{t}.conv.bias"] = p["conv"]["bias"]
+        if "bn" in p:
+            for jk, tk in _BN_PARAMS:
+                sd[f"{t}.bn.{tk}"] = p["bn"][jk]
+            for jk, tk in _BN_STATS:
+                sd[f"{t}.bn.{tk}"] = batch_stats[f"block{i}"]["bn"][jk]
+        for se in ("se_reduce", "se_expand"):
+            if se in p:
+                sd[f"{t}.{se}.weight"] = np.asarray(p[se]["kernel"]).T
+                sd[f"{t}.{se}.bias"] = p[se]["bias"]
+        i += 1
+    sd["fc.weight"] = np.asarray(params["fc"]["kernel"]).transpose(2, 1, 0)
+    sd["fc.bias"] = params["fc"]["bias"]
+    return _f32(sd)
+
+
+def _cnn_to_jax(sd: dict) -> tuple[dict, dict]:
+    params: dict = {}
+    stats: dict = {}
+    i = 0
+    while f"blocks.{i}.conv.weight" in sd:
+        t, j = f"blocks.{i}", f"block{i}"
+        _set(params, (j, "conv"), "kernel",
+             sd[f"{t}.conv.weight"].transpose(2, 1, 0).copy())
+        if f"{t}.conv.bias" in sd:
+            _set(params, (j, "conv"), "bias", sd[f"{t}.conv.bias"])
+        if f"{t}.bn.weight" in sd:
+            for jk, tk in _BN_PARAMS:
+                _set(params, (j, "bn"), jk, sd[f"{t}.bn.{tk}"])
+            for jk, tk in _BN_STATS:
+                _set(stats, (j, "bn"), jk, sd[f"{t}.bn.{tk}"])
+        for se in ("se_reduce", "se_expand"):
+            if f"{t}.{se}.weight" in sd:
+                _set(params, (j, se), "kernel",
+                     sd[f"{t}.{se}.weight"].T.copy())
+                _set(params, (j, se), "bias", sd[f"{t}.{se}.bias"])
+        i += 1
+    _set(params, ("fc",), "kernel", sd["fc.weight"].transpose(2, 1, 0).copy())
+    _set(params, ("fc",), "bias", sd["fc.bias"])
+    return params, stats
+
+
 def jax_to_torch(params: dict, batch_stats: dict) -> dict:
     """JAX variable trees (numpy leaves) -> the port's state_dict."""
+    if "block0" in params:
+        return _cnn_to_torch(params, batch_stats)
     sd = {}
     for i in (0, 1):
         conv = params["conv"][f"conv{i}"]
@@ -78,14 +146,15 @@ def jax_to_torch(params: dict, batch_stats: dict) -> dict:
     sd["fc.weight"] = np.asarray(params["fc"]["kernel"]).T
     if "lookahead" in params:
         sd["lookahead.weight"] = params["lookahead"]["weight"]
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in sd.items()}
+    return _f32(sd)
 
 
 def torch_to_jax(state_dict: dict) -> tuple[dict, dict]:
     """The port's state_dict -> (params, batch_stats) JAX trees of numpy
     arrays."""
     sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    if "blocks.0.conv.weight" in sd:
+        return _cnn_to_jax(sd)
     params: dict = {}
     stats: dict = {}
     for i in (0, 1):

@@ -53,15 +53,23 @@ class ConvFrontend(nn.Module):
         self.bn0 = TorchBatchNorm(32, bnm, axis=1)
         self.bn1 = TorchBatchNorm(32, bnm, axis=1)
 
-    def forward(self, x: torch.Tensor, out_lengths: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, out_lengths: torch.Tensor,
+                out_start: torch.Tensor | None = None) -> torch.Tensor:
+        """``out_start``: optional (B,) first valid conv-output index. The
+        streaming runtime (``serve/streaming.py``) zeroes the activations
+        before a window's valid range as the mask zeroes them past its
+        end, so conv2 reads true zeros at both boundaries."""
         cd = self.compute_dtype
         h = x[:, None]
         for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
             with fp32_matmul():
                 h = F.conv2d(_rounded(h, cd), _rounded(conv.weight, cd),
                              conv.bias.float(), conv.stride, conv.padding)
-            mask = length_mask(out_lengths, h.shape[-1])[:, None, None, :]
+            mask = length_mask(out_lengths, h.shape[-1])
+            if out_start is not None:
+                idx = torch.arange(h.shape[-1], device=h.device)[None, :]
+                mask = mask * (idx >= out_start[:, None]).float()
+            mask = mask[:, None, None, :]
             h = h * mask
             h = bn(h) * mask
             h = hardtanh_0_20(h) * mask

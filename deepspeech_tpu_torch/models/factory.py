@@ -2,8 +2,9 @@
 
 ``build_model`` returns (module, meta), where ``meta`` is the
 self-description embedded into checkpoints; ``model_from_meta`` rebuilds
-the module from it. The port has the DS2 GRU model so far: the other keys
-raise and name ROADMAP.md.
+the module from it. ``rnn``/``gru``/``lstm`` build a ``DeepSpeech2``, the
+six CNN keys a ``ConvStack`` (``models/cnn.py``); ``glu_flexible`` raises
+``NotImplementedError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ RNN_KEYS = ("rnn", "gru", "lstm")
 CNN_KEYS = ("cnn", "cnn_residual", "glu_small", "glu_large", "large_cnn",
             "cnn_jasper")
 SUPPORTED = RNN_KEYS + CNN_KEYS
-PORTED = RNN_KEYS
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": None, "f32": None, None: None}
@@ -33,7 +33,8 @@ def build_model(rnn_type: str = "gru", num_classes: int = 29,
 
     ``compute_dtype``: matmul operand type ("bfloat16" / torch.bfloat16, or
     None for float32). A runtime choice: the weights are always float32 and
-    the dtype is not part of the checkpoint meta."""
+    the dtype is not part of the checkpoint meta. The CNN family ignores
+    it and runs in f32, as the JAX factory builds it."""
     dev = resolve_device(device)
     if isinstance(compute_dtype, str) or compute_dtype is None:
         compute_dtype = _DTYPES[compute_dtype]
@@ -44,13 +45,19 @@ def build_model(rnn_type: str = "gru", num_classes: int = 29,
         "bidirectional": bidirectional, "bnm": bnm, "cnn_width": cnn_width,
         "dropout": dropout, "context": context,
     }
-    if rnn_type not in SUPPORTED:
+    if rnn_type in CNN_KEYS:
+        from deepspeech_tpu_torch.models.cnn import build_cnn_model
+        # bidirectional=False means "use GLU" for the cnn variant
+        model = build_cnn_model(
+            rnn_type, num_classes=num_classes, cnn_width=cnn_width,
+            hidden_size=hidden_size, hidden_layers=hidden_layers,
+            dropout=dropout, bnm=bnm, use_glu=not bidirectional)
+        return model.to(dev), meta
+    if rnn_type == "glu_flexible":
+        raise NotImplementedError("glu_flexible is not implemented")
+    if rnn_type not in RNN_KEYS:
         raise ValueError(
             f"unsupported rnn_type {rnn_type!r}; choose from {SUPPORTED}")
-    if rnn_type not in PORTED:
-        raise NotImplementedError(
-            f"rnn_type {rnn_type!r} is not ported to PyTorch yet (see "
-            "ROADMAP.md); the port has: " + ", ".join(PORTED))
     model = DeepSpeech2(num_classes=num_classes, hidden_size=hidden_size,
                         hidden_layers=hidden_layers, cell=rnn_type,
                         bidirectional=bidirectional, context=context,

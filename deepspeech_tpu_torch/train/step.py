@@ -2,8 +2,8 @@
 
 One call of ``train_step`` runs the reference loop body (reference
 train.py:555-647) on the model's device: wire descale -> featurize (K1) ->
-forward (K2 with residuals) -> CTC (K8) -> backward (K9, K5, cuBLAS and
-cuDNN) -> clip -> NaN guard -> SGD/Adam update, plus the greedy ids the
+forward (a DeepSpeech2's K2 with residuals, or a ConvStack's cuDNN convs)
+-> CTC (K8) -> backward (K9, then K5, cuBLAS and cuDNN) -> clip -> NaN guard -> SGD/Adam update, plus the greedy ids the
 loop reports. Everything from the featurize to the update runs with TF32
 off (``ops.fp32_matmul``), the backward included: cuDNN's convolution
 gradients would otherwise run in TF32.
@@ -129,6 +129,15 @@ def _loss(logits, out_lens, batch):
     return loss, per_sample
 
 
+def dropout_kw(model: torch.nn.Module,
+               generator: torch.Generator | None) -> dict:
+    """The forward's keyword for its dropout draws: a ``ConvStack`` draws
+    its keep masks from ``generator``; DeepSpeech2 has no dropout."""
+    from deepspeech_tpu_torch.models.cnn import ConvStack
+
+    return {"generator": generator} if isinstance(model, ConvStack) else {}
+
+
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                     cfg: StepConfig = StepConfig()) -> Callable:
     """-> train_step(state, batch, jitter=None, generator=None,
@@ -139,7 +148,8 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     (B, L), target_lengths, optional valid (B,), and with the noise mix on
     the bank, noise_bank (N, S2) and noise_bank_lengths (N,). With a
     ``generator`` the step draws its augmentation from it
-    (``draw_augment``: the jitter, the masks, the noise); ``jitter`` (B,),
+    (``draw_augment``: the jitter, the masks, the noise; then a
+    ``ConvStack``'s dropout); ``jitter`` (B,),
     when given, replaces the drawn jitter. metrics: loss, per_sample,
     greedy ids, out_lens, grad_norm, step_skipped, all on the device, and
     with ``return_grads`` the gradients (a list in the model's parameter
@@ -159,7 +169,8 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
         with fp32_matmul():
             spect, lengths = featurize(batch, cfg, jitter, draws["masks"],
                                        draws["noise"])
-            logits, _, out_lens = model(spect, lengths)
+            logits, _, out_lens = model(spect, lengths,
+                                        **dropout_kw(model, generator))
             has_nan = torch.isnan(logits).any()
             logits = torch.where(torch.isnan(logits), 0.0, logits)
             loss, per_sample = _loss(logits, out_lens, batch)

@@ -835,3 +835,134 @@ def test_device_masks_and_noise_mix_match_cpu(dev):
         audio.to(dev), alens.to(dev), {k: v.to(dev) for k, v in draws.items()},
         bank.to(dev), blens.to(dev), 0.6, 0.2, reflect_pad=160)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+
+
+# ---- the serving path and the CNN zoo on the card ----
+
+SERVE_LABELS = "_'ABCDEFGHIJKLMNOPQRSTUVWXYZ2 "
+
+
+def _serve_audio(seconds, seed):
+    rng = np.random.default_rng(seed)
+    n = int(16000 * seconds)
+    t = np.arange(n) / 16000
+    return (0.3 * np.sin(2 * np.pi * (300 + 40 * seed) * t)
+            + 0.1 * rng.standard_normal(n)).astype(np.float32)
+
+
+def _uni_ds2(device, cell="gru"):
+    from deepspeech_tpu_torch.models import build_model
+
+    torch.manual_seed(0)
+    model, _ = build_model(cell, len(SERVE_LABELS), 64, 2,
+                           bidirectional=False, device="cpu")
+    return model.eval(), model.to(device).eval()
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_streamed_chunks_match_cpu(dev, cell):
+    """The stream on the card (K1 a chunk) against the same stream on the
+    CPU port: logits to 1e-3 (f32 sums in other orders through two layers
+    and the lookahead)."""
+    import copy
+
+    from deepspeech_tpu_torch.ops.cuda import stft
+    from deepspeech_tpu_torch.serve import StreamingTranscriber
+    from deepspeech_tpu_torch.text.labels import Labels
+
+    cpu_model, _ = _uni_ds2("cpu", cell)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    y = _serve_audio(1.7, 1)
+    out = []
+    for model in (cpu_model, card_model):
+        st = StreamingTranscriber(model, Labels(SERVE_LABELS),
+                                  chunk_frames=40)
+        before = stft.launches
+        st.feed(y)
+        st.finish()
+        out.append((st.collected_logits(), stft.launches - before))
+    (ref, cpu_launches), (got, launches) = out
+    assert cpu_launches == 0 and launches >= 1
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
+
+
+def test_pool_tick_counts_k1_and_k10(dev):
+    """A beam pool's tick on the card launches K1 once and K10 once a beam
+    step (an emitted output), for any number of busy slots."""
+    from deepspeech_tpu_torch.ops.cuda import stft, topk
+    from deepspeech_tpu_torch.serve import StreamPool
+    from deepspeech_tpu_torch.text.labels import Labels
+
+    _, model = _uni_ds2(dev)
+    pool = StreamPool(model, Labels(SERVE_LABELS), chunk_frames=40, slots=3,
+                      decoder="beam", beam_width=8)
+    s = pool.open()
+    pool.write(s, _serve_audio(1.0, 2))
+    pool.close(s)
+    ticks = 0
+    while pool.busy():
+        k1, k10 = stft.launches, topk.launches
+        pool.tick()
+        ticks += 1
+        assert stft.launches - k1 == 1
+        assert topk.launches - k10 == 40 // 2
+    assert ticks >= 2 and pool.done(s) and isinstance(pool.beam_text(s), str)
+
+
+@pytest.mark.parametrize("variant", ["cnn", "cnn_residual"])
+def test_cnn_train_step_matches_plain(dev, variant):
+    """A small CNN's train step on the card: K1, K8 and K9 once each, the
+    loss and every gradient against the same step through the plain
+    versions (f32: 1e-4 relative, gradients 1e-3 of their largest)."""
+    import contextlib
+
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.ops.cuda import ctc, stft
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_train_step)
+
+    torch.manual_seed(1)
+    model, _ = build_model(variant, len(SERVE_LABELS), 48, 2, cnn_width=32,
+                           device=dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(3)
+    lens = np.array([16000, 12800, 9600])
+    audio = np.zeros((3, 16000), np.float32)
+    for i, n in enumerate(lens):
+        audio[i, :n] = _serve_audio(n / 16000, i)
+    targets = rng.integers(1, len(SERVE_LABELS), (3, 12)).astype(np.int32)
+    batch = {"audio": torch.from_numpy(audio).to(dev),
+             "audio_lengths": torch.from_numpy(lens).to(dev),
+             "targets": torch.from_numpy(targets).to(dev),
+             "target_lengths": torch.tensor([12, 9, 6], device=dev)}
+    jitter = torch.zeros(3, device=dev)
+
+    @contextlib.contextmanager
+    def plain():
+        saved = (stft.stft_mag, ctc.ctc_alpha, ctc.ctc_beta)
+        stft.stft_mag = lambda y, n, h, w, center=True: stft.plain(
+            y, n, h, w, center=center)
+        ctc.ctc_alpha, ctc.ctc_beta = ctc.plain_alpha, ctc.plain_beta
+        try:
+            yield
+        finally:
+            stft.stft_mag, ctc.ctc_alpha, ctc.ctc_beta = saved
+
+    runs = []
+    for ctx in (contextlib.nullcontext(), plain()):
+        model.load_state_dict(init)
+        opt = build_optimizer("sgd", lr=1e-3)
+        step = make_train_step(model, opt, StepConfig())
+        before = (stft.launches, ctc.alpha_launches, ctc.beta_launches)
+        with ctx:
+            m = step(TrainState.create(model, opt), batch, jitter=jitter,
+                     return_grads=True)
+        after = (stft.launches, ctc.alpha_launches, ctc.beta_launches)
+        runs.append((m, [a - b for a, b in zip(after, before)]))
+    (m, launches), (ref, plain_launches) = runs
+    assert launches == [1, 1, 1] and plain_launches == [0, 0, 0]
+    torch.testing.assert_close(m["loss"], ref["loss"], rtol=1e-4, atol=0)
+    for g, r in zip(m["grads"], ref["grads"]):
+        scale = max(1e-6, r.abs().max().item())
+        assert (g - r).abs().max().item() <= 1e-3 * scale

@@ -245,3 +245,50 @@ def test_scan_wrappers_use_plain_versions_on_cpu(monkeypatch, cell):
     with pytest.raises(ValueError, match="unsupported device"):
         scan(xp.to("meta"), bias, w_hh, bias, lens)
     assert len(calls) == 2
+
+
+def test_serve_and_cnn_modules_are_covered():
+    """The import check above walks serve/ and models/cnn.py too."""
+    names = _modules()
+    for name in ("deepspeech_tpu_torch.serve", "deepspeech_tpu_torch.serve.pool",
+                 "deepspeech_tpu_torch.serve.streaming",
+                 "deepspeech_tpu_torch.serve.streaming_cnn",
+                 "deepspeech_tpu_torch.models.cnn",
+                 "deepspeech_tpu_torch.cli.serve"):
+        assert name in names, name
+    paths = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert "deepspeech_tpu_torch/serve/pool.py" in paths
+    assert "deepspeech_tpu_torch/models/cnn.py" in paths
+
+
+def test_serve_and_cnn_default_to_the_card(tmp_path, monkeypatch):
+    """A CNN builds on the card by default and the serve CLI loads there,
+    raising where there is none; a stream on the CPU runs K1's plain
+    version and counts no launch."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from deepspeech_tpu_torch.cli.serve import main as serve_main
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.ops.cuda import stft
+    from deepspeech_tpu_torch.serve import CNNStreamingTranscriber
+    from deepspeech_tpu_torch.text.labels import Labels
+    from deepspeech_tpu_torch.train import checkpoint as ckpt
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model("cnn", 30, 8, 1, cnn_width=8)
+    model, meta = build_model("cnn", 30, 8, 1, cnn_width=8, device="cpu")
+    path = str(tmp_path / "m.ckpt")
+    ckpt.save(path, ckpt.package_from_model(
+        model, meta, "_'ABCDEFGHIJKLMNOPQRSTUVWXYZ2 ", {"sample_rate": 16000}))
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_main(["--model-path", path, "--manifest", "unused.csv"])
+    calls = []
+    plain = stft.plain
+    monkeypatch.setattr(stft, "plain", lambda *a, **k: (
+        calls.append(1), plain(*a, **k))[1])
+    before = stft.launches
+    st = CNNStreamingTranscriber(model, Labels("_'ABCDEFGHIJKLMNOPQRSTUVWXYZ2 "),
+                                 chunk_frames=8)
+    st.feed(np.zeros(16000, np.float32))
+    st.finish()
+    assert calls and stft.launches == before

@@ -137,15 +137,18 @@ def test_transcribe_cli_matches_jax(files, capsys):
                                    ["--chunk-seconds", "0.5"],
                                    ["--lm-path", "lm.arpa"]])
 def test_unported_cli_flags_exit(files, flags, capsys):
-    """Streaming is the one flag still unported and exits naming
-    ROADMAP.md; the beam decoders and --lm-path (unread by greedy) print
-    the JAX CLI's JSON."""
+    """The beam decoders and --lm-path (unread by greedy) print the JAX
+    CLI's JSON; streaming a bidirectional checkpoint raises the JAX
+    package's error in both."""
     _, jax_path, wav = files
     argv = ["--model-path", jax_path, "--audio-path", wav, "--offsets",
             "--meta", *flags]
     if "--chunk-seconds" in flags:
-        with pytest.raises(SystemExit, match="ROADMAP"):
+        with pytest.raises(ValueError, match="unidirectional") as ref:
+            jax_main(argv)
+        with pytest.raises(ValueError, match="unidirectional") as got:
             torch_main(argv + ["--device", "cpu"])
+        assert str(got.value) == str(ref.value)
         return
     assert jax_main(argv) == 0
     ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
