@@ -98,21 +98,31 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    the serve CLI on SERVE_UTTS synthetic utterances of 2-7.5 s with 8
    slots and 0.96 s chunks, with --decoder greedy and device_beam: K1
    once a tick and K10 once a beam step (48 a tick), tick latency p50 and
-   p95 after the first tick, audio-s/s; the same pool in-process, its
-   texts equal to the CLI's and held to one stream of each utterance
-   (equal, or apart only where that stream's top two logits tie within
-   their difference), 10 of its ticks on the host clock and profiled
-   (device ops, busy, idle); the stream with frozen normalization against
-   the batch forward (K2, f32) of 4 of the utterances;
+   p95 after the first tick, audio-s/s (the CLI's summary, and over the
+   ticks after the first); the same pool in-process on the audio the CLI
+   hears, its texts equal to the CLI's and held to one stream of each
+   utterance (equal, or apart only where that stream's top two logits tie
+   within their difference), 10 of its ticks on the host clock and
+   profiled (device ops, busy, idle); K1 on its first tick's inputs
+   (center=False) against its plain version; its logits and texts held to
+   the same pool through the plain versions; the device-beam pool's texts
+   and logits bit-equal with the pool on K10's plain twin, and equal to
+   the CLI's; the stream with frozen normalization against the batch
+   forward (K2, f32) of 4 of the utterances;
 13c. the CNN zoo: a train step at phase 12's batch for cnn (width 256,
    epilog 800, 6 body layers) and cnn_jasper, f32: K1, K8 and K9 once a
    step; the loss and grad norm against the whole step through the plain
    versions, K1's magnitudes against its plain version, each gradient
-   against the plain step from the same spectrogram; 5 steps and a
-   profiled one; cnn_residual through the pool (running SE), its texts
-   held to one stream each; transcribe --chunk-seconds 0.96 --se-mode
-   two_pass on cnn_jasper, its logits against the batch forward and its
-   text against the batch greedy text;
+   against the plain step from the same spectrogram; the pre-ReLU sign
+   changes between the plain runs from K1's and from the plain
+   spectrogram, and the gradient gap with the latter's ReLU pattern
+   replayed on the former; 5 steps and a profiled one; cnn_residual
+   through the pool (running SE), its texts held to one stream each and
+   its logits to the pool through the plain versions; the cnn stream (no
+   SE) with frozen normalization against the batch forward; transcribe
+   --chunk-seconds 0.96 --se-mode two_pass on cnn_jasper, its launches,
+   its logits against the batch forward and its text against the batch
+   greedy text;
 14. K3 (lstm_fwd), both variants, against its plain version at the K2
    shapes (the training variant's residuals c and g too; bf16 in each
    recurrence variant, with the GEMM beside cuBLAS), beside cuDNN's
@@ -281,15 +291,21 @@ SERVE_UTTS, SERVE_SLOTS, SERVE_CHUNK_S, SERVE_PROFILE_TICKS = 16, 8, 0.96, 10
 STREAM_TOL = 1e-3
 # the CNN train step in f32 against the plain path. The whole step through
 # the plain versions moves the loss and the grad norm by ~1e-7, but K1's
-# ~1e-6 differences flip the ReLUs of the units nearest 0, each flip
-# dropping one position's term from the gradients below it (the first
-# run: one element by 4.9% of its tensor's largest). So the loss and the
-# norm are held relative on the whole plain path; K1's magnitudes of the
-# batch alone, at STFT_TOL (log1p(2^20 m) magnifies the f32 round-off of
-# the bins near 0: the log-spectrograms differ by ~1e-2, reported); and
-# each gradient, x max(1, max|grad|), against the plain path run from the
-# same spectrogram (K8/K9 against their twins, f32 sums in other orders)
-CNN_LOSS_TOL, CNN_GRAD_TOL = 1e-3, 1e-4
+# ~1e-6 differences (~1e-2 in the log-spectrogram, where log1p(2^20 m)
+# magnifies the f32 round-off of the bins near 0) change the sign of the
+# pre-ReLU activations nearest 0, each change dropping or adding one
+# position's term in the gradients below it (one element by ~5% of its
+# tensor's largest on an NVIDIA H100 80GB HBM3, 700.00 W). So the loss
+# and the norm are held relative on the whole plain path; K1's
+# magnitudes of the batch alone, at STFT_TOL; each
+# gradient, x max(1, max|grad|), against the plain path run from the same
+# spectrogram (K8/K9 against their twins, f32 sums in other orders); and
+# the plain path from K1's spectrogram with the plain spectrogram's ReLU
+# pattern replayed against the plain path, at CNN_PATTERN_TOL: what stays
+# of the gap once the sign changes are taken out (2.9e-4 and 4.3e-4 of
+# scale for cnn and cnn_jasper, against 4.9e-2 and 5.6e-2 with them, on
+# the same card)
+CNN_LOSS_TOL, CNN_GRAD_TOL, CNN_PATTERN_TOL = 1e-3, 1e-4, 2e-3
 # the synthetic LM's weights (the CLIs' defaults) and size
 LM_ALPHA, LM_BETA, LM_WORDS = 0.8, 1.0, 3000
 PROFILE_STEPS = 40  # beam steps under the profiler, per search
@@ -772,9 +788,9 @@ def max_err(a, ref) -> tuple[float, float]:
 
 
 @contextlib.contextmanager
-def plain_path():
+def plain_path(only: tuple = ()):
     """Route every kernel call of the model, the loss and the beam search
-    to its plain version."""
+    to its plain version (with ``only``, just the wrappers named there)."""
     from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft, topk
 
     def stft_plain(y, n_fft, hop, window, center=True):
@@ -788,6 +804,7 @@ def plain_path():
              (ctc, "ctc_alpha", ctc.plain_alpha),
              (ctc, "ctc_beta", ctc.plain_beta),
              (topk, "topk_total_order", topk.plain))
+    swaps = tuple(w for w in swaps if not only or w[1] in only)
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -2694,17 +2711,20 @@ def serve_utterances(rng, n: int | None = None) -> list:
             for s in np.linspace(2.0, 7.5, n or SERVE_UTTS)]
 
 
-def write_requests(d: str, ys: list) -> str:
-    """The utterances as wavs under ``d`` and a manifest of them."""
-    from deepspeech_tpu_torch.audio.io import save_wav
+def write_requests(d: str, ys: list) -> tuple[str, list]:
+    """The utterances as wavs under ``d`` and a manifest of them ->
+    (manifest, each wav as the serve CLI loads it: 16-bit, peak-normalized
+    again)."""
+    from deepspeech_tpu_torch.audio.io import load_audio_norm, save_wav
 
-    manifest = os.path.join(d, "requests.csv")
+    manifest, heard = os.path.join(d, "requests.csv"), []
     with open(manifest, "w") as f:
         for i, y in enumerate(ys):
             wav = os.path.join(d, f"req{i:02d}.wav")
             save_wav(wav, y, SR)
+            heard.append(load_audio_norm(wav)[0])
             f.write(f"{wav},\n")
-    return manifest
+    return manifest, heard
 
 
 def serve_cli(path: str, manifest: str, out: str, *flags: str):
@@ -2729,15 +2749,17 @@ def serve_cli(path: str, manifest: str, out: str, *flags: str):
 
 def drive_pool(pool, ys: list, on_tick=None) -> dict:
     """The serve CLI's loop over ``ys`` (fill the free slots, tick, collect
-    the finished) -> {index: (text, logits)}; ``on_tick(i)`` runs before
-    tick i."""
+    the finished) -> {index: (text, logits, beam text or None)};
+    ``on_tick(i)`` runs before tick i."""
     pending, slot_of, out, i = list(range(len(ys))), {}, {}, 0
+    beam = pool._st._beam_state is not None
 
     def collect():  # before a freed slot is leased again
         for s in list(slot_of):
             if pool.done(s):
-                out[slot_of.pop(s)] = (pool.text(s),
-                                       pool.collected_logits(s))
+                out[slot_of.pop(s)] = (
+                    pool.text(s), pool.collected_logits(s),
+                    pool.beam_text(s) if beam else None)
 
     while pending or pool.busy():
         collect()
@@ -2762,7 +2784,7 @@ def hold_texts(label: str, got: dict, single) -> None:
     """Each pool text against one stream of the same audio: equal, or
     differing only where the stream's top two logits lie within the
     logits' difference (a tie the two batch shapes may break apart)."""
-    for j, (text, logits) in sorted(got.items()):
+    for j, (text, logits, _) in sorted(got.items()):
         ref_text, ref_logits = single(j)
         if logits.shape != ref_logits.shape:
             raise AssertionError(f"{label} {j}: logits {logits.shape} vs "
@@ -2785,12 +2807,14 @@ def phase_serve(torch, floor: dict) -> dict:
     f32) from seeded weights as a checkpoint, the serve CLI on
     SERVE_UTTS synthetic utterances with greedy and with device-beam
     decoding (K1 once a tick, K10 once a beam step), tick latency and
-    audio-s/s; the same pool's texts held to one stream each, 10 ticks
-    profiled; the stream with frozen normalization held to the batch
-    forward (K2, f32) of the same utterances."""
-    from deepspeech_tpu_torch.audio.features import (AudioConf,
-                                                     featurize_batch,
-                                                     make_window)
+    audio-s/s (the CLI's, and over the ticks after the first); the same
+    pool's texts held to one stream each, 10 ticks profiled; K1 on the
+    first tick's inputs against its plain version; the greedy pool's
+    logits held to the pool through the plain versions, the device-beam
+    pool's texts bit-equal to the pool with K10's plain twin; the stream
+    with frozen normalization held to the batch forward (K2, f32) of the
+    same utterances."""
+    from deepspeech_tpu_torch.audio.features import AudioConf
     from deepspeech_tpu_torch.models import build_model
     from deepspeech_tpu_torch.ops.cuda import stft
     from deepspeech_tpu_torch.serve import StreamingTranscriber, StreamPool
@@ -2806,12 +2830,16 @@ def phase_serve(torch, floor: dict) -> dict:
     audio_s = sum(len(y) for y in ys) / SR
     conf, labels = AudioConf(), Labels(LABELS)
     chunk = int(SERVE_CHUNK_S * SR / conf.hop)
+    if min(len(y) for y in ys) <= chunk * conf.hop:
+        raise AssertionError("an utterance shorter than a chunk")
+    first_tick_s = SERVE_SLOTS * chunk * conf.hop / SR
     out: dict = {}
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "ds2_uni.ckpt")
         ckpt.save(path, ckpt.package_from_model(model, meta, LABELS,
                                                 conf.to_dict()))
-        manifest = write_requests(d, ys)
+        # the in-process runs below hear the audio the CLI hears
+        manifest, ys = write_requests(d, ys)
         ticks_ms: list = []
         tick = StreamPool.tick
 
@@ -2840,8 +2868,13 @@ def phase_serve(torch, floor: dict) -> dict:
                                          f"{counts} (expected {want}), "
                                          f"{len(records)} records")
                 lat = np.asarray(ticks_ms[1:])
+                # every slot serves a whole chunk of real audio in the
+                # first tick (each utterance is longer than a chunk), so
+                # ticks 2-N serve the rest
+                steady = (audio_s - first_tick_s) / (lat.sum() / 1e3)
                 out[decoder] = dict(
                     ticks=ticks, audio_s_per_s=rate,
+                    steady_audio_s_per_s=float(steady),
                     k1_per_tick=counts["stft_mag"] / ticks,
                     k10_per_tick=counts["topk"] / ticks,
                     tick_p50_ms=float(np.percentile(lat, 50)),
@@ -2853,17 +2886,27 @@ def phase_serve(torch, floor: dict) -> dict:
                     f"and K10 {out[decoder]['k10_per_tick']:.0f} a tick; "
                     f"tick latency p50 {out[decoder]['tick_p50_ms']:.3f} ms "
                     f"p95 {out[decoder]['tick_p95_ms']:.3f} ms (host clock, "
-                    f"ticks 2-{ticks}); {rate} audio-s/s")
+                    f"ticks 2-{ticks}); {rate} audio-s/s (the CLI's "
+                    f"summary, its first tick's warm-up included); "
+                    f"{steady:.3f} audio-s/s over ticks 2-{ticks} "
+                    f"({audio_s - first_tick_s:.2f} audio-s in "
+                    f"{lat.sum():.3f} ms)")
         finally:
             StreamPool.tick = tick
         wavs = sorted(out["greedy"]["texts"])
 
-    # the same pool in-process: its texts against one stream each, and 10
-    # of its ticks profiled
+    # the same pool in-process: its texts against one stream each, 10 of
+    # its ticks profiled, K1's inputs of its first tick recorded
     pool = StreamPool(model, labels, conf, chunk_frames=chunk,
                       slots=SERVE_SLOTS, collect_logits=True)
+    k1, k1_calls = stft.stft_mag, []
 
-    def profile_ticks(i):
+    def k1_recorded(y, n_fft, hop, window, center=True):
+        k1_calls.append((y.clone(), n_fft, hop, window, center))
+        return k1(y, n_fft, hop, window, center=center)
+
+    def on_tick(i):
+        stft.stft_mag = k1_recorded if i == 0 else k1
         if i == 2:  # every slot busy from the first tick
             t0 = time.perf_counter()
             for _ in range(SERVE_PROFILE_TICKS):
@@ -2876,7 +2919,10 @@ def phase_serve(torch, floor: dict) -> dict:
                         lambda: [pool.tick() for _ in range(
                             SERVE_PROFILE_TICKS)], ms, floor)
 
-    got = drive_pool(pool, ys, profile_ticks)
+    try:
+        got = drive_pool(pool, ys, on_tick)
+    finally:
+        stft.stft_mag = k1
     # a lane's results do not depend on the other lanes: the CLI's texts
     # are this pool's
     cli = [out["greedy"]["texts"][w] for w in wavs]
@@ -2893,10 +2939,88 @@ def phase_serve(torch, floor: dict) -> dict:
     log(f"serve: the CLI's {len(ys)} texts equal the pool's, each held to "
         f"one stream of its utterance")
 
+    # K1 on the chunk route (center=False, the tick's wave tail + chunk)
+    # against its plain version on the inputs of the first tick
+    (sig, n_fft, hop, window, center), = k1_calls
+    with torch.no_grad():
+        mag = k1(sig, n_fft, hop, window, center=center)
+        ref_mag = stft.plain(sig, n_fft, hop, window, center=center)
+    k1_err = max_err(mag, ref_mag)[0]
+    log(f"K1 on the serve tick's inputs ({tuple(sig.shape)}, center="
+        f"{center}) -> {tuple(mag.shape)}: max_abs_err vs plain {k1_err:.3e}"
+        f" (tolerance {STFT_TOL})")
+    if center or not bool(((mag - ref_mag).abs() <= STFT_TOL["atol"]
+                           + STFT_TOL["rtol"] * ref_mag.abs()).all()):
+        raise AssertionError("K1 disagrees with plain on the serve tick")
+    out["k1_chunk_max_abs_err"] = k1_err
+
+    # the pool on the card against the same pool through the plain
+    # versions: the logits at STREAM_TOL, the texts as against one stream
+    with plain_path():
+        plain = drive_pool(StreamPool(model, labels, conf, chunk_frames=chunk,
+                                      slots=SERVE_SLOTS, collect_logits=True),
+                           ys)
+    hold_texts("serve pool vs plain path", got,
+               lambda j: plain[j][:2])
+    out["pool_vs_plain_rel_err"] = max(
+        float(np.abs(got[j][1] - plain[j][1]).max())
+        / max(1.0, float(np.abs(plain[j][1]).max())) for j in got)
+    log(f"serve pool (greedy) vs the pool through the plain versions: "
+        f"logits worst {out['pool_vs_plain_rel_err']:.3e} x scale "
+        f"(tolerance {STREAM_TOL}); texts held")
+
+    # the device beam in the pool (K10 once a step) against the same pool
+    # with K10's plain twin: the same logits, so the beam texts bit-equal
+    # (plain top-k is K10's order by contract); the CLI's are this pool's.
+    # Through every plain version the logits move by K1's round-off, and a
+    # beam may then order two hypotheses within it apart: counted, not held
+    def beam_pool(**kw):
+        return drive_pool(StreamPool(model, labels, conf, chunk_frames=chunk,
+                                     slots=SERVE_SLOTS, decoder="beam",
+                                     beam_width=10, collect_logits=True,
+                                     **kw), ys)
+
+    beams = beam_pool()
+    with plain_path(only=("topk_total_order",)):
+        plain_k10 = beam_pool()
+    with plain_path():
+        plain_all = beam_pool()
+    same = [beams[j][2] == plain_k10[j][2]
+            and np.array_equal(beams[j][1], plain_k10[j][1]) for j in beams]
+    cli_same = ([out["device_beam"]["texts"][w] for w in wavs]
+                == [beams[j][2] for j in range(len(ys))])
+    n_all = sum(beams[j][2] == plain_all[j][2] for j in beams)
+    log(f"serve pool (device beam, width 10): {sum(same)} of {len(ys)} beam "
+        f"texts and logits bit-equal with K10's plain twin; the CLI's texts "
+        f"{'equal' if cli_same else 'differ from'} the pool's; through every "
+        f"plain version {n_all} of {len(ys)} beam texts equal")
+    if not all(same) or not cli_same:
+        raise AssertionError("the serve beam disagrees with plain top-k")
+    out["beam_texts_equal_all_plain"] = n_all
+
     # frozen normalization: the stream against the batch forward
+    out["frozen_norm_rel_err"] = hold_frozen_stream(
+        torch, model, StreamingTranscriber, ys, range(0, len(ys), 5), chunk,
+        expect_counts(stft_mag=1, gru_fwd=LAYERS), "K2, f32")
+    return out
+
+
+def hold_frozen_stream(torch, model, cls, ys, js, chunk, want,
+                       label) -> float:
+    """Stream ``ys[j]`` for j in ``js`` through ``cls`` with the
+    normalization frozen at the utterance's mean and 1, and hold its logits
+    to the batch forward of the utterance (launches ``want``) at
+    STREAM_TOL -> the worst error x scale."""
+    from deepspeech_tpu_torch.audio.features import (AudioConf,
+                                                     featurize_batch,
+                                                     make_window)
+    from deepspeech_tpu_torch.ops.cuda import stft
+    from deepspeech_tpu_torch.text.labels import Labels
+
+    conf, labels = AudioConf(), Labels(LABELS)
     window = make_window(conf.window, conf.n_fft)
     worst = 0.0
-    for j in (0, 5, 10, 15):
+    for j in js:
         y = torch.from_numpy(ys[j]).cuda()[None]
         lens = torch.tensor([len(ys[j])], device="cuda")
         with torch.no_grad():
@@ -2907,12 +3031,11 @@ def phase_serve(torch, floor: dict) -> dict:
             ref, _, ref_lens = model(spect, frames)
             torch.cuda.synchronize()
             counts = read_counts()
-        if counts != expect_counts(stft_mag=1, gru_fwd=LAYERS):
+        if counts != want:
             raise AssertionError(f"batch forward launches {counts}")
-        st = StreamingTranscriber(
-            model, labels, conf, chunk_frames=chunk,
-            frozen_norm=(np.array([mean], np.float32),
-                         np.array([1.0], np.float32)))
+        st = cls(model, labels, conf, chunk_frames=chunk,
+                 frozen_norm=(np.array([mean], np.float32),
+                              np.array([1.0], np.float32)))
         st.feed(ys[j])
         st.finish()
         stream = st.collected_logits()[0]
@@ -2923,14 +3046,61 @@ def phase_serve(torch, floor: dict) -> dict:
         err = float(np.abs(stream - ref).max())
         scale = max(1.0, float(np.abs(ref).max()))
         worst = max(worst, err / scale)
-        log(f"frozen-norm stream of utterance {j} ({len(ys[j]) / SR:.2f} s):"
-            f" logits max_abs_err vs the batch forward (K2, f32) {err:.3e} "
-            f"(scale {scale:.2f}, tolerance {STREAM_TOL * scale:.3e})")
+        log(f"frozen-norm {cls.__name__} of utterance {j} "
+            f"({len(ys[j]) / SR:.2f} s): logits max_abs_err vs the batch "
+            f"forward ({label}) {err:.3e} (scale {scale:.2f}, tolerance "
+            f"{STREAM_TOL * scale:.3e})")
         if not err <= STREAM_TOL * scale:
             raise AssertionError("the stream disagrees with the batch "
                                  "forward")
-    out["frozen_norm_rel_err"] = worst
-    return out
+    return worst
+
+
+@contextlib.contextmanager
+def relu_inputs(replay=None):
+    """Record the input of every ReLU call (a CNN block's pre-activation)
+    in call order; with ``replay``, such a record of another run, each ReLU
+    keeps the positions where the replayed input was positive in place of
+    its own."""
+    import torch.nn.functional as F
+
+    relu, seen = F.relu, []
+
+    def recorded(x, inplace=False):
+        seen.append(x.detach().clone())
+        if replay is None:
+            return relu(x)
+        return x * (replay[len(seen) - 1] > 0)
+
+    F.relu = recorded
+    try:
+        yield seen
+    finally:
+        F.relu = relu
+
+
+def relu_flips(torch, model, lengths, pre, ref_pre) -> list:
+    """Per ReLU block: (block index, sign changes of the pre-activation
+    over the valid frames between two runs, valid positions, (C,) changes
+    by channel)."""
+    blocks = [i for i, b in enumerate(model.blocks)
+              if b.relu and not b.use_glu]
+    if len(blocks) != len(pre) or len(pre) != len(ref_pre):
+        raise AssertionError(f"{len(pre)} and {len(ref_pre)} ReLU calls for "
+                             f"{len(blocks)} ReLU blocks")
+    lens, i, rows = lengths, 0, []
+    for k, block in enumerate(model.blocks):
+        lens = block.out_lengths(lens)
+        if k not in blocks:
+            continue
+        a, b = pre[i], ref_pre[i]
+        i += 1
+        valid = (torch.arange(a.shape[-1], device=a.device)[None, :]
+                 < lens[:, None])[:, None, :]
+        flips = ((a > 0) != (b > 0)) & valid
+        rows.append((k, int(flips.sum()), int(valid.sum()) * a.shape[1],
+                     flips.sum((0, 2))))
+    return rows
 
 
 def cnn_step_grads(torch, model, batch, jitter, spect=None):
@@ -2984,11 +3154,19 @@ def phase_cnn_train(torch, variant: str, floor: dict, **kw):
     loss, grads, norm, spect = cnn_step_grads(torch, model, batch, jitter)
     model.load_state_dict(init)
     with plain_path():
-        ref_loss, ref_grads, ref_norm, ref_spect = cnn_step_grads(
-            torch, model, batch, jitter)
+        with relu_inputs() as ref_pre:
+            ref_loss, ref_grads, ref_norm, ref_spect = cnn_step_grads(
+                torch, model, batch, jitter)
         model.load_state_dict(init)
-        _, same_grads, _, _ = cnn_step_grads(torch, model, batch, jitter,
-                                             spect)
+        with relu_inputs() as same_pre:
+            _, same_grads, _, _ = cnn_step_grads(torch, model, batch,
+                                                 jitter, spect)
+        # K1's spectrogram with the plain spectrogram's ReLU pattern: what
+        # stays of the gap without the sign changes
+        model.load_state_dict(init)
+        with relu_inputs(ref_pre):
+            _, kept_grads, _, _ = cnn_step_grads(torch, model, batch,
+                                                 jitter, spect)
     model.load_state_dict(init)
     torch.cuda.synchronize()
     rel_loss = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
@@ -3003,8 +3181,36 @@ def phase_cnn_train(torch, variant: str, floor: dict, **kw):
                    + STFT_TOL["rtol"] * ref_mag.abs()).all())
     worst = max((max_err(grads[k], same_grads[k])[0]
                  / max_err(grads[k], same_grads[k])[1], k) for k in grads)
-    flips = max((max_err(grads[k], ref_grads[k])[0]
+    whole = max((max_err(grads[k], ref_grads[k])[0]
                  / max_err(grads[k], ref_grads[k])[1], k) for k in grads)
+    gap = max((max_err(same_grads[k], ref_grads[k])[0]
+               / max_err(same_grads[k], ref_grads[k])[1], k) for k in grads)
+    kept = max((max_err(kept_grads[k], ref_grads[k])[0]
+                / max_err(kept_grads[k], ref_grads[k])[1], k) for k in grads)
+    lengths = 1 + batch["audio_lengths"] // StepConfig().audio_conf.hop
+    changes = relu_flips(torch, model, lengths, same_pre, ref_pre)
+    del ref_pre, same_pre
+    log(f"{variant}: ReLU sign changes between K1's and the plain "
+        f"spectrogram's runs (plain path), by block: "
+        + ", ".join(f"{k}: {n} of {v}" for k, n, v, _ in changes[:6])
+        + (f", ... ({sum(n for _, n, _, _ in changes)} in all "
+           f"{len(changes)} blocks)" if len(changes) > 6 else ""))
+    # the worst gradient element of the gap, and the sign changes in its
+    # output channel of its block against that block's channel mean
+    name = gap[1]
+    diff = (same_grads[name] - ref_grads[name]).abs()
+    channel = int(np.unravel_index(int(diff.argmax()), diff.shape)[0])
+    block = int(name.split(".")[1]) if name.startswith("blocks.") else None
+    row = next((r for r in changes if r[0] == block), None)
+    where = (f"{int(row[3][channel])} sign changes in that channel of block "
+             f"{block} against {float(row[3].float().mean()):.3f} a channel"
+             if row is not None and channel < len(row[3]) else
+             "not in a ReLU block")
+    log(f"{variant}: from K1's spectrogram through the plain path the "
+        f"gradients are apart by {gap[0]:.3e} x scale ({name}, output "
+        f"channel {channel}: {where}); with the plain spectrogram's ReLU "
+        f"pattern replayed, by {kept[0]:.3e} x scale ({kept[1]}; tolerance "
+        f"{CNN_PATTERN_TOL})")
     n_params = sum(p.numel() for p in model.parameters())
     log(f"{variant} ({len(model.blocks)} blocks, {n_params / 1e6:.2f} M "
         f"parameters) train step vs plain path: loss {loss.item():.4f} / "
@@ -3015,10 +3221,10 @@ def phase_cnn_train(torch, variant: str, floor: dict, **kw):
         f"log-spectrograms' {spect_err:.2e}); from the same spectrogram "
         f"{len(grads)} grads, worst {worst[1]} at {worst[0]:.2e} x scale "
         f"(tolerances {CNN_LOSS_TOL}, {CNN_GRAD_TOL} x scale); through the "
-        f"whole plain path (ReLU flips) worst {flips[1]} at "
-        f"{flips[0]:.2e}")
+        f"whole plain path worst {whole[1]} at {whole[0]:.2e}")
     if not (rel_loss <= CNN_LOSS_TOL and rel_norm <= CNN_LOSS_TOL
-            and mag_ok and worst[0] <= CNN_GRAD_TOL):
+            and mag_ok and worst[0] <= CNN_GRAD_TOL
+            and kept[0] <= CNN_PATTERN_TOL):
         raise AssertionError(f"{variant} train step disagrees with plain")
     zero = [k for k, g in grads.items() if not g.abs().max().item() > 0]
     if zero:
@@ -3052,15 +3258,20 @@ def phase_cnn_train(torch, variant: str, floor: dict, **kw):
         f"audio = {audio_s / (ms / 1e3):.1f} audio-s/s")
     profile_run(torch, f"{variant} train step",
                 lambda: step(state, batch, generator=gen), ms, floor)
-    return model.eval(), meta, ms
+    return model.eval(), meta, dict(
+        step_ms=ms, grad_gap=gap[0], grad_gap_pattern_replayed=kept[0],
+        relu_sign_changes=sum(n for _, n, _, _ in changes))
 
 
 def phase_cnn(torch, floor: dict) -> dict:
     """The CNN zoo on the card: the train step of ``cnn`` (width 256,
     epilog 800, 6 repeats) and ``cnn_jasper``; ``cnn_residual`` through
-    the pool (running SE), its texts held to one stream each; transcribe
-    --chunk-seconds 0.96 --se-mode two_pass on cnn_jasper, its logits held
-    to the batch forward."""
+    the pool (running SE), its texts held to one stream each and its
+    logits to the pool through the plain versions; the stream of ``cnn``
+    (no SE) with frozen normalization held to the batch forward;
+    transcribe --chunk-seconds 0.96 --se-mode two_pass on cnn_jasper, its
+    launches, and its logits and text against the batch forward (which
+    the second pass runs)."""
     from deepspeech_tpu_torch.audio.features import (AudioConf,
                                                      featurize_batch)
     from deepspeech_tpu_torch.audio.io import save_wav
@@ -3071,10 +3282,10 @@ def phase_cnn(torch, floor: dict) -> dict:
     from deepspeech_tpu_torch.train import checkpoint as ckpt
 
     out = {}
-    _, _, out["cnn_step_ms"] = phase_cnn_train(
+    cnn, _, out["cnn"] = phase_cnn_train(
         torch, "cnn", floor, hidden_size=HIDDEN, hidden_layers=LAYERS,
         cnn_width=256)
-    jasper, jmeta, out["cnn_jasper_step_ms"] = phase_cnn_train(
+    jasper, jmeta, out["cnn_jasper"] = phase_cnn_train(
         torch, "cnn_jasper", floor)
 
     conf, labels = AudioConf(), Labels(LABELS)
@@ -3108,6 +3319,25 @@ def phase_cnn(torch, floor: dict) -> dict:
     log(f"cnn_residual pool (running SE, {SERVE_SLOTS} slots): {len(ticks)} "
         f"ticks, launches {counts}, {audio_s / dt:.1f} audio-s/s (host "
         f"clock); texts held to one stream each")
+    # the pool on the card against the same pool through the plain versions
+    with plain_path():
+        plain = drive_pool(StreamPool(residual, labels, conf,
+                                      chunk_frames=chunk, slots=SERVE_SLOTS,
+                                      collect_logits=True), ys)
+    hold_texts("cnn_residual pool vs plain path", got,
+               lambda j: plain[j][:2])
+    out["residual_pool_vs_plain_rel_err"] = max(
+        float(np.abs(got[j][1] - plain[j][1]).max())
+        / max(1.0, float(np.abs(plain[j][1]).max())) for j in got)
+    log(f"cnn_residual pool vs the pool through the plain versions: logits "
+        f"worst {out['residual_pool_vs_plain_rel_err']:.3e} x scale "
+        f"(tolerance {STREAM_TOL}); texts held")
+
+    # the streamed path itself: cnn has no SE, so its stream under a frozen
+    # normalization is the batch forward's function
+    out["cnn_frozen_norm_rel_err"] = hold_frozen_stream(
+        torch, cnn, CNNStreamingTranscriber, ys, (0, SERVE_SLOTS - 1),
+        chunk, expect_counts(stft_mag=1), "cuDNN, f32")
 
     y = synthetic_audio(rng, AUDIO_S)
     with tempfile.TemporaryDirectory() as d:
@@ -3144,8 +3374,9 @@ def phase_cnn(torch, floor: dict) -> dict:
     log(f"transcribe --chunk-seconds {SERVE_CHUNK_S} --se-mode two_pass on "
         f"cnn_jasper ({AUDIO_S / SR} s): {dt:.3f} s (host clock, checkpoint "
         f"load included), launches {counts}; logits max_abs_err vs the batch "
-        f"forward {err:.3e}; text {'equals' if text == want else 'differs from'}"
-        f" the batch greedy text")
+        f"forward {err:.3e} (the second pass runs it); text "
+        f"{'equals' if text == want else 'differs from'} the batch greedy "
+        f"text")
     if (not err <= STREAM_TOL * max(1.0, float(np.abs(ref).max()))
             or text != want or counts != direct
             or counts != expect_counts(stft_mag=counts["stft_mag"])

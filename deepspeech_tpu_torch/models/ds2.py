@@ -133,9 +133,12 @@ class DeepSpeech2(nn.Module):
         self.fc_bn = TorchBatchNorm(hidden_size, bnm, fold=True)
         self.fc = nn.Linear(hidden_size, num_classes, bias=False)
 
-    def forward(self, spect: torch.Tensor, lengths: torch.Tensor):
+    def forward(self, spect: torch.Tensor, lengths: torch.Tensor,
+                generator: torch.Generator | None = None):
         """spect: (B, 161, T) normalized log-spectrogram; lengths: (B,)
-        valid frame counts. -> (logits (B, T', C), probs, output_lengths)."""
+        valid frame counts. -> (logits (B, T', C), probs, output_lengths).
+        ``generator`` is ignored: the model has no dropout (a ``ConvStack``
+        draws its dropout from it; the train step passes it to both)."""
         out_lengths = conv_out_lengths(lengths)
         x = self.conv(spect.float(), out_lengths)
         b, c, f, t = x.shape

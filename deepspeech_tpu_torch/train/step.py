@@ -3,10 +3,11 @@
 One call of ``train_step`` runs the reference loop body (reference
 train.py:555-647) on the model's device: wire descale -> featurize (K1) ->
 forward (a DeepSpeech2's K2 with residuals, or a ConvStack's cuDNN convs)
--> CTC (K8) -> backward (K9, then K5, cuBLAS and cuDNN) -> clip -> NaN guard -> SGD/Adam update, plus the greedy ids the
-loop reports. Everything from the featurize to the update runs with TF32
-off (``ops.fp32_matmul``), the backward included: cuDNN's convolution
-gradients would otherwise run in TF32.
+-> CTC (K8) -> backward (K9, then K5, cuBLAS and cuDNN) -> clip -> NaN
+guard -> SGD/Adam update, plus the greedy ids the loop reports. Everything
+from the featurize to the update runs with TF32 off (``ops.fp32_matmul``),
+the backward included: cuDNN's convolution gradients would otherwise run
+in TF32.
 
 NaN semantics follow the reference and the JAX package:
 
@@ -129,15 +130,6 @@ def _loss(logits, out_lens, batch):
     return loss, per_sample
 
 
-def dropout_kw(model: torch.nn.Module,
-               generator: torch.Generator | None) -> dict:
-    """The forward's keyword for its dropout draws: a ``ConvStack`` draws
-    its keep masks from ``generator``; DeepSpeech2 has no dropout."""
-    from deepspeech_tpu_torch.models.cnn import ConvStack
-
-    return {"generator": generator} if isinstance(model, ConvStack) else {}
-
-
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                     cfg: StepConfig = StepConfig()) -> Callable:
     """-> train_step(state, batch, jitter=None, generator=None,
@@ -169,8 +161,7 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
         with fp32_matmul():
             spect, lengths = featurize(batch, cfg, jitter, draws["masks"],
                                        draws["noise"])
-            logits, _, out_lens = model(spect, lengths,
-                                        **dropout_kw(model, generator))
+            logits, _, out_lens = model(spect, lengths, generator)
             has_nan = torch.isnan(logits).any()
             logits = torch.where(torch.isnan(logits), 0.0, logits)
             loss, per_sample = _loss(logits, out_lens, batch)
