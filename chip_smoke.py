@@ -66,6 +66,25 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    --lm-path; the test CLI on a synthetic manifest of 20 x 7.5 s with
    --decoder device_beam --lm-path, its summary equal to an in-process
    decode of the same batch;
+11a. the data path to a LibriSpeech WER (phase_data_path): the host C++
+   library rebuilt with g++ (its version and the host CPU logged); a
+   LibriSpeech-layout test-clean.tar.gz of 20 FLAC utterances of 7.5 s
+   (the port's save_flac; one chapter at 32 kHz) through the librispeech
+   CLI, with no network: the manifest's rows and every wav equal to the
+   encoded samples (resampled at 32 kHz); KenLM probing and trie binaries
+   of the synthetic LM from this script's own writer; the test CLI on the
+   manifest with --decoder beam and the ARPA (auto must pick the native
+   search), with the probing and with the trie binary (the Python search,
+   width 10, a few utterances) and with --decoder device_beam and the
+   trie, launch counts reset before each (K1 1, K2 6, K10 once a frame
+   with the device beam); on the same posteriors the native search's
+   hypotheses and offsets bit-equal to the Python search's with and
+   without the LM, the trie's device beam texts equal to the DSLM's, the
+   native WER/CER and batch_edit_distance equal to the numpy ones; host
+   decode times (native against Python at width 10, native at width 128
+   with and without the LM, 1 and 4 threads); the model as a reference
+   torch.save package through import_torch, transcribed on the card
+   (text equal to the original checkpoint's);
 12. the train path: the same model trained on 20
    synthetic 7.5 s waveforms with random transcripts on the int16 wire,
    SGD-Nesterov (lr 3e-4, momentum 0.9, clip 100). The launch counts of
@@ -182,8 +201,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    recurrence variant the rule chose, each variant's time, a step's time
    and the projection GEMM's beside cuBLAS, K2's its wide layer 0, K8's
    and K9's their device time, the chain floor and F.ctc_loss's device
-   time, K9's the layer's times too), after a line of the serving and
-   CNN figures, then the device line last.
+   time, K9's the layer's times too), after a line of the serving, CNN
+   and data-path figures, then the device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
 non-zero. Times are CUDA-event medians with warm L2; K1's and K10's (and
@@ -195,6 +214,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import importlib
 import io
 import json
 import os
@@ -2705,6 +2725,563 @@ def phase_beam_cli(torch, model, meta, arpa: str, dslm: str) -> None:
                                  f"{want}); summary {summary} vs {mine}")
 
 
+def _pack_lsb(fields, n: int) -> bytes:
+    """``n`` fixed-width records, LSB-first (util/bit_packing.hh): each
+    field a (values (n,) of uint64, bits) pair, fields in record order."""
+    cols = [((np.asarray(v, np.uint64)[:, None]
+              >> np.arange(bits, dtype=np.uint64)) & np.uint64(1))
+            for v, bits in fields]
+    bits = np.concatenate(cols, axis=1).astype(np.uint8).reshape(-1)
+    return np.packbits(bits, bitorder="little").tobytes()
+
+
+def write_kenlm_binary(path: str, arpa_path: str, kind: str) -> None:
+    """A KenLM format-5 binary of the ARPA at ``arpa_path``: ``kind``
+    "probing" (model type 0: the vocabulary and each order a linear-probing
+    table keyed by MurmurHash64A and the chained word hash) or "trie"
+    (model type 2: the sorted-hash vocabulary, dense unigram records, the
+    bit-packed middle and longest levels in suffix order, blank carrier
+    nodes where an n-gram's suffix is absent). Both carry the word strings
+    last. Written from the layout the readers (decoders/lm_kenlm.py,
+    decoders/lm_trie.py) parse, with grouping by dicts, so that a 3,000-word
+    trigram LM takes a fraction of a second."""
+    import struct
+
+    from deepspeech_tpu_torch.decoders.lm import ArpaLM
+    from deepspeech_tpu_torch.decoders.lm_kenlm import (_FIXED_PARAMS_SIZE,
+                                                        MAGIC,
+                                                        murmur_hash64a,
+                                                        ngram_hash,
+                                                        probing_buckets,
+                                                        sanity_size)
+    from deepspeech_tpu_torch.decoders.lm_trie import required_bits
+
+    def align8(n):
+        return (n + 7) // 8 * 8
+
+    arpa = ArpaLM(arpa_path)
+    order = arpa.order
+    grams = {k: {} for k in range(1, order + 1)}
+    for words, pb in arpa.ngrams.items():
+        grams[len(words)][words] = pb
+    mh = {w: murmur_hash64a(w.encode("utf8"))
+          for (w,) in grams[1] if w != "<unk>"}
+    if kind == "probing":
+        vocab = ["<unk>"] + [w for (w,) in grams[1] if w != "<unk>"]
+    else:
+        vocab = ["<unk>"] + sorted(mh, key=mh.get)
+    wid = {w: i for i, w in enumerate(vocab)}
+
+    if kind == "trie":
+        # suffix paths (newest .. oldest ids); blank carriers for parents
+        nodes = {d: {tuple(wid[w] for w in reversed(g)): (lp, bo if d < order
+                                                         else 0.0)
+                     for g, (lp, bo) in grams[d].items()}
+                 for d in range(1, order + 1)}
+        for d in range(order, 1, -1):
+            for pth in list(nodes[d]):
+                nodes[d - 1].setdefault(pth[:-1], (float("-inf"), 0.0))
+        kids = {d: {} for d in range(2, order + 1)}
+        for d in range(2, order + 1):
+            for pth in nodes[d]:
+                kids[d].setdefault(pth[:-1], []).append(pth)
+        levels = {1: [(w,) for w in range(len(vocab))]}
+        for d in range(2, order + 1):
+            levels[d] = [c for p in levels[d - 1]
+                         for c in sorted(kids[d].get(p, ()))]
+        counts = [len(vocab)] + [len(levels[d]) for d in range(2, order + 1)]
+    else:
+        counts = [len(vocab)] + [len(grams[k]) for k in range(2, order + 1)]
+
+    out = bytearray(sanity_size())
+    out[: len(MAGIC)] = MAGIC
+    f_off = (len(MAGIC) + 1 + 3) // 4 * 4
+    struct.pack_into("<fff", out, f_off, 0.0, 1.0, -0.5)
+    struct.pack_into("<II", out, f_off + 12, 1, 0xFFFFFFFF)
+    struct.pack_into("<Q", out, align8(f_off + 20), 1)
+    fp = bytearray(_FIXED_PARAMS_SIZE)
+    fp[0] = order
+    struct.pack_into("<f", fp, 4, 1.5)
+    struct.pack_into("<i", fp, 8, 0 if kind == "probing" else 2)
+    fp[12] = 1
+    struct.pack_into("<I", fp, 16, 0 if kind == "probing" else 1)
+    out += fp
+    for c in counts:
+        out += struct.pack("<Q", c)
+    out += b"\x00" * (align8(len(out)) - len(out))
+
+    def probing_table(entries, payload_of, count):
+        nb = probing_buckets(count, 1.5)
+        keys = np.zeros(nb, np.uint64)
+        payload = np.zeros((nb, 8), np.uint8)
+        for key, item in entries:
+            j = key % nb
+            while keys[j] != 0:
+                j = (j + 1) % nb
+            keys[j] = key
+            payload[j] = np.frombuffer(payload_of(item), np.uint8)
+        return np.concatenate([keys.view(np.uint8).reshape(nb, 8),
+                               payload], axis=1).tobytes()
+
+    if kind == "probing":
+        out += struct.pack("<IxxxxQ", 0, len(vocab))
+        out += probing_table([(mh[w], i) for w, i in wid.items() if i],
+                             lambda i: struct.pack("<II", i, 0), counts[0])
+        uni = np.zeros((counts[0] + 1, 2), np.float32)
+        for (w,), pb in grams[1].items():
+            uni[wid[w]] = pb
+        out += uni.tobytes()
+        for k in range(2, order + 1):
+            out += probing_table(
+                [(ngram_hash([wid.get(w, 0) for w in g]), pb)
+                 for g, pb in grams[k].items()],
+                lambda pb, k=k: struct.pack(
+                    "<ff", pb[0], pb[1] if k < order else 0.0),
+                counts[k - 1])
+    else:
+        out += struct.pack("<Q", len(mh))
+        out += np.array([mh[w] for w in vocab[1:]], np.uint64).tobytes()
+        n_kids = [len(kids[2].get(p, ())) if order > 1 else 0
+                  for p in levels[1]]
+        nxt = np.concatenate([[0], np.cumsum(n_kids)]).astype(np.uint64)
+        uni = np.zeros(len(vocab) + 2, dtype=[("p", "<f4"), ("b", "<f4"),
+                                              ("n", "<u8")])
+        for i, p in enumerate(levels[1]):
+            uni[i] = (*nodes[1].get(p, (float("-inf"), 0.0)), nxt[i])
+        uni[len(vocab)] = (0.0, 0.0, counts[1] if order > 1 else 0)
+        out += uni.tobytes()
+        word_bits = required_bits(counts[0])
+
+        def f32(vals):
+            return np.asarray(vals, np.float32).view(np.uint32).astype(
+                np.uint64)
+
+        for d in range(2, order + 1):
+            rows = levels[d]
+            words = [p[-1] for p in rows]
+            probs = f32([nodes[d][p][0] for p in rows]) & np.uint64(
+                0x7FFFFFFF)
+            if d < order:
+                nk = [len(kids[d + 1].get(p, ())) for p in rows]
+                nxt = np.cumsum([0] + nk).astype(np.uint64)
+                fields = [(words + [0], word_bits),
+                          (np.append(probs, 0), 31),
+                          (np.append(f32([nodes[d][p][1] for p in rows]), 0),
+                           32), (nxt, required_bits(counts[d]))]
+                n = len(rows) + 1
+            else:
+                fields = [(words, word_bits), (probs, 31)]
+                n = len(rows)
+            total = sum(b for _, b in fields)
+            raw = _pack_lsb(fields, n)
+            out += raw + b"\x00" * ((n * total + 7) // 8 + 8 - len(raw))
+    out += b"\x00".join(w.encode("utf8") for w in vocab) + b"\x00"
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+# the data path's synthetic LibriSpeech test-clean: 20 utterances of
+# 7.5 s, the second chapter recorded at 32 kHz (the resampler runs)
+LIBRI_CHAPTERS = ((1089, 134686, 16000), (1188, 133604, 32000))
+LIBRI_UTTS = 20
+# the host decode times: the Python search on LIBRI_PY_UTTS utterances
+LIBRI_PY_UTTS = 3
+
+
+def librispeech_tarball(d: str, rng) -> dict:
+    """``d``/test_clean/test-clean.tar.gz in the LibriSpeech layout
+    (``LibriSpeech/test-clean/<spk>/<chap>/<spk>-<chap>-<utt>.flac`` and
+    ``<spk>-<chap>.trans.txt``), FLAC written by the port's ``save_flac``;
+    -> {utterance: (the encoded int samples, rate, transcript)}, the
+    samples as the port's decoder reads them back from the staged file."""
+    import tarfile
+
+    from deepspeech_tpu_torch.audio.flac_encode import save_flac
+    from deepspeech_tpu_torch.audio.io import read_flac
+
+    stage = os.path.join(d, "stage", "LibriSpeech", "test-clean")
+    known = {}
+    per = LIBRI_UTTS // len(LIBRI_CHAPTERS)
+    letters = list(LABELS[2:28])
+    for spk, chap, sr in LIBRI_CHAPTERS:
+        cd = os.path.join(stage, str(spk), str(chap))
+        os.makedirs(cd)
+        lines = []
+        for u in range(per):
+            name = f"{spk}-{chap}-{u:04d}"
+            y = synthetic_audio(rng, int(AUDIO_S / SR * sr), sr) * 0.9
+            flac = os.path.join(cd, f"{name}.flac")
+            save_flac(flac, y, sr)
+            q = np.clip(np.round(y * 32767.0), -32768, 32767).astype(np.int64)
+            data, got_sr, bits = read_flac(flac)
+            if not (got_sr == sr and bits == 16
+                    and np.array_equal(data.astype(np.int64), q)):
+                raise AssertionError(f"{name}: the decoder does not return "
+                                     f"the encoded samples")
+            text = " ".join("".join(rng.choice(letters,
+                                               int(rng.integers(1, 7))))
+                            for _ in range(int(rng.integers(6, 14))))
+            known[name] = (q, sr, text)
+            lines.append(f"{name} {text.lower()}")
+        with open(os.path.join(cd, f"{spk}-{chap}.trans.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    os.makedirs(os.path.join(d, "libri", "test_clean"))
+    with tarfile.open(os.path.join(d, "libri", "test_clean",
+                                   "test-clean.tar.gz"), "w:gz") as tar:
+        tar.add(os.path.dirname(stage), arcname="LibriSpeech")
+    return known
+
+
+def reference_package(model, meta) -> dict:
+    """The model's weights as the reference's torch.save package (its DS2
+    state_dict key names, reference model.py:183-341, 426-450)."""
+    import torch
+
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    ref = {}
+
+    def bn(dst, src):
+        for k in ("weight", "bias", "running_mean", "running_var"):
+            ref[f"{dst}.{k}"] = sd[f"{src}.{k}"]
+
+    for j, (ci, bi) in enumerate(((0, 1), (3, 4))):
+        ref[f"conv.seq_module.{ci}.weight"] = sd[f"conv.conv{j}.weight"]
+        ref[f"conv.seq_module.{ci}.bias"] = sd[f"conv.conv{j}.bias"]
+        bn(f"conv.seq_module.{bi}", f"conv.bn{j}")
+    for i in range(meta["hidden_layers"]):
+        for d, s in enumerate(("", "_reverse")):
+            for src, dst, t in (("w_ih", "weight_ih", True),
+                                ("w_hh", "weight_hh", True),
+                                ("b_ih", "bias_ih", False),
+                                ("b_hh", "bias_hh", False)):
+                v = sd[f"rnns.{i}.{src}"][d]
+                ref[f"rnns.{i}.rnn.{dst}_l0{s}"] = (v.t() if t else v
+                                                    ).contiguous()
+        if i > 0:
+            bn(f"rnns.{i}.batch_norm.module", f"rnns.{i}.bn")
+    bn("fc.0.module.0", "fc_bn")
+    ref["fc.0.module.1.weight"] = sd["fc.weight"]
+    return {"version": "0.0.1", "hidden_size": meta["hidden_size"],
+            "hidden_layers": meta["hidden_layers"], "rnn_type": "gru",
+            "audio_conf": {"sample_rate": SR, "window_size": 0.02},
+            "labels": LABELS, "state_dict": ref, "bnm": meta["bnm"],
+            "bidirectional": True, "dropout": 0, "cnn_width": 0,
+            "epoch": 1, "loss_results": torch.tensor([1.0])}
+
+
+def host_cpu() -> str:
+    """The host CPU as lscpu gives it: its model name, with the vendor,
+    family and model numbers (on some virtual machines lscpu names no
+    model)."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         check=True).stdout
+    info = {}
+    for line in out.splitlines():
+        key, _, value = line.partition(":")
+        info[key.strip()] = value.strip()
+    return (f"{info.get('Model name', 'unknown')} ({info.get('Vendor ID')}, "
+            f"family {info.get('CPU family')}, model {info.get('Model')})")
+
+
+def host_decode_ms(decoder, probs, sizes) -> tuple[float, tuple]:
+    t0 = time.perf_counter()
+    out = decoder.decode(probs, sizes)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_data_path(torch, model, meta, arpa: str, dslm: str) -> dict:
+    """The slice's path to a LibriSpeech WER: the host library rebuilt
+    (g++), a LibriSpeech-layout FLAC tarball through the port's
+    ``librispeech`` CLI (no network) into a manifest whose wavs and rows
+    equal the encoded samples (resampled where the chapter is at 32 kHz);
+    the ``test`` CLI on it four ways (ARPA on the native search, a KenLM
+    probing and a trie binary on the Python search at width 10 on
+    LIBRI_PY_UTTS utterances, the trie on the device beam), launches
+    counted; on the same posteriors the native search against the Python
+    one bit for bit, the trie's device beam against the DSLM's, the native
+    WER/CER against the numpy one; the host decode times; a
+    reference-format package of the model imported and transcribed on the
+    card."""
+    from deepspeech_tpu_torch import native
+    from deepspeech_tpu_torch.audio.dsp import resample
+    from deepspeech_tpu_torch.audio.features import AudioConf
+    from deepspeech_tpu_torch.cli import common, librispeech
+    from deepspeech_tpu_torch.cli import import_torch
+    from deepspeech_tpu_torch.cli.test import main as test_main
+    from deepspeech_tpu_torch.cli.transcribe import main as transcribe_main
+    from deepspeech_tpu_torch.data import (AudioDataLoader, AudioDataset,
+                                           BucketingSampler, read_manifest)
+    from deepspeech_tpu_torch.decoders import (BeamCTCDecoder,
+                                               DeviceBeamCTCDecoder)
+    from deepspeech_tpu_torch.decoders.beam import ctc_beam_search
+    from deepspeech_tpu_torch.decoders.beam_native import (
+        NativeArpaLM, ctc_beam_search_native)
+    from deepspeech_tpu_torch.decoders.lm import ArpaLM
+    from deepspeech_tpu_torch.metrics import (batch_edit_distance,
+                                              get_cer_wer)
+    from deepspeech_tpu_torch.train import checkpoint as ckpt
+    from deepspeech_tpu_torch.train.step import StepConfig, make_eval_step
+
+    out: dict = {"host_cpu": host_cpu()}
+    log(f"host CPU: {out['host_cpu']}, {os.cpu_count()} cores")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    native.load_native(force=True)
+    out["gxx_s"] = time.perf_counter() - t0
+    log(f"host library rebuilt with {gxx} in {out['gxx_s']:.1f} s: "
+        f"{native.library_path()}")
+    rng = np.random.default_rng(SEED + 21)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        known = librispeech_tarball(d, rng)
+        probing = os.path.join(d, "lm.binary")
+        trie = os.path.join(d, "lm.trie.binary")
+        t0 = time.perf_counter()
+        write_kenlm_binary(probing, arpa, "probing")
+        write_kenlm_binary(trie, arpa, "trie")
+        log(f"KenLM probing ({os.path.getsize(probing)} B) and trie "
+            f"({os.path.getsize(trie)} B) binaries of the synthetic LM "
+            f"written in {time.perf_counter() - t0:.2f} s")
+
+        # the librispeech CLI, held off the network: the one tarball it
+        # is asked for is on disk, and a download would raise
+        fetch = librispeech.maybe_download
+
+        def local_only(url, target_dir):
+            if not os.path.exists(os.path.join(target_dir,
+                                               url.split("/")[-1])):
+                raise AssertionError(f"librispeech would download {url}")
+            return fetch(url, target_dir)
+
+        librispeech.maybe_download = local_only
+        os.chdir(d)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = librispeech.main(["--target-dir",
+                                       os.path.join(d, "libri"),
+                                       "--files-to-use",
+                                       "test-clean.tar.gz"])
+            out["librispeech_s"] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            librispeech.maybe_download = fetch
+        manifest = os.path.join(d, "libri_test_clean_manifest.csv")
+        rows = read_manifest(manifest)
+        if rc != 0 or len(rows) != LIBRI_UTTS:
+            raise AssertionError(f"librispeech CLI: exit {rc}, "
+                                 f"{len(rows)} rows")
+        from scipy.io import wavfile
+        for wav, txt, dur in rows:
+            name = os.path.basename(wav)[:-4]
+            q, sr, text = known[name]
+            y = q.astype(np.float32) / 32768.0
+            if sr != SR:
+                y = resample(y, sr, SR)
+            want = (np.clip(y, -1.0, 1.0) * 32767.0).astype(np.int16)
+            got_sr, got = wavfile.read(wav)
+            with open(txt) as f:
+                got_text = f.read()
+            if (got_sr != SR or not np.array_equal(got, want)
+                    or got_text != text.upper()
+                    or dur != round(len(want) / SR, 3)):
+                raise AssertionError(f"{name}: the manifest's wav or text "
+                                     f"is not what was encoded")
+        if [r[2] for r in rows] != sorted(r[2] for r in rows):
+            raise AssertionError("the manifest is not sorted by duration")
+        log(f"librispeech CLI: {LIBRI_UTTS} FLAC utterances ({AUDIO_S / SR}"
+            f" s; chapters at {[c[2] for c in LIBRI_CHAPTERS]} Hz) -> 16 kHz"
+            f" wavs and a duration-sorted manifest in "
+            f"{out['librispeech_s']:.2f} s, each wav equal to the encoded "
+            f"samples (resampled at 32 kHz)")
+
+        path = os.path.join(d, "ds2.ckpt")
+        ckpt.save(path, ckpt.package_from_model(model, meta, LABELS,
+                                                AudioConf().to_dict()))
+        # the posteriors of the manifest, as the test CLI computes them
+        model32, labels, conf, _ = common.load_inference_model(path, "cuda")
+        dataset = AudioDataset(conf, manifest, labels)
+        loader = AudioDataLoader(dataset, BucketingSampler(len(dataset),
+                                                           LIBRI_UTTS),
+                                 LIBRI_UTTS)
+        batch = next(iter(loader))
+        batch.pop("paths")
+        m = make_eval_step(model32, StepConfig(audio_conf=conf))(
+            {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+        probs, sizes = m["probs"], m["out_lens"]
+        backends = []
+
+        class Recording(BeamCTCDecoder):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                backends.append(self.backend)
+
+        # (label, decoder, LM, utterances, the backend auto must pick,
+        # --lm-workers): threads for the native search, one process for the
+        # Python search
+        runs = (("beam, ARPA (auto)", "beam", arpa, LIBRI_UTTS, "native", 4),
+                ("beam, KenLM probing", "beam", probing, LIBRI_PY_UTTS,
+                 "python", 1),
+                ("beam, KenLM trie", "beam", trie, LIBRI_PY_UTTS, "python",
+                 1),
+                ("device_beam, KenLM trie", "device_beam", trie, LIBRI_UTTS,
+                 None, 1))
+        summaries = {}
+        common.BeamCTCDecoder = Recording
+        try:
+            for label, decoder, lm, n, backend, workers in runs:
+                backends.clear()
+                buf = io.StringIO()
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    rc = test_main([
+                        "--model-path", path, "--test-manifest", manifest,
+                        "--batch-size", str(n), "--max-items", str(n),
+                        "--num-workers", "4", "--decoder", decoder,
+                        "--lm-path", lm, "--alpha", str(LM_ALPHA),
+                        "--beta", str(LM_BETA), "--beam-width", "10",
+                        "--lm-workers", str(workers), "--report-file",
+                        os.path.join(d, "report.csv")])
+                dt = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                counts = read_counts()
+                summary = buf.getvalue().strip().splitlines()[-2:]
+                want = expect_counts(stft_mag=1, gru_fwd=LAYERS,
+                                     ctc_alpha=1,
+                                     topk=probs.shape[1] if backend is None
+                                     else 0)
+                log(f"test CLI --decoder {label} ({n} x {AUDIO_S / SR} s): "
+                    f"{dt:.3f} s host clock, backend "
+                    f"{backends or ['device']}, launches {counts}")
+                for line in summary:
+                    log(f"  {line}")
+                if (rc != 0 or counts != want
+                        or backends != ([backend] if backend else [])):
+                    raise AssertionError(
+                        f"test CLI {label}: exit {rc}, launches {counts} "
+                        f"(expected {want}), backends {backends}")
+                summaries[label] = summary
+                out[f"test_cli_s[{label}]"] = dt
+        finally:
+            common.BeamCTCDecoder = BeamCTCDecoder
+
+        lp = np.log(np.clip(probs.double().cpu().numpy(), 1e-30, 1.0))
+        lens = sizes.cpu().numpy()
+        space = LABELS.index(" ")
+        kw = dict(beam_width=10, space_index=space, alpha=LM_ALPHA,
+                  beta=LM_BETA, labels=LABELS, top_paths=1)
+        nlm, plm = NativeArpaLM(arpa), ArpaLM(arpa)
+        same = 0
+        for i in range(LIBRI_PY_UTTS):
+            for lm_n, lm_p in ((None, None), (nlm, plm)):
+                a = ctc_beam_search_native(lp[i, :lens[i]], lm=lm_n, **kw)
+                b = ctc_beam_search(lp[i, :lens[i]], lm=lm_p, **kw)
+                if [h[:2] for h in a] != [h[:2] for h in b]:
+                    raise AssertionError(f"utterance {i}: the native "
+                                         f"search's hypothesis differs from "
+                                         f"the Python one")
+                if abs(a[0][2] - b[0][2]) > 1e-10:
+                    raise AssertionError(f"utterance {i}: scores "
+                                         f"{a[0][2]} and {b[0][2]}")
+                same += 1
+        log(f"native search == Python search (hypotheses and offsets bit "
+            f"for bit, scores within 1e-10) on {same} searches of "
+            f"{LIBRI_PY_UTTS} utterances at width 10, with and without the "
+            f"LM")
+
+        # the trie's device beam against the DSLM's, on the card
+        texts = {}
+        for name, lm in (("trie", trie), ("dslm", dslm)):
+            dec = DeviceBeamCTCDecoder(LABELS, beam_width=10, lm_path=lm,
+                                       alpha=LM_ALPHA, beta=LM_BETA,
+                                       device="cuda")
+            texts[name] = dec.decode(probs, sizes)
+        if texts["trie"][0] != texts["dslm"][0]:
+            raise AssertionError("the KenLM trie's device beam differs from "
+                                 "the DSLM's")
+        log(f"device beam over the KenLM trie == over the DSLM of its ARPA: "
+            f"{LIBRI_UTTS} texts equal")
+
+        # the native WER/CER against the numpy dynamic program
+        refs = [labels.render_transcript(
+            batch["targets"][x, :int(batch["target_lengths"][x])])
+            for x in range(LIBRI_UTTS)]
+        hyps = [h[0] for h in texts["trie"][0]]
+        got = [get_cer_wer(h, r) for h, r in zip(hyps, refs)]
+        mod = importlib.import_module(
+            "deepspeech_tpu_torch.metrics.edit_distance")
+        loader_fn = mod.try_load_native
+        mod.try_load_native = lambda: None
+        try:
+            want = [get_cer_wer(h, r) for h, r in zip(hyps, refs)]
+            seqs = [[ord(c) for c in s] for s in hyps], \
+                [[ord(c) for c in s] for s in refs]
+            want_b = [mod.edit_distance(a, b) for a, b in zip(*seqs)]
+        finally:
+            mod.try_load_native = loader_fn
+        got_b = batch_edit_distance(*seqs).tolist()
+        if got != want or got_b != want_b:
+            raise AssertionError("the native WER/CER differ from numpy's")
+        tot = np.sum(got, axis=0)
+        log(f"native WER/CER == numpy's on {LIBRI_UTTS} utterances (WER "
+            f"{100 * tot[0] / tot[2]:.3f}, CER {100 * tot[1] / tot[3]:.3f} "
+            f"against the random transcripts)")
+
+        # host decode times of the 20 x 7.5 s posteriors
+        host = probs.float().cpu().numpy()
+        times = {}
+        cases = (("python w10", dict(beam_width=10, backend="python",
+                                     num_processes=1), LIBRI_PY_UTTS),
+                 ("native w10", dict(beam_width=10, backend="native",
+                                     num_processes=1), LIBRI_PY_UTTS),
+                 ("native w10 all", dict(beam_width=10, backend="native",
+                                         num_processes=1), LIBRI_UTTS),
+                 ("native w128", dict(beam_width=128, backend="native",
+                                      num_processes=1), LIBRI_UTTS),
+                 ("native w128 + LM", dict(beam_width=128, backend="native",
+                                           num_processes=1, lm_path=arpa),
+                  LIBRI_UTTS),
+                 ("native w128 + LM, 4 workers",
+                  dict(beam_width=128, backend="native", num_processes=4,
+                       lm_path=arpa), LIBRI_UTTS))
+        for name, kw, n in cases:
+            dec = BeamCTCDecoder(LABELS, alpha=LM_ALPHA, beta=LM_BETA, **kw)
+            host_decode_ms(dec, host[:1], lens[:1])  # warm
+            times[name], _ = host_decode_ms(dec, host[:n], lens[:n])
+            log(f"host decode {name}: {times[name]:.1f} ms for {n} x "
+                f"{AUDIO_S / SR} s ({times[name] / n:.1f} ms an utterance)")
+        out["host_decode_ms"] = times
+        out["python_over_native_w10"] = (times["python w10"]
+                                         / times["native w10"])
+
+        # a reference-format package of the model, imported and transcribed
+        ref_path = os.path.join(d, "ref.pth")
+        torch.save(reference_package(model, meta), ref_path)
+        imported = os.path.join(d, "imported.ckpt")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = import_torch.main([ref_path, imported])
+        out["import_s"] = time.perf_counter() - t0
+        wav = rows[0][0]
+        reset_counts()
+        text, dt = transcribe_once(transcribe_main, imported, wav)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        orig, _ = transcribe_once(transcribe_main, path, wav)
+        log(f"import_torch of the reference-format package "
+            f"({os.path.getsize(ref_path)} B): {out['import_s']:.2f} s; "
+            f"transcribe on it: {dt:.3f} s, launches {counts}, text equal "
+            f"to the original checkpoint's: {text == orig}")
+        if (rc != 0 or text != orig
+                or counts != expect_counts(stft_mag=1, gru_fwd=LAYERS)):
+            raise AssertionError(f"import_torch: exit {rc}, launches "
+                                 f"{counts}, {text[:40]!r} vs {orig[:40]!r}")
+    return out
+
+
 def serve_utterances(rng, n: int | None = None) -> list:
     """``n`` (SERVE_UTTS) synthetic utterances of 2 to 7.5 s."""
     return [synthetic_audio(rng, int(s * SR))
@@ -3446,6 +4023,9 @@ def main() -> int:
         mark("the device beam searches")
         phase_beam_cli(torch, model, meta, arpa, dslm)
         mark("the beam decoders through the transcribe and test CLIs")
+        data_path = phase_data_path(torch, model, meta, arpa, dslm)
+        mark("the data path: FLAC -> librispeech -> test four ways, KenLM, "
+             "the native search and edit distance, import_torch")
     del model
     phase_train(torch, train_counts, floor)
     phase_train_augmented(torch, floor)
@@ -3505,7 +4085,7 @@ def main() -> int:
     log(card)
     serve["greedy"].pop("texts")
     serve["device_beam"].pop("texts")
-    log(json.dumps({"serve": serve, "cnn": cnn}))
+    log(json.dumps({"serve": serve, "cnn": cnn, "data_path": data_path}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

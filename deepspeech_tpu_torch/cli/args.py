@@ -25,9 +25,12 @@ def add_decoder_args(parser: argparse.ArgumentParser):
                            help="Cumulative probability cutoff in beam search")
     beam_args.add_argument("--lm-workers", default=1, type=int,
                            help="Parallel beam-search workers over the "
-                                "batch: spawned processes for --decoder "
-                                "beam; no effect on device_beam (already "
-                                "batch-parallel on the device)")
+                                "batch: threads for the native C++ backend "
+                                "(its search call releases the GIL), "
+                                "spawned processes for the pure-Python "
+                                "backend; no effect on --decoder "
+                                "device_beam (already batch-parallel on "
+                                "device)")
     beam_args.add_argument("--blank-collapse", default=1.0, type=float,
                            help="Drop frames with p(blank) >= this before "
                                 "beam search (arXiv:2210.17017); 1.0 = off")

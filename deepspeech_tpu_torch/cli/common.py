@@ -48,7 +48,7 @@ def build_decoder(args, labels):
         except ValueError as e:
             raise SystemExit(
                 f"--decoder device_beam: {e}\n"
-                "KenLM .binary files are not read by the PyTorch port; "
+                "KenLM .binary files are host-only; use --decoder beam, or "
                 "convert the textual ARPA to a DSLM file "
                 "(python -m deepspeech_tpu_torch.decoders.lm_binary) for "
                 "the LM-fused device search.") from e

@@ -1,5 +1,5 @@
 """CTC prefix beam search on the host with optional n-gram LM fusion (the
-JAX package's ``decoders/beam.py``, pure-Python backend).
+JAX package's ``decoders/beam.py``).
 
 The standard CTC prefix beam search (Hannun et al. 2014):
 
@@ -11,10 +11,12 @@ The standard CTC prefix beam search (Hannun et al. 2014):
   ``alpha * log10 P(word | context) + beta`` (KenLM-style shallow fusion);
 * returns (strings, offsets) with ``top_paths`` hypotheses per utterance.
 
-The batch fans out over ``num_processes`` spawned worker processes: Python
-threads cannot speed up the pure-Python search. The JAX package's native
-C++ backend is not ported yet (``backend="native"`` raises); it gives
-bit-identical hypotheses to this one.
+Two backends give bit-identical hypotheses: the native C++ search
+(``decoders/beam_native.py`` over ``native/beam_search.cpp``) and this
+module's pure-Python one. The batch fans out over ``num_processes``: the
+native backend over a thread pool (its ctypes search call releases the
+GIL), the pure-Python backend over spawned worker processes, since Python
+threads cannot speed up the pure-Python search.
 """
 
 from __future__ import annotations
@@ -23,14 +25,18 @@ import math
 import multiprocessing
 import os
 import sys
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from concurrent.futures.process import BrokenProcessPool
 
 import numpy as np
 import torch
 
+from deepspeech_tpu_torch import native
+from deepspeech_tpu_torch.decoders import beam_native
 from deepspeech_tpu_torch.decoders.base import Decoder
 from deepspeech_tpu_torch.decoders.lm import LOG10, load_lm
+from deepspeech_tpu_torch.decoders.lm_binary import is_dslm
+from deepspeech_tpu_torch.decoders.lm_kenlm import is_kenlm
 
 NEG_INF = -math.inf
 
@@ -159,8 +165,11 @@ def ctc_beam_search(log_probs: np.ndarray, beam_width: int = 10,
 class BeamCTCDecoder(Decoder):
     """Host beam decoder (reference decoder.py:90-143 API).
 
-    ``backend``: ``"python"`` (this module's search) or ``"auto"`` (python
-    here); ``"native"`` raises until the native C++ search is ported.
+    ``backend`` selects the search: ``"native"`` (the C++ search, the
+    ctcdecode-equivalent fast path), ``"python"`` (this module's), or
+    ``"auto"``: native where the library loads and the LM is not a binary
+    (the C++ scorer parses textual ARPA; DSLM and KenLM binaries score
+    through the Python search), as the JAX package resolves it.
     """
 
     def __init__(self, labels, lm_path=None, alpha=0.8, beta=1.0,
@@ -168,20 +177,27 @@ class BeamCTCDecoder(Decoder):
                  num_processes=4, blank_index=0, top_paths=1,
                  backend="auto", blank_collapse_threshold=1.0):
         super().__init__(labels, blank_index=blank_index)
-        if backend == "native":
-            raise RuntimeError("the native C++ beam backend is not ported to "
-                               "PyTorch yet (ROADMAP.md); use backend='auto' "
-                               "or 'python', which give the same hypotheses")
-        if backend not in ("auto", "python"):
+        binary_lm = bool(lm_path) and (is_dslm(lm_path) or is_kenlm(lm_path))
+        if backend == "auto":
+            backend = ("native" if not binary_lm and native.available()
+                       else "python")
+        elif backend == "native" and not native.available():
+            raise RuntimeError("native beam decoder unavailable (no g++)")
+        elif backend == "native" and binary_lm:
+            raise RuntimeError("the native beam backend scores textual ARPA "
+                               "only; use backend='auto'/'python' for "
+                               "DSLM/KenLM binary LMs")
+        elif backend not in ("native", "python"):
             raise ValueError(f"unknown beam backend {backend!r}")
-        self.backend = "python"
+        self.backend = backend
         # enough to rebuild this decoder inside a spawned worker process
-        # (single-process there; the parent owns the fan-out)
+        # (single-process there; the parent owns the fan-out), pinned to
+        # the resolved backend ("auto" could resolve otherwise there)
         self._ctor_kwargs = dict(
             labels=labels, lm_path=lm_path, alpha=alpha, beta=beta,
             cutoff_top_n=cutoff_top_n, cutoff_prob=cutoff_prob,
             beam_width=beam_width, num_processes=1, blank_index=blank_index,
-            top_paths=top_paths, backend="python",
+            top_paths=top_paths, backend=backend,
             blank_collapse_threshold=blank_collapse_threshold)
         self._pool = None
         self.beam_width = beam_width
@@ -192,14 +208,19 @@ class BeamCTCDecoder(Decoder):
         self.beta = beta
         self.blank_collapse_threshold = float(blank_collapse_threshold)
         self.num_processes = max(1, num_processes)
-        self.lm = load_lm(lm_path)
+        if backend == "native":
+            self._search = beam_native.ctc_beam_search_native
+            self.lm = beam_native.NativeArpaLM(lm_path) if lm_path else None
+        else:
+            self._search = ctc_beam_search
+            self.lm = load_lm(lm_path)
 
     def _decode_one(self, log_probs: np.ndarray):
         frame_map = None
         if self.blank_collapse_threshold < 1.0:
             log_probs, frame_map = blank_collapse(
                 log_probs, self.blank_collapse_threshold, self.blank_index)
-        hyps = ctc_beam_search(
+        hyps = self._search(
             log_probs, beam_width=self.beam_width, blank=self.blank_index,
             cutoff_top_n=self.cutoff_top_n, cutoff_prob=self.cutoff_prob,
             space_index=self.space_index if self.lm is not None else None,
@@ -227,11 +248,17 @@ class BeamCTCDecoder(Decoder):
             t = int(sizes[b]) if sizes is not None else log_probs.shape[1]
             items.append(log_probs[b, :t])
         if self.num_processes > 1 and len(items) > 1:
-            # the pure-Python search never leaves the GIL; real parallelism
-            # needs processes (workers are spawned once and reused across
-            # decode() calls; each rebuilds this decoder, its LM included,
-            # from _ctor_kwargs)
-            results = self._decode_in_processes(items)
+            if self.backend == "python":
+                # the pure-Python search never leaves the GIL; real
+                # parallelism needs processes (workers are spawned once and
+                # reused across decode() calls; each rebuilds this decoder,
+                # its LM included, from _ctor_kwargs)
+                results = self._decode_in_processes(items)
+            else:
+                # the native search is a ctypes call, which releases the
+                # GIL for its duration: threads scale here
+                with ThreadPoolExecutor(self.num_processes) as pool:
+                    results = list(pool.map(self._decode_one, items))
         else:
             results = [self._decode_one(x) for x in items]
         return [r[0] for r in results], [r[1] for r in results]

@@ -3,8 +3,9 @@
 
 Reads textual ARPA files; scores are log10 like ARPA/KenLM, used by the
 beam decoders as ``alpha * log_p(word | context) + beta`` at word
-boundaries. ``load_lm`` also opens DSLM binaries (``decoders/lm_binary.py``);
-KenLM binaries are not ported yet and raise.
+boundaries. ``load_lm`` also opens DSLM binaries (``decoders/lm_binary.py``)
+and KenLM probing and trie binaries (``decoders/lm_kenlm.py``,
+``decoders/lm_trie.py``).
 """
 
 from __future__ import annotations
@@ -12,8 +13,7 @@ from __future__ import annotations
 import gzip
 import math
 
-# KenLM's binary header (the JAX package's decoders/lm_kenlm.py MAGIC)
-KENLM_MAGIC = b"mmap lm http://kheafield.com/code format version 5\n\x00"
+from deepspeech_tpu_torch.decoders.lm_kenlm import MAGIC as KENLM_MAGIC
 
 
 class ArpaLM:
@@ -71,33 +71,25 @@ class ArpaLM:
         return total
 
 
-def is_kenlm(path: str) -> bool:
-    try:
-        with open(path, "rb") as f:
-            return f.read(len(KENLM_MAGIC)) == KENLM_MAGIC
-    except OSError:
-        return False
-
-
-def refuse_kenlm(path: str) -> None:
-    """Raise for a KenLM binary: its readers are not ported yet."""
-    if is_kenlm(path):
-        raise ValueError(
-            f"{path}: KenLM binaries are not ported to PyTorch yet (the "
-            "KenLM-reader slice, ROADMAP.md); convert the source ARPA with "
-            "python -m deepspeech_tpu_torch.decoders.lm_binary")
-
-
 def load_lm(path: str | None):
     """Textual ARPA(.gz) -> in-memory ArpaLM; DSLM binary (from
     decoders/lm_binary.py convert_arpa) -> mmap-backed BinaryLM with O(vocab)
-    resident memory; a KenLM binary raises."""
+    resident memory; KenLM ``.binary`` (probing or trie) -> mmap-backed
+    query reader (decoders/lm_kenlm.py, decoders/lm_trie.py), so the
+    reference's own LM artifacts load directly (reference decoder.py:95-99,
+    opts.py:5-7)."""
     if not path:
         return None
     from deepspeech_tpu_torch.decoders.lm_binary import BinaryLM, is_dslm
+    from deepspeech_tpu_torch.decoders.lm_kenlm import KenLMProbing, is_kenlm
+    from deepspeech_tpu_torch.decoders.lm_trie import (TRIE_TYPES, KenLMTrie,
+                                                       kenlm_model_type)
     if is_dslm(path):
         return BinaryLM(path)
-    refuse_kenlm(path)
+    if is_kenlm(path):
+        if kenlm_model_type(path) in TRIE_TYPES:
+            return KenLMTrie(path)
+        return KenLMProbing(path)
     return ArpaLM(path)
 
 

@@ -142,15 +142,41 @@ def build_device_lm(blm, labels: str, device: str | torch.device = "cuda"
 
 def load_device_lm(path: str, labels: str,
                    device: str | torch.device = "cuda") -> dict:
-    """ARPA(.gz) or DSLM file -> device LM tensors; a KenLM binary raises.
+    """ARPA(.gz) / DSLM / KenLM trie binary -> device LM tensors; a KenLM
+    probing binary raises.
 
     Textual ARPA goes through the DSLM converter into a temp file first
     (one-time cost; ship a .dslm for production, see lm_binary.main)."""
-    from deepspeech_tpu_torch.decoders.lm import refuse_kenlm
     from deepspeech_tpu_torch.decoders.lm_binary import (BinaryLM,
                                                          convert_arpa,
                                                          is_dslm)
-    refuse_kenlm(path)
+    from deepspeech_tpu_torch.decoders.lm_kenlm import is_kenlm
+    from deepspeech_tpu_torch.decoders.lm_trie import (TRIE_TYPES, KenLMTrie,
+                                                       kenlm_model_type)
+    if is_kenlm(path):
+        if kenlm_model_type(path) in TRIE_TYPES:
+            # trie binaries store explicit word ids + strings, so they ARE
+            # invertible: enumerate back to ARPA, then through the DSLM
+            # converter (KenLMTrie itself rejects quantized/Bhiksha
+            # variants with guidance)
+            trie = KenLMTrie(path)
+            fd, tmp_arpa = tempfile.mkstemp(suffix=".arpa")
+            os.close(fd)
+            try:
+                trie.dump_arpa(tmp_arpa)
+                return load_device_lm(tmp_arpa, labels, device)
+            finally:
+                trie.close()
+                os.unlink(tmp_arpa)
+        # probing binaries store one-way n-gram hashes: they can be
+        # QUERIED (host beam, decoders/lm_kenlm.py) but never expanded into
+        # the explicit trie the device search needs
+        raise ValueError(
+            f"{path}: KenLM probing binaries cannot feed the on-device "
+            "beam (hashed n-grams are not invertible); use the host beam "
+            "decoder, a trie-format binary (build_binary trie), or convert "
+            "the source ARPA with python -m deepspeech_tpu_torch.decoders."
+            "lm_binary")
     if is_dslm(path):
         blm = BinaryLM(path)
     else:

@@ -1,5 +1,7 @@
-from deepspeech_tpu_torch.metrics.edit_distance import (cer, edit_distance,
+from deepspeech_tpu_torch.metrics.edit_distance import (batch_edit_distance,
+                                                        cer, edit_distance,
                                                         get_cer_wer,
                                                         string_distance, wer)
 
-__all__ = ["cer", "edit_distance", "get_cer_wer", "string_distance", "wer"]
+__all__ = ["batch_edit_distance", "cer", "edit_distance", "get_cer_wer",
+           "string_distance", "wer"]

@@ -1,5 +1,5 @@
 """Edit distance + WER/CER (the JAX package's ``metrics/edit_distance.py``,
-copied; the numpy dynamic program only, without the native C++ module).
+copied).
 
 Semantics match the reference exactly:
 * ``wer(s1, s2)`` maps words to token ids before the distance so multi-char
@@ -9,17 +9,25 @@ Semantics match the reference exactly:
 * ``get_cer_wer`` returns (wer, cer, wer_ref_len, cer_ref_len) with the
   reference's strip + or-1 denominators and the equal-string shortcut
   (reference data/utils.py:47-57).
+
+Backed by the port's host C++ library (``native/edit_distance.cpp``), with
+the numpy dynamic program where that library cannot be built (no g++).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
+from deepspeech_tpu_torch.native import try_load_native
 
-def edit_distance(a, b) -> int:
-    """Levenshtein distance between two token sequences."""
-    a = np.asarray(a, dtype=np.int64)
-    b = np.asarray(b, dtype=np.int64)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+
+
+def _edit_distance_py(a: np.ndarray, b: np.ndarray) -> int:
+    """Levenshtein distance by the numpy dynamic program."""
     na, nb = len(a), len(b)
     if na == 0:
         return nb
@@ -35,6 +43,18 @@ def edit_distance(a, b) -> int:
         # cur[j] = min_{k<=j} cand[k] + (j-k): a prefix-min over cand[k]-k
         prev = np.minimum.accumulate(cand - pos) + pos
     return int(prev[nb])
+
+
+def edit_distance(a, b) -> int:
+    """Levenshtein distance between two token sequences (lists/arrays of
+    ints)."""
+    a = np.ascontiguousarray(a, dtype=np.uint32)
+    b = np.ascontiguousarray(b, dtype=np.uint32)
+    lib = try_load_native()
+    if lib is not None:
+        return int(lib.edit_distance_u32(a.ctypes.data_as(_U32P), len(a),
+                                         b.ctypes.data_as(_U32P), len(b)))
+    return _edit_distance_py(a, b)
 
 
 def string_distance(s1: str, s2: str) -> int:
@@ -65,3 +85,31 @@ def get_cer_wer(transcript: str, reference: str):
         return 0, 0, wer_ref, cer_ref
     return (wer(transcript, reference), cer(transcript, reference), wer_ref,
             cer_ref)
+
+
+def batch_edit_distance(seqs_a, seqs_b) -> np.ndarray:
+    """Distances of aligned lists of token sequences, in one call into the
+    native library where it loads."""
+    if len(seqs_a) != len(seqs_b):
+        raise ValueError(f"{len(seqs_a)} sequences against {len(seqs_b)}")
+    lib = try_load_native()
+    if lib is None:
+        return np.array([edit_distance(a, b) for a, b in zip(seqs_a, seqs_b)],
+                        dtype=np.int64)
+
+    def packed(seqs):
+        off = np.zeros(len(seqs) + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in seqs], out=off[1:])
+        flat = (np.concatenate([np.ascontiguousarray(s, dtype=np.uint32)
+                                for s in seqs])
+                if off[-1] else np.empty(0, dtype=np.uint32))
+        return flat, off
+
+    (a, a_off), (b, b_off) = packed(seqs_a), packed(seqs_b)
+    out = np.empty(len(seqs_a), dtype=np.int64)
+    lib.edit_distance_u32_batch(a.ctypes.data_as(_U32P),
+                                a_off.ctypes.data_as(_I64P),
+                                b.ctypes.data_as(_U32P),
+                                b_off.ctypes.data_as(_I64P), len(seqs_a),
+                                out.ctypes.data_as(_I64P))
+    return out

@@ -966,3 +966,74 @@ def test_cnn_train_step_matches_plain(dev, variant):
     for g, r in zip(m["grads"], ref["grads"]):
         scale = max(1e-6, r.abs().max().item())
         assert (g - r).abs().max().item() <= 1e-3 * scale
+
+
+# ---- the data path: the test CLI with a KenLM trie on the card ----
+
+def test_test_cli_kenlm_trie_beam_matches_cpu(dev, tmp_path):
+    """``test --decoder beam --lm-path <KenLM trie>`` on the card: K1 once
+    and K2 once a layer; the posteriors it dumps agree with the same CLI
+    on the CPU port at 1e-4 (f32 sums in other orders), and its
+    transcripts equal the CPU port's Python search (where ``auto`` sends a
+    binary LM) run on those posteriors."""
+    import contextlib
+    import io
+    import pickle
+
+    from chip_smoke import write_kenlm_binary, write_synthetic_arpa
+    from deepspeech_tpu_torch.audio.features import AudioConf
+    from deepspeech_tpu_torch.audio.io import save_wav
+    from deepspeech_tpu_torch.cli.test import main as test_main
+    from deepspeech_tpu_torch.decoders import BeamCTCDecoder
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.ops.cuda import gru, stft
+    from deepspeech_tpu_torch.train import checkpoint as ckpt
+
+    torch.manual_seed(0)
+    model, meta = build_model("gru", len(SERVE_LABELS), 64, 2, device="cpu")
+    path = str(tmp_path / "m.ckpt")
+    ckpt.save(path, ckpt.package_from_model(model, meta, SERVE_LABELS,
+                                            AudioConf().to_dict()))
+    arpa, trie = str(tmp_path / "lm.arpa"), str(tmp_path / "lm.binary")
+    write_synthetic_arpa(arpa, np.random.default_rng(1), n_words=200)
+    write_kenlm_binary(trie, arpa, "trie")
+    rows = []
+    for i in range(3):
+        wav, txt = str(tmp_path / f"u{i}.wav"), str(tmp_path / f"u{i}.txt")
+        save_wav(wav, _serve_audio(1.0 + 0.3 * i, i), 16000)
+        with open(txt, "w") as f:
+            f.write("AB CD")
+        rows.append(f"{wav},{txt}")
+    manifest = tmp_path / "m.csv"
+    manifest.write_text("\n".join(rows) + "\n")
+
+    dumps = {}
+    for device in ("cuda", "cpu"):
+        before = (stft.launches, gru.launches)
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert test_main([
+                "--model-path", path, "--test-manifest", str(manifest),
+                "--device", device, "--batch-size", "3", "--num-workers",
+                "0", "--decoder", "beam", "--lm-path", trie,
+                "--beam-width", "8", "--output-path",
+                str(tmp_path / f"{device}.pkl")]) == 0
+        launches = (stft.launches - before[0], gru.launches - before[1])
+        assert launches == ((1, 2) if device == "cuda" else (0, 0))
+        with open(tmp_path / f"{device}.pkl", "rb") as f:
+            files = pickle.load(f)
+        dumps[device] = {}
+        for name in files:
+            with open(name, "rb") as f:
+                d = pickle.load(f)
+            dumps[device][d["filename"]] = d
+    decoder = BeamCTCDecoder(SERVE_LABELS, lm_path=trie, beam_width=8,
+                             num_processes=1)
+    assert decoder.backend == "python"
+    for name, card in dumps["cuda"].items():
+        cpu = dumps["cpu"][name]
+        assert card["len"] == cpu["len"]
+        np.testing.assert_allclose(card["probs"], cpu["probs"], rtol=1e-4,
+                                   atol=1e-4)
+        want, _ = decoder.decode(card["probs"][None].astype(np.float64),
+                                 [card["len"]])
+        assert card["transcript"] == want[0][0]

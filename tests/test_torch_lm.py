@@ -10,7 +10,7 @@ beam decoder against the JAX package.
   n-grams (2,000 queries, ~800 of them exact hits).
 * The host ``BeamCTCDecoder`` (python backend) gives the JAX package's
   strings and offsets, with and without the LM and blank collapse, and in
-  spawned worker processes.
+  spawned worker processes. (The native backend: tests/test_torch_native.py.)
 """
 
 import gzip
@@ -153,6 +153,9 @@ def test_state_init_matches_jax(arpa):
 
 
 def test_kenlm_binaries_refused(tmp_path):
+    """A KenLM header over a body of zeros: the readers refuse it with a
+    KenLM message (the sanity floats do not match), the device LM refuses a
+    probing binary, and the native beam refuses any binary LM."""
     p = tmp_path / "lm.binary"
     p.write_bytes(KENLM_MAGIC + b"\0" * 64)
     with pytest.raises(ValueError, match="KenLM"):
@@ -160,7 +163,7 @@ def test_kenlm_binaries_refused(tmp_path):
     with pytest.raises(ValueError, match="KenLM"):
         lm_device.load_device_lm(str(p), LABELS, "cpu")
     with pytest.raises(RuntimeError, match="native"):
-        BeamCTCDecoder(LABELS, backend="native")
+        BeamCTCDecoder(LABELS, lm_path=str(p), backend="native")
 
 
 def _probs(seed, b=3, t=14, c=len(LABELS)):
@@ -200,9 +203,9 @@ def test_host_beam_process_pool_matches_serial(tmp_path):
         f.write(TRIGRAM_ARPA)
     probs = _probs(5, b=4)
     serial = BeamCTCDecoder(LABELS, lm_path=path, beam_width=8,
-                            num_processes=1).decode(probs)
+                            num_processes=1, backend="python").decode(probs)
     pooled = BeamCTCDecoder(LABELS, lm_path=path, beam_width=8,
-                            num_processes=2)
+                            num_processes=2, backend="python")
     try:
         got = pooled.decode(probs)
     finally:
