@@ -76,8 +76,12 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    manifest with --decoder beam and the ARPA (auto must pick the native
    search), with the probing and with the trie binary (the Python search,
    width 10, a few utterances) and with --decoder device_beam and the
-   trie, launch counts reset before each (K1 1, K2 6, K10 once a frame
-   with the device beam); on the same posteriors the native search's
+   trie, launch counts reset before each (K1 1, K2 6, K8 1, K10 once a
+   frame with the device beam); the eval step's own launches of K1, K2
+   and K8 at the CLI's padded shape each held to the plain version on
+   its inputs, and the whole step to the step through every plain
+   version; the trie's device beam bit-equal through K10's plain twin;
+   on the same posteriors the native search's
    hypotheses and offsets bit-equal to the Python search's with and
    without the LM, the trie's device beam texts equal to the DSLM's, the
    native WER/CER and batch_edit_distance equal to the numpy ones; host
@@ -268,6 +272,9 @@ GRU_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSTM_TOL, LSTM_BWD_TOL = GRU_TOL, GRU_BWD_TOL
 CTC_TOL = dict(rtol=1e-4, atol=1e-4)    # log-space sums, f32 exp/log
 LOGIT_TOL = 2e-2                        # x max(1, max|logits|), bf16 forward
+# the f32 eval step's probs (in [0, 1]) against the step through every
+# plain version: f32 sums in other orders through 6 layers, as GRU_TOL
+EVAL_PROB_TOL = GRU_TOL["float32"]
 # the long label sequences of K8/K9's routes: L 2,200 (S 4,401, the ring's
 # last size for K9) and 2,250 (S 4,501, the global route), 2 rows each
 CTC_LONG_L, CTC_LONG_B = (2200, 2250), 2
@@ -833,6 +840,74 @@ def plain_path(only: tuple = ()):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def recorded(names: tuple):
+    """Inside, each wrapper named in ``names`` (``stft_mag``, ``gru_layer``,
+    ``ctc_alpha``) records every call: {name: [(args, kwargs, result)]},
+    tensors cloned, so a launch of the path itself can be held to its
+    plain version on its own inputs afterwards."""
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
+
+    mods = {"stft_mag": stft, "gru_layer": gru, "ctc_alpha": ctc}
+    calls = {name: [] for name in names}
+    saved = {name: getattr(mods[name], name) for name in names}
+
+    def copy(v):
+        if isinstance(v, (tuple, list)):
+            return type(v)(copy(x) for x in v)
+        return v.clone() if hasattr(v, "clone") else v
+
+    def recorder(name):
+        def call(*args, **kw):
+            args, kw = copy(args), {k: copy(v) for k, v in kw.items()}
+            result = saved[name](*args, **kw)
+            calls[name].append((args, kw, copy(result)))
+            return result
+        return call
+
+    for name in names:
+        setattr(mods[name], name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(mods[name], name, saved[name])
+
+
+def hold_recorded(torch, calls: dict) -> dict:
+    """Each launch ``recorded`` kept against the plain version on the same
+    inputs: K1 at STFT_TOL, K2 at GRU_TOL of its operand type, K8's alphas
+    and loss at CTC_TOL (non-finite entries in the same places) ->
+    {wrapper: (launches held, the largest max_abs_err)}."""
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
+
+    plain = {"stft_mag": stft.plain, "gru_layer": gru.plain,
+             "ctc_alpha": ctc.plain_alpha}
+    out = {}
+    for name, seen in calls.items():
+        worst = 0.0
+        for args, kw, got in seen:
+            ref = plain[name](*args, **kw)
+            pairs = (tuple(zip(got, ref)) if name == "ctc_alpha"
+                     else ((got, ref),))
+            for g, r in pairs:
+                fin = torch.isfinite(r)
+                err = max_err(g[fin], r[fin])[0] if fin.any() else 0.0
+                worst = max(worst, err)
+                if name == "gru_layer":
+                    tol = GRU_TOL[str(args[0].dtype).split(".")[-1]]
+                    if not err <= tol:
+                        raise AssertionError(f"K2 at {tuple(args[0].shape)}"
+                                             f": {err} against plain "
+                                             f"(tolerance {tol})")
+                else:
+                    torch.testing.assert_close(
+                        g, r, equal_nan=True,
+                        **(STFT_TOL if name == "stft_mag" else CTC_TOL))
+        out[name] = (len(seen), worst)
+    return out
 
 
 def reset_counts():
@@ -2997,8 +3072,11 @@ def phase_data_path(torch, model, meta, arpa: str, dslm: str) -> dict:
     the ``test`` CLI on it four ways (ARPA on the native search, a KenLM
     probing and a trie binary on the Python search at width 10 on
     LIBRI_PY_UTTS utterances, the trie on the device beam), launches
-    counted; on the same posteriors the native search against the Python
-    one bit for bit, the trie's device beam against the DSLM's, the native
+    counted; the eval step's K1, K2 and K8 launches on the CLI's padded
+    batch against their plain versions on the same inputs (``recorded``),
+    the whole step against the plain path; on the same posteriors the
+    native search against the Python one bit for bit, the trie's device
+    beam against the DSLM's and against K10's plain twin, the native
     WER/CER against the numpy one; the host decode times; a
     reference-format package of the model imported and transcribed on the
     card."""
@@ -3107,9 +3185,52 @@ def phase_data_path(torch, model, meta, arpa: str, dslm: str) -> dict:
                                  LIBRI_UTTS)
         batch = next(iter(loader))
         batch.pop("paths")
-        m = make_eval_step(model32, StepConfig(audio_conf=conf))(
-            {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+        wire = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        eval_step = make_eval_step(model32, StepConfig(audio_conf=conf))
+        torch.cuda.synchronize()
+        reset_counts()
+        with recorded(("stft_mag", "gru_layer", "ctc_alpha")) as calls:
+            m = eval_step(wire)
+        torch.cuda.synchronize()
+        counts = read_counts()
         probs, sizes = m["probs"], m["out_lens"]
+        want = expect_counts(stft_mag=1, gru_fwd=LAYERS, ctc_alpha=1)
+        if counts != want:
+            raise AssertionError(f"eval step launches {counts}, expected "
+                                 f"{want}")
+        # each launch of this step against its plain version on its own
+        # inputs (the test CLI's padded batch: K1 on the padded waveforms,
+        # K2's f32 inference variant and K8 at the padded T)
+        held = hold_recorded(torch, calls)
+        shapes = {k: tuple(v[0][0][0].shape) for k, v in calls.items()}
+        del calls
+        out["eval_step_max_abs_err"] = {k: e for k, (_, e) in held.items()}
+        log(f"eval step of the test CLI's batch ({tuple(wire['audio'].shape)}"
+            f" samples, T {probs.shape[1]}, lengths up to "
+            f"{int(sizes.max())}), each launch against its plain version on "
+            f"its inputs: " + ", ".join(
+                f"{k} x{n} at {shapes[k]} max_abs_err {e:.3e}"
+                for k, (n, e) in held.items())
+            + f" (tolerances {STFT_TOL}, {GRU_TOL['float32']}, {CTC_TOL})")
+        # the whole step against the step through every plain version
+        with plain_path():
+            ref = eval_step(wire)
+        torch.cuda.synchronize()
+        err = max_err(probs, ref["probs"])[0]
+        loss, ref_loss = m["per_sample"], ref["per_sample"]
+        fin = torch.isfinite(ref_loss)
+        rel_loss = (((loss - ref_loss).abs() / ref_loss.abs())[fin].max()
+                    .item() if fin.any() else 0.0)
+        out["eval_step_probs_err"] = err
+        log(f"eval step against the step through every plain version: "
+            f"probs max_abs_err {err:.3e} (tolerance {EVAL_PROB_TOL}), "
+            f"per-utterance loss within {rel_loss:.2e} relative (tolerance "
+            f"{STEP_LOSS_TOL}), lengths equal")
+        if not (torch.equal(sizes, ref["out_lens"]) and err <= EVAL_PROB_TOL
+                and torch.equal(fin, torch.isfinite(loss))
+                and rel_loss <= STEP_LOSS_TOL):
+            raise AssertionError("the eval step disagrees with the plain "
+                                 "path")
         backends = []
 
         class Recording(BeamCTCDecoder):
@@ -3202,8 +3323,26 @@ def phase_data_path(torch, model, meta, arpa: str, dslm: str) -> dict:
         if texts["trie"][0] != texts["dslm"][0]:
             raise AssertionError("the KenLM trie's device beam differs from "
                                  "the DSLM's")
+        # K10 against its plain twin on the same posteriors: the plain
+        # top-k is K10's total order by contract, so texts and offsets
+        # bit-equal
+        reset_counts()
+        with plain_path(only=("topk_total_order",)):
+            plain_k10 = DeviceBeamCTCDecoder(
+                LABELS, beam_width=10, lm_path=trie, alpha=LM_ALPHA,
+                beta=LM_BETA, device="cuda").decode(probs, sizes)
+        if read_counts()["topk"] != 0:
+            raise AssertionError("the plain top-k launched K10")
+        k10_same = (plain_k10[0] == texts["trie"][0] and all(
+            np.array_equal(a, b) for ga, gb in zip(plain_k10[1],
+                                                   texts["trie"][1])
+            for a, b in zip(ga, gb)))
         log(f"device beam over the KenLM trie == over the DSLM of its ARPA: "
-            f"{LIBRI_UTTS} texts equal")
+            f"{LIBRI_UTTS} texts equal; through K10's plain twin texts and "
+            f"offsets bit-equal: {k10_same}")
+        if not k10_same:
+            raise AssertionError("the trie's device beam through K10 "
+                                 "differs from its plain top-k")
 
         # the native WER/CER against the numpy dynamic program
         refs = [labels.render_transcript(

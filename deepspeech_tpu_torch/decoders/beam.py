@@ -179,9 +179,10 @@ class BeamCTCDecoder(Decoder):
         super().__init__(labels, blank_index=blank_index)
         binary_lm = bool(lm_path) and (is_dslm(lm_path) or is_kenlm(lm_path))
         if backend == "auto":
-            backend = ("native" if not binary_lm and native.available()
+            backend = ("native" if not binary_lm
+                       and native.try_load_native() is not None
                        else "python")
-        elif backend == "native" and not native.available():
+        elif backend == "native" and native.try_load_native() is None:
             raise RuntimeError("native beam decoder unavailable (no g++)")
         elif backend == "native" and binary_lm:
             raise RuntimeError("the native beam backend scores textual ARPA "

@@ -110,10 +110,6 @@ def try_load_native(build_dir: str | None = None) -> ctypes.CDLL | None:
     return load_native(build_dir)
 
 
-def available() -> bool:
-    return try_load_native() is not None
-
-
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The JAX loader's signatures (its native/__init__.py)."""
     lib.edit_distance_u32.restype = ctypes.c_int64

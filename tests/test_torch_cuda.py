@@ -975,7 +975,9 @@ def test_test_cli_kenlm_trie_beam_matches_cpu(dev, tmp_path):
     and K2 once a layer; the posteriors it dumps agree with the same CLI
     on the CPU port at 1e-4 (f32 sums in other orders), and its
     transcripts equal the CPU port's Python search (where ``auto`` sends a
-    binary LM) run on those posteriors."""
+    binary LM) run on those posteriors. The LM fixtures come from
+    chip_smoke.py's writers: this suite runs with ``--noconftest`` where
+    JAX may be absent, so the JAX tests' writers cannot be imported."""
     import contextlib
     import io
     import pickle
