@@ -194,6 +194,20 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    (one row per wav), the drawn utterances' CERs moved from 0.999, epoch
    1's draw equal to Curriculum.sample recomputed from epoch 0's sidecar;
    one f32 transcribe request on its checkpoint (K4 in all 6 layers);
+22a. multi-GPU training (phase_multi_gpu): the single-process bf16 step
+   of the default model on phase 12's batch and of config 4 at batch 64,
+   3 steps each from seeded weights, saved as the reference; then two
+   rank processes of this script (``--rank``) on cuda:0, over gloo on
+   CUDA tensors (one card, and NCCL refuses two ranks on one device):
+   data 2 on the default model (10 rows a rank) and model 2 on config 4
+   (each rank one direction of every layer, at D=1), every step's loss,
+   grad norm and parameters held to the reference at phase 12's
+   tolerances, the launches of a step (K1 1, K2 with residuals 6, K5 6,
+   K8 1, K9 1; no K4 at model 2), the collectives of a step, the model-2
+   ranks' K2 and K5 launches each held to its plain version on its
+   inputs, the time-sliced step times; then the data-parallel step at
+   world size 1 over NCCL against phase 12's step time; where the machine
+   has two cards, data 2 over NCCL a card a rank;
 23. prints one JSON line of kernel results (launches from one train step of
    the path each kernel is on: the GRU-800 step for K1, K2, K5, K8 and K9,
    the LSTM-800 step for K3 and K7, the BiGRU-1600 step for K4, the
@@ -205,8 +219,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    recurrence variant the rule chose, each variant's time, a step's time
    and the projection GEMM's beside cuBLAS, K2's its wide layer 0, K8's
    and K9's their device time, the chain floor and F.ctc_loss's device
-   time, K9's the layer's times too), after a line of the serving, CNN
-   and data-path figures, then the device line last.
+   time, K9's the layer's times too), after a line of the serving, CNN,
+   data-path and multi-GPU figures, then the device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
 non-zero. Times are CUDA-event medians with warm L2; K1's and K10's (and
@@ -264,6 +278,7 @@ SOURCES = {
 STFT_TOL = dict(rtol=1e-4, atol=1e-4)   # both true f32 FMA sums
 GRU_TOL = {"float32": 1e-4,             # |h| <= 1; f32 sums in other orders
            "bfloat16": 5e-3}            # + bf16 rounding flips of h_prev
+BF16_ULP = 2.0 ** -7                    # one bf16 ulp at [1, 2)
 # K5 and the layer's grads, x max(1, max|reference|): f32 sums in other
 # orders; in bf16 a one-ulp flip of a rounded operand moves the carried dh
 GRU_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -578,9 +593,9 @@ def cudnn_layer(torch, args, dt, cell):
 FUSED_VARIANTS = ("resident", "persistent", "step", "auto")
 
 
-def fused_variant(torch, cell, b, h) -> str:
+def fused_variant(torch, cell, b, h, ndir=2) -> str:
     """The bf16 recurrence variant K2's/K3's rule picks on this card for a
-    bidirectional layer of B b and H h."""
+    layer of ``ndir`` directions, B b and H h."""
     from deepspeech_tpu_torch.ops.cuda.recurrence import (FWD_VARIANTS as V,
                                                           fwd_capacity,
                                                           fwd_variant)
@@ -588,8 +603,21 @@ def fused_variant(torch, cell, b, h) -> str:
     mod, _ = cell_kernels(cell)
     caps = fwd_capacity(mod._fwd_kernel(), f"{cell}_fwd_capacity", b, h,
                         torch.device("cuda"))
-    mode = fwd_variant("auto", CELLS[cell]["gates"], b, h, 2, *caps)
+    mode = fwd_variant("auto", CELLS[cell]["gates"], b, h, ndir, *caps)
     return {m: v for v, m in V.items()}[mode]
+
+
+def bwd_variant_name(torch, b, h, ndir) -> str:
+    """The bf16 variant K5's rule picks on this card for a layer of
+    ``ndir`` directions, B b and H h."""
+    from deepspeech_tpu_torch.ops.cuda import gru
+    from deepspeech_tpu_torch.ops.cuda.recurrence import (bwd_blocks,
+                                                          bwd_variant,
+                                                          resident_blocks)
+
+    mode = bwd_variant("auto", b, bwd_blocks(ndir, h), resident_blocks(
+        gru._bwd_kernel(), "gru_bwd_resident", b, torch.device("cuda")))
+    return {1: "step", 2: "persistent"}[mode]
 
 
 def hold_fused(torch, cell, args, variants, label) -> float:
@@ -850,7 +878,8 @@ def recorded(names: tuple):
     plain version on its own inputs afterwards."""
     from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
 
-    mods = {"stft_mag": stft, "gru_layer": gru, "ctc_alpha": ctc}
+    mods = {"stft_mag": stft, "gru_layer": gru, "gru_bwd": gru,
+            "ctc_alpha": ctc}
     calls = {name: [] for name in names}
     saved = {name: getattr(mods[name], name) for name in names}
 
@@ -878,28 +907,40 @@ def recorded(names: tuple):
 
 def hold_recorded(torch, calls: dict) -> dict:
     """Each launch ``recorded`` kept against the plain version on the same
-    inputs: K1 at STFT_TOL, K2 at GRU_TOL of its operand type, K8's alphas
-    and loss at CTC_TOL (non-finite entries in the same places) ->
-    {wrapper: (launches held, the largest max_abs_err)}."""
+    inputs: K1 at STFT_TOL, K2 at GRU_TOL of its operand type (its bf16
+    residuals g and hn, stored in bf16, within one bf16 ulp, BF16_ULP x
+    max(1, max|reference|): hn = W_hn h + b_hn is not bounded by 1, and an
+    ulp at [1, 2) is 2^-7), K5's outputs at GRU_BWD_TOL x max(1,
+    max|reference|), K8's alphas and loss at CTC_TOL (non-finite entries in
+    the same places) -> {wrapper: (launches held, the largest
+    max_abs_err)}."""
     from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
 
     plain = {"stft_mag": stft.plain, "gru_layer": gru.plain,
-             "ctc_alpha": ctc.plain_alpha}
+             "gru_bwd": gru.plain_bwd, "ctc_alpha": ctc.plain_alpha}
     out = {}
     for name, seen in calls.items():
         worst = 0.0
         for args, kw, got in seen:
             ref = plain[name](*args, **kw)
-            pairs = (tuple(zip(got, ref)) if name == "ctc_alpha"
+            pairs = (tuple(zip(got, ref)) if isinstance(got, tuple)
                      else ((got, ref),))
-            for g, r in pairs:
+            for i, (g, r) in enumerate(pairs):
                 fin = torch.isfinite(r)
-                err = max_err(g[fin], r[fin])[0] if fin.any() else 0.0
+                err, scale = max_err(g[fin], r[fin]) if fin.any() else (
+                    0.0, 1.0)
                 worst = max(worst, err)
                 if name == "gru_layer":
                     tol = GRU_TOL[str(args[0].dtype).split(".")[-1]]
+                    if i > 0 and g.dtype == torch.bfloat16:
+                        tol = BF16_ULP * scale
+                if name == "gru_bwd":
+                    tol = GRU_BWD_TOL[str(args[1].dtype).split(".")[-1]] \
+                        * scale
+                if name in ("gru_layer", "gru_bwd"):
                     if not err <= tol:
-                        raise AssertionError(f"K2 at {tuple(args[0].shape)}"
+                        raise AssertionError(f"{name} at "
+                                             f"{tuple(args[0].shape)}"
                                              f": {err} against plain "
                                              f"(tolerance {tol})")
                 else:
@@ -1941,6 +1982,8 @@ def phase_train(torch, counts, floor, cell="gru", hidden=HIDDEN,
         f"-{hidden}, batch {batch_size})")
     profile_run(torch, f"{cell}-{hidden} train step",
                 lambda: step(state, batch, generator=gen), ms, floor)
+    return dict(ms=ms, rel_loss=rel_loss, rel_norm=rel_norm,
+                grad_worst=worst[0])
 
 
 def phase_cli(torch, model, meta, counts):
@@ -4102,6 +4145,374 @@ def phase_cnn(torch, floor: dict) -> dict:
     return out
 
 
+# the multi-GPU phase: 3 steps a run; the time-sliced and NCCL step times
+# over MULTI_TIMED steps after the first
+MULTI_STEPS, MULTI_TIMED = 3, 4
+# a rank's step against the single-process step on the same rows: the
+# loss and the grad norm relative at STEP_LOSS_TOL, each parameter's change
+# from its init at STEP_GRAD_TOL x max|the reference's change| (phase 12's
+# kernel-vs-plain tolerances: the kernels are the same, the sums over the
+# two shards' rows and the BN moments' sums run in other orders). After the
+# first step the two runs' weights differ by that round-off, and
+# Hardtanh(0, 20) clamps a few activations near 0 in one run and not the
+# other (the CNN phase's ReLU sign changes), so the later steps' loss and
+# grad norm drift apart: held at MULTI_DRIFT_TOL (seen 1.46e-3 at step 3
+# on an NVIDIA H100 80GB HBM3, 700.00 W)
+MULTI_DRIFT_TOL = 1e-2
+
+
+def multi_gpu_reference(torch, cell_hidden: int, batch_size: int,
+                        seed: int, path: str) -> dict:
+    """The single-process bf16 train step of 6 x BiGRU-<cell_hidden> on
+    ``batch_size`` x 7.5 s, MULTI_STEPS times from seeded weights with the
+    augmentation drawn from a generator seeded with SEED; saved to ``path``
+    (the init, the batch, each step's loss, grad norm and parameters, on
+    the host) for the ranks -> its first step's metrics and the median
+    time of steps 2-MULTI_STEPS (CUDA events)."""
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_train_step)
+
+    rng = np.random.default_rng(seed)
+    model, _ = default_model(torch, seed, "gru", cell_hidden)
+    batch = train_batch(torch, rng, LABELS, batch_size)
+    init = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+    optimizer = build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
+    state = TrainState.create(model, optimizer)
+    step = make_train_step(model, optimizer, StepConfig())
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    steps, times = [], []
+    for _ in range(MULTI_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch, generator=gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        steps.append(dict(loss=m["loss"].item(),
+                          grad_norm=m["grad_norm"].item(),
+                          params={k: p.detach().to("cpu", copy=True)
+                                  for k, p in model.named_parameters()}))
+    torch.save(dict(hidden=cell_hidden, init=init,
+                    batch={k: v.cpu() for k, v in batch.items()},
+                    steps=steps), path)
+    return dict(steps[0], ms=float(np.median(times[1:])))
+
+
+def reference_model(torch, ref: dict):
+    """The bf16 6 x BiGRU model of a ``multi_gpu_reference`` file with its
+    init loaded, on the current card."""
+    from deepspeech_tpu_torch.models import build_model
+
+    model, _ = build_model("gru", CLASSES, ref["hidden"], LAYERS,
+                           bidirectional=True, compute_dtype="bfloat16",
+                           device="cuda")
+    model.load_state_dict(ref["init"])
+    return model
+
+
+def rank_steps(torch, mesh, path: str, hold_kernels: bool = False,
+               extra: int = 0) -> dict:
+    """On this rank: the reference's model, sharded onto ``mesh``, stepped
+    on its data shard's rows with the generator seeded as the reference's,
+    each of the reference's steps held to it, then ``extra`` steps more;
+    the launches and collectives of the first step, every step's time
+    (CUDA events). ``hold_kernels``: the first step's K2 and K5 launches
+    recorded and each held to its plain version on its inputs."""
+    from deepspeech_tpu_torch.parallel import shard_state
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_train_step)
+
+    ref = torch.load(path, mmap=True)
+    model = reference_model(torch, ref)
+    optimizer = build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
+    state = shard_state(TrainState.create(model, optimizer), mesh)
+    step = make_train_step(model, optimizer, StepConfig(), mesh)
+    batch = mesh.data_rows({k: v.cuda() for k, v in ref["batch"].items()})
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = dict(loss_rel=[], norm_rel=[], param_worst=[], ms=[])
+    for k, want in enumerate(ref["steps"] + [None] * extra):
+        first = k == 0
+        with (recorded(("gru_layer", "gru_bwd")) if first and hold_kernels
+              else contextlib.nullcontext({})) as calls:
+            if first:
+                reset_counts()
+                mesh.counts.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(state, batch, generator=gen)
+            end.record()
+            end.synchronize()
+        if first:
+            out["launches"] = read_counts()
+            out["collectives"] = dict(mesh.counts)
+            held = hold_recorded(torch, calls)
+            # the directions of each launch: w_ih's of K2, dout's of K5
+            dirs = {name: sorted({args[1 if name == "gru_layer" else 0]
+                                  .shape[0] for args, _, _ in seen})
+                    for name, seen in calls.items()}
+            out["held"] = {k: dict(launches=n, max_abs_err=e,
+                                   directions=dirs[k])
+                           for k, (n, e) in held.items()}
+            del calls
+        out["ms"].append(start.elapsed_time(end))
+        if want is None:
+            continue
+        out["loss_rel"].append(abs(m["loss"].item() - want["loss"])
+                               / abs(want["loss"]))
+        out["norm_rel"].append(abs(m["grad_norm"].item() - want["grad_norm"])
+                               / want["grad_norm"])
+        worst = 0.0
+        for name, p in model.named_parameters():
+            i = mesh.model_index if name in state.sharded else None
+            full, init = want["params"][name], ref["init"][name]
+            if i is not None:
+                full, init = full[i:i + 1], init[i:i + 1]
+            moved = (full - init).abs().max().item()
+            err = (p.detach().cpu() - full).abs().max().item()
+            worst = max(worst, err / max(moved, 1e-30))
+        out["param_worst"].append(worst)
+        tol = STEP_LOSS_TOL if first else MULTI_DRIFT_TOL
+        if bool(m["step_skipped"]) or not (
+                out["loss_rel"][-1] <= tol and out["norm_rel"][-1] <= tol
+                and worst <= STEP_GRAD_TOL):
+            raise AssertionError(
+                f"rank {mesh.rank} step {k + 1} against the single-process "
+                f"step: loss rel {out['loss_rel'][-1]}, grad norm rel "
+                f"{out['norm_rel'][-1]}, parameters {worst} of their change, "
+                f"skipped {bool(m['step_skipped'])}")
+    halves = [n for n, p in model.named_parameters()
+              if n in state.sharded and p.shape[0] == 1]
+    if len(halves) != len(state.sharded):
+        raise AssertionError(f"rank {mesh.rank}: sharded {state.sharded}, "
+                             f"one direction held of {halves}")
+    out["sharded"] = len(state.sharded)
+    return out
+
+
+def rank_main(argv) -> int:
+    """A rank process of phase_multi_gpu: ``--rank <job> <rank> <world>
+    <backend> <dir>``. Job ``gloo``: data 2 on the default model, then
+    model 2 on config 4; job ``nccl``: data 2 alone, a card a rank. Its
+    results go to ``<dir>/<job>_<rank>.json``."""
+    import datetime
+
+    import torch
+
+    from deepspeech_tpu_torch.parallel import make_mesh
+
+    job, rank, world, backend, d = (argv[0], int(argv[1]), int(argv[2]),
+                                    argv[3], argv[4])
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(
+        backend, init_method="file://" + os.path.join(d, f"rdv_{job}"),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        out = {"device": torch.cuda.get_device_name(dev)}
+        out["dp"] = rank_steps(torch, make_mesh(data=2, device=dev),
+                               os.path.join(d, "dp.pt"))
+        if job == "gloo":
+            out["tp"] = rank_steps(
+                torch, make_mesh(data=1, model=2, device=dev),
+                os.path.join(d, "tp.pt"), True)
+        with open(os.path.join(d, f"{job}_{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_ranks(job: str, backend: str, d: str, timeout: int = 600) -> list:
+    """Two rank processes of this script on ``job``; every one stopped
+    before this returns or raises -> their results."""
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", job, str(r),
+         "2", backend, d], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{job} rank {r} exited {p.returncode}:\n"
+                                 + text[-6000:])
+    results = []
+    for r in range(2):
+        with open(os.path.join(d, f"{job}_{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def nccl_world_one(torch, d: str) -> dict:
+    """The data-parallel step at world size 1 over NCCL (every collective of
+    the path issued on the card) on phase 12's model and batch: its steps
+    held to the single-process steps, the median of steps 2 to
+    MULTI_TIMED + 1 (CUDA events)."""
+    import datetime
+
+    from deepspeech_tpu_torch.parallel import make_mesh
+
+    torch.distributed.init_process_group(
+        "nccl", init_method="file://" + os.path.join(d, "rdv_nccl1"),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        out = rank_steps(torch, make_mesh(device="cuda:0"),
+                         os.path.join(d, "dp.pt"),
+                         extra=MULTI_TIMED + 1 - MULTI_STEPS)
+    finally:
+        torch.distributed.destroy_process_group()
+    return dict(out, ms=float(np.median(out["ms"][1:])))
+
+
+def phase_multi_gpu(torch, step12: dict) -> dict:
+    """Multi-GPU training (``parallel/``) on this machine's card(s): two
+    rank processes of this script on cuda:0 over gloo (its all_reduce and
+    broadcast take CUDA tensors, through the host; NCCL refuses two ranks
+    on one device): data 2 on the default model (phase 12's batch of 20,
+    10 rows a rank) and model 2 on config 4 (6 x BiGRU-1600, batch 64,
+    each rank one direction of every layer), each rank's every step held
+    to the single-process step (``multi_gpu_reference``) and its launches
+    counted, the model-2 ranks' K2 and K5 D=1 launches each held to its
+    plain version; then the data-parallel step at world size 1 over NCCL
+    against phase 12's step time; where the machine has two cards, data 2
+    over NCCL a card a rank. -> the phase's figures."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    dp_seed, tp_seed = SEED + 6, SEED + 26  # phase 12's and phase 20's
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ref_dp = multi_gpu_reference(torch, HIDDEN, BATCH, dp_seed,
+                                     os.path.join(d, "dp.pt"))
+        ref_tp = multi_gpu_reference(torch, WIDE, WIDE_BATCH["gru"],
+                                     tp_seed, os.path.join(d, "tp.pt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"multi-GPU references (single process, {MULTI_STEPS} steps "
+            f"each): default model loss {ref_dp['loss']:.4f}, config 4 "
+            f"loss {ref_tp['loss']:.4f} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        log("multi-GPU: one card, and NCCL refuses two ranks on one "
+            "device, so the two ranks run over gloo on CUDA tensors of "
+            "cuda:0 (gloo stages each all-reduce through the host)")
+        b, h = WIDE_BATCH["gru"], WIDE
+        out["variants"] = {
+            "data 2, K2 D=2": fused_variant(torch, "gru", BATCH // 2,
+                                            HIDDEN),
+            "data 2, K5 D=2": bwd_variant_name(torch, BATCH // 2, HIDDEN, 2),
+            "model 2, K2 D=1": fused_variant(torch, "gru", b, h, ndir=1),
+            "model 2, K5 D=1": bwd_variant_name(torch, b, h, 1)}
+        log(f"bf16 recurrence variants the rules pick on each rank: "
+            f"{out['variants']} (data 2: B {BATCH // 2}, H {HIDDEN}; "
+            f"model 2: B {b}, H {h})")
+        t0 = time.perf_counter()
+        ranks = run_ranks("gloo", "gloo", d)
+        log(f"two gloo ranks ran in {time.perf_counter() - t0:.1f} s")
+        want = {"dp": expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1,
+                                    gru_fwd=LAYERS, gru_fwd_res=LAYERS,
+                                    gru_bwd=LAYERS)}
+        want["tp"] = want["dp"]
+        for key, label in (("dp", f"data 2: 6 x BiGRU-{HIDDEN}, batch "
+                                  f"{BATCH}"),
+                           ("tp", f"model 2: 6 x BiGRU-{WIDE}, batch "
+                                  f"{WIDE_BATCH['gru']}")):
+            for r, res in enumerate(ranks):
+                got = res[key]
+                if got["launches"] != want[key]:
+                    raise AssertionError(f"{label} rank {r}: launches "
+                                         f"{got['launches']}, expected "
+                                         f"{want[key]}")
+                log(f"{label}, rank {r}: launches a step {got['launches']}; "
+                    f"collectives a step {got['collectives']}; against the "
+                    f"single-process step: loss rel "
+                    + ", ".join(f"{x:.2e}" for x in got["loss_rel"])
+                    + ", grad norm rel "
+                    + ", ".join(f"{x:.2e}" for x in got["norm_rel"])
+                    + ", worst parameter "
+                    + ", ".join(f"{x:.2e}" for x in got["param_worst"])
+                    + f" of its change (tolerances {STEP_LOSS_TOL}, after the "
+                    f"first step {MULTI_DRIFT_TOL}, and "
+                    f"{STEP_GRAD_TOL}; phase 12's kernels against their "
+                    f"plain versions: loss rel {step12['rel_loss']:.2e}, "
+                    f"grad norm rel {step12['rel_norm']:.2e}, worst grad "
+                    f"{step12['grad_worst']:.2e} x scale)")
+                if key == "tp":
+                    held = got["held"]
+                    for name in ("gru_layer", "gru_bwd"):
+                        if (held[name]["launches"] != LAYERS
+                                or held[name]["directions"] != [1]):
+                            raise AssertionError(f"model 2 rank {r}: "
+                                                 f"{name} held {held[name]}")
+                    log(f"{label}, rank {r}: K2 (D=1, with residuals) and "
+                        f"K5 (D=1) launches each held to the plain version "
+                        f"on its inputs: {held}; {got['sharded']} RNN "
+                        "tensors and their momenta held as one direction, "
+                        "(1, ...)")
+            ms = [float(np.median(res[key]["ms"][1:])) for res in ranks]
+            out[key] = dict(
+                ms=ms, launches=ranks[0][key]["launches"],
+                collectives=ranks[0][key]["collectives"],
+                loss_rel=max(x for res in ranks
+                             for x in res[key]["loss_rel"]),
+                norm_rel=max(x for res in ranks
+                             for x in res[key]["norm_rel"]),
+                param_worst=max(x for res in ranks
+                                for x in res[key]["param_worst"]))
+            log(f"{label}: step "
+                + ", ".join(f"rank {r} {m:.1f} ms" for r, m in enumerate(ms))
+                + " (median of steps 2-3, CUDA events; two ranks share one "
+                "card (gloo through the host): not a scaling figure)")
+        out["tp"]["held"] = ranks[0]["tp"]["held"]
+        t0 = time.perf_counter()
+        one = nccl_world_one(torch, d)
+        if one["launches"] != want["dp"]:
+            raise AssertionError(f"NCCL world-1 step: launches "
+                                 f"{one['launches']}, expected {want['dp']}")
+        out["nccl_world_1"] = dict(ms=one["ms"], single_ms=step12["ms"],
+                                   reference_ms=ref_dp["ms"],
+                                   collectives=one["collectives"],
+                                   loss_rel=max(one["loss_rel"]),
+                                   norm_rel=max(one["norm_rel"]))
+        log(f"data-parallel step at world size 1 over NCCL (every "
+            f"collective on the card): {one['ms']:.3f} ms (median of steps "
+            f"2-{MULTI_TIMED + 1}, CUDA events) against phase 12's "
+            f"single-process step {step12['ms']:.3f} ms "
+            f"({one['ms'] / step12['ms'] - 1:+.2%}) and this phase's "
+            f"single-process reference {ref_dp['ms']:.3f} ms (steps 2-"
+            f"{MULTI_STEPS}; {one['ms'] / ref_dp['ms'] - 1:+.2%}); "
+            f"collectives a step "
+            f"{one['collectives']}; launches {one['launches']}; against the "
+            f"single-process steps: loss rel "
+            + ", ".join(f"{x:.2e}" for x in one["loss_rel"])
+            + ", grad norm rel "
+            + ", ".join(f"{x:.2e}" for x in one["norm_rel"])
+            + f" ({time.perf_counter() - t0:.1f} s)")
+        if torch.cuda.device_count() >= 2:
+            two = run_ranks("nccl", "nccl", d)
+            ms = max(float(np.median(res["dp"]["ms"][1:])) for res in two)
+            out["nccl_data_2"] = dict(ms=ms, devices=[r["device"]
+                                                      for r in two])
+            log(f"data 2 over NCCL on two cards ({BATCH} rows, "
+                f"{BATCH // 2} a card): {ms:.3f} ms a step against "
+                f"{step12['ms']:.3f} ms on one card: strong-scaling "
+                f"efficiency {step12['ms'] / (2 * ms):.2%}")
+        else:
+            log("one card: data 2 over NCCL not run, scaling across cards "
+                "not measured")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4166,7 +4577,7 @@ def main() -> int:
         mark("the data path: FLAC -> librispeech -> test four ways, KenLM, "
              "the native search and edit distance, import_torch")
     del model
-    phase_train(torch, train_counts, floor)
+    step12 = phase_train(torch, train_counts, floor)
     phase_train_augmented(torch, floor)
     phase_train_cli(torch)
     mark("the GRU train step and train CLI")
@@ -4204,6 +4615,9 @@ def main() -> int:
         mark(f"the 6 x Bi{cell.upper()}-{WIDE} phases")
     phase_wide_cli(torch)
     mark("the config-4 train CLI with curriculum sampling")
+    multi_gpu = phase_multi_gpu(torch, step12)
+    mark("multi-GPU training: data 2 and model 2 ranks on the card, NCCL "
+         "at world size 1")
 
     # launches from one pass of each kernel's path: the GRU-800 train step,
     # the LSTM-800 train step, the wide models' train steps, the beam
@@ -4224,7 +4638,8 @@ def main() -> int:
     log(card)
     serve["greedy"].pop("texts")
     serve["device_beam"].pop("texts")
-    log(json.dumps({"serve": serve, "cnn": cnn, "data_path": data_path}))
+    log(json.dumps({"serve": serve, "cnn": cnn, "data_path": data_path,
+                    "multi_gpu": multi_gpu}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4233,4 +4648,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        raise SystemExit(rank_main(sys.argv[2:]))
     raise SystemExit(main())

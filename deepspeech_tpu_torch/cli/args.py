@@ -39,16 +39,20 @@ def add_decoder_args(parser: argparse.ArgumentParser):
 
 def add_reference_noop_args(parser: argparse.ArgumentParser):
     """Accept the reference's CUDA/DDP flags so reference command lines
-    run unmodified; the device is chosen with ``--device``."""
+    run unmodified; the device is chosen with ``--device``, and
+    ``--dist-backend`` acts in the train CLI."""
     g = parser.add_argument_group("Reference compatibility (accepted)")
     g.add_argument("--cuda", action="store_true",
                    help="no-op: the device is --device (cuda by default)")
     g.add_argument("--data-parallel", action="store_true",
-                   help="no-op: multi-GPU is not ported yet")
+                   help="no-op: the train CLI runs data-parallel over the "
+                        "ranks of its --dist-* rendezvous")
     g.add_argument("--gpu-rank", default=None,
                    help="no-op: use --device cuda:N")
-    g.add_argument("--dist-backend", default="gloo",
-                   help="no-op: multi-GPU is not ported yet")
+    g.add_argument("--dist-backend", default="auto",
+                   help="the train CLI's torch.distributed backend: auto "
+                        "(nccl on the card, gloo on the CPU), nccl or gloo; "
+                        "no-op elsewhere")
     return parser
 
 

@@ -1,8 +1,11 @@
-"""Training CLI: the single-device path of the JAX package's
-``cli/train.py`` on the card.
+"""Training CLI: the JAX package's ``cli/train.py`` on one card or on
+several, one process a card.
 
     python -m deepspeech_tpu_torch.cli.train --train-manifest train.csv \\
         --val-manifest val.csv [--epochs 70 --batch-size 20 --device cuda]
+    torchrun --nproc-per-node 8 -m deepspeech_tpu_torch.cli.train \\
+        --train-manifest train.csv --val-manifest val.csv --dist-init \\
+        [--mesh-model 2]
 
 Epochs over the train manifest: before each, the dataset's epoch list is
 set (all rows, or with ``--use-curriculum`` the rows drawn by curriculum
@@ -40,10 +43,26 @@ writes a ``torch.profiler`` Chrome trace of ``--profile-steps`` steps from
 ``--profile-start``. ``main(argv, observers)`` fires the observers' hooks
 as the JAX CLI does.
 
-Not ported yet (each raises SystemExit naming ROADMAP.md): the multi-host
-rendezvous (``--dist-url``, ``--dist-init``, ``--dist-rank``,
-``--dist-world-size``) at any value but its default,
-``--steps-per-dispatch`` > 1 and ``--mesh-model`` > 1.
+Several cards (``parallel/``): the rendezvous is ``--dist-init``
+(torchrun's ``env://`` variables) or ``--dist-url`` (``tcp://host:port``,
+bare ``host:port`` as the JAX CLI spells it, or ``file://path``) with
+``--dist-rank`` and ``--dist-world-size``; ``--dist-backend`` picks NCCL or
+gloo (``auto``: NCCL for the card, gloo for the CPU). Each rank runs on
+``cuda:$LOCAL_RANK`` (else ``cuda:<rank % cards>``), or on the CPU with
+``--device cpu``. The ranks form a (data, model) mesh with ``--mesh-model``
+ranks a data shard: ``--batch-size`` stays the global batch, each shard
+takes ``batch // data`` rows from rank-strided bins
+(``DistributedBucketingSampler`` by data index), every shard pads alike,
+and the step all-reduces what the JAX SPMD step sums (``train/step.py``).
+At ``--mesh-model 2`` each rank of a shard holds one direction of every
+bidirectional RNN layer and its moments. Validation is sharded and its
+counters summed. Rank 0 alone prints, logs, fires the observers,
+profiles and writes checkpoints (whole, gathered over the model group),
+with its own curriculum stores as sidecars; each rank feeds its rows to
+its stores, and a ``--use-curriculum`` epoch draw is rank 0's.
+
+Not ported yet (each raises SystemExit naming ROADMAP.md):
+``--steps-per-dispatch`` > 1 and ``--mesh-model`` > 2.
 """
 
 from __future__ import annotations
@@ -173,7 +192,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: cuda)")
     p.add_argument("--mesh-model", default=1, type=int,
-                   help="tensor-parallel width; only 1 is ported")
+                   help="tensor-parallel width: 1, or 2 (each rank of a "
+                        "data shard holds one direction of every "
+                        "bidirectional RNN layer)")
     p.add_argument("--steps-per-dispatch", default=1, type=int,
                    help="only 1 is ported")
     p.add_argument("--bucket-audio-seconds", default=1.0, type=float,
@@ -183,25 +204,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host->device waveform format")
     p.add_argument("--max-items", default=0, type=int,
                    help="truncate manifests (debug)")
-    # multi-host rendezvous (not ported yet)
-    p.add_argument("--dist-url", default="")
+    # multi-GPU rendezvous
+    p.add_argument("--dist-url", default="",
+                   help="tcp://host:port, host:port or file://path; acts "
+                        "with --dist-rank and --dist-world-size")
     p.add_argument("--dist-rank", "--rank", dest="dist_rank", default=-1,
                    type=int)
     p.add_argument("--dist-world-size", "--world-size",
                    dest="dist_world_size", default=0, type=int)
-    p.add_argument("--dist-init", action="store_true")
+    p.add_argument("--dist-init", action="store_true",
+                   help="rendezvous from torchrun's environment (env://)")
     add_reference_noop_args(p)
     return p
 
-
-# (attribute, flag, what is not ported): refused at any value other than
-# the parser's default (``--dist-rank`` defaults to -1, so no truthiness)
-_NOT_PORTED = (
-    ("dist_url", "--dist-url", "multi-host training"),
-    ("dist_init", "--dist-init", "multi-host training"),
-    ("dist_rank", "--dist-rank", "multi-host training"),
-    ("dist_world_size", "--dist-world-size", "multi-host training"),
-)
 
 # the metric history every checkpoint carries (JAX cli/train.py:474-480)
 HIST_KEYS = ("loss_results", "wer_results", "cer_results",
@@ -213,17 +228,86 @@ HIST_KEYS = ("loss_results", "wer_results", "cer_results",
 
 def check_ported(args) -> None:
     """Refuse the flags whose paths the port has not ported yet."""
-    parser = build_parser()
-    for attr, flag, what in _NOT_PORTED:
-        if getattr(args, attr) != parser.get_default(attr):
-            raise SystemExit(f"{flag}: {what} is not ported to PyTorch yet "
-                             "(see ROADMAP.md)")
     if args.steps_per_dispatch > 1:
         raise SystemExit("--steps-per-dispatch > 1: the CUDA-graph replay "
                          "is not ported yet (see ROADMAP.md)")
-    if args.mesh_model > 1:
-        raise SystemExit("--mesh-model > 1: multi-GPU training is not "
-                         "ported yet (see ROADMAP.md)")
+    if args.mesh_model > 2:
+        raise SystemExit("--mesh-model > 2: gate-dim tensor parallelism is "
+                         "not ported yet (see ROADMAP.md)")
+    if args.mesh_model < 1:
+        raise SystemExit("--mesh-model must be 1 or 2")
+
+
+def rendezvous(args):
+    """Join the process group the ``--dist-*`` flags describe (module
+    docstring) -> (rank, world size, init method), or None without one.
+    Every incomplete spelling exits naming what is missing."""
+    env = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+    if args.dist_init and args.dist_url:
+        raise SystemExit("rendezvous: give --dist-init or --dist-url, not "
+                         "both")
+    if args.dist_init:
+        missing = [k for k in env if k not in os.environ]
+        if missing:
+            raise SystemExit(f"rendezvous: --dist-init reads torchrun's "
+                             f"environment (env://); {missing} not set")
+        return int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), \
+            "env://"
+    if not args.dist_url:
+        if args.dist_rank != -1 or args.dist_world_size != 0:
+            raise SystemExit("rendezvous: --dist-rank and --dist-world-size "
+                             "act with --dist-url")
+        return None
+    if not 0 <= args.dist_rank < args.dist_world_size:
+        raise SystemExit("rendezvous: --dist-url needs --dist-rank in "
+                         "[0, --dist-world-size)")
+    url = args.dist_url if "://" in args.dist_url else \
+        "tcp://" + args.dist_url
+    return args.dist_rank, args.dist_world_size, url
+
+
+def rank_device(device: str, rank: int) -> torch.device:
+    """A rank's device: ``--device`` as given, except that a bare ``cuda``
+    becomes ``cuda:$LOCAL_RANK`` (torchrun's), else ``cuda:<rank % cards>``."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        local = rank % max(torch.cuda.device_count(), 1)
+    return torch.device("cuda", int(local))
+
+
+def init_distributed(args):
+    """The rendezvous, the rank's device and the mesh -> (device, mesh),
+    mesh None on one process. The backend is ``--dist-backend``: ``auto``
+    is NCCL on the card and gloo on the CPU."""
+    from deepspeech_tpu_torch.device import resolve_device
+    from deepspeech_tpu_torch.parallel import make_mesh
+
+    joined = rendezvous(args)
+    if joined is None:
+        if args.mesh_model > 1:
+            raise SystemExit(f"--mesh-model {args.mesh_model} needs "
+                             f"{args.mesh_model} ranks or more: launch with "
+                             "torchrun and --dist-init, or --dist-url")
+        return resolve_device(args.device), None
+    rank, world, url = joined
+    dev = resolve_device(rank_device(args.device, rank))
+    backend = args.dist_backend
+    if backend == "auto":
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise SystemExit(f"--dist-backend {backend!r}: choose auto, nccl "
+                         "or gloo")
+    if world % args.mesh_model:
+        raise SystemExit(f"--mesh-model {args.mesh_model} does not divide "
+                         f"the {world} ranks")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(backend, init_method=url,
+                                         rank=rank, world_size=world)
+    return dev, make_mesh(model=args.mesh_model, device=dev)
 
 
 def _labels_path(path: str) -> str:
@@ -251,20 +335,49 @@ def audio_conf_from_args(args, train: bool):
         aug_prob_spect=args.aug_prob_spect if train else 0)
 
 
-def epoch_loader(dataset, epoch: int, args, bucket):
+def sampler_for(n: int, batch_size: int, mesh):
+    """Bins of ``batch_size`` over ``n`` rows: this data shard's
+    rank-strided share on a mesh of several data shards (JAX
+    ``cli/train.py:355-363, 615-620``), else all of them."""
+    from deepspeech_tpu_torch.data import (BucketingSampler,
+                                           DistributedBucketingSampler)
+
+    if mesh is not None and mesh.data > 1:
+        return DistributedBucketingSampler(n, batch_size, mesh.data,
+                                           mesh.data_index)
+    return BucketingSampler(n, batch_size)
+
+
+def share_epoch_draw(dataset, mesh) -> None:
+    """Every rank takes rank 0's curriculum draw of the epoch (the ranks'
+    stores hold different rows, so their own draws could differ in length):
+    its row indices broadcast from rank 0."""
+    index = {row: i for i, row in enumerate(dataset.all_ids)}
+    n = mesh.broadcast(torch.tensor([len(dataset.ids)], device=mesh.device))
+    ids = torch.tensor([index[row] for row in dataset.ids]
+                       if mesh.is_leader else [0] * int(n),
+                       dtype=torch.int64, device=mesh.device)
+    dataset.ids = [dataset.all_ids[i] for i in mesh.broadcast(ids).tolist()]
+
+
+def epoch_loader(dataset, epoch: int, args, bucket, mesh=None):
     """The train loader of one epoch (JAX ``cli/train.py:612-633``): the
     dataset's epoch list first, then SortaGrad (no shuffle on epoch 0,
-    reference train.py:89-94) or the bins shuffled by the epoch."""
-    from deepspeech_tpu_torch.data import AudioDataLoader, BucketingSampler
+    reference train.py:89-94) or the bins shuffled by the epoch. On a mesh
+    each data shard loads ``--batch-size // data`` rows a step."""
+    from deepspeech_tpu_torch.data import AudioDataLoader
 
     dataset.set_curriculum_epoch(epoch, sample=args.use_curriculum,
                                  sample_size=args.curriculum_ratio)
-    sampler = BucketingSampler(len(dataset), args.batch_size)
+    if args.use_curriculum and mesh is not None:
+        share_epoch_draw(dataset, mesh)
+    batch_size = max(args.batch_size // (mesh.data if mesh else 1), 1)
+    sampler = sampler_for(len(dataset), batch_size, mesh)
     if not args.no_shuffle and (epoch > 0 or args.no_sorta_grad):
         sampler.shuffle(epoch)
     elif args.reverse_sort:
         sampler.reverse()
-    return AudioDataLoader(dataset, sampler, args.batch_size, bucket,
+    return AudioDataLoader(dataset, sampler, batch_size, bucket,
                            args.num_workers)
 
 
@@ -333,13 +446,29 @@ def main(argv=None, observers=()) -> int:
     in the JAX CLI's order."""
     args = build_parser().parse_args(argv)
     check_ported(args)
+    dev, mesh = init_distributed(args)
+    try:
+        return train(args, dev, mesh, observers)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def train(args, dev, mesh, observers) -> int:
+    """The run of ``main`` on this rank's device (``mesh`` None on one
+    process)."""
     from deepspeech_tpu_torch.audio.features import AudioConf
     from deepspeech_tpu_torch.convert import torch_to_jax
     from deepspeech_tpu_torch.data import (AudioDataLoader, AudioDataset,
-                                           BucketingSampler, BucketSpec)
+                                           BucketSpec)
     from deepspeech_tpu_torch.decoders import GreedyDecoder
-    from deepspeech_tpu_torch.device import resolve_device
     from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.models.factory import RNN_KEYS
+    from deepspeech_tpu_torch.parallel import (equalize_batch_padding,
+                                               gather_state,
+                                               local_batch_to_global,
+                                               metrics_to_local, shard_state,
+                                               unshard)
     from deepspeech_tpu_torch.text.labels import Labels, load_labels
     from deepspeech_tpu_torch.train import checkpoint as ckpt
     from deepspeech_tpu_torch.train.evaluate import (decode_batch_greedy,
@@ -352,11 +481,12 @@ def main(argv=None, observers=()) -> int:
     from deepspeech_tpu_torch.utils import (AverageMeter, MetricsLogger,
                                             ObserverList, StopWatch)
 
+    is_leader = mesh is None or mesh.is_leader
+
     def say(*a):
-        if not args.silent:
+        if is_leader and not args.silent:
             print(*a, flush=True)
 
-    dev = resolve_device(args.device)
     torch.manual_seed(args.seed)
     # -- config / resume (JAX cli/train.py:255-318) ------------------------
     package = None
@@ -389,6 +519,11 @@ def main(argv=None, observers=()) -> int:
             bidirectional=args.bidirectional, bnm=args.batch_norm_momentum,
             cnn_width=args.cnn_width, dropout=args.dropout,
             compute_dtype=args.compute_dtype, device=dev)
+    if args.mesh_model > 1 and not (meta["rnn_type"] in RNN_KEYS
+                                    and meta["bidirectional"]):
+        raise SystemExit("--mesh-model 2 shards the two directions of a "
+                         "bidirectional RNN model; gate-dim tensor "
+                         "parallelism is not ported yet (see ROADMAP.md)")
     optimizer = build_optimizer(args.optimizer, lr=args.lr,
                                 momentum=args.momentum,
                                 weight_decay=args.weight_decay,
@@ -409,6 +544,11 @@ def main(argv=None, observers=()) -> int:
                 # mid-epoch ones carry iteration >= 1 and restart inside
                 # their epoch (reference train.py:846-853)
                 start_epoch += 1
+    if mesh is not None:
+        # the whole state loads first, then each rank keeps its slices
+        state = shard_state(state, mesh)
+        say(f"mesh: data={mesh.data} x model={mesh.model} "
+            f"({torch.distributed.get_backend()})")
 
     # -- data ----------------------------------------------------------------
     max_items = args.max_items or None
@@ -429,7 +569,7 @@ def main(argv=None, observers=()) -> int:
 
     def eval_loader(dataset):
         return AudioDataLoader(
-            dataset, BucketingSampler(len(dataset), args.val_batch_size),
+            dataset, sampler_for(len(dataset), args.val_batch_size, mesh),
             args.val_batch_size, bucket, args.num_workers)
 
     val_loader = eval_loader(val_dataset)
@@ -453,17 +593,18 @@ def main(argv=None, observers=()) -> int:
         out = {k: torch.from_numpy(v).to(dev, non_blocking=True)
                for k, v in batch.items() if k != "paths"}
         out.update(noise_extra)
-        return out
+        return local_batch_to_global(out, mesh)
 
-    train_step = make_train_step(model, optimizer, cfg)
+    train_step = make_train_step(model, optimizer, cfg, mesh)
     eval_step = make_eval_step(model, StepConfig(audio_conf=test_conf,
                                                  normalize=args.norm))
     decoder = GreedyDecoder(labels.labels, blank_index=labels.blank_index)
-    obs = ObserverList(observers)
+    obs = ObserverList(observers if is_leader else ())
     logger = MetricsLogger(args.log_dir, run_id=args.id.replace(" ", "_"),
-                           tensorboard=args.tensorboard,
+                           tensorboard=args.tensorboard, enabled=is_leader,
                            live_html=args.live_html)
-    os.makedirs(args.save_folder, exist_ok=True)
+    if is_leader:
+        os.makedirs(args.save_folder, exist_ok=True)
     # on resume too, the step's draws start from --seed (JAX :468)
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     history = {k: list(package.get(k) or []) if package else []
@@ -480,12 +621,17 @@ def main(argv=None, observers=()) -> int:
             say(f"  saved {path_}")
 
     def save_package(path, epoch=None, iteration=None, avg_loss=None):
+        # every rank enters the gather of the sharded tensors; rank 0 writes
+        sd, opt = (None, state.opt_state) if mesh is None else \
+            gather_state(state, mesh)
+        if not is_leader:
+            return
         drain_ckpt_events()
         ckpt.save(path, ckpt.package_from_model(
             model, meta, labels.labels, audio_conf.to_dict(),
             step=int(state.step), epoch=epoch, iteration=iteration,
-            avg_loss=avg_loss, history=history, opt_state=state.opt_state,
-            checkpoint=checkpoint_id))
+            avg_loss=avg_loss, history=history, opt_state=opt,
+            checkpoint=checkpoint_id, state_dict=sd))
         train_dataset.save_curriculum(path + ".curriculum.csv")
         # validation curriculum sidecars (reference
         # save_validation_curriculums, train.py:515-532)
@@ -496,7 +642,8 @@ def main(argv=None, observers=()) -> int:
 
     def run_validation(epoch, tag="val"):
         summary = evaluate(val_loader, eval_step, decoder, labels, to_device,
-                           dataset=val_dataset, update_curriculum=True)
+                           dataset=val_dataset, update_curriculum=True,
+                           all_reduce=mesh)
         say(f"[{tag}] epoch {epoch + 1}: loss {summary['loss']:.3f} "
             f"WER {summary['wer']:.2f} CER {summary['cer']:.2f} "
             f"(utt-avg {summary['utt_wer']:.2f}/{summary['utt_cer']:.2f})")
@@ -507,7 +654,7 @@ def main(argv=None, observers=()) -> int:
         if trainval_loader is not None:
             tv = evaluate(trainval_loader, eval_step, decoder, labels,
                           to_device, dataset=trainval_dataset,
-                          update_curriculum=True)
+                          update_curriculum=True, all_reduce=mesh)
             say(f"[trainval] epoch {epoch + 1}: WER {tv['wer']:.2f} "
                 f"CER {tv['cer']:.2f}")
             logger.log("trainval", step=epoch, **tv)
@@ -517,13 +664,13 @@ def main(argv=None, observers=()) -> int:
                         float(tv[k]))
         return summary
 
-    profiler = Profiler(args.profile_dir, args.profile_start,
-                        args.profile_steps, dev, say)
+    profiler = Profiler(args.profile_dir if is_leader else "",
+                        args.profile_start, args.profile_steps, dev, say)
     samples_since_ckpt = 0
     global_step = 0
     last_wer = 0.0
     for epoch in range(start_epoch, args.epochs):
-        loader = epoch_loader(train_dataset, epoch, args, bucket)
+        loader = epoch_loader(train_dataset, epoch, args, bucket, mesh)
         loss_meter = AverageMeter()
         watch = StopWatch()
         epoch_t0 = time.perf_counter()
@@ -532,15 +679,17 @@ def main(argv=None, observers=()) -> int:
         obs.emit("on_epoch_start", epoch)
         pending = None  # step N-1's metrics, read after step N is queued
 
-        def account_step(m, pbatch, pit):
+        def account_step(m, pbatch, pit, n_valid):
             """Read back and account one step (JAX ``account_step``):
-            meters, the greedy decode into the train curriculum, the
-            hooks and logs."""
+            meters (weighted by the global batch's ``n_valid`` rows), the
+            greedy decode of this rank's rows into its train curriculum,
+            the hooks and logs."""
             nonlocal last_wer
+            m = metrics_to_local(m, mesh)
             loss = float(m["loss"])
             if not np.isfinite(loss):
                 loss = 1000.0  # reporting clamp (reference train.py:609-611)
-            loss_meter.update(loss, int(np.asarray(pbatch["valid"]).sum()))
+            loss_meter.update(loss, n_valid)
             # every batch's greedy decode feeds the train curriculum store
             results = decode_batch_greedy(decoder, m, pbatch, labels)
             for i, (tr, ref, w, c, wr, cr) in enumerate(results):
@@ -564,18 +713,21 @@ def main(argv=None, observers=()) -> int:
                            skipped=bool(m["step_skipped"]))
             if "grads" in m:
                 names = [n for n, _ in model.named_parameters()]
-                grads = dict(model.state_dict())
-                grads.update(zip(names, m["grads"]))
-                logger.log_params(torch_to_jax(model.state_dict())[0],
+                sd = (dict(model.state_dict()) if mesh is None
+                      else gather_state(state, mesh)[0])
+                grads = dict(sd)
+                grads.update((n, unshard(g, mesh) if n in state.sharded
+                              else g) for n, g in zip(names, m["grads"]))
+                logger.log_params(torch_to_jax(sd)[0],
                                   torch_to_jax(grads)[0],
                                   epoch * len(loader) + pit)
 
         def process_pending():
             nonlocal pending
             if pending is not None:
-                m, pbatch, pit = pending
+                m, pbatch, pit, n_valid = pending
                 pending = None
-                account_step(m, pbatch, pit)
+                account_step(m, pbatch, pit, n_valid)
 
         def maybe_sample_checkpoint():
             nonlocal checkpoint_id, samples_since_ckpt
@@ -604,25 +756,31 @@ def main(argv=None, observers=()) -> int:
         batches = loader.iter_from(it)
 
         def pull():
+            """The next host batch (its shards padded alike on a mesh), its
+            device copy and the global batch's count of real rows."""
             b = next(batches, None)
             if b is None:
                 return None
             watch.mark_data()
-            return b, to_device(b)
+            if mesh is not None and mesh.spans("data"):
+                b, n_valid = equalize_batch_padding(b, mesh)
+            else:
+                n_valid = int(np.asarray(b["valid"]).sum())
+            return b, to_device(b), n_valid
 
         nxt = pull()
         while nxt is not None:
-            batch, dev_batch = nxt
+            batch, dev_batch, n_valid = nxt
             profiler.step(global_step)
             obs.emit("on_batch_start", epoch, it)
             m = train_step(state, dev_batch, generator=generator,
                            return_grads=args.log_params and it % 100 == 0)
             nxt = pull()  # batch N+1 loads while step N runs
             process_pending()  # account step N-1 while step N runs
-            pending = (m, batch, it)
+            pending = (m, batch, it, n_valid)
             it += 1
             global_step += 1
-            samples_since_ckpt += int(np.asarray(batch["valid"]).sum())
+            samples_since_ckpt += n_valid
             maybe_sample_checkpoint()
         process_pending()
 

@@ -5,9 +5,10 @@ from deepspeech_tpu_torch.data.manifest import (create_manifest,
                                                 merge_manifests,
                                                 order_and_prune_files,
                                                 read_manifest, write_manifest)
-from deepspeech_tpu_torch.data.sampler import BucketingSampler
+from deepspeech_tpu_torch.data.sampler import (BucketingSampler,
+                                               DistributedBucketingSampler)
 
 __all__ = ["AudioDataLoader", "AudioDataset", "BucketSpec",
-           "BucketingSampler", "collate_batch", "create_manifest",
+           "BucketingSampler", "DistributedBucketingSampler", "collate_batch", "create_manifest",
            "merge_manifests", "order_and_prune_files", "read_manifest",
            "write_manifest"]

@@ -53,11 +53,16 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None, mesh=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
-    values by 1 / (1 - rate); the draws come from ``generator``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < 1.0 - rate
+    values by 1 / (1 - rate); the draws come from ``generator``. On a
+    ``mesh`` the draws are the global batch's and this data shard keeps
+    its rows, as the SPMD program draws them."""
+    rows = x.shape[0] * (1 if mesh is None else mesh.data)
+    keep = torch.rand((rows,) + tuple(x.shape[1:]), generator=generator,
+                      device=x.device) < 1.0 - rate
+    if mesh is not None:
+        keep = mesh.data_rows(keep)
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -66,7 +71,10 @@ class ConvBlock(nn.Module):
     [skip], on (B, C, T).
 
     The BatchNorm's statistics cover all T' frames, padding included, as
-    the JAX block's do."""
+    the JAX block's do. ``mesh`` (``parallel.attach``) makes the dropout's
+    draws the global batch's."""
+
+    mesh = None
 
     def __init__(self, in_ch: int, out: int, kernel: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, use_glu: bool = False,
@@ -114,7 +122,7 @@ class ConvBlock(nn.Module):
         if self.relu and not self.use_glu:
             y = F.relu(y)
         if self.dropout > 0 and self.training:
-            y = dropout(y, self.dropout, generator)
+            y = dropout(y, self.dropout, generator, self.mesh)
         if bounds is None:
             mask = length_mask(out_lengths, y.shape[-1])
         else:

@@ -30,6 +30,7 @@ from deepspeech_tpu_torch.models.layers import (Lookahead, TorchBatchNorm,
                                                 hardtanh_0_20, length_mask)
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.rnn import CELL_GATES, rnn_scan
+from deepspeech_tpu_torch.parallel.tp_rnn import maybe_direction_sharded
 
 
 def conv_out_lengths(lengths: torch.Tensor) -> torch.Tensor:
@@ -82,7 +83,12 @@ class RecurrentLayer(nn.Module):
     """Optional sequence BN + (bi)directional recurrence with direction sum.
 
     Weights keep the JAX layout, stacked over directions: w_ih (D, F, G*H),
-    b_ih (D, G*H), w_hh (D, H, G*H), b_hh (D, G*H)."""
+    b_ih (D, G*H), w_hh (D, H, G*H), b_hh (D, G*H). Under tensor
+    parallelism (``parallel.shard_params``) a bidirectional layer holds one
+    direction, (1, ...), and runs through ``maybe_direction_sharded``, as
+    the JAX layer does."""
+
+    mesh = None
 
     def __init__(self, input_size: int, hidden_size: int, cell: str = "gru",
                  bidirectional: bool = True, batch_norm: bool = True,
@@ -106,6 +112,12 @@ class RecurrentLayer(nn.Module):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         if self.bn is not None:
             x = self.bn(x)
+        out = maybe_direction_sharded(
+            x, lengths, self.w_ih, self.b_ih, self.w_hh, self.b_hh,
+            mesh=self.mesh, cell=self.cell, bidirectional=self.bidirectional,
+            compute_dtype=self.compute_dtype)
+        if out is not None:
+            return out
         return rnn_scan(x, lengths, self.w_ih, self.b_ih, self.w_hh,
                         self.b_hh, cell=self.cell,
                         bidirectional=self.bidirectional,

@@ -3,7 +3,9 @@
 * :class:`TorchBatchNorm`: batch norm over one feature axis with torch's
   running-stat semantics (biased batch variance to normalize, unbiased for
   the running estimate, ``momentum`` the new-sample weight). Statistics
-  include zeroed padding positions, as in the reference.
+  include zeroed padding positions, as in the reference. On a mesh that
+  spans a data group (``parallel.attach``), train mode takes the moments
+  over the global batch.
 * ``hardtanh_0_20``: nn.Hardtanh(0, 20).
 * ``length_mask``: (B,) lengths -> (B, T) {0, 1} mask.
 * :class:`Lookahead`: the lookahead convolution of unidirectional models.
@@ -15,6 +17,8 @@ import math
 
 import torch
 from torch import nn
+
+from deepspeech_tpu_torch.parallel.mesh import reduce_sum
 
 
 def hardtanh_0_20(x: torch.Tensor) -> torch.Tensor:
@@ -33,7 +37,17 @@ class TorchBatchNorm(nn.Module):
     With ``fold=True`` the module returns the equivalent per-feature affine
     ``(a, b)`` with ``bn(x) == x * a + b`` instead of the normalized tensor,
     so a following matmul can fold it into its weights. Running-stat updates
-    are the same in both modes. Computes in f32 whatever the input type."""
+    are the same in both modes. Computes in f32 whatever the input type.
+
+    Under data parallelism (``mesh`` spanning a data group) the train-mode
+    moments are the global batch's, as the SPMD program's: the mean is
+    all_reduce(sum x) / all_reduce(n), the variance all_reduce(sum (x -
+    mean)^2) / n, through a differentiable all-reduce whose backward sums
+    the gradient over the group, so that every shard's rows get the
+    gradient through the global moments; the running stats use the global
+    n. Eval mode does not change."""
+
+    mesh = None
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5, axis: int = -1, fold: bool = False):
@@ -54,12 +68,17 @@ class TorchBatchNorm(nn.Module):
         if self.training:
             axes = tuple(i for i in range(x.ndim) if i != self.axis % x.ndim)
             n = math.prod(x.shape[i] for i in axes)
-            mean = x.mean(axes)
-            var = ((x - self._view(mean, x.ndim)) ** 2).mean(axes)
+            if self.mesh is not None and self.mesh.spans("data"):
+                mean, var, n = self._global_moments(x, axes, n)
+                unbias = n / (n - 1).clamp(min=1)
+            else:
+                mean = x.mean(axes)
+                var = ((x - self._view(mean, x.ndim)) ** 2).mean(axes)
+                unbias = n / max(n - 1, 1)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+                self.running_var.mul_(1 - m).add_(m * var * unbias)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
@@ -69,6 +88,16 @@ class TorchBatchNorm(nn.Module):
         return ((x - self._view(mean, x.ndim))
                 * self._view(inv * self.weight, x.ndim)
                 + self._view(self.bias, x.ndim))
+
+    def _global_moments(self, x: torch.Tensor, axes: tuple, n: int):
+        """(mean, biased var, n as a 0-d tensor) over the data group's
+        global batch; nothing is read back to the host."""
+        sums = reduce_sum(torch.cat([x.sum(axes), x.new_full((1,), n)]),
+                          self.mesh, "data", "bn")
+        n = sums[-1].detach()
+        mean = sums[:-1] / n
+        sq = ((x - self._view(mean, x.ndim)) ** 2).sum(axes)
+        return mean, reduce_sum(sq, self.mesh, "data", "bn") / n, n
 
 
 class Lookahead(nn.Module):

@@ -29,16 +29,20 @@ def package_from_model(model, meta: dict, labels: str, audio_conf: dict,
                        avg_loss: float | None = None,
                        history: dict | None = None,
                        opt_state: dict | None = None,
-                       checkpoint: int | None = None) -> dict:
+                       checkpoint: int | None = None,
+                       state_dict: dict | None = None) -> dict:
     """A checkpoint package of the port's model: the JAX trees of its
     weights and BatchNorm stats, the optimizer state as optax's leaves
     (``optim.to_optax_leaves``; None without ``opt_state``), the mid-epoch
     ``checkpoint`` id, and the JAX package's bookkeeping keys (``epoch`` is
-    stored 1-based, as there; ``history`` holds the metric lists)."""
+    stored 1-based, as there; ``history`` holds the metric lists).
+    ``state_dict`` replaces the model's own (a tensor-parallel model's,
+    gathered whole by ``parallel.gather_state``, with ``opt_state``)."""
     from deepspeech_tpu_torch.convert import torch_to_jax
     from deepspeech_tpu_torch.train.optim import to_optax_leaves
 
-    params, batch_stats = torch_to_jax(model.state_dict())
+    params, batch_stats = torch_to_jax(model.state_dict() if state_dict
+                                       is None else state_dict)
     package = {"version": FORMAT_VERSION, "labels": labels,
                "audio_conf": dict(audio_conf), **meta, "params": params,
                "batch_stats": batch_stats,

@@ -1,5 +1,5 @@
 """Evaluation loop: greedy loss, WER and CER over a loader (the JAX
-package's ``train/evaluate.py``, single device).
+package's ``train/evaluate.py``).
 
 Per-utterance WER/CER via ``get_cer_wer``, aggregated two ways
 (reference test.py:197-209): token-weighted (sum of distances / sum of
@@ -7,12 +7,16 @@ reference lengths) and averaged over utterances; the loss is the mean of
 the batch losses weighted by their real rows (train.py:400), with the
 reporting clamp of a non-finite loss to 1000 (train.py:359-362). With
 ``update_curriculum`` each scored utterance's CER and WER go into
-``dataset``'s curriculum store (reference train.py:376-381).
+``dataset``'s curriculum store (reference train.py:376-381). Sharded
+validation (``all_reduce``): each data shard scores its own bins and the
+nine counters are summed over the data group in float64, so every rank
+returns the summary of the whole set (JAX ``evaluate.py:118-128``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from deepspeech_tpu_torch.metrics import get_cer_wer
 
@@ -37,9 +41,11 @@ def decode_batch_greedy(decoder, metrics: dict, batch: dict, labels):
 
 
 def evaluate(loader, eval_step, decoder, labels, to_device, dataset=None,
-             update_curriculum: bool = False) -> dict:
+             update_curriculum: bool = False, all_reduce=None) -> dict:
     """Run ``eval_step`` over ``loader`` (host numpy batches, moved with
-    ``to_device``) -> loss, wer, cer, utt_wer, utt_cer, num_utterances."""
+    ``to_device``) -> loss, wer, cer, utt_wer, utt_cer, num_utterances.
+    ``all_reduce``: a ``parallel.Mesh`` whose data group the counters are
+    summed over (the JAX ``all_reduce=True``), or None."""
     loss_sum = loss_count = 0.0
     total = np.zeros(4)  # wer, cer, wer_ref, cer_ref
     utt_wer = utt_cer = 0.0
@@ -61,6 +67,14 @@ def evaluate(loader, eval_step, decoder, labels, to_device, dataset=None,
             utt_wer += w / wr
             utt_cer += c / cr
             n_utts += 1
+    if all_reduce is not None:
+        counters = torch.tensor(
+            [*total, loss_sum, loss_count, utt_wer, utt_cer, n_utts],
+            dtype=torch.float64, device=all_reduce.device)
+        counters = all_reduce.all_reduce(counters, "data", tag="eval")
+        *total, loss_sum, loss_count, utt_wer, utt_cer, n_utts = (
+            counters.tolist())
+        total, n_utts = np.asarray(total), int(n_utts)
     return {
         "loss": loss_sum / max(loss_count, 1),
         "wer": 100.0 * total[0] / max(total[2], 1.0),

@@ -38,9 +38,12 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
 
 
-def clip_by_global_norm(grads: list, max_norm: float):
-    """-> (clipped grads, the norm before clipping)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: list, max_norm: float,
+                        norm: torch.Tensor | None = None):
+    """-> (clipped grads, the norm before clipping). ``norm``, when given,
+    is the grads' global norm (a tensor-parallel step's, over shards that
+    this rank does not hold)."""
+    norm = global_norm(grads) if norm is None else norm
     clip = norm >= max_norm  # optax keeps the grads when norm < max_norm
     return [torch.where(clip, g / norm * max_norm, g) for g in grads], norm
 
@@ -68,10 +71,12 @@ class Optimizer:
             state["nu"] = [torch.zeros_like(p) for p in params]
         return state
 
-    def update(self, grads: list, state: dict, params: list):
-        """-> (new params, new state); nothing is changed in place."""
+    def update(self, grads: list, state: dict, params: list,
+               norm: torch.Tensor | None = None):
+        """-> (new params, new state); nothing is changed in place. The
+        clip takes ``norm`` as the grads' global norm where it is given."""
         if self.max_norm and self.max_norm > 0:
-            grads, _ = clip_by_global_norm(grads, self.max_norm)
+            grads, _ = clip_by_global_norm(grads, self.max_norm, norm)
         lr = state["lr"]
         new = {"lr": lr, "inject_count": state["inject_count"] + 1}
         if self.kind == "sgd":

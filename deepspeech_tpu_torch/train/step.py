@@ -21,6 +21,18 @@ NaN semantics follow the reference and the JAX package:
 Unlike the JAX step, this one updates the model's parameters and the
 BatchNorm buffers in place (no second copy of the weights); the guard
 selects per tensor, on the device, with no host sync.
+
+On a ``parallel.Mesh`` (one process a card) the step computes what the
+JAX SPMD program computes for the global batch: each rank takes its data
+shard's rows, the augmentation draws are the global batch's (the same
+seeded generator on every rank) cut to those rows, the BatchNorms take the
+global moments, the loss divides by the global count of real rows, and
+after ``autograd.grad`` one flat all-reduce sums the gradients and the
+loss over the data group (DistributedDataParallel's hooks do not fire
+under ``autograd.grad``). The grad norm counts each element once (the
+direction-sharded parameters' squares summed over the model group), and
+the NaN flag is the world's maximum, so every rank clips, skips and
+updates alike.
 """
 
 from __future__ import annotations
@@ -41,11 +53,14 @@ from deepspeech_tpu_torch.train.optim import Optimizer, global_norm, select
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters and BatchNorm stats), the optimizer state
-    and the step counter (a 0-d int64 on the model's device)."""
+    """The model (its parameters and BatchNorm stats), the optimizer state,
+    the step counter (a 0-d int64 on the model's device) and the names of
+    the parameters this rank holds one direction of
+    (``parallel.shard_state``)."""
     model: torch.nn.Module
     opt_state: dict
     step: torch.Tensor
+    sharded: tuple = ()
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: Optimizer):
@@ -82,13 +97,15 @@ def descale_audio(batch: dict) -> torch.Tensor:
 
 
 def draw_augment(batch: dict, cfg: StepConfig,
-                 generator: torch.Generator) -> dict:
+                 generator: torch.Generator, replicas: int = 1) -> dict:
     """The train step's random draws, in the JAX step's key order
     (``train/step.py:67-98``: jitter, then the spectrogram masks, then the
     noise mix): ``jitter`` (B,) ~ U(-0.5, 0.5), ``masks``
     (``features.draw_masks``) and ``noise`` (``noise_device.draw_noise``),
-    each None where it is off."""
+    each None where it is off; for ``replicas`` x the batch's rows (the
+    global batch of a data-parallel step)."""
     b, s = batch["audio"].shape
+    b *= replicas
     dev = generator.device
     out = {"jitter": None, "masks": None, "noise": None}
     if cfg.max_frame_jitter:
@@ -117,21 +134,51 @@ def featurize(batch: dict, cfg: StepConfig,
                            cfg.normalize, jitter=jitter, masks=masks)
 
 
-def _loss(logits, out_lens, batch):
+def _loss(logits, out_lens, batch, mesh=None):
     per_sample = ctc_loss(logits, out_lens, batch["targets"],
                           batch["target_lengths"])
     valid = batch.get("valid")
     if valid is None:
         valid = torch.ones_like(per_sample)
     # `valid` masks bucket-padding rows; the mean divides by the real rows
+    # (on a mesh, the global batch's: the shards' losses then sum to it)
     finite = torch.isfinite(per_sample) & (valid > 0)
+    n_valid = valid.float().sum()
+    if mesh is not None:
+        mesh.all_reduce(n_valid, "data", tag="valid")
     loss = (torch.where(finite, per_sample, 0.0).sum()
-            / valid.float().sum().clamp(min=1.0))
+            / n_valid.clamp(min=1.0))
     return loss, per_sample
 
 
+def _reduce_over_mesh(mesh, grads, loss, has_nan, sharded: list):
+    """The data shards' gradients and losses summed by one flat all-reduce
+    over the data group; the grad norm with each element once (the
+    ``sharded`` parameters' squares summed over the model group); the NaN
+    flag's maximum over the world. -> (grads, loss, grad norm, has_nan)."""
+    if mesh.spans("data"):
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        mesh.all_reduce(flat, "data", tag="grads")
+        sizes = [g.numel() for g in grads] + [1]
+        *parts, loss = torch.split(flat, sizes)
+        grads = [p.view_as(g) for p, g in zip(parts, grads)]
+        loss = loss[0]
+    squares = [torch.sum(g * g) for g in grads]
+    zero = loss.new_zeros(())
+    sq_sharded = sum((q for q, s in zip(squares, sharded) if s), zero)
+    if any(sharded):
+        sq_sharded = mesh.all_reduce(sq_sharded.reshape(1), "model",
+                                     tag="grad_norm")[0]
+    grad_norm = torch.sqrt(
+        sum((q for q, s in zip(squares, sharded) if not s), zero)
+        + sq_sharded)
+    flag = mesh.all_reduce(has_nan.float().reshape(1), "world", op="max",
+                           tag="nan")
+    return grads, loss, grad_norm, flag[0] > 0
+
+
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
-                    cfg: StepConfig = StepConfig()) -> Callable:
+                    cfg: StepConfig = StepConfig(), mesh=None) -> Callable:
     """-> train_step(state, batch, jitter=None, generator=None,
     return_grads=False) -> metrics.
 
@@ -145,7 +192,12 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     when given, replaces the drawn jitter. metrics: loss, per_sample,
     greedy ids, out_lens, grad_norm, step_skipped, all on the device, and
     with ``return_grads`` the gradients (a list in the model's parameter
-    order) too."""
+    order) too.
+
+    With a ``mesh`` (the model placed on it by ``parallel.shard_state``)
+    the batch holds this data shard's rows, ``jitter`` too, and the
+    metrics' loss and grad norm are the global batch's; per_sample, greedy
+    and out_lens stay the shard's rows (module docstring)."""
 
     def train_step(state: TrainState, batch: dict,
                    jitter: torch.Tensor | None = None,
@@ -155,7 +207,10 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
         params = list(model.parameters())
         draws = {"masks": None, "noise": None}
         if generator is not None:
-            draws = draw_augment(batch, cfg, generator)
+            draws = draw_augment(batch, cfg, generator,
+                                 1 if mesh is None else mesh.data)
+            if mesh is not None:
+                draws = mesh.data_rows(draws)
             if jitter is None:
                 jitter = draws["jitter"]
         with fp32_matmul():
@@ -164,19 +219,26 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
             logits, _, out_lens = model(spect, lengths, generator)
             has_nan = torch.isnan(logits).any()
             logits = torch.where(torch.isnan(logits), 0.0, logits)
-            loss, per_sample = _loss(logits, out_lens, batch)
+            loss, per_sample = _loss(logits, out_lens, batch, mesh)
             grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
-            grad_norm = global_norm(grads)
+            loss = loss.detach()
+            if mesh is None:
+                grad_norm = global_norm(grads)
+            else:
+                sharded = [n in state.sharded
+                           for n, _ in model.named_parameters()]
+                grads, loss, grad_norm, has_nan = _reduce_over_mesh(
+                    mesh, grads, loss, has_nan, sharded)
             ok = ~has_nan & torch.isfinite(grad_norm)
             current = [p.detach() for p in params]
-            new_params, new_opt = optimizer.update(list(grads),
-                                                   state.opt_state, current)
+            new_params, new_opt = optimizer.update(
+                list(grads), state.opt_state, current, grad_norm)
             for p, n in zip(current, select(ok, new_params, current)):
                 p.copy_(n)
             state.opt_state = select(ok, new_opt, state.opt_state)
             state.step += 1
-        out = dict(loss=loss.detach(), per_sample=per_sample.detach(),
+        out = dict(loss=loss, per_sample=per_sample.detach(),
                    greedy=logits.detach().argmax(-1).to(torch.int32),
                    out_lens=out_lens, grad_norm=grad_norm,
                    step_skipped=~ok)

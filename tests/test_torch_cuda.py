@@ -24,8 +24,16 @@ the widths of both models, and beyond one batch chunk.
 The top-k (K10) and the device beam search through it are exact: bit for
 bit against the plain top-k, on rows of ties, signed zeros, infinities and
 NaNs of both signs. The device masks and the noise mix on the card equal
-the same functions on the CPU from the same draws.
+the same functions on the CPU from the same draws. Multi-GPU training:
+K2's and K5's D=1 training variants (what each rank of ``--mesh-model
+2`` runs) at the default model's and config 4's widths, at the GRU
+tolerances; a data-2 step of two gloo ranks sharing cuda:0 (this file run
+as a script, ``--dp-rank``) against the single-process step.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1039,3 +1047,163 @@ def test_test_cli_kenlm_trie_beam_matches_cpu(dev, tmp_path):
         want, _ = decoder.decode(card["probs"][None].astype(np.float64),
                                  [card["len"]])
         assert card["transcript"] == want[0][0]
+
+
+# -- multi-GPU training (parallel/) on the card --------------------------------
+
+# the shapes of the training variants tensor parallelism runs at D=1: the
+# default model's (F 1312 then 800, H 800, B 20) and config 4's (F 1600,
+# H 1600, B 64), over a short T
+TP_SHAPES = [(24, 20, 1312, 800), (24, 20, 800, 800), (12, 64, 1600, 1600)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-3)])
+@pytest.mark.parametrize("t,b,f,h", TP_SHAPES)
+def test_tp_d1_training_variants_match_plain(dev, dtype, tol, t, b, f, h):
+    """K2 with residuals and K5 at D=1, as each rank of --mesh-model 2
+    runs them, against plain (the GRU tolerances above)."""
+    from deepspeech_tpu_torch.ops.cuda import gru
+
+    args = _gru_case(dev, dtype, 1, t, b, f, h, t + b + f)
+    before = (gru.res_launches, gru.bwd_launches)
+    res = gru.gru_layer(*args, residuals=True)
+    ref = gru.plain(*args, residuals=True)
+    for got, want in zip(res, ref):
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol)
+    out, g, hn = ref
+    dout = torch.from_numpy(np.random.default_rng(h).standard_normal(
+        out.shape).astype(np.float32)).to(dev)
+    w_hh, lens = args[3], args[5]
+    got = gru.gru_bwd(dout, g, hn, out, w_hh, lens)
+    assert (gru.res_launches, gru.bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = gru.plain_bwd(dout, g, hn, out, w_hh, lens)
+    f32 = dtype == torch.float32
+    for name, a, w in zip(("dg", "dnh", "dbi", "dbh"), got, want):
+        scale = max(1.0, w.abs().max().item())
+        btol = (1e-4 if name in ("dg", "dnh") else 1e-3) if f32 else 2e-2
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= btol * scale, (name, err, scale)
+
+
+def _dp_batch():
+    """8 rows whose halves differ in length and content, on the int16
+    wire."""
+    from deepspeech_tpu_torch.data import BucketSpec, collate_batch
+
+    rng = np.random.default_rng(5)
+    samples = []
+    for i in range(8):
+        n = 8000 if i < 4 else 4000
+        y = rng.standard_normal(n) * (0.1 if i < 4 else 0.02)
+        if i >= 4:
+            y += 0.5 * np.sin(2 * np.pi * (200 + 90 * i) * np.arange(n)
+                              / 16000)
+        samples.append({"audio": y.astype(np.float32), "path": "",
+                        "target": rng.integers(1, 29, 6 if i < 4 else 3)
+                        .astype(np.int32)})
+    batch = collate_batch(samples, 8, BucketSpec(audio_step=1600,
+                                                 wire_dtype="int16"))
+    batch.pop("paths")
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _dp_steps(model, mesh, batch, steps=2):
+    """``steps`` f32 train steps (SGD lr 0.3, clip 1) -> [(loss, grad norm,
+    {name: parameter})] after each."""
+    from deepspeech_tpu_torch.parallel import shard_state
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_train_step)
+
+    opt = build_optimizer("sgd", lr=0.3, momentum=0.9, max_norm=1.0)
+    state = TrainState.create(model, opt)
+    if mesh is not None:
+        state = shard_state(state, mesh)
+    step = make_train_step(model, opt, StepConfig(), mesh)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for _ in range(steps):
+        m = step(state, batch, generator=gen)
+        out.append((m["loss"].item(), m["grad_norm"].item(),
+                    {k: p.detach().to("cpu", copy=True)
+                     for k, p in model.named_parameters()}))
+    return out
+
+
+def _dp_rank(rank: int, d: str) -> None:
+    """One of two gloo ranks on cuda:0: data 2 over the saved model and
+    batch; its steps saved to ``<d>/rank<rank>.pt``."""
+    import datetime
+
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        "gloo", init_method="file://" + os.path.join(d, "rdv"), rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=60))
+    try:
+        saved = torch.load(os.path.join(d, "inputs.pt"))
+        model, _ = build_model("gru", 29, 32, 2, device="cuda")
+        model.load_state_dict(saved["init"])
+        mesh = make_mesh(data=2, device="cuda:0")
+        batch = mesh.data_rows({k: v.cuda() for k, v in
+                                saved["batch"].items()})
+        torch.save(_dp_steps(model, mesh, batch),
+                   os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(dev, tmp_path):
+    """Two data-2 steps over gloo on two ranks sharing cuda:0 (every tensor
+    on the card) against the single-process steps on the whole batch, f32
+    with the kernels. The first step: the loss at 1e-4 relative, the grad
+    norm at 1e-3, each parameter's change from its init at 1e-3 of the
+    largest change (the two halves' sums and the BN moments' sums run in
+    other orders). The second starts from weights that differ by that
+    round-off, and Hardtanh(0, 20) clamps a few activations near 0 in one
+    run and not the other (the CNN train step's ReLU sign changes): the
+    grad norm at 2e-3, each change at 5e-2 (seen 5.5e-4 and 3.0e-2, on the
+    second conv, on an NVIDIA H100 80GB HBM3)."""
+    from deepspeech_tpu_torch.models import build_model
+
+    torch.manual_seed(0)
+    model, _ = build_model("gru", 29, 32, 2, device="cuda")
+    init = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+    batch = _dp_batch()
+    torch.save({"init": init, "batch": batch}, tmp_path / "inputs.pt")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         str(tmp_path)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    want = _dp_steps(model, None, {k: v.cuda() for k, v in batch.items()})
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        for k, ((loss, norm, params), (wl, wn, wp)) in enumerate(
+                zip(got, want)):
+            assert abs(loss - wl) <= 1e-4 * abs(wl), (k, loss, wl)
+            assert abs(norm - wn) <= (1e-3, 2e-3)[k] * wn, (k, norm, wn)
+            for name, p in params.items():
+                moved = (wp[name] - init[name]).abs().max().item()
+                err = (p - wp[name]).abs().max().item()
+                assert err <= (1e-3, 5e-2)[k] * moved, (k, name, err, moved)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--dp-rank"]:
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    _dp_rank(int(sys.argv[2]), sys.argv[3])

@@ -135,7 +135,7 @@ def test_cer_wer_match_jax(hyp, ref):
 
 
 @pytest.mark.parametrize("flags", [["--steps-per-dispatch", "2"],
-                                   ["--mesh-model", "2"]])
+                                   ["--mesh-model", "4"]])
 def test_unported_flags_exit(flags):
     with pytest.raises(SystemExit, match="ROADMAP"):
         train_main(["--device", "cpu", *flags])
@@ -272,16 +272,21 @@ def test_every_jax_train_option_parses():
             "--world-size"} <= checked and len(checked) == 77
 
 
-# (flag, a value other than the default) of the flags that act on their own
-# and have no ported path
+# (flag, a value other than the default) of the rendezvous flags, each an
+# incomplete rendezvous on its own (torchrun's variables are not set here)
 REFUSED = [["--dist-url", "tcp://localhost:1234"],
            ["--dist-init"], ["--dist-rank", "0"], ["--rank", "1"],
            ["--dist-world-size", "2"], ["--world-size", "2"]]
 
 
 @pytest.mark.parametrize("flags", REFUSED)
-def test_unported_rendezvous_and_log_flags_exit(flags):
-    with pytest.raises(SystemExit, match="ROADMAP"):
+def test_unported_rendezvous_and_log_flags_exit(flags, monkeypatch):
+    """Each rendezvous flag alone exits naming what the rendezvous lacks,
+    before any connection is tried (the rendezvous itself runs in
+    tests/test_torch_parallel.py)."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="rendezvous"):
         train_main(["--device", "cpu", *flags])
 
 
