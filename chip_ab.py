@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Train steps of two checkouts of the port, in turns, on one CUDA card.
 
-    python3 chip_ab.py [--log-dir DIR] [--ctc] TREE [TREE ...]
+    python3 chip_ab.py [--log-dir DIR] [--ctc | --serve] TREE [TREE ...]
 
 Each TREE is the root of a checkout holding ``chip_smoke.py`` and
 ``deepspeech_tpu_torch`` (the current tree is ``.``; an older commit can
@@ -24,6 +24,11 @@ one profiled pass of the layer: the kernels it launches on the card and the
 top-level ATen ops it issues. It handles both kernel interfaces, the one
 that takes (B, T, S) emissions and the one that takes log-probs and the
 extended labels (K9 then also computes the logit gradient).
+
+With ``--serve`` each run times that tree's serving path instead
+(``chip_smoke.py``'s ``phase_serve``: the pool's greedy and device-beam
+ticks): each tick's p50 and p95 in ms and the steady audio seconds a
+second, as that run printed them.
 """
 
 from __future__ import annotations
@@ -104,23 +109,39 @@ out["device_kernels"] = sum(
     and not e.name.startswith("Memcpy") and not e.name.startswith("Memset"))
 print("CTC " + json.dumps(out), flush=True)
 """
+RUN_SERVE = r"""
+import json
+import torch
+import chip_smoke as c
+from deepspeech_tpu_torch.ops.cuda import build
+
+build.build_all(force=True)
+out = c.phase_serve(torch, c.step_floor(torch))
+keys = ("tick_p50_ms", "tick_p95_ms", "steady_audio_s_per_s")
+print("SERVE " + json.dumps({k: {x: v[x] for x in keys} for k, v in out.items()
+                             if isinstance(v, dict) and "tick_p50_ms" in v}),
+      flush=True)
+"""
 STEP = re.compile(r"^(\w+-\d+) train path: ([\d.]+) ms per step")
 
 
-def run(trees, log_dir: str, ctc: bool = False) -> int:
+def run(trees, log_dir: str, what: str = "train") -> int:
     runs = []
+    code = {"train": RUN, "ctc": RUN_CTC, "serve": RUN_SERVE}[what]
     for i, tree in enumerate(trees):
-        path = os.path.join(log_dir, f"ab{'_ctc' if ctc else ''}_{i}.log")
+        tag = "" if what == "train" else f"_{what}"
+        path = os.path.join(log_dir, f"ab{tag}_{i}.log")
         with open(path, "w") as log:
-            rc = subprocess.run([sys.executable, "-c",
-                                 RUN_CTC if ctc else RUN],
+            rc = subprocess.run([sys.executable, "-c", code],
                                 cwd=os.path.abspath(tree), stdout=log,
                                 stderr=subprocess.STDOUT).returncode
         with open(path) as log:
             lines = log.read().splitlines()
-        if ctc:
-            found = [json.loads(x[4:]) for x in lines if x.startswith("CTC ")]
-            result = {"ctc": found[-1] if found else None}
+        if what != "train":
+            head = what.upper() + " "
+            found = [json.loads(x[len(head):]) for x in lines
+                     if x.startswith(head)]
+            result = {what: found[-1] if found else None}
         else:
             result = {"step_ms": {m.group(1): float(m.group(2))
                                   for m in map(STEP.match, lines) if m}}
@@ -136,15 +157,21 @@ def run(trees, log_dir: str, ctc: bool = False) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-dir", help="keep each run's log here")
-    ap.add_argument("--ctc", action="store_true",
-                    help="time the CTC kernels and layer, not the steps")
+    what = ap.add_mutually_exclusive_group()
+    what.add_argument("--ctc", action="store_const", const="ctc",
+                      dest="what", help="time the CTC kernels and layer, "
+                      "not the steps")
+    what.add_argument("--serve", action="store_const", const="serve",
+                      dest="what", help="time the serving path's ticks, "
+                      "not the steps")
     ap.add_argument("trees", nargs="+", help="checkout roots, in turns")
     args = ap.parse_args(argv)
+    what = args.what or "train"
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
-        return run(args.trees, args.log_dir, args.ctc)
+        return run(args.trees, args.log_dir, what)
     with tempfile.TemporaryDirectory() as log_dir:
-        return run(args.trees, log_dir, args.ctc)
+        return run(args.trees, log_dir, what)
 
 
 if __name__ == "__main__":

@@ -873,13 +873,14 @@ def plain_path(only: tuple = ()):
 @contextlib.contextmanager
 def recorded(names: tuple):
     """Inside, each wrapper named in ``names`` (``stft_mag``, ``gru_layer``,
-    ``ctc_alpha``) records every call: {name: [(args, kwargs, result)]},
-    tensors cloned, so a launch of the path itself can be held to its
-    plain version on its own inputs afterwards."""
+    ``gru_bwd``, ``ctc_alpha``, ``ctc_beta``) records every call: {name:
+    [(args, kwargs, result)]}, tensors cloned, so a launch of the path
+    itself can be held to its plain version on its own inputs
+    afterwards."""
     from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
 
     mods = {"stft_mag": stft, "gru_layer": gru, "gru_bwd": gru,
-            "ctc_alpha": ctc}
+            "ctc_alpha": ctc, "ctc_beta": ctc}
     calls = {name: [] for name in names}
     saved = {name: getattr(mods[name], name) for name in names}
 
@@ -911,13 +912,14 @@ def hold_recorded(torch, calls: dict) -> dict:
     residuals g and hn, stored in bf16, within one bf16 ulp, BF16_ULP x
     max(1, max|reference|): hn = W_hn h + b_hn is not bounded by 1, and an
     ulp at [1, 2) is 2^-7), K5's outputs at GRU_BWD_TOL x max(1,
-    max|reference|), K8's alphas and loss at CTC_TOL (non-finite entries in
-    the same places) -> {wrapper: (launches held, the largest
-    max_abs_err)}."""
+    max|reference|), K8's alphas and loss and K9's logit gradient at
+    CTC_TOL (non-finite entries in the same places) -> {wrapper: (launches
+    held, the largest max_abs_err)}."""
     from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
 
     plain = {"stft_mag": stft.plain, "gru_layer": gru.plain,
-             "gru_bwd": gru.plain_bwd, "ctc_alpha": ctc.plain_alpha}
+             "gru_bwd": gru.plain_bwd, "ctc_alpha": ctc.plain_alpha,
+             "ctc_beta": ctc.plain_beta}
     out = {}
     for name, seen in calls.items():
         worst = 0.0
@@ -4153,11 +4155,12 @@ MULTI_STEPS, MULTI_TIMED = 3, 4
 # from its init at STEP_GRAD_TOL x max|the reference's change| (phase 12's
 # kernel-vs-plain tolerances: the kernels are the same, the sums over the
 # two shards' rows and the BN moments' sums run in other orders). After the
-# first step the two runs' weights differ by that round-off, and
-# Hardtanh(0, 20) clamps a few activations near 0 in one run and not the
-# other (the CNN phase's ReLU sign changes), so the later steps' loss and
-# grad norm drift apart: held at MULTI_DRIFT_TOL (seen 1.46e-3 at step 3
-# on an NVIDIA H100 80GB HBM3, 700.00 W)
+# first step the two runs' weights differ by that round-off, which the bf16
+# roundings of the next steps carry on, so the later steps' loss and grad
+# norm drift apart: held at MULTI_DRIFT_TOL (seen up to 2.39e-3 at step 3
+# on an NVIDIA H100 80GB HBM3, 700.00 W; in f32, tests/test_torch_cuda.py
+# holds two steps of a small model at 1e-4 and shows where a Hardtanh
+# clamp flips)
 MULTI_DRIFT_TOL = 1e-2
 
 
@@ -4212,14 +4215,18 @@ def reference_model(torch, ref: dict):
     return model
 
 
+HELD = ("stft_mag", "gru_layer", "gru_bwd", "ctc_alpha", "ctc_beta")
+
+
 def rank_steps(torch, mesh, path: str, hold_kernels: bool = False,
                extra: int = 0) -> dict:
     """On this rank: the reference's model, sharded onto ``mesh``, stepped
     on its data shard's rows with the generator seeded as the reference's,
     each of the reference's steps held to it, then ``extra`` steps more;
     the launches and collectives of the first step, every step's time
-    (CUDA events). ``hold_kernels``: the first step's K2 and K5 launches
-    recorded and each held to its plain version on its inputs."""
+    (CUDA events). ``hold_kernels``: the first step's K1, K2, K5, K8 and
+    K9 launches recorded and each held to its plain version on this
+    rank's own inputs (``hold_recorded``)."""
     from deepspeech_tpu_torch.parallel import shard_state
     from deepspeech_tpu_torch.train.optim import build_optimizer
     from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
@@ -4235,7 +4242,7 @@ def rank_steps(torch, mesh, path: str, hold_kernels: bool = False,
     out = dict(loss_rel=[], norm_rel=[], param_worst=[], ms=[])
     for k, want in enumerate(ref["steps"] + [None] * extra):
         first = k == 0
-        with (recorded(("gru_layer", "gru_bwd")) if first and hold_kernels
+        with (recorded(HELD) if first and hold_kernels
               else contextlib.nullcontext({})) as calls:
             if first:
                 reset_counts()
@@ -4250,13 +4257,17 @@ def rank_steps(torch, mesh, path: str, hold_kernels: bool = False,
             out["launches"] = read_counts()
             out["collectives"] = dict(mesh.counts)
             held = hold_recorded(torch, calls)
-            # the directions of each launch: w_ih's of K2, dout's of K5
-            dirs = {name: sorted({args[1 if name == "gru_layer" else 0]
-                                  .shape[0] for args, _, _ in seen})
-                    for name, seen in calls.items()}
-            out["held"] = {k: dict(launches=n, max_abs_err=e,
-                                   directions=dirs[k])
+            out["held"] = {k: dict(launches=n, max_abs_err=e)
                            for k, (n, e) in held.items()}
+            # the directions of each K2 and K5 launch (w_ih's, dout's) and
+            # the rows each launch took
+            for name, at in (("gru_layer", 1), ("gru_bwd", 0)):
+                if name in calls:
+                    out["held"][name]["directions"] = sorted(
+                        {args[at].shape[0] for args, _, _ in calls[name]})
+            if "ctc_alpha" in calls:
+                out["held_rows"] = sorted({args[0].shape[0] for args, _, _
+                                           in calls["ctc_alpha"]})
             del calls
         out["ms"].append(start.elapsed_time(end))
         if want is None:
@@ -4315,7 +4326,7 @@ def rank_main(argv) -> int:
     try:
         out = {"device": torch.cuda.get_device_name(dev)}
         out["dp"] = rank_steps(torch, make_mesh(data=2, device=dev),
-                               os.path.join(d, "dp.pt"))
+                               os.path.join(d, "dp.pt"), job == "gloo")
         if job == "gloo":
             out["tp"] = rank_steps(
                 torch, make_mesh(data=1, model=2, device=dev),
@@ -4356,17 +4367,26 @@ def nccl_world_one(torch, d: str) -> dict:
     """The data-parallel step at world size 1 over NCCL (every collective of
     the path issued on the card) on phase 12's model and batch: its steps
     held to the single-process steps, the median of steps 2 to
-    MULTI_TIMED + 1 (CUDA events)."""
+    MULTI_TIMED + 1 (CUDA events); first the loader's padding exchange,
+    on the host over the mesh's gloo group."""
     import datetime
 
-    from deepspeech_tpu_torch.parallel import make_mesh
+    from deepspeech_tpu_torch.parallel import (equalize_batch_padding,
+                                               make_mesh)
 
     torch.distributed.init_process_group(
         "nccl", init_method="file://" + os.path.join(d, "rdv_nccl1"),
         rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
     try:
-        out = rank_steps(torch, make_mesh(device="cuda:0"),
-                         os.path.join(d, "dp.pt"),
+        mesh = make_mesh(device="cuda:0")
+        # the loader's padding exchange: on the host over gloo, beside NCCL
+        host = {"audio": np.zeros((2, 5), np.int16), "valid": np.ones(2)}
+        padded, n_valid = equalize_batch_padding(host, mesh)
+        if (padded["audio"].shape != (2, 5) or n_valid != 2
+                or mesh.counts["pad"] != 1):
+            raise AssertionError(f"padding exchange over "
+                                 f"{mesh.groups['host']}: {n_valid} rows")
+        out = rank_steps(torch, mesh, os.path.join(d, "dp.pt"),
                          extra=MULTI_TIMED + 1 - MULTI_STEPS)
     finally:
         torch.distributed.destroy_process_group()
@@ -4447,18 +4467,26 @@ def phase_multi_gpu(torch, step12: dict) -> dict:
                     f"plain versions: loss rel {step12['rel_loss']:.2e}, "
                     f"grad norm rel {step12['rel_norm']:.2e}, worst grad "
                     f"{step12['grad_worst']:.2e} x scale)")
-                if key == "tp":
-                    held = got["held"]
-                    for name in ("gru_layer", "gru_bwd"):
-                        if (held[name]["launches"] != LAYERS
-                                or held[name]["directions"] != [1]):
-                            raise AssertionError(f"model 2 rank {r}: "
-                                                 f"{name} held {held[name]}")
-                    log(f"{label}, rank {r}: K2 (D=1, with residuals) and "
-                        f"K5 (D=1) launches each held to the plain version "
-                        f"on its inputs: {held}; {got['sharded']} RNN "
-                        "tensors and their momenta held as one direction, "
-                        "(1, ...)")
+                # every launch of the rank's first step against its plain
+                # version on the rank's own inputs: data 2 at the shard's
+                # B 10 with D=2, model 2 at B 64 with D=1
+                held, ndir = got["held"], 2 if key == "dp" else 1
+                rows = [BATCH // 2] if key == "dp" else [WIDE_BATCH["gru"]]
+                for name in HELD:
+                    n = LAYERS if name.startswith("gru") else 1
+                    if (held[name]["launches"] != n
+                            or held[name].get("directions", [ndir]) != [ndir]
+                            or got["held_rows"] != rows):
+                        raise AssertionError(
+                            f"{label} rank {r}: {name} held {held[name]}, "
+                            f"rows {got['held_rows']}")
+                log(f"{label}, rank {r}: K1, K2 (D={ndir}, with "
+                    f"residuals), K5 (D={ndir}), K8 and K9 launches of its "
+                    f"first step at B {rows[0]}, each held to the plain "
+                    f"version on its inputs: {held}"
+                    + (f"; {got['sharded']} RNN tensors and their momenta "
+                       "held as one direction, (1, ...)" if key == "tp"
+                       else ""))
             ms = [float(np.median(res[key]["ms"][1:])) for res in ranks]
             out[key] = dict(
                 ms=ms, launches=ranks[0][key]["launches"],
@@ -4473,7 +4501,8 @@ def phase_multi_gpu(torch, step12: dict) -> dict:
                 + ", ".join(f"rank {r} {m:.1f} ms" for r, m in enumerate(ms))
                 + " (median of steps 2-3, CUDA events; two ranks share one "
                 "card (gloo through the host): not a scaling figure)")
-        out["tp"]["held"] = ranks[0]["tp"]["held"]
+            out[key]["held"] = {n: max(res[key]["held"][n]["max_abs_err"]
+                                       for res in ranks) for n in HELD}
         t0 = time.perf_counter()
         one = nccl_world_one(torch, d)
         if one["launches"] != want["dp"]:

@@ -39,13 +39,13 @@ class TorchBatchNorm(nn.Module):
     so a following matmul can fold it into its weights. Running-stat updates
     are the same in both modes. Computes in f32 whatever the input type.
 
-    Under data parallelism (``mesh`` spanning a data group) the train-mode
-    moments are the global batch's, as the SPMD program's: the mean is
-    all_reduce(sum x) / all_reduce(n), the variance all_reduce(sum (x -
-    mean)^2) / n, through a differentiable all-reduce whose backward sums
-    the gradient over the group, so that every shard's rows get the
-    gradient through the global moments; the running stats use the global
-    n. Eval mode does not change."""
+    The train-mode moments are sum(x) / n and sum((x - mean)^2) / n, each
+    sum through ``reduce_sum``: under data parallelism (``mesh`` spanning
+    a data group) an all-reduce, differentiable, whose backward sums the
+    gradient over the group, so that the moments are the global batch's
+    and every shard's rows get the gradient through them, as the SPMD
+    program's do; otherwise the sum itself. The running stats use the
+    global n. Eval mode does not change."""
 
     mesh = None
 
@@ -66,19 +66,12 @@ class TorchBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor):
         x = x.float()
         if self.training:
-            axes = tuple(i for i in range(x.ndim) if i != self.axis % x.ndim)
-            n = math.prod(x.shape[i] for i in axes)
-            if self.mesh is not None and self.mesh.spans("data"):
-                mean, var, n = self._global_moments(x, axes, n)
-                unbias = n / (n - 1).clamp(min=1)
-            else:
-                mean = x.mean(axes)
-                var = ((x - self._view(mean, x.ndim)) ** 2).mean(axes)
-                unbias = n / max(n - 1, 1)
+            mean, var, n = self._moments(x)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * var * unbias)
+                self.running_var.mul_(1 - m).add_(
+                    m * var * (n / (n - 1).clamp(min=1)))
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
@@ -89,12 +82,16 @@ class TorchBatchNorm(nn.Module):
                 * self._view(inv * self.weight, x.ndim)
                 + self._view(self.bias, x.ndim))
 
-    def _global_moments(self, x: torch.Tensor, axes: tuple, n: int):
-        """(mean, biased var, n as a 0-d tensor) over the data group's
-        global batch; nothing is read back to the host."""
+    def _moments(self, x: torch.Tensor):
+        """(mean, biased var, n as a (1,) tensor) over every axis but the
+        feature axis, each sum taken over the mesh's data group where it
+        spans one (``reduce_sum``; without, the shard is the batch);
+        nothing is read back to the host."""
+        axes = tuple(i for i in range(x.ndim) if i != self.axis % x.ndim)
+        n = math.prod(x.shape[i] for i in axes)
         sums = reduce_sum(torch.cat([x.sum(axes), x.new_full((1,), n)]),
                           self.mesh, "data", "bn")
-        n = sums[-1].detach()
+        n = sums[-1:].detach()
         mean = sums[:-1] / n
         sq = ((x - self._view(mean, x.ndim)) ** 2).sum(axes)
         return mean, reduce_sum(sq, self.mesh, "data", "bn") / n, n

@@ -9,12 +9,17 @@ rows) and one model group per data index (the ranks that hold the same
 rows and, at model 2, the two directions of each bidirectional RNN layer).
 
 Every collective goes through ``Mesh.all_reduce`` or ``Mesh.broadcast``, on
-tensors of the rank's device, so that NCCL takes them on the card and gloo
-on the CPU (gloo also runs these two on CUDA tensors, through the host).
+tensors of the rank's device (the ``host`` axis's below aside), so that
+NCCL takes them on the card and gloo on the CPU (gloo also runs these two
+on CUDA tensors, through the host).
 Each call counts one under its tag in ``Mesh.counts``. An axis of one rank
 has no group and its collectives are skipped, except in a world of one
 rank, where every axis is that world and every collective runs, as
-DistributedDataParallel's all-reduce does at world size 1.
+DistributedDataParallel's all-reduce does at world size 1 (so that a
+one-card run measures what the collectives cost). The axis ``host`` is the
+data group again over gloo, for values that live on the host (the
+loader's padding): a CPU exchange there never waits for the card, where
+one over NCCL would wait for the step queued before it.
 
 The JAX package's ``local_batch_to_global`` and ``metrics_to_local``
 assemble and split global arrays; here each rank keeps its own rows, so
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-AXES = ("data", "model", "world")
+AXES = ("data", "model", "world", "host")
 RNN_WEIGHTS = ("w_ih", "b_ih", "w_hh", "b_hh")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -106,8 +111,11 @@ def make_mesh(data: int | None = None, model: int = 1,
     if model < 1 or data * model != world:
         raise ValueError(f"mesh {data} x {model} != {world} ranks")
     groups: dict = {}
+    gloo = on and dist.get_backend() == "gloo"
     if on and world == 1:
         groups = dict.fromkeys(AXES, dist.group.WORLD)
+        if not gloo:
+            groups["host"] = dist.new_group([0], backend="gloo")
     elif on:
         groups["world"] = dist.group.WORLD
         members = {"data": [[d * model + m for d in range(data)]
@@ -121,6 +129,11 @@ def make_mesh(data: int | None = None, model: int = 1,
                 group = dist.new_group(ranks)
                 if rank in ranks:
                     groups[axis] = group
+                if axis == "data":
+                    host = group if gloo else dist.new_group(
+                        ranks, backend="gloo")
+                    if rank in ranks:
+                        groups["host"] = host
     return Mesh(data, model, rank, torch.device(device), groups)
 
 
@@ -141,9 +154,12 @@ class _AllReduce(torch.autograd.Function):
                 None, None, None)
 
 
-def reduce_sum(t: torch.Tensor, mesh: Mesh, axis: str, tag: str
+def reduce_sum(t: torch.Tensor, mesh: Mesh | None, axis: str, tag: str
                ) -> torch.Tensor:
-    """Differentiable sum of ``t`` over ``axis``."""
+    """Differentiable sum of ``t`` over ``axis``; ``t`` itself where there
+    is no mesh or it does not span the axis."""
+    if mesh is None or not mesh.spans(axis):
+        return t
     return _AllReduce.apply(t, mesh, axis, tag)
 
 
@@ -235,7 +251,9 @@ def equalize_batch_padding(batch: dict, mesh: Mesh) -> tuple[dict, int]:
     """Pad every non-batch dim of a host batch to the largest over the
     data group, and count the global batch's real rows: one
     ``all_reduce(MAX)`` of the dims and of each shard's ``valid`` count in
-    a slot of its own. -> (padded batch, real rows of the global batch).
+    a slot of its own, on the host over the ``host`` axis (gloo), so that
+    the loader does not wait for the step running on the card. ->
+    (padded batch, real rows of the global batch).
 
     Rank-strided bins give the shards different utterances, so their
     bucket pads can differ; train-mode BatchNorm counts padding frames, so
@@ -245,8 +263,8 @@ def equalize_batch_padding(batch: dict, mesh: Mesh) -> tuple[dict, int]:
     dims = [s for k in keys for s in batch[k].shape[1:]]
     slots = [0] * mesh.data
     slots[mesh.data_index] = int(np.asarray(batch["valid"]).sum())
-    both = torch.tensor(dims + slots, dtype=torch.int64, device=mesh.device)
-    both = mesh.all_reduce(both, "data", op="max", tag="pad").tolist()
+    both = torch.tensor(dims + slots, dtype=torch.int64)
+    both = mesh.all_reduce(both, "host", op="max", tag="pad").tolist()
     out, i = dict(batch), 0
     for k in keys:
         v = np.asarray(batch[k])
