@@ -208,6 +208,22 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    inputs, the time-sliced step times; then the data-parallel step at
    world size 1 over NCCL against phase 12's step time; where the machine
    has two cards, data 2 over NCCL a card a rank;
+22b. --steps-per-dispatch 4 (phase_steps_per_dispatch): the default model
+   (bf16, batch 20 x 7.5 s, SGD-Nesterov, clip 100) through two full
+   groups of 4 and a short group of 2 batches of a shorter bucket (a second
+   graph), and config 4 (B 64: K2, the cooperative K4, the persistent K5)
+   through one group, each as CUDA-graph replays of the train step
+   (train/graph.py) against the same batches eagerly: the launches of both
+   (the replays counted), with cuDNN's deterministic algorithms the steps,
+   states and generator held; under its default algorithms the per-step
+   CUDA-event median eager against replay, the host's issue time and idle
+   share, the device's idle share, the capture seconds of each shape, the
+   peak reserved memory, and the replays' drift beside two eager runs';
+22c. the test CLI on two gloo ranks sharing cuda:0 (phase_test_multi;
+   ``--test-rank``, torchrun's variables set by hand) against one process,
+   greedy and device_beam, 20 x ~7.5 s at batch 10: rank 0's stdout and
+   the report CSV byte-equal, each rank's K1, K2, K8 and K10 launches;
+   the script's total time;
 23. prints one JSON line of kernel results (launches from one train step of
    the path each kernel is on: the GRU-800 step for K1, K2, K5, K8 and K9,
    the LSTM-800 step for K3 and K7, the BiGRU-1600 step for K4, the
@@ -219,8 +235,10 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    recurrence variant the rule chose, each variant's time, a step's time
    and the projection GEMM's beside cuBLAS, K2's its wide layer 0, K8's
    and K9's their device time, the chain floor and F.ctc_loss's device
-   time, K9's the layer's times too), after a line of the serving, CNN,
-   data-path and multi-GPU figures, then the device line last.
+   time, K9's the layer's times too; the kernels of phase 22b add their
+   launches there, ``launches_steps_per_dispatch``), after a line of the
+   serving, CNN, data-path, multi-GPU, steps-per-dispatch and multi-rank
+   test figures, then the device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
 non-zero. Times are CUDA-event medians with warm L2; K1's and K10's (and
@@ -1770,11 +1788,12 @@ def phase_forward(torch, counts, floor, cell="gru", hidden=HIDDEN,
     return model, meta
 
 
-def profile_run(torch, label, fn, ms: float, floor: dict):
-    """One call of ``fn`` under torch.profiler: device time by kernel, and
-    the device's busy and idle time on its trace timeline (the union of
-    kernel, memcpy and memset intervals between the first device op and the
-    last)."""
+def device_busy(torch, fn) -> tuple[list, float, float]:
+    """``fn`` once under torch.profiler -> (its device ops as (start us,
+    end us, name), the trace timeline's span from the first device op to
+    the end of the last, the busy time within it: the union of kernel,
+    memcpy and memset intervals); ([], 0, 0) where the trace holds no
+    device op."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1791,16 +1810,25 @@ def profile_run(torch, label, fn, ms: float, floor: dict):
                  for e in events if e.get("ph") == "X" and e.get("cat") in
                  ("kernel", "gpu_memcpy", "gpu_memset"))
     if not ops:
-        log(f"profile of one {label}: the trace holds no device op; busy "
-            "and idle time not measured")
-        return
+        return [], 0.0, 0.0
     busy, (lo, hi) = 0.0, ops[0][:2]
     for start, end, _ in ops[1:]:
         if start > hi:
             busy, lo = busy + hi - lo, start
         hi = max(hi, end)
     busy += hi - lo
-    span = max(end for _, end, _ in ops) - ops[0][0]
+    return ops, max(end for _, end, _ in ops) - ops[0][0], busy
+
+
+def profile_run(torch, label, fn, ms: float, floor: dict):
+    """One call of ``fn`` under torch.profiler: device time by kernel, and
+    the device's busy and idle time on its trace timeline
+    (``device_busy``)."""
+    ops, span, busy = device_busy(torch, fn)
+    if not ops:
+        log(f"profile of one {label}: the trace holds no device op; busy "
+            "and idle time not measured")
+        return
     log(f"profile of one {label} ({ms:.3f} ms unprofiled, CUDA events): "
         f"{len(ops)} device ops over {span / 1e3:.3f} ms of trace timeline, "
         f"busy {busy / 1e3:.3f} ms, idle {(span - busy) / 1e3:.3f} ms "
@@ -1852,15 +1880,15 @@ def profile_run(torch, label, fn, ms: float, floor: dict):
                 f"time in {n} launches")
 
 
-def train_batch(torch, rng, labels: str, batch=BATCH):
-    """``batch`` synthetic waveforms of 7.5 s down to 6.8 s with random
-    transcripts, collated on the int16 wire as the train CLI does, on the
-    card."""
+def train_batch(torch, rng, labels: str, batch=BATCH, audio=AUDIO_S):
+    """``batch`` synthetic waveforms of ``audio`` samples (7.5 s) down to
+    ~0.9 of that with random transcripts, collated on the int16 wire as the
+    train CLI does, on the card."""
     from deepspeech_tpu_torch.data import BucketSpec, collate_batch
 
     samples = []
     for i in range(batch):
-        n = AUDIO_S - AUDIO_S // 30 * (i % 5)  # unequal, the longest full
+        n = audio - audio // 30 * (i % 5)  # unequal, the longest full
         words = ["".join(rng.choice(list(labels[2:28]), rng.integers(2, 8)))
                  for _ in range(rng.integers(FRAMES // 40 + 1,
                                              FRAMES // 27 + 2))]
@@ -4542,7 +4570,437 @@ def phase_multi_gpu(torch, step12: dict) -> dict:
     return out
 
 
+# --steps-per-dispatch (phase_steps_per_dispatch): groups of SPD_K batches;
+# the default model runs two full groups of the train shape, then a short
+# group of SPD_SHORT batches of a shorter bucket (SPD_SHORT_AUDIO samples at
+# most, the bucket switch); config 4 one full group. The timings: SPD_TIMED
+# steps back to back each way, and SPD_PROFILED under the profiler
+SPD_K, SPD_SHORT, SPD_SHORT_AUDIO = 4, 2, 100_000
+SPD_TIMED, SPD_PROFILED = 8, 4
+# the replayed run against the eager run of the same batches, both with
+# cuDNN's deterministic algorithms (torch.backends.cudnn.deterministic):
+# the replays run the same kernels on the same state, so the steps' losses
+# and grad norms are held at STEP_LOSS_TOL and each parameter's and
+# BatchNorm buffer's distance at STEP_GRAD_TOL of the eager run's change
+# from its init (phase 12's kernel-against-plain bounds), and are expected
+# equal. Under cuDNN's default algorithms two eager runs of the same
+# batches already drift apart (the convolution gradients' sums in another
+# order each run, carried on by the bf16 roundings of the next steps): the
+# phase shows that drift, two eager runs against each other
+
+
+def spd_batches(torch, rng, n: int, audio: int, batch: int) -> list:
+    """``n`` host batches (numpy, paths dropped) of ``train_batch``."""
+    return [{k: v.cpu().numpy() for k, v in
+             train_batch(torch, rng, LABELS, batch, audio).items()}
+            for _ in range(n)]
+
+
+def spd_groups(torch, host: list) -> list:
+    """The train CLI's grouping (``pull_group``): up to SPD_K batches of
+    one shape a group -> [(stacked on the card, live)]."""
+    from deepspeech_tpu_torch.data import stack_microbatches
+
+    groups, cur = [], []
+    for b in host + [None]:
+        if cur and (b is None or len(cur) == SPD_K or any(
+                b[k].shape != cur[0][k].shape for k in ("audio", "targets"))):
+            stacked, live = stack_microbatches(cur, SPD_K)
+            groups.append(({k: torch.from_numpy(v).cuda()
+                            for k, v in stacked.items()}, live))
+            cur = []
+        if b is not None:
+            cur.append(b)
+    return groups
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch, on: bool = True):
+    """cuDNN's deterministic algorithms inside (or not, ``on`` False)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def spd_run(torch, init: dict, hidden: int, host: list, how: str,
+            timed: bool = True) -> dict:
+    """The bf16 6 x BiGRU-<hidden> from the weights ``init`` through
+    ``host``'s batches, ``how`` "eager" (``train_step`` a batch) or "replay" (SPD_K
+    groups through ``make_multi_train_step``: the first batch of a shape
+    eager, then a capture and replays), the generator seeded with SEED:
+    its launches, its steps' metrics, the state after them; with
+    ``timed`` then SPD_TIMED steps of the first shape back to back (CUDA
+    events a step; the host's issue time a step against the wall time)
+    and SPD_PROFILED under the profiler (the device's idle share) -> the
+    run's readings."""
+    import gc
+
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_multi_train_step,
+                                                 make_train_step)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    groups = spd_groups(torch, host)
+    dev_batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                   for b in host]
+    model, _ = build_model("gru", CLASSES, hidden, LAYERS,
+                           bidirectional=True, compute_dtype="bfloat16",
+                           device="cuda")
+    model.load_state_dict(init)
+    opt = build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
+    state = TrainState.create(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step = make_train_step(model, opt, StepConfig())
+    reset_counts()
+    if how == "eager":
+        ms = [step(state, b, generator=gen) for b in dev_batches]
+        m = {k: torch.stack([x[k] for x in ms]) for k in
+             ("loss", "grad_norm", "step_skipped")}
+        graphs = None
+    else:
+        multi = make_multi_train_step(model, opt, StepConfig())
+        parts = [multi(state, stacked, gen, live) for stacked, live in groups]
+        m = {k: torch.cat([x[k] for x in parts]) for k in
+             ("loss", "grad_norm", "step_skipped")}
+        graphs = multi.graphs
+    torch.cuda.synchronize()
+    run = dict(launches=read_counts(), metrics=m, init=init,
+               state={k: v.clone() for k, v in model.state_dict().items()},
+               step=int(state.step), gen=gen.get_state(),
+               peak_reserved=torch.cuda.max_memory_reserved(),
+               graphs=None if graphs is None else graphs.stats(),
+               groups=len(groups))
+    if timed:
+        # the state moves on: the comparison is done
+        lane = {k: v[0] for k, v in groups[0][0].items()}
+        one = (lambda: graphs(lane)) if graphs else (
+            lambda: step(state, dev_batches[0], generator=gen))
+        one()
+        torch.cuda.synchronize()
+        events, issue = [], 0.0
+        t0 = time.perf_counter()
+        for _ in range(SPD_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t1 = time.perf_counter()
+            one()
+            issue += time.perf_counter() - t1
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ops, span, busy = device_busy(torch, lambda: [
+            one() for _ in range(SPD_PROFILED)])
+        run.update(
+            ms=float(np.median([a.elapsed_time(b) for a, b in events])),
+            host_ms=1e3 * wall / SPD_TIMED, issue_ms=1e3 * issue / SPD_TIMED,
+            host_idle=1.0 - issue / wall,
+            device_idle=(span - busy) / span if span else None,
+            device_ops=len(ops) / SPD_PROFILED)
+    del model, state, opt, graphs, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def spd_gaps(torch, a: dict, b: dict) -> dict:
+    """Run ``b`` against run ``a`` (``spd_run``): each step's loss and grad
+    norm relative, the largest distance of a state tensor in units of
+    ``a``'s change from the init, and that tensor's name."""
+    gaps = {key: ((b["metrics"][key] - a["metrics"][key]).abs()
+                  / a["metrics"][key].abs()).tolist()
+            for key in ("loss", "grad_norm")}
+    worst = (0.0, "")
+    for name, want in a["state"].items():
+        if not want.is_floating_point():
+            continue
+        moved = (want - a["init"][name]).abs().max().item()
+        err = (b["state"][name] - want).abs().max().item()
+        worst = max(worst, (err / max(moved, 1e-30), name))
+    gaps["state"], gaps["state_name"] = worst
+    return gaps
+
+
+def phase_steps_per_dispatch(torch) -> dict:
+    """``--steps-per-dispatch`` SPD_K on the card (``train/graph.py``): the
+    default model (6 x BiGRU-800, bf16, batch 20 x 7.5 s, SGD-Nesterov,
+    clip 100) through two full groups of the train shape and a short group
+    of SPD_SHORT batches of a shorter bucket (the switch: a second graph),
+    against the same batches eagerly; then config 4 (6 x BiGRU-1600, B 64:
+    K2 layer 0, the cooperative K4 in layers 1-5, the persistent K5) over
+    one full group. Each: the launches of both runs (the replays
+    counted), and with cuDNN's deterministic algorithms in both the steps
+    and the states held; then under cuDNN's default algorithms, as the
+    train CLI runs, the per-step CUDA-event median eager against replay,
+    the host's issue time and idle share, the device's idle share, the
+    capture seconds of each shape, the peak reserved memory, and the
+    replays' drift from the eager steps (for the default model beside a
+    second eager run's, the drift's cause). -> the figures for the JSON
+    line."""
+    rng = np.random.default_rng(SEED + 40)
+    host = (spd_batches(torch, rng, 2 * SPD_K, AUDIO_S, BATCH)
+            + spd_batches(torch, rng, SPD_SHORT, SPD_SHORT_AUDIO, BATCH))
+    out = {}
+    for key, seed, hidden, batches, want in (
+            ("default", SEED + 41, HIDDEN, host,
+             expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1,
+                           gru_fwd=LAYERS, gru_fwd_res=LAYERS,
+                           gru_bwd=LAYERS)),
+            ("config4", SEED + 42, WIDE,
+             spd_batches(torch, rng, SPD_K, AUDIO_S, WIDE_BATCH["gru"]),
+             expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1, gru_fwd=1,
+                           gru_fwd_res=1, gru_scan=LAYERS - 1,
+                           gru_scan_res=LAYERS - 1, gru_bwd=LAYERS))):
+        label = (f"{LAYERS} x BiGRU-{hidden} bf16, batch "
+                 f"{batches[0]['audio'].shape[0]}")
+        model, _ = default_model(torch, seed, "gru", hidden)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        del model
+        with cudnn_deterministic(torch):
+            e = spd_run(torch, init, hidden, batches, "eager", timed=False)
+            p = spd_run(torch, init, hidden, batches, "replay", timed=False)
+        n = len(batches)
+        want = {k: v * n for k, v in want.items()}
+        gaps = spd_gaps(torch, e, p)
+        if (p["launches"] != want or e["launches"] != want
+                or p["step"] != n or e["step"] != n):
+            raise AssertionError(f"{label}: launches {p['launches']} "
+                                 f"(eager {e['launches']}), expected {want}; "
+                                 f"steps {p['step']}, {e['step']}")
+        if not torch.equal(p["gen"], e["gen"]):
+            raise AssertionError(f"{label}: the generator's state after the "
+                                 "replays differs from the eager run's")
+        if (e["metrics"]["step_skipped"].any()
+                or p["metrics"]["step_skipped"].any()
+                or not (max(gaps["loss"] + gaps["grad_norm"]) <= STEP_LOSS_TOL
+                        and gaps["state"] <= STEP_GRAD_TOL)):
+            raise AssertionError(f"{label}: replayed steps against eager: "
+                                 f"{gaps}")
+        # the same under cuDNN's default algorithms, as the train CLI
+        # runs: timed, and the replays' drift from the eager steps beside
+        # a second eager run's (the drift's cause)
+        ed = spd_run(torch, init, hidden, batches, "eager")
+        pd = spd_run(torch, init, hidden, batches, "replay")
+        drift = {"replay": spd_gaps(torch, ed, pd)}
+        if key == "default":
+            drift["eager"] = spd_gaps(torch, ed, spd_run(
+                torch, init, hidden, batches, "eager", timed=False))
+        if pd["launches"] != want or pd["graphs"] != dict(
+                p["graphs"], capture_s=pd["graphs"]["capture_s"]):
+            raise AssertionError(f"{label}, cuDNN's default algorithms: "
+                                 f"launches {pd['launches']}, graphs "
+                                 f"{pd['graphs']}")
+        g = pd["graphs"]
+        log(f"steps-per-dispatch {SPD_K}, {label}: {n} batches in "
+            f"{p['groups']} groups, {g['graphs']} graph(s) (capture "
+            f"{', '.join(f'{c:.3f}' for c in g['capture_s'])} s a shape), "
+            f"{g['eager_steps']} eager steps and {g['replays']} replays; "
+            f"launches {p['launches']} (the eager run's the same); with "
+            f"cuDNN deterministic, the replayed steps against the eager "
+            f"ones: loss rel {max(gaps['loss']):.2e}, grad norm rel "
+            f"{max(gaps['grad_norm']):.2e}, worst state "
+            f"{gaps['state_name']} {gaps['state']:.2e} of its change, the "
+            f"generator's state equal (tolerances {STEP_LOSS_TOL}, "
+            f"{STEP_GRAD_TOL})")
+        for how, d in drift.items():
+            run = {"replay": "replayed", "eager": "second eager"}[how]
+            log(f"steps-per-dispatch {SPD_K}, {label}, cuDNN's default "
+                f"algorithms: the {run} run against the eager one, step by "
+                f"step: grad norm rel "
+                + ", ".join(f"{x:.1e}" for x in d["grad_norm"])
+                + f"; loss rel up to {max(d['loss']):.2e}; worst state "
+                f"{d['state_name']} {d['state']:.2e} of its change")
+        e, p = ed, pd
+        log(f"steps-per-dispatch {SPD_K}, {label}: a step {e['ms']:.3f} ms "
+            f"eager, {p['ms']:.3f} ms replayed (CUDA-event medians of "
+            f"{SPD_TIMED} back to back, cuDNN's default algorithms; "
+            f"{p['ms'] / e['ms'] - 1:+.2%}); host {e['host_ms']:.3f} / "
+            f"{p['host_ms']:.3f} ms a step, issuing {e['issue_ms']:.3f} / "
+            f"{p['issue_ms']:.3f} ms of it (host idle {e['host_idle']:.2%} / "
+            f"{p['host_idle']:.2%}); device idle {e['device_idle']:.2%} / "
+            f"{p['device_idle']:.2%} of {SPD_PROFILED} profiled steps "
+            f"({e['device_ops']:.0f} / {p['device_ops']:.0f} device ops a "
+            f"step); peak reserved {e['peak_reserved'] / 2**30:.2f} GiB "
+            f"eager, {p['peak_reserved'] / 2**30:.2f} GiB with the graph "
+            f"cache full")
+        out[key] = dict(
+            launches=p["launches"], graphs=g, eager_ms=e["ms"],
+            replay_ms=p["ms"], eager_host_ms=e["host_ms"],
+            replay_host_ms=p["host_ms"], eager_issue_ms=e["issue_ms"],
+            replay_issue_ms=p["issue_ms"], eager_host_idle=e["host_idle"],
+            replay_host_idle=p["host_idle"],
+            eager_device_idle=e["device_idle"],
+            replay_device_idle=p["device_idle"],
+            eager_peak_reserved=e["peak_reserved"],
+            replay_peak_reserved=p["peak_reserved"],
+            loss_rel=max(gaps["loss"]), norm_rel=max(gaps["grad_norm"]),
+            state_worst=gaps["state"],
+            default_drift_norm_rel={k: d["grad_norm"]
+                                    for k, d in drift.items()})
+    return out
+
+
+def test_rank_main(argv) -> int:
+    """A rank process of phase_test_multi: ``--test-rank <dir> <ports>
+    <test CLI arguments>`` under torchrun's variables, the test CLI once
+    for each decoder of TEST_MULTI_DECODERS (its rendezvous on the port of
+    ``ports``, comma-separated, in turn; its report to
+    ``<dir>/two_<decoder>.csv``); the launch counts of each run go to
+    ``<dir>/test_<rank>.json``."""
+    import torch
+
+    from deepspeech_tpu_torch.cli.test import main as test_main
+
+    d, ports, args = argv[0], argv[1].split(","), argv[2:]
+    counts = {}
+    for decoder, port in zip(TEST_MULTI_DECODERS, ports):
+        os.environ["MASTER_PORT"] = port
+        reset_counts()
+        rc = test_main(args + ["--decoder", decoder, "--report-file",
+                               os.path.join(d, f"two_{decoder}.csv")])
+        torch.cuda.synchronize()
+        if rc != 0:
+            return rc
+        counts[decoder] = read_counts()
+    with open(os.path.join(d, f"test_{os.environ['RANK']}.json"), "w") as f:
+        json.dump(counts, f)
+    return 0
+
+
+TEST_MULTI_UTTS, TEST_MULTI_BATCH = 20, 10
+TEST_MULTI_DECODERS = ("greedy", "device_beam")
+
+
+def phase_test_multi(torch) -> dict:
+    """The test CLI on two gloo ranks sharing cuda:0 (NCCL refuses two
+    ranks on one device; ``--dist-backend gloo``), torchrun's variables
+    set by hand, against one process: the default model in f32 as a
+    checkpoint, TEST_MULTI_UTTS synthetic 6.8-7.5 s utterances, batch
+    TEST_MULTI_BATCH (each rank half of every bin, padded alike), greedy
+    and device_beam: rank 0's stdout (the --verbose prints and both
+    summaries) and the report CSV equal to one process's byte for byte;
+    each rank's launches (K1 and K8 a bin, K2 six, K10 once a frame of
+    each bin with the device beam) -> the figures."""
+    import socket
+
+    from deepspeech_tpu_torch.audio.features import AudioConf
+    from deepspeech_tpu_torch.audio.io import save_wav
+    from deepspeech_tpu_torch.cli.test import main as test_main
+    from deepspeech_tpu_torch.train import checkpoint as ckpt
+
+    rng = np.random.default_rng(SEED + 43)
+    model, meta = default_model(torch, SEED + 43)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ds2.ckpt")
+        ckpt.save(path, ckpt.package_from_model(model, meta, LABELS,
+                                                AudioConf().to_dict()))
+        del model
+        rows = []
+        for i in range(TEST_MULTI_UTTS):
+            n = AUDIO_S - AUDIO_S // 30 * (i % 5)
+            wav, txt = (os.path.join(d, f"u{i}.wav"),
+                        os.path.join(d, f"u{i}.txt"))
+            save_wav(wav, synthetic_audio(rng, n), SR)
+            with open(txt, "w") as f:
+                f.write(" ".join("".join(rng.choice(list(LABELS[2:28]),
+                                                    int(rng.integers(1, 7))))
+                                 for _ in range(int(rng.integers(6, 14)))))
+            rows.append(f"{wav},{txt},{n / SR}")
+        manifest = os.path.join(d, "manifest.csv")
+        with open(manifest, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        argv = ["--model-path", path, "--test-manifest", manifest,
+                "--batch-size", str(TEST_MULTI_BATCH), "--num-workers", "4",
+                "--verbose"]
+        one = {}
+        for decoder in TEST_MULTI_DECODERS:
+            reset_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = test_main(argv + ["--decoder", decoder, "--report-file",
+                                       os.path.join(d, f"one_{decoder}.csv")])
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise AssertionError(f"test CLI exited {rc}")
+            one[decoder] = (buf.getvalue(), read_counts(),
+                            time.perf_counter() - t0)
+        ports = []
+        for _ in TEST_MULTI_DECODERS:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                ports.append(str(sock.getsockname()[1]))
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for rank in range(2):
+                env = dict(os.environ, RANK=str(rank), LOCAL_RANK="0",
+                           WORLD_SIZE="2", MASTER_ADDR="127.0.0.1")
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--test-rank", d, ",".join(ports), *argv,
+                     "--dist-backend", "gloo"], env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        two_s = time.perf_counter() - t0
+        for rank, (p, (o, e)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"test CLI rank {rank} exited "
+                                     f"{p.returncode}:\n{e[-6000:]}")
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(d, f"test_{rank}.json")) as f:
+                ranks.append(json.load(f))
+        # rank 0 prints both runs' lines, rank 1 none
+        same_out = (outs[0][0] == "".join(o for o, _, _ in one.values())
+                    and outs[1][0] == "")
+        bins = -(-TEST_MULTI_UTTS // TEST_MULTI_BATCH)
+        log(f"test CLI on two gloo ranks sharing cuda:0 "
+            f"({TEST_MULTI_UTTS} x ~7.5 s, batch {TEST_MULTI_BATCH}, "
+            f"{' and '.join(TEST_MULTI_DECODERS)}): {two_s:.2f} s with the "
+            f"ranks' start-up; rank 0's stdout equal to one process's: "
+            f"{same_out}")
+        for decoder, (text, counts, one_s) in one.items():
+            with open(os.path.join(d, f"one_{decoder}.csv"), "rb") as f, \
+                    open(os.path.join(d, f"two_{decoder}.csv"), "rb") as g:
+                same_csv = f.read() == g.read()
+            frames = counts["topk"]
+            want = expect_counts(stft_mag=bins, ctc_alpha=bins,
+                                 gru_fwd=bins * LAYERS, topk=frames)
+            got = [r[decoder] for r in ranks]
+            summary = text.strip().splitlines()[-2:]
+            log(f"test CLI --decoder {decoder}: one process {one_s:.2f} s, "
+                f"launches {counts}; each rank's launches {got}; report CSV "
+                f"byte-equal: {same_csv}; {summary}")
+            if (not (same_csv and same_out) or counts != want
+                    or any(r != want for r in got)
+                    or (decoder == "device_beam") != (frames > 0)):
+                raise AssertionError(
+                    f"test CLI on two ranks, {decoder}: csv {same_csv}, "
+                    f"stdout {same_out}, launches {counts} / {got} "
+                    f"(expected {want})")
+            out[decoder] = dict(one_s=one_s, launches=got, summary=summary)
+        out["two_ranks_s"] = two_s
+    return out
+
+
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4647,6 +5105,11 @@ def main() -> int:
     multi_gpu = phase_multi_gpu(torch, step12)
     mark("multi-GPU training: data 2 and model 2 ranks on the card, NCCL "
          "at world size 1")
+    spd = phase_steps_per_dispatch(torch)
+    mark(f"--steps-per-dispatch {SPD_K}: replayed train steps against eager "
+         "ones, the default model and config 4")
+    test_multi = phase_test_multi(torch)
+    mark("the test CLI on two gloo ranks against one process")
 
     # launches from one pass of each kernel's path: the GRU-800 train step,
     # the LSTM-800 train step, the wide models' train steps, the beam
@@ -4664,11 +5127,19 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], **r.get("extra", {})})
+        # the launches of phase_steps_per_dispatch's replayed runs (the
+        # default model's 10 steps and config 4's 4), eager warm-ups and
+        # replays together
+        replayed = sum(run["launches"][name] for run in spd.values())
+        if replayed:
+            kernels[-1]["launches_steps_per_dispatch"] = replayed
     log(card)
     serve["greedy"].pop("texts")
     serve["device_beam"].pop("texts")
     log(json.dumps({"serve": serve, "cnn": cnn, "data_path": data_path,
-                    "multi_gpu": multi_gpu}))
+                    "multi_gpu": multi_gpu, "steps_per_dispatch": spd,
+                    "test_multi": test_multi}))
+    log(f"chip_smoke.py total {time.perf_counter() - started:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4679,4 +5150,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         raise SystemExit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--test-rank"]:
+        raise SystemExit(test_rank_main(sys.argv[2:]))
     raise SystemExit(main())

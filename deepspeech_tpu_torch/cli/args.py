@@ -40,7 +40,8 @@ def add_decoder_args(parser: argparse.ArgumentParser):
 def add_reference_noop_args(parser: argparse.ArgumentParser):
     """Accept the reference's CUDA/DDP flags so reference command lines
     run unmodified; the device is chosen with ``--device``, and
-    ``--dist-backend`` acts in the train CLI."""
+    ``--dist-backend`` acts in the train CLI and, under torchrun, in the
+    test CLI."""
     g = parser.add_argument_group("Reference compatibility (accepted)")
     g.add_argument("--cuda", action="store_true",
                    help="no-op: the device is --device (cuda by default)")
@@ -50,9 +51,10 @@ def add_reference_noop_args(parser: argparse.ArgumentParser):
     g.add_argument("--gpu-rank", default=None,
                    help="no-op: use --device cuda:N")
     g.add_argument("--dist-backend", default="auto",
-                   help="the train CLI's torch.distributed backend: auto "
-                        "(nccl on the card, gloo on the CPU), nccl or gloo; "
-                        "no-op elsewhere")
+                   help="the torch.distributed backend of the train CLI "
+                        "and of the test CLI under torchrun: auto (nccl on "
+                        "the card, gloo on the CPU), nccl or gloo; no-op "
+                        "elsewhere")
     return parser
 
 

@@ -1,6 +1,10 @@
-"""Shared inference-CLI plumbing: checkpoint -> (model, labels, conf)."""
+"""Shared CLI plumbing: checkpoint -> (model, labels, conf), the decoder
+the flags ask for, and the multi-process rendezvous of the train and test
+CLIs."""
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -65,3 +69,69 @@ def build_decoder(args, labels):
         except ValueError as e:
             raise SystemExit(f"--decoder beam: {e}") from e
     return GreedyDecoder(labels.labels, blank_index=labels.blank_index)
+
+
+def rendezvous(args):
+    """The process group the ``--dist-*`` flags describe (``cli/train.py``'s
+    docstring; the test CLI passes ``dist_init`` under torchrun) -> (rank,
+    world size, init method), or None without one; nothing is joined
+    here. Every incomplete spelling exits naming what is missing."""
+    env = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+    if args.dist_init and args.dist_url:
+        raise SystemExit("rendezvous: give --dist-init or --dist-url, not "
+                         "both")
+    if args.dist_init:
+        missing = [k for k in env if k not in os.environ]
+        if missing:
+            raise SystemExit(f"rendezvous: --dist-init reads torchrun's "
+                             f"environment (env://); {missing} not set")
+        return int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), \
+            "env://"
+    if not args.dist_url:
+        if args.dist_rank != -1 or args.dist_world_size != 0:
+            raise SystemExit("rendezvous: --dist-rank and --dist-world-size "
+                             "act with --dist-url")
+        return None
+    if not 0 <= args.dist_rank < args.dist_world_size:
+        raise SystemExit("rendezvous: --dist-url needs --dist-rank in "
+                         "[0, --dist-world-size)")
+    url = args.dist_url if "://" in args.dist_url else \
+        "tcp://" + args.dist_url
+    return args.dist_rank, args.dist_world_size, url
+
+
+def rank_device(device: str, rank: int) -> torch.device:
+    """A rank's device: ``--device`` as given, except that a bare ``cuda``
+    becomes ``cuda:$LOCAL_RANK`` (torchrun's), else ``cuda:<rank % cards>``."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        local = rank % max(torch.cuda.device_count(), 1)
+    return torch.device("cuda", int(local))
+
+
+def join_world(joined, device: str, backend: str = "auto", model: int = 1):
+    """Join the process group ``rendezvous`` described (``joined``: rank,
+    world size, init method) on the rank's device (``rank_device``) ->
+    (device, its (data, model) mesh). ``backend`` is ``--dist-backend``:
+    ``auto`` is NCCL on the card and gloo on the CPU."""
+    from deepspeech_tpu_torch.device import resolve_device
+    from deepspeech_tpu_torch.parallel import make_mesh
+
+    rank, world, url = joined
+    dev = resolve_device(rank_device(device, rank))
+    if backend == "auto":
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise SystemExit(f"--dist-backend {backend!r}: choose auto, nccl "
+                         "or gloo")
+    if world % model:
+        raise SystemExit(f"--mesh-model {model} does not divide the {world} "
+                         "ranks")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.distributed.init_process_group(backend, init_method=url,
+                                         rank=rank, world_size=world)
+    return dev, make_mesh(model=model, device=dev)

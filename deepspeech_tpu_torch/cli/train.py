@@ -61,8 +61,18 @@ profiles and writes checkpoints (whole, gathered over the model group),
 with its own curriculum stores as sidecars; each rank feeds its rows to
 its stores, and a ``--use-curriculum`` epoch draw is rank 0's.
 
+``--steps-per-dispatch k`` > 1 (one process): groups of up to k batches
+of one shape (a bucket switch or the epoch's end closes a group early),
+stacked on the host and copied to the card as one superbatch; each
+microbatch a train step (``make_multi_train_step``), on the card the first
+of a shape eagerly and the others as replays of its CUDA graph
+(``train/graph.py``), with the same draws from the generator; the group's
+metrics read back once and accounted microbatch by microbatch as at k=1,
+mid-epoch checkpoints checked after each group.
+
 Not ported yet (each raises SystemExit naming ROADMAP.md):
-``--steps-per-dispatch`` > 1 and ``--mesh-model`` > 2.
+``--steps-per-dispatch`` > 1 on several processes and ``--mesh-model`` >
+2.
 """
 
 from __future__ import annotations
@@ -75,6 +85,7 @@ import numpy as np
 import torch
 
 from deepspeech_tpu_torch.cli.args import add_reference_noop_args
+from deepspeech_tpu_torch.cli.common import rendezvous
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -196,7 +207,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "data shard holds one direction of every "
                         "bidirectional RNN layer)")
     p.add_argument("--steps-per-dispatch", default=1, type=int,
-                   help="only 1 is ported")
+                   help="k same-shape batches a group: the first batch of "
+                        "a shape runs eagerly, the rest as replays of its "
+                        "CUDA graph, read back once a group; numerics as "
+                        "k=1; one process only")
     p.add_argument("--bucket-audio-seconds", default=1.0, type=float,
                    help="audio padding granularity")
     p.add_argument("--wire-dtype", default="int16",
@@ -227,10 +241,13 @@ HIST_KEYS = ("loss_results", "wer_results", "cer_results",
 
 
 def check_ported(args) -> None:
-    """Refuse the flags whose paths the port has not ported yet."""
-    if args.steps_per_dispatch > 1:
-        raise SystemExit("--steps-per-dispatch > 1: the CUDA-graph replay "
-                         "is not ported yet (see ROADMAP.md)")
+    """Refuse the flags whose paths the port has not ported yet, before
+    any rendezvous is joined."""
+    joined = rendezvous(args)
+    if args.steps_per_dispatch > 1 and joined is not None and joined[1] > 1:
+        raise SystemExit("--steps-per-dispatch > 1 runs on one process: "
+                         "its graphs across ranks (NCCL inside the graph) "
+                         "are not ported yet (see ROADMAP.md)")
     if args.mesh_model > 2:
         raise SystemExit("--mesh-model > 2: gate-dim tensor parallelism is "
                          "not ported yet (see ROADMAP.md)")
@@ -238,52 +255,11 @@ def check_ported(args) -> None:
         raise SystemExit("--mesh-model must be 1 or 2")
 
 
-def rendezvous(args):
-    """Join the process group the ``--dist-*`` flags describe (module
-    docstring) -> (rank, world size, init method), or None without one.
-    Every incomplete spelling exits naming what is missing."""
-    env = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
-    if args.dist_init and args.dist_url:
-        raise SystemExit("rendezvous: give --dist-init or --dist-url, not "
-                         "both")
-    if args.dist_init:
-        missing = [k for k in env if k not in os.environ]
-        if missing:
-            raise SystemExit(f"rendezvous: --dist-init reads torchrun's "
-                             f"environment (env://); {missing} not set")
-        return int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), \
-            "env://"
-    if not args.dist_url:
-        if args.dist_rank != -1 or args.dist_world_size != 0:
-            raise SystemExit("rendezvous: --dist-rank and --dist-world-size "
-                             "act with --dist-url")
-        return None
-    if not 0 <= args.dist_rank < args.dist_world_size:
-        raise SystemExit("rendezvous: --dist-url needs --dist-rank in "
-                         "[0, --dist-world-size)")
-    url = args.dist_url if "://" in args.dist_url else \
-        "tcp://" + args.dist_url
-    return args.dist_rank, args.dist_world_size, url
-
-
-def rank_device(device: str, rank: int) -> torch.device:
-    """A rank's device: ``--device`` as given, except that a bare ``cuda``
-    becomes ``cuda:$LOCAL_RANK`` (torchrun's), else ``cuda:<rank % cards>``."""
-    dev = torch.device(device)
-    if dev.type != "cuda" or dev.index is not None:
-        return dev
-    local = os.environ.get("LOCAL_RANK")
-    if local is None:
-        local = rank % max(torch.cuda.device_count(), 1)
-    return torch.device("cuda", int(local))
-
-
 def init_distributed(args):
     """The rendezvous, the rank's device and the mesh -> (device, mesh),
-    mesh None on one process. The backend is ``--dist-backend``: ``auto``
-    is NCCL on the card and gloo on the CPU."""
+    mesh None on one process (``common.join_world``)."""
+    from deepspeech_tpu_torch.cli.common import join_world
     from deepspeech_tpu_torch.device import resolve_device
-    from deepspeech_tpu_torch.parallel import make_mesh
 
     joined = rendezvous(args)
     if joined is None:
@@ -292,22 +268,8 @@ def init_distributed(args):
                              f"{args.mesh_model} ranks or more: launch with "
                              "torchrun and --dist-init, or --dist-url")
         return resolve_device(args.device), None
-    rank, world, url = joined
-    dev = resolve_device(rank_device(args.device, rank))
-    backend = args.dist_backend
-    if backend == "auto":
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-    if backend not in ("nccl", "gloo"):
-        raise SystemExit(f"--dist-backend {backend!r}: choose auto, nccl "
-                         "or gloo")
-    if world % args.mesh_model:
-        raise SystemExit(f"--mesh-model {args.mesh_model} does not divide "
-                         f"the {world} ranks")
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
-    torch.distributed.init_process_group(backend, init_method=url,
-                                         rank=rank, world_size=world)
-    return dev, make_mesh(model=args.mesh_model, device=dev)
+    return join_world(joined, args.device, args.dist_backend,
+                      args.mesh_model)
 
 
 def _labels_path(path: str) -> str:
@@ -415,7 +377,8 @@ class Profiler:
     def step(self, global_step: int):
         if not self.directory:
             return
-        if self.prof is None and global_step == self.start:
+        # >=: a group of k steps moves global_step by k
+        if self.prof is None and global_step >= self.start:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -460,7 +423,7 @@ def train(args, dev, mesh, observers) -> int:
     from deepspeech_tpu_torch.audio.features import AudioConf
     from deepspeech_tpu_torch.convert import torch_to_jax
     from deepspeech_tpu_torch.data import (AudioDataLoader, AudioDataset,
-                                           BucketSpec)
+                                           BucketSpec, stack_microbatches)
     from deepspeech_tpu_torch.decoders import GreedyDecoder
     from deepspeech_tpu_torch.models import build_model
     from deepspeech_tpu_torch.models.factory import RNN_KEYS
@@ -477,6 +440,7 @@ def train(args, dev, mesh, observers) -> int:
                                                   set_lr)
     from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
                                                  make_eval_step,
+                                                 make_multi_train_step,
                                                  make_train_step)
     from deepspeech_tpu_torch.utils import (AverageMeter, MetricsLogger,
                                             ObserverList, StopWatch)
@@ -595,7 +559,10 @@ def train(args, dev, mesh, observers) -> int:
         out.update(noise_extra)
         return local_batch_to_global(out, mesh)
 
+    spd = args.steps_per_dispatch
     train_step = make_train_step(model, optimizer, cfg, mesh)
+    multi_step = make_multi_train_step(model, optimizer, cfg) if spd > 1 \
+        else None
     eval_step = make_eval_step(model, StepConfig(audio_conf=test_conf,
                                                  normalize=args.norm))
     decoder = GreedyDecoder(labels.labels, blank_index=labels.blank_index)
@@ -711,23 +678,35 @@ def train(args, dev, mesh, observers) -> int:
                 logger.log("train", step=epoch * len(loader) + pit,
                            loss=loss, avg_loss=loss_meter.avg, lr=lr,
                            skipped=bool(m["step_skipped"]))
-            if "grads" in m:
-                names = [n for n, _ in model.named_parameters()]
+            if args.log_params and pit % 100 == 0:
                 sd = (dict(model.state_dict()) if mesh is None
                       else gather_state(state, mesh)[0])
-                grads = dict(sd)
-                grads.update((n, unshard(g, mesh) if n in state.sharded
-                              else g) for n, g in zip(names, m["grads"]))
-                logger.log_params(torch_to_jax(sd)[0],
-                                  torch_to_jax(grads)[0],
+                if "grads" in m:
+                    names = [n for n, _ in model.named_parameters()]
+                    grads = dict(sd)
+                    grads.update((n, unshard(g, mesh) if n in state.sharded
+                                  else g) for n, g in zip(names, m["grads"]))
+                    grads = torch_to_jax(grads)[0]
+                else:  # a group's microbatch: its grad norm (JAX :669-672)
+                    grads = float(m["grad_norm"])
+                logger.log_params(torch_to_jax(sd)[0], grads,
                                   epoch * len(loader) + pit)
 
         def process_pending():
+            """Account the step, or the group, queued before the last
+            one; a group's stacked metrics come back in one read."""
             nonlocal pending
-            if pending is not None:
-                m, pbatch, pit, n_valid = pending
-                pending = None
+            if pending is None:
+                return
+            m, pbatch, pit, n_valid = pending
+            pending = None
+            if spd == 1:
                 account_step(m, pbatch, pit, n_valid)
+                return
+            m = {k: v.cpu() for k, v in m.items()}
+            for j, b in enumerate(pbatch):
+                account_step({k: v[j] for k, v in m.items()}, b, pit + j,
+                             n_valid[j])
 
         def maybe_sample_checkpoint():
             nonlocal checkpoint_id, samples_since_ckpt
@@ -768,20 +747,63 @@ def train(args, dev, mesh, observers) -> int:
                 n_valid = int(np.asarray(b["valid"]).sum())
             return b, to_device(b), n_valid
 
-        nxt = pull()
-        while nxt is not None:
-            batch, dev_batch, n_valid = nxt
-            profiler.step(global_step)
-            obs.emit("on_batch_start", epoch, it)
-            m = train_step(state, dev_batch, generator=generator,
-                           return_grads=args.log_params and it % 100 == 0)
-            nxt = pull()  # batch N+1 loads while step N runs
-            process_pending()  # account step N-1 while step N runs
-            pending = (m, batch, it, n_valid)
-            it += 1
-            global_step += 1
-            samples_since_ckpt += n_valid
-            maybe_sample_checkpoint()
+        held: list = []  # the batch that switched the shape
+
+        def pull_group():
+            """Up to k batches of one shape (JAX ``pull_group``): a batch
+            of another shape closes the group and opens the next. The group
+            is stacked on the host (``stack_microbatches``) and copied to
+            the card as one superbatch, queued behind the replays before
+            it -> (batches, superbatch, live lanes, real rows of each)."""
+            group = []
+            while len(group) < spd:
+                b = held.pop() if held else next(batches, None)
+                if b is None:
+                    break
+                if group and any(b[k].shape != group[0][k].shape
+                                 for k in ("audio", "targets")):
+                    held.append(b)
+                    break
+                watch.mark_data()
+                group.append(b)
+            if not group:
+                return None
+            stacked, live = stack_microbatches(group, spd)
+            dev_stacked = {k: torch.from_numpy(v).to(dev, non_blocking=True)
+                           for k, v in stacked.items()}
+            return group, dev_stacked, live, [
+                int(np.asarray(b["valid"]).sum()) for b in group]
+
+        if spd == 1:
+            nxt = pull()
+            while nxt is not None:
+                batch, dev_batch, n_valid = nxt
+                profiler.step(global_step)
+                obs.emit("on_batch_start", epoch, it)
+                m = train_step(state, dev_batch, generator=generator,
+                               return_grads=args.log_params and it % 100 == 0)
+                nxt = pull()  # batch N+1 loads while step N runs
+                process_pending()  # account step N-1 while step N runs
+                pending = (m, batch, it, n_valid)
+                it += 1
+                global_step += 1
+                samples_since_ckpt += n_valid
+                maybe_sample_checkpoint()
+        else:
+            nxt = pull_group()
+            while nxt is not None:
+                group, stacked, live, n_valid = nxt
+                profiler.step(global_step)
+                for j in range(len(group)):
+                    obs.emit("on_batch_start", epoch, it + j)
+                m = multi_step(state, stacked, generator, live, noise_extra)
+                nxt = pull_group()  # group N+1 loads while group N runs
+                process_pending()
+                pending = (m, group, it, n_valid)
+                it += len(group)
+                global_step += len(group)
+                samples_since_ckpt += sum(n_valid)
+                maybe_sample_checkpoint()
         process_pending()
 
         epoch_time = time.perf_counter() - epoch_t0

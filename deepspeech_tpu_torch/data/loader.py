@@ -11,7 +11,8 @@ reads what a host reflect-pad gives. The default wire is int16 (audio
 ``train/step.py``); float32 and mulaw8 are the other choices.
 
 Loading overlaps device compute through a thread pool and a bounded
-prefetch queue (reference train.py:664-667).
+prefetch queue (reference train.py:664-667). ``stack_microbatches`` stacks
+k same-shape batches for ``--steps-per-dispatch``.
 """
 
 from __future__ import annotations
@@ -44,17 +45,18 @@ def collate_batch(samples: list[dict], batch_size: int | None = None,
     -> numpy batch dict: audio (B, S) (+ audio_scale (B,) for the int16 and
     mulaw8 wires), audio_lengths (B,), targets (B, L), target_lengths,
     valid (B,), paths (list). B == batch_size; padded rows have valid=0
-    and a 1-sample length."""
+    and a 1-sample length. With no samples (a data shard's share of a
+    short final bin) every row is padding, at the least bucket."""
     n = len(samples)
     b = batch_size or n
-    tmax = max(len(s["target"]) for s in samples)
+    tmax = max((len(s["target"]) for s in samples), default=0)
     l_pad = bucket.pad_to(tmax, bucket.target_step, bucket.min_target)
     targets = np.zeros((b, l_pad), np.int32)
     target_lengths = np.zeros(b, np.int32)
     valid = np.zeros(b, np.float32)
     paths = [s["path"] for s in samples] + [""] * (b - n)
 
-    smax = max(s["audio"].shape[0] for s in samples)
+    smax = max((s["audio"].shape[0] for s in samples), default=0)
     # keep room for the longest utterance's reflect tail
     s_pad = bucket.pad_to(smax + bucket.reflect_tail, bucket.audio_step)
     audio = np.zeros((b, s_pad), np.float32)
@@ -155,3 +157,38 @@ class AudioDataLoader:
                     out.get_nowait()
                 except queue.Empty:
                     thread.join(timeout=0.1)
+
+
+def stack_microbatches(group: list[dict], k: int) -> tuple[dict, np.ndarray]:
+    """Stack k' <= k collated host batches (``paths`` removed) into one
+    (k, B, ...) superbatch for ``--steps-per-dispatch`` (the JAX
+    ``stack_microbatches``) -> (stacked, live (k,) bool).
+
+    The audio and target axes are zero-padded to the group's widest, which
+    is what ``collate_batch`` writes at the larger bucket (the pad past
+    each row's reflect tail is zeros there too). Train-mode BatchNorm
+    counts padding frames, so a widened batch does not give its narrow
+    form's numbers: the train CLI groups same-shape batches only. A short
+    group is filled with all-padding lanes under collate's dummy-row
+    convention (zeros, lengths and scales 1), which ``live`` marks False
+    and the step does not run."""
+    if not group or len(group) > k:
+        raise ValueError(f"stack_microbatches: {len(group)} batches for "
+                         f"{k} lanes")
+    mats: dict[str, list] = {key: [] for key in group[0] if key != "paths"}
+    wides = {key: max(b[key].shape[-1] for b in group)
+             for key in ("audio", "targets")}
+    for b in group:
+        for key, vs in mats.items():
+            v = b[key]
+            wide = wides.get(key)
+            if wide and v.shape[-1] < wide:
+                v = np.pad(v, [(0, 0)] * (v.ndim - 1)
+                           + [(0, wide - v.shape[-1])])
+            vs.append(v)
+    for _ in range(k - len(group)):
+        for key, vs in mats.items():
+            ones = key in ("audio_lengths", "audio_scale")
+            vs.append(np.ones_like(vs[0]) if ones else np.zeros_like(vs[0]))
+    stacked = {key: np.stack(vs) for key, vs in mats.items()}
+    return stacked, np.arange(k) < len(group)

@@ -1,1 +1,38 @@
-"""Hand-written CUDA kernels for Hopper (``csrc/``) and their wrappers."""
+"""Hand-written CUDA kernels for Hopper (``csrc/``) and their wrappers.
+
+Each wrapper module counts its kernel's launches in module-level integers
+(``COUNTERS``: module -> attribute names), one where it issues a launch;
+``read_counters`` and ``add_counters`` read and move them all, as the CUDA
+graphs of the train step do (``train/graph.py``: a launch issued under
+capture runs once per replay)."""
+
+from __future__ import annotations
+
+import importlib
+
+COUNTERS = {
+    "stft": ("launches",),
+    "gru": ("launches", "res_launches", "proj_launches", "scan_launches",
+            "scan_res_launches", "bwd_launches"),
+    "lstm": ("launches", "res_launches", "scan_launches",
+             "scan_res_launches", "bwd_launches"),
+    "ctc": ("alpha_launches", "beta_launches"),
+    "topk": ("launches",),
+}
+
+
+def _module(name: str):
+    return importlib.import_module(f"{__name__}.{name}")
+
+
+def read_counters() -> dict:
+    """{(module, attribute): launches} of every wrapper."""
+    return {(m, a): getattr(_module(m), a)
+            for m, attrs in COUNTERS.items() for a in attrs}
+
+
+def add_counters(delta: dict) -> None:
+    """Add ``delta`` ({(module, attribute): n}) to the counters."""
+    for (m, a), n in delta.items():
+        mod = _module(m)
+        setattr(mod, a, getattr(mod, a) + n)

@@ -9,7 +9,8 @@ rows) and one model group per data index (the ranks that hold the same
 rows and, at model 2, the two directions of each bidirectional RNN layer).
 
 Every collective goes through ``Mesh.all_reduce`` or ``Mesh.broadcast``, on
-tensors of the rank's device (the ``host`` axis's below aside), so that
+tensors of the rank's device (the ``host`` axis's below aside; the test
+CLI's per-row results reach rank 0 through ``Mesh.gather_object``), so that
 NCCL takes them on the card and gloo on the CPU (gloo also runs these two
 on CUDA tensors, through the host).
 Each call counts one under its tag in ``Mesh.counts``. An axis of one rank
@@ -86,6 +87,21 @@ class Mesh:
             self.counts[tag] += 1
             dist.broadcast(t, src=0, group=self.groups["world"])
         return t
+
+    def gather_object(self, obj, axis: str = "host",
+                      tag: str = "gather_object"):
+        """Every rank's picklable ``obj`` over ``axis`` on global rank 0
+        (which the axis's group must hold), in rank order -> that list on
+        rank 0, None on the others; ``[obj]`` where the mesh does not span
+        the axis. On the ``host`` axis the objects travel over gloo."""
+        if not self.spans(axis):
+            return [obj]
+        self.counts[tag] += 1
+        group = self.groups[axis]
+        out = [None] * dist.get_world_size(group) if self.rank == 0 \
+            else None
+        dist.gather_object(obj, out, dst=0, group=group)
+        return out
 
     def data_rows(self, tree):
         """This data shard's rows of every tensor in a tree of dicts (None

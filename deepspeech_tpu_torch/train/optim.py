@@ -5,12 +5,18 @@ scaled by ``max_norm / norm`` only when the norm reaches ``max_norm``, with
 no eps) followed by SGD with Nesterov momentum (decayed weights added first
 when ``weight_decay`` > 0) or Adam (optax's eps outside the square root). The
 update is functional: ``update(grads, state, params)`` returns new
-parameter tensors and a new state and changes nothing in place, so the
-train step can keep the old ones on a skipped step (``select``, a
-per-tensor where that needs no host sync). The learning rate lives in the
-state (``get_lr`` / ``set_lr``), as optax's injected hyperparameter does,
-beside that wrapper's step count (``inject_count``, a 0-d int32 that
-advances with every applied update, as optax's does).
+parameter tensors and a new state and changes nothing in place; the train
+step then writes them over the old ones where the step is kept
+(``assign_where``, a per-tensor where that needs no host sync), so every
+tensor of the state keeps its storage and a captured CUDA graph of the
+step (``train/graph.py``) reads and writes the live state. The learning
+rate lives in the state, as optax's injected hyperparameter does: ``lr``,
+a 0-d f32 tensor on the parameters' device that the update reads and
+``set_lr`` overwrites in place (a replayed graph sees the anneal), and
+``lr_host``, the same value as a Python float, which ``get_lr`` returns
+without a device read; beside them that wrapper's step count
+(``inject_count``, a 0-d int32 that advances with every applied update,
+as optax's does).
 
 Checkpoints hold the state as optax's leaves (``to_optax_leaves``,
 ``from_optax_leaves``), so each package resumes the other's:
@@ -60,7 +66,9 @@ class Optimizer:
 
     def init(self, params: list) -> dict:
         dev = params[0].device
-        state = {"lr": self.lr,
+        state = {"lr": torch.tensor(self.lr, dtype=torch.float32,
+                                    device=dev),
+                 "lr_host": float(self.lr),
                  "inject_count": torch.zeros((), dtype=torch.int32,
                                              device=dev)}
         if self.kind == "sgd":
@@ -78,7 +86,8 @@ class Optimizer:
         if self.max_norm and self.max_norm > 0:
             grads, _ = clip_by_global_norm(grads, self.max_norm, norm)
         lr = state["lr"]
-        new = {"lr": lr, "inject_count": state["inject_count"] + 1}
+        new = {"lr": lr, "lr_host": state["lr_host"],
+               "inject_count": state["inject_count"] + 1}
         if self.kind == "sgd":
             if self.weight_decay > 0:
                 grads = [g + self.weight_decay * p
@@ -102,17 +111,19 @@ class Optimizer:
         return [p - lr * u for p, u in zip(params, updates)], new
 
 
-def select(ok: torch.Tensor, new, old):
-    """``new`` where the 0-d bool ``ok`` holds, else ``old``, tensor by
-    tensor through lists and dicts; other leaves (the learning rate) are
-    taken from ``new``."""
+def assign_where(ok: torch.Tensor, new, old) -> None:
+    """Write ``new`` over ``old`` where the 0-d bool ``ok`` holds (else
+    keep ``old``), in place, tensor by tensor through lists and dicts;
+    leaves that are ``old``'s own (the learning rate) and other values are
+    left alone."""
     if isinstance(new, dict):
-        return {k: select(ok, new[k], old[k]) for k in new}
-    if isinstance(new, list):
-        return [select(ok, n, o) for n, o in zip(new, old)]
-    if isinstance(new, torch.Tensor):
-        return torch.where(ok, new, old)
-    return new
+        for k in new:
+            assign_where(ok, new[k], old[k])
+    elif isinstance(new, list):
+        for n, o in zip(new, old):
+            assign_where(ok, n, o)
+    elif isinstance(new, torch.Tensor) and new is not old:
+        torch.where(ok, new, old, out=old)
 
 
 def build_optimizer(optimizer: str = "sgd", lr: float = 3e-4,
@@ -125,13 +136,16 @@ def build_optimizer(optimizer: str = "sgd", lr: float = 3e-4,
 
 
 def get_lr(opt_state: dict) -> float:
-    """Current learning rate (reference train.py:317-319)."""
-    return float(opt_state["lr"])
+    """Current learning rate (reference train.py:317-319), from the host
+    copy: no device read."""
+    return opt_state["lr_host"]
 
 
 def set_lr(opt_state: dict, lr: float) -> dict:
-    """opt_state with a new learning rate (reference train.py:322-326)."""
-    opt_state["lr"] = float(lr)
+    """opt_state with a new learning rate (reference train.py:322-326):
+    the device tensor overwritten in place, so a captured step sees it."""
+    opt_state["lr"].fill_(float(lr))
+    opt_state["lr_host"] = float(lr)
     return opt_state
 
 
@@ -165,7 +179,7 @@ def to_optax_leaves(opt_state: dict, model) -> list:
     """The optimizer state as optax's leaves (module docstring), numpy
     arrays on the host."""
     head = [np.asarray(opt_state["inject_count"].cpu(), np.int32),
-            np.asarray(opt_state["lr"], np.float32)]
+            np.asarray(opt_state["lr_host"], np.float32)]
     if "trace" in opt_state:
         return head + _params_leaves(opt_state["trace"], model)
     return (head + [np.asarray(opt_state["count"].cpu(), np.int32)]
@@ -211,7 +225,9 @@ def from_optax_leaves(leaves: list, model, optimizer: Optimizer) -> dict:
 
     state = {"inject_count": torch.tensor(int(leaves[0]),
                                           dtype=torch.int32, device=dev),
-             "lr": float(leaves[1])}
+             "lr": torch.tensor(float(leaves[1]), dtype=torch.float32,
+                                device=dev),
+             "lr_host": float(leaves[1])}
     if optimizer.kind == "sgd":
         state["trace"] = per_param(leaves[head:])
     else:

@@ -18,9 +18,17 @@ NaN semantics follow the reference and the JAX package:
   the optimizer state keep their values; the BatchNorm running stats and
   the step counter still move, as ``step.py:150-164`` does.
 
-Unlike the JAX step, this one updates the model's parameters and the
-BatchNorm buffers in place (no second copy of the weights); the guard
-selects per tensor, on the device, with no host sync.
+Unlike the JAX step, this one updates the model's parameters, the
+BatchNorm buffers, the optimizer state and the step counter in place (no
+second copy of the weights; ``optim.assign_where``); the guard selects per
+tensor, on the device, with no host sync. Every tensor of the state keeps
+its storage across steps, so a CUDA graph of the step (``train/graph.py``)
+replays on the live state.
+
+``make_multi_train_step`` is ``--steps-per-dispatch``'s step (JAX
+``make_multi_train_step``): k same-shape microbatches stacked on a leading
+axis, the dead lanes of a short group never run, each live lane through
+``train_step``, on the card as a replay of its shape's CUDA graph.
 
 On a ``parallel.Mesh`` (one process a card) the step computes what the
 JAX SPMD program computes for the global batch: each rank takes its data
@@ -48,7 +56,8 @@ from deepspeech_tpu_torch.audio.features import (AudioConf, draw_masks,
 from deepspeech_tpu_torch.augment.noise_device import apply_noise, draw_noise
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.ctc import ctc_loss
-from deepspeech_tpu_torch.train.optim import Optimizer, global_norm, select
+from deepspeech_tpu_torch.train.optim import (Optimizer, assign_where,
+                                              global_norm)
 
 
 @dataclasses.dataclass
@@ -234,9 +243,8 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
             current = [p.detach() for p in params]
             new_params, new_opt = optimizer.update(
                 list(grads), state.opt_state, current, grad_norm)
-            for p, n in zip(current, select(ok, new_params, current)):
-                p.copy_(n)
-            state.opt_state = select(ok, new_opt, state.opt_state)
+            assign_where(ok, new_params, current)
+            assign_where(ok, new_opt, state.opt_state)
             state.step += 1
         out = dict(loss=loss, per_sample=per_sample.detach(),
                    greedy=logits.detach().argmax(-1).to(torch.int32),
@@ -247,6 +255,56 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
         return out
 
     return train_step
+
+
+def make_multi_train_step(model: torch.nn.Module, optimizer: Optimizer,
+                          cfg: StepConfig = StepConfig()) -> Callable:
+    """-> multi_step(state, stacked, generator, live, shared=None) ->
+    metrics, k steps of one call (JAX ``make_multi_train_step``; one
+    process).
+
+    ``stacked``: a batch dict on the model's device with a leading
+    microbatch axis (k, B, ...), k host batches of one shape stacked by
+    ``data.stack_microbatches``; ``live`` (k,) bool on the host, False for
+    the padding lanes of a short group; ``shared``: tensors every
+    microbatch reads (the device noise bank), never copied. The live lanes
+    run in order, each one ``train_step(state, lane, generator=
+    generator)``: on the CPU that call itself; on the card a replay of the
+    CUDA graph of its shape's step (``graph.StepGraphs``, the first lane
+    of a new shape eager). Dead lanes do not run, so after a group with k'
+    live lanes the parameters, BatchNorm buffers, optimizer state, step
+    counter and generator are where k' ``train_step`` calls leave them.
+    metrics: each of ``train_step``'s stacked over the live lanes, (k',
+    ...). The graph cache, once made, is ``multi_step.graphs``; it is
+    bound to the first call's state and generator."""
+    from deepspeech_tpu_torch.train.graph import StepGraphs
+
+    train_step = make_train_step(model, optimizer, cfg)
+
+    def multi_step(state: TrainState, stacked: dict,
+                   generator: torch.Generator | None, live,
+                   shared: dict | None = None) -> dict:
+        shared = shared or {}
+        lanes = [j for j, on in enumerate(live) if on]
+        if not lanes:
+            raise ValueError("multi_step: no live microbatch")
+        if next(iter(stacked.values())).device.type == "cuda":
+            if multi_step.graphs is None:
+                multi_step.graphs = StepGraphs(train_step, state, generator)
+            step = multi_step.graphs
+            if step.state is not state or step.generator is not generator:
+                raise ValueError("multi_step: the graphs were captured on "
+                                 "another state or generator")
+        else:
+            def step(lane, shared):
+                return train_step(state, {**lane, **shared},
+                                  generator=generator)
+        outs = [step({k: v[j] for k, v in stacked.items()}, shared)
+                for j in lanes]
+        return {k: torch.stack([m[k] for m in outs]) for k in outs[0]}
+
+    multi_step.graphs = None
+    return multi_step
 
 
 def make_eval_step(model: torch.nn.Module,

@@ -99,14 +99,16 @@ class MetricsLogger:
                     float(fields["wer"]), float(fields["cer"]))
                 self._render_live(force=True)
 
-    def log_params(self, params: dict, grads: dict | None, step: int):
+    def log_params(self, params: dict, grads: dict | float | None,
+                   step: int):
         """Per-tensor L2 norms of ``params`` and the global norm of
         ``grads`` to JSONL (cheap, always), plus full parameter histograms
         to TensorBoard when enabled — the reference's ``--log-params``
         behavior (train.py:247-251). Both are the JAX package's trees of
         arrays (``convert.torch_to_jax``), so the tensor names are its
         ``conv/conv0/kernel``, ..., and the norms of the same weights are
-        the same."""
+        the same; ``grads`` may also be the step's grad norm itself, as
+        ``--steps-per-dispatch`` logs it (the JAX CLI's float)."""
         if not self.enabled:
             return
         import numpy as np
@@ -117,7 +119,9 @@ class MetricsLogger:
         norms = {name: float(np.linalg.norm(np.asarray(leaf)))
                  for name, leaf in named.items()}
         grad_norm = None
-        if grads is not None:
+        if isinstance(grads, float):
+            grad_norm = grads
+        elif grads is not None:
             grad_norm = float(np.sqrt(sum(
                 float(np.sum(np.square(np.asarray(g, np.float64))))
                 for _, g in tree_items(grads))))

@@ -30,7 +30,14 @@ K2's and K5's D=1 training variants (what each rank of ``--mesh-model
 tolerances; a data-2 step of two gloo ranks sharing cuda:0 (this file run
 as a script, ``--dp-rank``) against the single-process step, each kernel
 launch of both held to its plain version and the conv front's clamps
-compared.
+compared. CUDA graphs (``--steps-per-dispatch``): every bf16 variant of
+K2-K7 (the W-resident and K5/K7 cluster launches, the cooperative
+persistent launches, one launch a step), the f32 layers, K8/K9 on both
+routes, K1 and K10, each captured after an eager warm-up and replayed on
+new inputs bit-equal to eager calls; a pageable copy under capture raises;
+``StepGraphs`` replays draw what eager steps draw and count their
+launches, and a capture that fails raises; the k-step multi-step of a
+small GRU and LSTM model, f32 and bf16, against as many eager steps.
 """
 
 import contextlib
@@ -1091,6 +1098,316 @@ def test_tp_d1_training_variants_match_plain(dev, dtype, tol, t, b, f, h):
         assert err <= btol * scale, (name, err, scale)
 
 
+# -- CUDA graphs of the train step (--steps-per-dispatch) ---------------------
+
+
+def _replays_match_eager(fn, inputs: tuple, fresh: list) -> None:
+    """``fn`` eager on ``inputs`` (the warm-up: the build, the function
+    attributes, the per-shape caches), then captured on static copies and
+    replayed on each of ``fresh`` copied in: every replay's outputs equal
+    an eager call's on the same inputs bit for bit."""
+    fn(*inputs)
+    static = [x.clone() for x in inputs]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*static)
+    outs = out if isinstance(out, tuple) else (out,)
+    for new in fresh:
+        for s, n in zip(static, new):
+            s.copy_(n)
+        graph.replay()
+        want = fn(*new)
+        want = want if isinstance(want, tuple) else (want,)
+        assert len(want) == len(outs)
+        for a, w in zip(outs, want):
+            torch.testing.assert_close(a, w, rtol=0, atol=0, equal_nan=True)
+
+
+_FWD_CAPTURE = [(v, torch.bfloat16) for v in ("resident", "persistent",
+                                              "step")] + [("auto",
+                                                           torch.float32)]
+
+
+@pytest.mark.parametrize("residuals", [False, True])
+@pytest.mark.parametrize("variant,dtype", _FWD_CAPTURE)
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_fused_forward_variants_capture(dev, cell, variant, dtype,
+                                        residuals):
+    """K2 and K3, each bf16 recurrence variant (the W-resident cluster
+    launch through cudaLaunchKernelEx, the cooperative streamed one, one
+    launch a step) and f32, at the default model's widths (B 20, F 1312,
+    H 800; T 16), inference and training, captured and replayed."""
+    import functools
+
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+
+    case = _gru_case if cell == "gru" else _lstm_case
+    layer = gru.gru_layer if cell == "gru" else lstm.lstm_layer
+    args = case(dev, dtype, 2, 16, 20, 1312, 800, 31)
+    fresh = [case(dev, dtype, 2, 16, 20, 1312, 800, 32 + i)
+             for i in range(2)]
+    _replays_match_eager(functools.partial(layer, residuals=residuals,
+                                           variant=variant), args, fresh)
+
+
+@pytest.mark.parametrize("variant,dtype", [
+    ("persistent", torch.bfloat16), ("step", torch.bfloat16),
+    ("auto", torch.float32)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_scan_variants_capture(dev, cell, variant, dtype):
+    """K4 and K6 at config 4's width (B 64, H 1600; T 9): the cooperative
+    persistent launch, one launch a step and f32, with residuals,
+    captured and replayed."""
+    import functools
+
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+
+    gates = 3 if cell == "gru" else 4
+    scan = gru.gru_scan if cell == "gru" else lstm.lstm_scan
+    args = _scan_case(dev, dtype, 2, 9, 64, 1600, gates, 41)
+    fresh = [_scan_case(dev, dtype, 2, 9, 64, 1600, gates, 42 + i)
+             for i in range(2)]
+    _replays_match_eager(functools.partial(scan, residuals=True,
+                                           variant=variant), args, fresh)
+
+
+@pytest.mark.parametrize("variant,dtype", [
+    ("persistent", torch.bfloat16), ("step", torch.bfloat16),
+    ("auto", torch.float32)])
+@pytest.mark.parametrize("t,b,h", [(9, 20, 800), (5, 64, 1600)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_bwd_variants_capture(dev, cell, t, b, h, variant, dtype):
+    """K5 and K7 (the bf16 cluster launches through cudaLaunchKernelEx,
+    persistent and one a step; f32) at both models' widths, captured and
+    replayed."""
+    import functools
+
+    from deepspeech_tpu_torch.ops.cuda import gru, lstm
+
+    mod = gru if cell == "gru" else lstm
+    case = _gru_case if cell == "gru" else _lstm_case
+
+    def inputs(seed):
+        x, w_ih, b_ih, w_hh, b_hh, lens = case(dev, dtype, 2, t, b, 64, h,
+                                               seed)
+        out, r1, r2 = mod.plain(x, w_ih, b_ih, w_hh, b_hh, lens,
+                                residuals=True)
+        dout = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            out.shape).astype(np.float32)).to(dev)
+        return ((dout, r1, r2, out, w_hh, lens) if cell == "gru"
+                else (dout, r2, r1, w_hh, lens))
+
+    bwd = gru.gru_bwd if cell == "gru" else lstm.lstm_bwd
+    _replays_match_eager(functools.partial(bwd, variant=variant),
+                         inputs(51), [inputs(52), inputs(53)])
+
+
+@pytest.mark.parametrize("how,lmax", [("ring", 40), ("global", 40),
+                                      ("global", 2250)])
+def test_ctc_routes_capture(dev, how, lmax):
+    """K8 and K9 on each route (the global route's per-row workspace, K9's
+    too), captured and replayed."""
+    from deepspeech_tpu_torch.ops import ctc as ctc_loss_mod
+    from deepspeech_tpu_torch.ops.cuda import ctc
+
+    b, t = 3, max(60, lmax + lmax // 10 + 40)
+
+    def inputs(seed):
+        rng = np.random.default_rng(seed)
+        logits = torch.from_numpy(rng.standard_normal((b, t, 29)).astype(
+            np.float32)).to(dev)
+        targets = torch.from_numpy(rng.integers(1, 29, (b, lmax)).astype(
+            np.int32)).to(dev)
+        lp, ext = ctc_loss_mod._prep(logits, targets, 0)
+        tl = torch.tensor([lmax, lmax // 2, 0], device=dev)
+        ll = torch.tensor([t, t - 7, 5], device=dev)
+        g = torch.linspace(0.5, 1.5, b, device=dev)
+        return lp, ext, tl, ll, g
+
+    def both(lp, ext, tl, ll, g):
+        alphas, loss = ctc._alpha(lp, ext, tl, ll, how)
+        return alphas, loss, ctc._beta(lp, ext, tl, ll, alphas, loss, g,
+                                       False, how)
+
+    _replays_match_eager(both, inputs(61), [inputs(62), inputs(63)])
+
+
+def test_stft_and_topk_capture(dev):
+    """K1 (the FFT route's device constants made by the warm-up) and K10,
+    captured and replayed."""
+    from deepspeech_tpu_torch.audio.features import make_window
+    from deepspeech_tpu_torch.ops.cuda import stft, topk
+
+    win = make_window("hamming", 320)
+
+    def wave(seed):
+        return (torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (4, 16000)).astype(np.float32)).to(dev),)
+
+    _replays_match_eager(lambda y: stft.stft_mag(y, 320, 160, win), wave(71),
+                         [wave(72), wave(73)])
+
+    def rows(seed):
+        return (torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (20, 310)).astype(np.float32)).to(dev),)
+
+    _replays_match_eager(lambda x: topk.topk_total_order(x, 10), rows(81),
+                         [rows(82), rows(83)])
+
+
+def _fake_step(state, batch, generator=None):
+    """A stand-in train step: K1 on the batch, a draw from the generator,
+    the state's step moved in place."""
+    from deepspeech_tpu_torch.audio.features import make_window
+    from deepspeech_tpu_torch.ops.cuda import stft
+
+    mag = stft.stft_mag(batch["audio"], 320, 160, make_window("hamming", 320))
+    state.step += 1
+    return {"mag": mag.sum((1, 2)),
+            "draw": torch.rand(batch["audio"].shape[0], generator=generator,
+                               device=batch["audio"].device)}
+
+
+def test_step_graphs_draws_and_counts(dev):
+    """StepGraphs on a stand-in step: the first batch eager, the second
+    captured, then replays; the replays' draws equal an eager run's from
+    a generator of the same seed, the generator's state after them too;
+    K1's counter counts every replay once (none for the capture); one
+    graph a shape (a second shape warms up eagerly, then is captured)."""
+    import types
+
+    from deepspeech_tpu_torch.ops.cuda import stft
+    from deepspeech_tpu_torch.train.graph import StepGraphs
+
+    batches = [{"audio": torch.from_numpy(np.random.default_rng(i)
+                                          .standard_normal((3, n)).astype(
+                                              np.float32)).to(dev)}
+               for i, n in enumerate((4000, 4000, 4000, 4000, 6000, 6000,
+                                      6000, 4000))]
+    state = types.SimpleNamespace(step=torch.zeros((), dtype=torch.int64,
+                                                   device=dev))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    graphs = StepGraphs(_fake_step, state, gen)
+    before = stft.launches
+    got = [graphs(b) for b in batches]
+    assert stft.launches == before + len(batches)
+    assert graphs.stats()["graphs"] == 2
+    assert graphs.eager_steps == 2 and graphs.replays == 6
+    assert int(state.step) == len(batches)
+
+    ref_state = types.SimpleNamespace(step=torch.zeros((), dtype=torch.int64,
+                                                       device=dev))
+    ref_gen = torch.Generator(device=dev).manual_seed(5)
+    want = [_fake_step(ref_state, b, ref_gen) for b in batches]
+    for g, w in zip(got, want):
+        assert torch.equal(g["draw"], w["draw"])
+        torch.testing.assert_close(g["mag"], w["mag"], rtol=0, atol=0)
+    assert torch.equal(gen.get_state(), ref_gen.get_state())
+
+
+def _spd_batches(k: int):
+    """k batches of 4 rows of one shape (1 s audio bucket, 0.3-0.5 s of
+    noisy tones), the int16 wire, on the CPU."""
+    from deepspeech_tpu_torch.data import BucketSpec, collate_batch
+
+    rng = np.random.default_rng(9)
+    out = []
+    for j in range(k):
+        samples = []
+        for i in range(4):
+            n = 16000 * (3 + (i + j) % 3) // 10
+            y = (0.5 * np.sin(2 * np.pi * (150 + 70 * i) * np.arange(n)
+                              / 16000) + 0.1 * rng.standard_normal(n))
+            samples.append({"audio": y.astype(np.float32), "path": "",
+                            "target": rng.integers(1, 29, 4 + i).astype(
+                                np.int32)})
+        batch = collate_batch(samples, 4, BucketSpec(wire_dtype="int16"))
+        batch.pop("paths")
+        out.append(batch)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_multi_step_replays_match_eager_steps(dev, cell, dtype):
+    """``make_multi_train_step`` at k 4 on the card (one eager step, a
+    capture, three replays) against four eager ``train_step`` calls from
+    the same init and generator seed, 2 x Bi<cell>-64 with the device
+    masks on: every parameter, BatchNorm buffer and optimizer tensor, the
+    losses and grad norms at 1e-5 relative (cuDNN deterministic in both
+    runs; the gaps are printed), the step counter and the generator's
+    state equal; the launch counters move alike in both runs."""
+    from deepspeech_tpu_torch.audio.features import AudioConf
+    from deepspeech_tpu_torch.data import stack_microbatches
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.ops.cuda import read_counters
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_multi_train_step,
+                                                 make_train_step)
+
+    cfg = StepConfig(audio_conf=AudioConf(aug_prob_spect=0.5,
+                                          aug_prob_8khz=0.3))
+    host = _spd_batches(4)
+    torch.manual_seed(3)
+    init, _ = build_model(cell, 29, 64, 2, compute_dtype=dtype,
+                          device="cuda")
+    init = {k: v.clone() for k, v in init.state_dict().items()}
+    runs = []
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graphed in (False, True):
+            model, _ = build_model(cell, 29, 64, 2, compute_dtype=dtype,
+                                   device="cuda")
+            model.load_state_dict(init)
+            opt = build_optimizer("sgd", lr=3e-3, momentum=0.9,
+                                  max_norm=100.0)
+            state = TrainState.create(model, opt)
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            before = read_counters()
+            if graphed:
+                stacked, live = stack_microbatches(host, 4)
+                multi = make_multi_train_step(model, opt, cfg)
+                m = multi(state, {k: torch.from_numpy(v).cuda()
+                                  for k, v in stacked.items()}, gen, live)
+                stats = multi.graphs.stats()
+                assert stats["graphs"] == 1 and stats["eager_steps"] == 1
+                assert stats["replays"] == 3
+            else:
+                step = make_train_step(model, opt, cfg)
+                ms = [step(state, {k: torch.from_numpy(v).cuda()
+                                   for k, v in b.items()}, generator=gen)
+                      for b in host]
+                m = {k: torch.stack([x[k] for x in ms]) for k in ms[0]}
+            torch.cuda.synchronize()
+            after = read_counters()
+            runs.append((model, state, gen, m,
+                         {c: after[c] - before[c] for c in after}))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (ma, sa, ga, mta, ca), (mb, sb, gb, mtb, cb) = runs
+    assert ca == cb and ca[("stft", "launches")] == 4
+    assert torch.equal(sa.step, sb.step) and int(sb.step) == 4
+    assert torch.equal(ga.get_state(), gb.get_state())
+    gaps = {}
+    for key in ("loss", "grad_norm", "per_sample"):
+        gaps[key] = ((mtb[key] - mta[key]).abs().max()
+                     / mta[key].abs().max()).item()
+    for (name, a), (_, b) in zip(ma.state_dict().items(),
+                                 mb.state_dict().items()):
+        gaps[name] = ((b - a).abs().max() / a.abs().max().clamp(
+            min=1e-30)).item()
+    for i, (a, b) in enumerate(zip(sa.opt_state["trace"],
+                                   sb.opt_state["trace"])):
+        gaps[f"trace {i}"] = ((b - a).abs().max() / a.abs().max().clamp(
+            min=1e-30)).item()
+    print(f"{cell} {dtype}: replays against eager steps, largest relative "
+          f"gap {max(gaps.values()):.2e} ({max(gaps, key=gaps.get)})")
+    assert max(gaps.values()) <= 1e-5, gaps
+    assert not mtb["step_skipped"].any()
+
+
 def _dp_batch():
     """8 rows whose halves differ in length and content, on the int16
     wire."""
@@ -1309,6 +1626,44 @@ def test_two_gloo_ranks_on_the_card_match_one_process(dev, tmp_path):
         assert sorted(errs) == sorted(_HELD), (where, errs)
         for name, err in errs.items():
             assert err <= _HELD[name][2], (where, name, err)
+
+
+# the failed captures last: a capture that fails leaves its stream behind
+
+
+def test_pageable_copy_under_capture_raises(dev):
+    """A host-to-device copy of pageable memory inside a capture (a
+    ``torch.tensor`` of a list) raises; it does not pass silently."""
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(graph):
+            torch.tensor([1.0, 2.0], device=dev)
+
+
+def test_step_graphs_capture_failure_raises(dev):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises (after the eager warm-up ran), and no eager step stands
+    in for it; the launch counters are left as they were."""
+    import types
+
+    from deepspeech_tpu_torch.ops.cuda import stft
+    from deepspeech_tpu_torch.train.graph import StepGraphs
+
+    def syncing_step(state, batch, generator=None):
+        out = _fake_step(state, batch, generator)
+        out["host"] = torch.full((), out["mag"].sum().item(), device=dev)
+        return out
+
+    state = types.SimpleNamespace(step=torch.zeros((), dtype=torch.int64,
+                                                   device=dev))
+    graphs = StepGraphs(syncing_step, state, None)
+    batch = {"audio": torch.ones((2, 4000), device=dev)}
+    graphs(batch)
+    before = (stft.launches, int(state.step))
+    with pytest.raises(RuntimeError):
+        graphs(batch)
+    assert (stft.launches, int(state.step)) == before
+    assert graphs.replays == 0
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--dp-rank"]:

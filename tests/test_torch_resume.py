@@ -202,8 +202,8 @@ def test_inject_count_skips_with_the_guard(kind, kw):
         js = jax.tree.map(lambda n, o: jnp.where(take, n, o), new_js, js)
         new_tp, new_ts = opt.update(grads, ts, tp)
         flag = torch.tensor(ok)
-        tp = optim.select(flag, new_tp, tp)
-        ts = optim.select(flag, new_ts, ts)
+        optim.assign_where(flag, new_tp, tp)
+        optim.assign_where(flag, new_ts, ts)
     want = jax.tree_util.tree_leaves(js)
     got = optim.to_optax_leaves(ts, port)
     assert int(got[0]) == int(want[0]) == 2

@@ -9,10 +9,26 @@ manifest go through ``deepspeech_tpu.cli.test`` and
 ``beam`` and ``device_beam --lm-path`` decoding: the CSV rows and both
 summary lines must be equal. ``transcribe --decoder device_beam --lm-path``
 prints the same JSON through both packages.
+
+The port's ``test`` on two gloo CPU ranks (two processes of ``python -m
+deepspeech_tpu_torch.cli.test`` under torchrun's environment variables,
+``env://`` on a free localhost port, one thread each) against one process
+of it: rank 0's stdout (the ``--verbose`` prints and both summaries) and
+the report CSV byte for byte, greedy with the ranks' rows padded alike
+(one bin of 4, a short and a long pair) and with ``--output-path`` (each
+rank's dumps equal to the one process's, the list in row order),
+``device_beam`` with the LM over two bins, a bin that leaves rank 1 no row
+(batch 8), and a batch size the ranks do not divide (rank 0 alone; rank 1
+exits 0 without output).
 """
 
 import csv
 import json
+import os
+import pickle
+import socket
+import subprocess
+import sys
 import types
 
 import numpy as np
@@ -156,3 +172,84 @@ def test_transcribe_beam_with_lm_matches_jax(files, capsys, decoder):
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert got == ref
     assert len(got["output"]) == 2 and got["output"][0]["transcription"]
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RANK_TIMEOUT = 180
+
+
+def _two_ranks(argv: list) -> list:
+    """Two ranks of the port's test CLI on the CPU -> [(rc, stdout,
+    stderr)] by rank."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                       WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "deepspeech_tpu_torch.cli.test",
+                 *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
+        return [(p.returncode, *o) for p, o in zip(procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def _dumps(listing: str) -> list:
+    with open(listing, "rb") as f:
+        paths = pickle.load(f)
+    out = []
+    for path in paths:
+        with open(path, "rb") as f:
+            out.append((path, pickle.load(f)))
+    return out
+
+
+@pytest.mark.parametrize("batch,decoder", [
+    ("4", ["--verbose", "--output-path", "DUMPS"]),
+    ("2", ["--decoder", "device_beam", "--beam-width", "8", "--lm-path",
+           "LM", "--alpha", "1.5", "--beta", "0.5", "--verbose"]),
+    ("8", ["--errors", "--best"]),
+    ("3", ["--verbose"])], ids=["greedy", "device_beam_lm", "empty_shard",
+                                "undivided"])
+def test_test_cli_two_ranks_match_one_process(files, capsys, tmp_path,
+                                              batch, decoder):
+    d, path, manifest, lm, _ = files
+    dumps = str(tmp_path / "dumps.pkl")
+    decoder = [{"LM": lm, "DUMPS": dumps}.get(a, a) for a in decoder]
+    argv = ["--model-path", path, "--test-manifest", manifest,
+            "--batch-size", batch, "--num-workers", "1", "--device", "cpu",
+            *decoder]
+    one = str(tmp_path / "one.csv")
+    assert port_test(argv + ["--report-file", one]) == 0
+    want = capsys.readouterr().out
+    want_dumps = _dumps(dumps) if dumps in decoder else None
+
+    two = str(tmp_path / "two.csv")
+    (rc0, out0, err0), (rc1, out1, err1) = _two_ranks(
+        argv + ["--report-file", two])
+    assert rc0 == 0, err0[-3000:]
+    assert rc1 == 0, err1[-3000:]
+    assert out0 == want
+    assert out1 == ""
+    with open(one, "rb") as f, open(two, "rb") as g:
+        assert f.read() == g.read()
+    assert want.count("Summary") == 2
+    assert ("rank 0 evaluates alone" in err0) == (batch == "3")
+    if want_dumps is not None:
+        got = _dumps(dumps)
+        assert [p for p, _ in got] == [p for p, _ in want_dumps]
+        for (_, a), (_, b) in zip(got, want_dumps):
+            assert a["transcript"] == b["transcript"]
+            # a rank's 2 rows against the batch of 4: f32 sums in other
+            # orders
+            np.testing.assert_allclose(a["probs"], b["probs"], rtol=1e-4,
+                                       atol=1e-6)

@@ -10,7 +10,8 @@ each wire, the step's featurize from each wire the JAX step's
 spectrogram, the sampler the JAX bins and ``get_cer_wer`` its WER/CER.
 Every flag the port has ported runs on the CPU in-process and shows its
 effect (augmentation, resuming, mid-epoch checkpoints, train-val, the
-metric log and dashboard, TensorBoard, profiling); the multi-GPU flags
+metric log and dashboard, TensorBoard, profiling); the flags not ported
+(``--steps-per-dispatch`` > 1 on several processes, ``--mesh-model`` > 2)
 exit naming ROADMAP.md.
 """
 
@@ -134,8 +135,11 @@ def test_cer_wer_match_jax(hyp, ref):
     assert get_cer_wer(hyp, ref) == jax_get_cer_wer(hyp, ref)
 
 
-@pytest.mark.parametrize("flags", [["--steps-per-dispatch", "2"],
-                                   ["--mesh-model", "4"]])
+@pytest.mark.parametrize("flags", [
+    # k > 1 runs on one process; several are refused before any rendezvous
+    ["--steps-per-dispatch", "2", "--dist-url", "tcp://localhost:1234",
+     "--dist-rank", "0", "--dist-world-size", "2"],
+    ["--mesh-model", "4"]])
 def test_unported_flags_exit(flags):
     with pytest.raises(SystemExit, match="ROADMAP"):
         train_main(["--device", "cpu", *flags])
