@@ -971,32 +971,41 @@ def hold_recorded(torch, calls: dict) -> dict:
     return out
 
 
+# the wrappers' launch counters (``ops.cuda.read_counters``) by the names
+# this script prints; ``<cell>_fwd_res`` counts the training variant's
+# launches among ``<cell>_fwd``'s, ``<cell>_scan_res`` among
+# ``<cell>_scan``'s (K4, K6); K2's projection GEMM alone (``gru.projection``)
+# is not a kernel of this line
+COUNT_NAMES = {("stft", "launches"): "stft_mag",
+               ("ctc", "alpha_launches"): "ctc_alpha",
+               ("ctc", "beta_launches"): "ctc_beta",
+               ("topk", "launches"): "topk",
+               **{(cell, attr): f"{cell}_{name}" for cell in ("gru", "lstm")
+                  for attr, name in (("launches", "fwd"),
+                                     ("res_launches", "fwd_res"),
+                                     ("scan_launches", "scan"),
+                                     ("scan_res_launches", "scan_res"),
+                                     ("bwd_launches", "bwd"))}}
+UNNAMED_COUNTERS = {("gru", "proj_launches")}
+
+
 def reset_counts():
     """Every kernel's launch count to 0."""
-    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft, topk
+    from deepspeech_tpu_torch.ops.cuda import reset_counters
 
-    stft.launches = ctc.alpha_launches = ctc.beta_launches = 0
-    topk.launches = 0
-    for mod in (gru, lstm):
-        mod.launches = mod.res_launches = mod.bwd_launches = 0
-        mod.scan_launches = mod.scan_res_launches = 0
+    reset_counters()
 
 
 def read_counts() -> dict:
-    """Every kernel's launch count; ``<cell>_fwd_res`` counts the training
-    variant's launches among ``<cell>_fwd``'s, ``<cell>_scan_res`` among
-    ``<cell>_scan``'s (K4, K6)."""
-    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft, topk
+    """Every kernel's launch count, by ``COUNT_NAMES``; a counter of the
+    wrappers that is neither named nor left out on purpose raises."""
+    from deepspeech_tpu_torch.ops.cuda import read_counters
 
-    counts = dict(stft_mag=stft.launches, ctc_alpha=ctc.alpha_launches,
-                  ctc_beta=ctc.beta_launches, topk=topk.launches)
-    for cell, mod in (("gru", gru), ("lstm", lstm)):
-        counts.update({f"{cell}_fwd": mod.launches,
-                       f"{cell}_fwd_res": mod.res_launches,
-                       f"{cell}_scan": mod.scan_launches,
-                       f"{cell}_scan_res": mod.scan_res_launches,
-                       f"{cell}_bwd": mod.bwd_launches})
-    return counts
+    counters = read_counters()
+    unknown = set(counters) - set(COUNT_NAMES) - UNNAMED_COUNTERS
+    if unknown:
+        raise AssertionError(f"launch counters without a name: {unknown}")
+    return {name: counters[c] for c, name in COUNT_NAMES.items()}
 
 
 def expect_counts(**nonzero) -> dict:
@@ -4579,14 +4588,36 @@ SPD_K, SPD_SHORT, SPD_SHORT_AUDIO = 4, 2, 100_000
 SPD_TIMED, SPD_PROFILED = 8, 4
 # the replayed run against the eager run of the same batches, both with
 # cuDNN's deterministic algorithms (torch.backends.cudnn.deterministic):
-# the replays run the same kernels on the same state, so the steps' losses
-# and grad norms are held at STEP_LOSS_TOL and each parameter's and
-# BatchNorm buffer's distance at STEP_GRAD_TOL of the eager run's change
-# from its init (phase 12's kernel-against-plain bounds), and are expected
-# equal. Under cuDNN's default algorithms two eager runs of the same
-# batches already drift apart (the convolution gradients' sums in another
-# order each run, carried on by the bf16 roundings of the next steps): the
-# phase shows that drift, two eager runs against each other
+# the replays run the same kernels on the same state, so the steps'
+# metrics, every parameter, BatchNorm buffer and optimizer tensor, the
+# step and the generator's state are held equal (torch.equal). Under
+# cuDNN's default algorithms two eager runs of the same batches already
+# drift apart (the convolution gradients' sums in another order each run,
+# carried on by the bf16 roundings of the next steps): the phase shows that
+# drift, two eager runs against each other.
+# What ran in the SPD_PROFILED profiled steps, eager and replayed: the
+# trace's kernels of each row below, by name, held to the wrappers'
+# counters over those steps (a replay's are added from its capture's). One
+# kernel a wrapper launch for the variants these models run (K2 and K4
+# W-resident or persistent, K5 any: its bias reduction follows every walk)
+TRACED = (("K1", r"stft_(fft|dft)_kernel", ("stft_mag",)),
+          ("K2 + K4", r"mma_rnn::(resident|persistent)_kernel<",
+           ("gru_fwd", "gru_scan")),
+          ("K5", r"mma_bwd::bias_reduce<", ("gru_bwd",)),
+          ("K8", r"\bctc_alpha(_global)?[<(]", ("ctc_alpha",)),
+          ("K9", r"\bctc_beta(_global)?[<(]", ("ctc_beta",)))
+# the graph cache over many shapes (spd_cache): the default model, one
+# eager warm-up, a capture and a replay at each of SPD_CACHE_SECONDS
+# audio buckets, targets of 15 labels a second (LibriSpeech's read speech)
+SPD_CACHE_SECONDS = tuple(range(2, 18))
+
+
+def traced_launches(ops: list, counted: dict) -> dict:
+    """{row of TRACED: (kernels of the row in the trace ``ops``
+    (``device_busy``), launches ``counted``)}."""
+    return {label: (sum(1 for _, _, name in ops if re.search(rx, name)),
+                    sum(counted[c] for c in names))
+            for label, rx, names in TRACED}
 
 
 def spd_batches(torch, rng, n: int, audio: int, batch: int) -> list:
@@ -4673,6 +4704,7 @@ def spd_run(torch, init: dict, hidden: int, host: list, how: str,
     torch.cuda.synchronize()
     run = dict(launches=read_counts(), metrics=m, init=init,
                state={k: v.clone() for k, v in model.state_dict().items()},
+               opt=[t.clone() for t in state.opt_state["trace"]],
                step=int(state.step), gen=gen.get_state(),
                peak_reserved=torch.cuda.max_memory_reserved(),
                graphs=None if graphs is None else graphs.stats(),
@@ -4697,9 +4729,11 @@ def spd_run(torch, init: dict, hidden: int, host: list, how: str,
             events.append((start, end))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        before = read_counts()
         ops, span, busy = device_busy(torch, lambda: [
             one() for _ in range(SPD_PROFILED)])
-        run.update(
+        counted = {k: n - before[k] for k, n in read_counts().items()}
+        run.update(traced=traced_launches(ops, counted),
             ms=float(np.median([a.elapsed_time(b) for a, b in events])),
             host_ms=1e3 * wall / SPD_TIMED, issue_ms=1e3 * issue / SPD_TIMED,
             host_idle=1.0 - issue / wall,
@@ -4775,15 +4809,19 @@ def phase_steps_per_dispatch(torch) -> dict:
             raise AssertionError(f"{label}: launches {p['launches']} "
                                  f"(eager {e['launches']}), expected {want}; "
                                  f"steps {p['step']}, {e['step']}")
-        if not torch.equal(p["gen"], e["gen"]):
-            raise AssertionError(f"{label}: the generator's state after the "
-                                 "replays differs from the eager run's")
-        if (e["metrics"]["step_skipped"].any()
-                or p["metrics"]["step_skipped"].any()
-                or not (max(gaps["loss"] + gaps["grad_norm"]) <= STEP_LOSS_TOL
-                        and gaps["state"] <= STEP_GRAD_TOL)):
-            raise AssertionError(f"{label}: replayed steps against eager: "
-                                 f"{gaps}")
+        unequal = ([k for k in e["metrics"] if not torch.equal(
+            p["metrics"][k], e["metrics"][k])]
+            + [k for k, v in e["state"].items()
+               if not torch.equal(p["state"][k], v)]
+            + [f"trace {i}" for i, (a, b) in enumerate(zip(p["opt"],
+                                                          e["opt"]))
+               if not torch.equal(a, b)]
+            + ([] if torch.equal(p["gen"], e["gen"]) else ["generator"]))
+        if unequal or e["metrics"]["step_skipped"].any():
+            raise AssertionError(f"{label}: replayed steps against eager, "
+                                 f"cuDNN deterministic: {unequal} differ "
+                                 f"({gaps}), skipped "
+                                 f"{e['metrics']['step_skipped'].tolist()}")
         # the same under cuDNN's default algorithms, as the train CLI
         # runs: timed, and the replays' drift from the eager steps beside
         # a second eager run's (the drift's cause)
@@ -4798,6 +4836,15 @@ def phase_steps_per_dispatch(torch) -> dict:
             raise AssertionError(f"{label}, cuDNN's default algorithms: "
                                  f"launches {pd['launches']}, graphs "
                                  f"{pd['graphs']}")
+        traced = {row: SPD_PROFILED * sum(want[c] // n for c in names)
+                  for row, _, names in TRACED}
+        for how, run in (("eager", ed), ("replayed", pd)):
+            bad = {row: got for row, got in run["traced"].items()
+                   if got != (traced[row], traced[row])}
+            if bad:
+                raise AssertionError(f"{label}: {SPD_PROFILED} {how} steps "
+                                     f"under the profiler, kernels in the "
+                                     f"trace against the counters: {bad}")
         g = pd["graphs"]
         log(f"steps-per-dispatch {SPD_K}, {label}: {n} batches in "
             f"{p['groups']} groups, {g['graphs']} graph(s) (capture "
@@ -4808,8 +4855,7 @@ def phase_steps_per_dispatch(torch) -> dict:
             f"ones: loss rel {max(gaps['loss']):.2e}, grad norm rel "
             f"{max(gaps['grad_norm']):.2e}, worst state "
             f"{gaps['state_name']} {gaps['state']:.2e} of its change, the "
-            f"generator's state equal (tolerances {STEP_LOSS_TOL}, "
-            f"{STEP_GRAD_TOL})")
+            f"generator's state equal (held equal, torch.equal)")
         for how, d in drift.items():
             run = {"replay": "replayed", "eager": "second eager"}[how]
             log(f"steps-per-dispatch {SPD_K}, {label}, cuDNN's default "
@@ -4822,7 +4868,11 @@ def phase_steps_per_dispatch(torch) -> dict:
         log(f"steps-per-dispatch {SPD_K}, {label}: a step {e['ms']:.3f} ms "
             f"eager, {p['ms']:.3f} ms replayed (CUDA-event medians of "
             f"{SPD_TIMED} back to back, cuDNN's default algorithms; "
-            f"{p['ms'] / e['ms'] - 1:+.2%}); host {e['host_ms']:.3f} / "
+            f"{p['ms'] / e['ms'] - 1:+.2%}); kernels in the trace of "
+            f"{SPD_PROFILED} replayed steps (counted): "
+            + ", ".join(f"{row} {t} ({c})" for row, (t, c)
+                        in p["traced"].items())
+            + f"; host {e['host_ms']:.3f} / "
             f"{p['host_ms']:.3f} ms a step, issuing {e['issue_ms']:.3f} / "
             f"{p['issue_ms']:.3f} ms of it (host idle {e['host_idle']:.2%} / "
             f"{p['host_idle']:.2%}); device idle {e['device_idle']:.2%} / "
@@ -4832,7 +4882,8 @@ def phase_steps_per_dispatch(torch) -> dict:
             f"eager, {p['peak_reserved'] / 2**30:.2f} GiB with the graph "
             f"cache full")
         out[key] = dict(
-            launches=p["launches"], graphs=g, eager_ms=e["ms"],
+            launches=p["launches"], graphs=g, traced=p["traced"],
+            eager_ms=e["ms"],
             replay_ms=p["ms"], eager_host_ms=e["host_ms"],
             replay_host_ms=p["host_ms"], eager_issue_ms=e["issue_ms"],
             replay_issue_ms=p["issue_ms"], eager_host_idle=e["host_idle"],
@@ -4845,6 +4896,289 @@ def phase_steps_per_dispatch(torch) -> dict:
             state_worst=gaps["state"],
             default_drift_norm_rel={k: d["grad_norm"]
                                     for k, d in drift.items()})
+    return out
+
+
+def spd_cache_batch(torch, rng, seconds: int, per_s: int = 15) -> dict:
+    """A batch of BATCH rows whose audio bucket (1 s, the train CLI's) is
+    ``seconds``: rows of up to half a second less, each with ``per_s``
+    labels a second; on the card."""
+    from deepspeech_tpu_torch.data import BucketSpec, collate_batch
+
+    samples = []
+    for i in range(BATCH):
+        n = seconds * SR - 160 - int(rng.integers(0, SR // 2))
+        ids = rng.integers(1, CLASSES, per_s * n // SR).astype(np.int32)
+        samples.append({"audio": synthetic_audio(rng, n), "target": ids,
+                        "path": f"synthetic{i}"})
+    out = collate_batch(samples, BATCH, BucketSpec(
+        reflect_tail=160, audio_step=SR, wire_dtype="int16"))
+    out.pop("paths")
+    return {k: torch.from_numpy(v).cuda() for k, v in out.items()}
+
+
+def spd_cache(torch) -> dict:
+    """The graph cache (``train.graph.StepGraphs``) of the default model
+    over the shapes of SPD_CACHE_SECONDS, no eviction: at each, one eager
+    warm-up, a capture and a replay; after the warm-up and after the
+    replay the allocator's reserved bytes and the card's used bytes
+    (``mem_get_info``: the graph execs too; a capture empties the
+    allocator's cache first, so the second reading is the graphs' pool
+    and the live tensors). Then the bound cut to SPD_K graphs and 2 x
+    SPD_K new shapes (the first buckets at 30 labels a second) run three
+    times: a warm-up each, a capture each (the cache shrinks to the
+    bound), then every shape, evicted by the others, captured again at
+    once. -> the figures."""
+    import gc
+
+    from deepspeech_tpu_torch.train.graph import StepGraphs
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_train_step)
+
+    rng = np.random.default_rng(SEED + 44)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, _ = default_model(torch, SEED + 41, "gru", HIDDEN)
+    opt = build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
+    state = TrainState.create(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    graphs = StepGraphs(make_train_step(model, opt, StepConfig()), state,
+                        gen)
+    graphs.max_graphs = len(SPD_CACHE_SECONDS)
+
+    def used():
+        torch.cuda.synchronize()
+        free, total = torch.cuda.mem_get_info()
+        return torch.cuda.memory_reserved(), total - free
+
+    rows = []
+    for sec in SPD_CACHE_SECONDS:
+        b = spd_cache_batch(torch, rng, sec)
+        graphs(b)
+        warm = used()
+        graphs(b)
+        rows.append((sec, tuple(b["targets"].shape), *warm, *used()))
+    full = graphs.stats()
+    peak = torch.cuda.max_memory_reserved()
+    n, m = len(rows), 2 * SPD_K
+    graphs.max_graphs = SPD_K
+    again = [spd_cache_batch(torch, rng, sec, 30)
+             for sec in SPD_CACHE_SECONDS[:m]]
+    for b in again * 3:
+        graphs(b)
+    bounded = graphs.stats()
+    after = used()
+    # the growth a graph, from the first graph's reading to the last's
+    grown = [(rows[-1][k] - rows[0][k]) / (n - 1) for k in (4, 5)]
+    for sec, tshape, res_w, dev_w, res, dev in rows:
+        log(f"graph cache, 6 x BiGRU-{HIDDEN} bf16 batch {BATCH}, a {sec} s "
+            f"bucket (targets {tshape[1]}): after its eager warm-up "
+            f"reserved {res_w / 2**30:.3f} GiB, card used "
+            f"{dev_w / 2**30:.3f} GiB; after its capture and replay "
+            f"{res / 2**30:.3f} and {dev / 2**30:.3f} GiB")
+    log(f"graph cache over {n} shapes ({SPD_CACHE_SECONDS[0]}-"
+        f"{SPD_CACHE_SECONDS[-1]} s): captures {sum(full['capture_s']):.3f} "
+        f"s in all ({min(full['capture_s']):.3f}-"
+        f"{max(full['capture_s']):.3f} s each), peak reserved "
+        f"{peak / 2**30:.3f} GiB; after the first graph and the last, "
+        f"reserved {rows[0][4] / 2**30:.3f} and {rows[-1][4] / 2**30:.3f} "
+        f"GiB ({grown[0] / 2**20:.1f} MiB a graph), card used "
+        f"{rows[0][5] / 2**30:.3f} and {rows[-1][5] / 2**30:.3f} GiB "
+        f"({grown[1] / 2**20:.1f} MiB a graph); the bound cut to {SPD_K}, "
+        f"{m} new shapes three times: {bounded['graphs']} graphs held, "
+        f"{bounded['evictions']} evictions, "
+        f"{len(bounded['capture_s']) - n} captures "
+        f"({sum(bounded['capture_s'][n:]):.3f} s), reserved "
+        f"{after[0] / 2**30:.3f} GiB, card used {after[1] / 2**30:.3f} GiB")
+    if (full["graphs"] != n or full["evictions"]
+            or (bounded["graphs"], bounded["evictions"],
+                len(bounded["capture_s"]), bounded["eager_steps"],
+                bounded["replays"])
+            != (SPD_K, n - SPD_K + 2 * m, n + 2 * m, n + m, n + 2 * m)):
+        raise AssertionError(f"graph cache: {full} then {bounded}")
+    out = dict(shapes=n, capture_s=full["capture_s"], peak_reserved=peak,
+               reserved_per_graph=grown[0], used_per_graph=grown[1],
+               rows=rows, bounded=bounded, bounded_used=after)
+    del graphs, model, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# the train CLI at --steps-per-dispatch SPD_K against k 1 (phase_spd_cli):
+# bins of two shapes in this order (set by the rows' places in the epoch's
+# shuffle), SPD_CLI_CKPT samples between mid-epoch checkpoints (each with a
+# checkpoint anneal): the groups are A4 A4 B4 A2, each checkpoint falls
+# after the same step at k 1 and k SPD_K, and the last group replays A's
+# graph after three anneals
+SPD_CLI_BINS = "AAAAAAAABBBBAA"
+SPD_CLI_CKPT = SPD_K * BATCH
+# per class: (least, most) seconds of a row and (least, most) labels
+SPD_CLI_CLASS = {"A": ((6.2, 6.8), (30, 50)), "B": ((7.1, 7.4), (60, 95))}
+
+
+class _LossLog:
+    """An observer of the train CLI: each step's (epoch, iteration, loss)."""
+
+    def __init__(self):
+        self.losses = []
+
+    def on_batch_end(self, epoch, iteration, loss=None, **kw):
+        self.losses.append((epoch, iteration, loss))
+
+    def __getattr__(self, name):
+        if name.startswith("on_"):
+            return lambda *a, **kw: None
+        raise AttributeError(name)
+
+
+def phase_spd_cli(torch) -> dict:
+    """``python -m deepspeech_tpu_torch.cli.train --steps-per-dispatch
+    SPD_K`` at full width (6 x BiGRU-800, bf16, batch 20, 6.2-7.4 s), in
+    process, on a synthetic manifest of SPD_CLI_BINS bins with
+    ``--device-noise`` (the noise bank a step reads in place),
+    ``--aug-prob-spect`` and a ``--checkpoint-anneal`` every SPD_CLI_CKPT
+    samples, against the same command at k 1, both under cuDNN's
+    deterministic algorithms: each step's loss and the final checkpoint's
+    parameters, BatchNorm stats and optimizer state held equal, the LR
+    anneals alike, the launches of both runs equal and those of 14 train
+    steps plus the validations; the k SPD_K run's graphs, eager steps,
+    replays and captures from its ``step_graphs`` log event, and each
+    run's peak reserved memory and seconds."""
+    from deepspeech_tpu_torch.audio.io import save_wav
+    from deepspeech_tpu_torch.cli.train import main as train_main
+    from deepspeech_tpu_torch.train import checkpoint as ckpt
+    from deepspeech_tpu_torch.train.optim import tree_leaves
+
+    rng = np.random.default_rng(SEED + 43)
+    labels_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "labels.json")
+    n = len(SPD_CLI_BINS) * BATCH
+    # the epoch's order: AudioDataset.set_curriculum_epoch(0) shuffles the
+    # rows with np.random.default_rng(0); bin j takes places j*B..(j+1)*B
+    order = list(range(n))
+    np.random.default_rng(0).shuffle(order)
+    cls = [""] * n
+    for place, row in enumerate(order):
+        cls[row] = SPD_CLI_BINS[place // BATCH]
+    letters = list(LABELS[2:28])
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        rows = []
+        for i, c in enumerate(cls):
+            (lo, hi), (llo, lhi) = SPD_CLI_CLASS[c]
+            m = int(SR * rng.uniform(lo, hi))
+            text = "".join(rng.choice(letters + [" "],
+                                      int(rng.integers(llo, lhi + 1))))
+            text = letters[0] + text[1:-1] + letters[1]
+            wav, txt = (os.path.join(d, f"u{i}.wav"),
+                        os.path.join(d, f"u{i}.txt"))
+            save_wav(wav, synthetic_audio(rng, m), SR)
+            with open(txt, "w") as f:
+                f.write(text)
+            rows.append(f"{wav},{txt},{m / SR}")
+        train = os.path.join(d, "train.csv")
+        with open(train, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        val = os.path.join(d, "val.csv")
+        with open(val, "w") as f:
+            f.write("\n".join([r for r, c in zip(rows, cls)
+                               if c == "A"][:6]) + "\n")
+        os.makedirs(os.path.join(d, "noise"))
+        for i in range(3):
+            save_wav(os.path.join(d, "noise", f"n{i}.wav"),
+                     (0.5 * rng.standard_normal(SR * (4 + 3 * i))).clip(
+                         -1, 1).astype(np.float32), SR)
+        base = ["--train-manifest", train, "--val-manifest", val,
+                "--labels-path", labels_path, "--batch-size", str(BATCH),
+                "--val-batch-size", str(BATCH), "--num-workers", "4",
+                "--hidden-size", str(HIDDEN), "--hidden-layers", str(LAYERS),
+                "--epochs", "1", "--noise-dir",
+                os.path.join(d, "noise", "*.wav"), "--device-noise",
+                "--noise-prob", "0.5", "--aug-prob-spect", "0.5",
+                "--checkpoint-per-samples", str(SPD_CLI_CKPT),
+                "--checkpoint-anneal", "1.5", "--id", "spd"]
+        runs = {}
+        for k in (1, SPD_K):
+            save = os.path.join(d, f"k{k}")
+            losses = _LossLog()
+            buf = io.StringIO()
+            reset_counts()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with cudnn_deterministic(torch), contextlib.redirect_stdout(buf):
+                rc = train_main(base + ["--steps-per-dispatch", str(k),
+                                        "--save-folder", save,
+                                        "--log-dir", save],
+                                observers=[losses])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"train CLI at k {k} exited {rc}: "
+                                     f"{buf.getvalue()[-2000:]}")
+            for line in buf.getvalue().splitlines():
+                if "anneal" in line or "step graphs" in line:
+                    log(f"  train CLI (k {k}): {line.strip()}")
+            with open(os.path.join(save, "spd.jsonl")) as f:
+                events = [json.loads(line) for line in f]
+            runs[k] = dict(
+                launches=read_counts(), losses=losses.losses, seconds=dt,
+                peak_reserved=torch.cuda.max_memory_reserved(),
+                package=ckpt.load(os.path.join(save,
+                                               "deepspeech_final.ckpt")),
+                lr_find=[e["lr"] for e in events if e["event"] == "lr_find"],
+                graphs=[e for e in events if e["event"] == "step_graphs"])
+    one, many = runs[1], runs[SPD_K]
+    steps = len(SPD_CLI_BINS)
+    vals = 4  # three checkpoints' validations and the epoch's, 1 batch each
+    want = expect_counts(stft_mag=steps + vals, ctc_alpha=steps + vals,
+                         ctc_beta=steps, gru_fwd=(steps + vals) * LAYERS,
+                         gru_fwd_res=steps * LAYERS, gru_bwd=steps * LAYERS)
+    label = (f"train CLI --steps-per-dispatch {SPD_K} against 1 (6 x "
+             f"BiGRU-{HIDDEN} bf16, batch {BATCH}, {steps} steps in bins "
+             f"{SPD_CLI_BINS}, device noise, spectrogram masks, a checkpoint "
+             f"anneal every {SPD_CLI_CKPT} samples)")
+    if one["launches"] != want or many["launches"] != want:
+        raise AssertionError(f"{label}: launches {many['launches']} (k 1: "
+                             f"{one['launches']}), expected {want}")
+    if one["losses"] != many["losses"] or len(one["losses"]) != steps:
+        raise AssertionError(f"{label}: losses {many['losses']} against "
+                             f"{one['losses']}")
+    if one["lr_find"] != many["lr_find"] or len(one["lr_find"]) != 3:
+        raise AssertionError(f"{label}: the anneals' LRs {many['lr_find']} "
+                             f"against {one['lr_find']}")
+    unequal = []
+    for key in ("params", "batch_stats", "optim_state"):
+        a = tree_leaves(one["package"][key])
+        b = tree_leaves(many["package"][key])
+        if len(a) != len(b) or not all(
+                np.array_equal(np.asarray(x), np.asarray(y))
+                for x, y in zip(a, b)):
+            unequal.append(key)
+    if unequal or one["package"]["step"] != steps:
+        raise AssertionError(f"{label}: the final checkpoints' {unequal} "
+                             f"differ (step {many['package']['step']})")
+    g = many["graphs"][-1] if many["graphs"] else None
+    if (g is None or g["graphs"] != 2 or g["eager_steps"] != 2
+            or g["replays"] != steps - 2 or g["evictions"]):
+        raise AssertionError(f"{label}: step graphs {many['graphs']}")
+    log(f"{label}: the {steps} losses, the final parameters, BatchNorm "
+        f"stats and optimizer state equal (under cuDNN deterministic), "
+        f"the anneals alike ({many['lr_find']}); launches {many['launches']} "
+        f"in both runs; {g['graphs']} graphs, {g['eager_steps']} eager "
+        f"steps, {g['replays']} replays, captures "
+        + ", ".join(f"{c:.3f}" for c in g["capture_s"])
+        + f" s; {one['seconds']:.1f} s / {many['seconds']:.1f} s a run "
+        f"(k 1 / k {SPD_K}, the validations and checkpoints included), peak "
+        f"reserved {one['peak_reserved'] / 2**30:.2f} / "
+        f"{many['peak_reserved'] / 2**30:.2f} GiB")
+    out.update(launches=many["launches"], graphs=g,
+               seconds={1: one["seconds"], SPD_K: many["seconds"]},
+               peak_reserved={1: one["peak_reserved"],
+                              SPD_K: many["peak_reserved"]})
     return out
 
 
@@ -5108,6 +5442,10 @@ def main() -> int:
     spd = phase_steps_per_dispatch(torch)
     mark(f"--steps-per-dispatch {SPD_K}: replayed train steps against eager "
          "ones, the default model and config 4")
+    spd_cache_out = spd_cache(torch)
+    spd_cli = phase_spd_cli(torch)
+    mark(f"the graph cache over {len(SPD_CACHE_SECONDS)} shapes, and the "
+         f"train CLI at --steps-per-dispatch {SPD_K} against 1")
     test_multi = phase_test_multi(torch)
     mark("the test CLI on two gloo ranks against one process")
 
@@ -5138,6 +5476,8 @@ def main() -> int:
     serve["device_beam"].pop("texts")
     log(json.dumps({"serve": serve, "cnn": cnn, "data_path": data_path,
                     "multi_gpu": multi_gpu, "steps_per_dispatch": spd,
+                    "step_graph_cache": spd_cache_out,
+                    "steps_per_dispatch_cli": spd_cli,
                     "test_multi": test_multi}))
     log(f"chip_smoke.py total {time.perf_counter() - started:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -364,7 +364,8 @@ def noise_bank(args, dataset, conf, bucket, dev):
 
 class Profiler:
     """``--profile-dir``: a torch.profiler window over global steps
-    [start, start + steps), CPU and (on the card) CUDA activities, written
+    [start, start + steps) (at ``--steps-per-dispatch`` k > 1, over the
+    groups that hold them), CPU and (on the card) CUDA activities, written
     as one Chrome trace into the directory when it closes."""
 
     def __init__(self, directory: str, start: int, steps: int, dev,
@@ -374,11 +375,14 @@ class Profiler:
         self.prof = None
         self.path = None
 
-    def step(self, global_step: int):
+    def step(self, global_step: int, steps: int = 1):
+        """Before the ``steps`` steps from ``global_step`` (a group of
+        ``--steps-per-dispatch``): start the trace if the window starts
+        among them, close it once the window has run."""
         if not self.directory:
             return
-        # >=: a group of k steps moves global_step by k
-        if self.prof is None and global_step >= self.start:
+        if (self.prof is None and self.path is None
+                and global_step <= self.start < global_step + steps):
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -644,13 +648,15 @@ def train(args, dev, mesh, observers) -> int:
         it = start_iter
         start_iter = 0
         obs.emit("on_epoch_start", epoch)
-        pending = None  # step N-1's metrics, read after step N is queued
+        pending = None  # group N-1's metrics, read after group N is queued
 
-        def account_step(m, pbatch, pit, n_valid):
-            """Read back and account one step (JAX ``account_step``):
-            meters (weighted by the global batch's ``n_valid`` rows), the
-            greedy decode of this rank's rows into its train curriculum,
-            the hooks and logs."""
+        def account_step(m, pbatch, pit, n_valid, grads=None):
+            """Account one step (JAX ``account_step``) from its metrics on
+            the host: meters (weighted by the global batch's ``n_valid``
+            rows), the greedy decode of this rank's rows into its train
+            curriculum, the hooks and logs; ``grads``, with
+            ``--log-params``, the step's gradients, else its grad norm is
+            logged (JAX :669-672)."""
             nonlocal last_wer
             m = metrics_to_local(m, mesh)
             loss = float(m["loss"])
@@ -681,32 +687,29 @@ def train(args, dev, mesh, observers) -> int:
             if args.log_params and pit % 100 == 0:
                 sd = (dict(model.state_dict()) if mesh is None
                       else gather_state(state, mesh)[0])
-                if "grads" in m:
+                if grads is not None:
                     names = [n for n, _ in model.named_parameters()]
-                    grads = dict(sd)
-                    grads.update((n, unshard(g, mesh) if n in state.sharded
-                                  else g) for n, g in zip(names, m["grads"]))
-                    grads = torch_to_jax(grads)[0]
-                else:  # a group's microbatch: its grad norm (JAX :669-672)
+                    full = dict(sd)
+                    full.update((n, unshard(g, mesh) if n in state.sharded
+                                 else g) for n, g in zip(names, grads))
+                    grads = torch_to_jax(full)[0]
+                else:
                     grads = float(m["grad_norm"])
                 logger.log_params(torch_to_jax(sd)[0], grads,
                                   epoch * len(loader) + pit)
 
         def process_pending():
-            """Account the step, or the group, queued before the last
-            one; a group's stacked metrics come back in one read."""
+            """Account the group queued before the last one: its stacked
+            metrics read back at once, then microbatch by microbatch."""
             nonlocal pending
             if pending is None:
                 return
-            m, pbatch, pit, n_valid = pending
+            m, group, pit, grads = pending
             pending = None
-            if spd == 1:
-                account_step(m, pbatch, pit, n_valid)
-                return
             m = {k: v.cpu() for k, v in m.items()}
-            for j, b in enumerate(pbatch):
+            for j, (b, n_valid) in enumerate(group):
                 account_step({k: v[j] for k, v in m.items()}, b, pit + j,
-                             n_valid[j])
+                             n_valid, grads)
 
         def maybe_sample_checkpoint():
             nonlocal checkpoint_id, samples_since_ckpt
@@ -733,78 +736,69 @@ def train(args, dev, mesh, observers) -> int:
                            loss=loss_meter.avg)
 
         batches = loader.iter_from(it)
-
-        def pull():
-            """The next host batch (its shards padded alike on a mesh), its
-            device copy and the global batch's count of real rows."""
-            b = next(batches, None)
-            if b is None:
-                return None
-            watch.mark_data()
-            if mesh is not None and mesh.spans("data"):
-                b, n_valid = equalize_batch_padding(b, mesh)
-            else:
-                n_valid = int(np.asarray(b["valid"]).sum())
-            return b, to_device(b), n_valid
-
         held: list = []  # the batch that switched the shape
 
         def pull_group():
-            """Up to k batches of one shape (JAX ``pull_group``): a batch
-            of another shape closes the group and opens the next. The group
-            is stacked on the host (``stack_microbatches``) and copied to
-            the card as one superbatch, queued behind the replays before
-            it -> (batches, superbatch, live lanes, real rows of each)."""
+            """Up to k host batches of one shape (JAX ``pull_group``; one
+            at k=1): a batch of another shape closes the group and opens
+            the next. Each batch's shards are padded alike on a mesh. The
+            group is stacked on the host (``stack_microbatches``) and
+            copied to the device as one superbatch, queued behind the steps
+            before it -> ([(batch, real rows of the global batch)],
+            superbatch, live lanes)."""
             group = []
             while len(group) < spd:
                 b = held.pop() if held else next(batches, None)
                 if b is None:
                     break
-                if group and any(b[k].shape != group[0][k].shape
+                if group and any(b[k].shape != group[0][0][k].shape
                                  for k in ("audio", "targets")):
                     held.append(b)
                     break
                 watch.mark_data()
-                group.append(b)
+                if mesh is not None and mesh.spans("data"):
+                    group.append(equalize_batch_padding(b, mesh))
+                else:
+                    group.append((b, int(np.asarray(b["valid"]).sum())))
             if not group:
                 return None
-            stacked, live = stack_microbatches(group, spd)
-            dev_stacked = {k: torch.from_numpy(v).to(dev, non_blocking=True)
-                           for k, v in stacked.items()}
-            return group, dev_stacked, live, [
-                int(np.asarray(b["valid"]).sum()) for b in group]
+            stacked, live = stack_microbatches([b for b, _ in group], spd)
+            return group, {k: torch.from_numpy(v).to(dev, non_blocking=True)
+                           for k, v in stacked.items()}, live
 
-        if spd == 1:
-            nxt = pull()
-            while nxt is not None:
-                batch, dev_batch, n_valid = nxt
-                profiler.step(global_step)
-                obs.emit("on_batch_start", epoch, it)
-                m = train_step(state, dev_batch, generator=generator,
+        nxt = pull_group()
+        while nxt is not None:
+            group, stacked, live = nxt
+            profiler.step(global_step, len(group))
+            for j in range(len(group)):
+                obs.emit("on_batch_start", epoch, it + j)
+            grads = None
+            if spd == 1:
+                lane = local_batch_to_global(
+                    {**{k: v[0] for k, v in stacked.items()}, **noise_extra},
+                    mesh)
+                m = train_step(state, lane, generator=generator,
                                return_grads=args.log_params and it % 100 == 0)
-                nxt = pull()  # batch N+1 loads while step N runs
-                process_pending()  # account step N-1 while step N runs
-                pending = (m, batch, it, n_valid)
-                it += 1
-                global_step += 1
-                samples_since_ckpt += n_valid
-                maybe_sample_checkpoint()
-        else:
-            nxt = pull_group()
-            while nxt is not None:
-                group, stacked, live, n_valid = nxt
-                profiler.step(global_step)
-                for j in range(len(group)):
-                    obs.emit("on_batch_start", epoch, it + j)
+                grads = m.pop("grads", None)
+                m = {k: v[None] for k, v in m.items()}
+            else:
                 m = multi_step(state, stacked, generator, live, noise_extra)
-                nxt = pull_group()  # group N+1 loads while group N runs
-                process_pending()
-                pending = (m, group, it, n_valid)
-                it += len(group)
-                global_step += len(group)
-                samples_since_ckpt += sum(n_valid)
-                maybe_sample_checkpoint()
+            nxt = pull_group()  # group N+1 loads while group N runs
+            process_pending()  # account group N-1 while group N runs
+            pending = (m, group, it, grads)
+            it += len(group)
+            global_step += len(group)
+            samples_since_ckpt += sum(n for _, n in group)
+            maybe_sample_checkpoint()
         process_pending()
+        graphs = getattr(multi_step, "graphs", None)
+        if graphs is not None:
+            g = graphs.stats()
+            say(f"  step graphs: {g['graphs']} held, {len(g['capture_s'])} "
+                f"captures in {sum(g['capture_s']):.2f}s, "
+                f"{g['evictions']} evictions, {g['eager_steps']} eager "
+                f"steps, {g['replays']} replays")
+            logger.log("step_graphs", step=epoch, **g)
 
         epoch_time = time.perf_counter() - epoch_t0
         say(f"epoch {epoch + 1} done in {epoch_time:.1f}s "

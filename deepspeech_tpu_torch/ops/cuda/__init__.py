@@ -1,24 +1,17 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``) and their wrappers.
 
-Each wrapper module counts its kernel's launches in module-level integers
-(``COUNTERS``: module -> attribute names), one where it issues a launch;
-``read_counters`` and ``add_counters`` read and move them all, as the CUDA
-graphs of the train step do (``train/graph.py``: a launch issued under
-capture runs once per replay)."""
+Each wrapper module of ``COUNTED`` counts its kernel's launches in
+module-level integers whose names end in ``launches``, one where it issues
+a launch; ``read_counters`` finds and reads them all and ``add_counters``
+moves them, as the CUDA graphs of the train step do (``train/graph.py``: a
+launch issued under capture runs once per replay). A new counter needs no
+list of its own: its name is enough."""
 
 from __future__ import annotations
 
 import importlib
 
-COUNTERS = {
-    "stft": ("launches",),
-    "gru": ("launches", "res_launches", "proj_launches", "scan_launches",
-            "scan_res_launches", "bwd_launches"),
-    "lstm": ("launches", "res_launches", "scan_launches",
-             "scan_res_launches", "bwd_launches"),
-    "ctc": ("alpha_launches", "beta_launches"),
-    "topk": ("launches",),
-}
+COUNTED = ("stft", "gru", "lstm", "ctc", "topk")
 
 
 def _module(name: str):
@@ -26,9 +19,13 @@ def _module(name: str):
 
 
 def read_counters() -> dict:
-    """{(module, attribute): launches} of every wrapper."""
-    return {(m, a): getattr(_module(m), a)
-            for m, attrs in COUNTERS.items() for a in attrs}
+    """{(module, attribute): launches} of every wrapper's counters."""
+    out = {}
+    for m in COUNTED:
+        mod = _module(m)
+        out.update(((m, a), n) for a, n in sorted(vars(mod).items())
+                   if a.endswith("launches") and type(n) is int)
+    return out
 
 
 def add_counters(delta: dict) -> None:
@@ -36,3 +33,8 @@ def add_counters(delta: dict) -> None:
     for (m, a), n in delta.items():
         mod = _module(m)
         setattr(mod, a, getattr(mod, a) + n)
+
+
+def reset_counters() -> None:
+    """Every counter to 0."""
+    add_counters({c: -n for c, n in read_counters().items()})

@@ -38,7 +38,15 @@ graph of the cache. Graphs replay one at a time on one stream, and each
 replay's outputs are cloned before anything else runs, so a graph may
 reuse another's scratch; the static inputs (one batch a shape, outside
 the pool) and outputs (one step's metrics a shape) stay allocated while
-the cache lives.
+their graph is cached. The cache holds at most ``max_graphs`` graphs
+(``MAX_GRAPHS`` unless set) and evicts the least recently replayed one to
+capture a new shape; an evicted shape seen again is captured again at
+once (its warm-up has run). The bound caps the graph execs and static
+inputs; the pool keeps its high-water mark, which grows when a capture
+needs blocks larger than the pool has free: on an H100, 16 graphs of the
+default model over 2-17 s buckets in rising order grew it by about half
+a GiB a graph, and smaller shapes after them by nothing (PERF.md,
+``chip_smoke.py``'s ``spd_cache``).
 
 Launch counts: a wrapper counts a launch when it issues it, which under
 capture happens once per graph. The cache reads every counter
@@ -63,6 +71,7 @@ A capture or replay that fails raises; no eager step stands in for it.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Callable
@@ -71,6 +80,8 @@ import torch
 
 from deepspeech_tpu_torch.ops.cuda import add_counters, read_counters
 
+MAX_GRAPHS = 16  # graphs a cache holds at most (module docstring)
+
 
 @dataclasses.dataclass
 class _Graph:
@@ -78,7 +89,6 @@ class _Graph:
     inputs: dict          # static inputs, one per batch key
     outputs: dict         # static outputs: the step's metrics
     launches: dict        # kernel launches of one replay, by counter
-    capture_s: float      # host seconds the capture took
 
 
 def _key(batch: dict, shared: dict) -> tuple:
@@ -100,11 +110,13 @@ class StepGraphs:
                  generator: torch.Generator | None):
         self.train_step, self.state, self.generator = (train_step, state,
                                                        generator)
+        self.max_graphs = MAX_GRAPHS
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(state.step.device)
-        self.graphs: dict = {}
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
         self.warm: set = set()
-        self.eager_steps = self.replays = 0
+        self.capture_s: list = []  # every capture's host seconds
+        self.eager_steps = self.replays = self.evictions = 0
 
     def __call__(self, batch: dict, shared: dict | None = None) -> dict:
         shared = shared or {}
@@ -116,7 +128,12 @@ class StepGraphs:
                 self.eager_steps += 1
                 return self.train_step(self.state, {**batch, **shared},
                                        generator=self.generator)
+            while len(self.graphs) >= self.max_graphs:
+                self.graphs.popitem(last=False)
+                self.evictions += 1
             g = self.graphs[key] = self._capture(batch, shared)
+        else:
+            self.graphs.move_to_end(key)
         for k, v in batch.items():
             g.inputs[k].copy_(v, non_blocking=True)
         g.graph.replay()
@@ -138,13 +155,14 @@ class StepGraphs:
         finally:
             after = read_counters()
             add_counters({c: before[c] - n for c, n in after.items()})
+        self.capture_s.append(time.perf_counter() - t0)
         return _Graph(graph, inputs, outputs,
                       {c: n - before[c] for c, n in after.items()
-                       if n != before[c]},
-                      time.perf_counter() - t0)
+                       if n != before[c]})
 
     def stats(self) -> dict:
-        """Graphs held, capture seconds per shape, eager steps, replays."""
-        return {"graphs": len(self.graphs),
-                "capture_s": [g.capture_s for g in self.graphs.values()],
-                "eager_steps": self.eager_steps, "replays": self.replays}
+        """Graphs held, every capture's seconds, evictions, eager steps,
+        replays."""
+        return {"graphs": len(self.graphs), "capture_s": list(self.capture_s),
+                "evictions": self.evictions, "eager_steps": self.eager_steps,
+                "replays": self.replays}

@@ -36,8 +36,10 @@ persistent launches, one launch a step), the f32 layers, K8/K9 on both
 routes, K1 and K10, each captured after an eager warm-up and replayed on
 new inputs bit-equal to eager calls; a pageable copy under capture raises;
 ``StepGraphs`` replays draw what eager steps draw and count their
-launches, and a capture that fails raises; the k-step multi-step of a
-small GRU and LSTM model, f32 and bf16, against as many eager steps.
+launches, and a capture that fails raises; a cache of one graph evicts
+and captures again; the k-step multi-step of a small GRU and LSTM model,
+f32 and bf16, against as many eager steps, and with the LR set between
+groups and the device noise bank read in place, bit-equal to them.
 """
 
 import contextlib
@@ -1406,6 +1408,122 @@ def test_multi_step_replays_match_eager_steps(dev, cell, dtype):
           f"gap {max(gaps.values()):.2e} ({max(gaps, key=gaps.get)})")
     assert max(gaps.values()) <= 1e-5, gaps
     assert not mtb["step_skipped"].any()
+
+
+def test_multi_step_follows_set_lr_and_the_noise_bank(dev):
+    """``make_multi_train_step`` at k 2 over three groups of one shape
+    with ``set_lr`` between the groups (the checkpoint anneal: the replays
+    of the graph captured at the first LR read the new one) and the device
+    noise mix reading a noise bank passed as ``shared``, against six eager
+    ``train_step`` calls with the same LRs set at the same places, 2 x
+    BiGRU-64 f32, cuDNN deterministic in both runs: the losses, every
+    parameter, BatchNorm buffer and momentum trace, the step and the
+    generator's state equal (torch.equal)."""
+    from deepspeech_tpu_torch.data import stack_microbatches
+    from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.train.optim import build_optimizer, set_lr
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_multi_train_step,
+                                                 make_train_step)
+
+    cfg = StepConfig(device_noise_prob=0.7, device_noise_limit=0.3)
+    host = _spd_batches(6)
+    rng = np.random.default_rng(12)
+    width = 2 * host[0]["audio"].shape[1]
+    shared = {"noise_bank": torch.from_numpy(
+        (0.3 * rng.standard_normal((3, width))).astype(np.float32)).to(dev),
+        "noise_bank_lengths": torch.tensor([width, width // 2, width // 3],
+                                           dtype=torch.int32, device=dev)}
+    lrs = (3e-3, 1.5e-3, 1e-3)
+    torch.manual_seed(4)
+    init, _ = build_model("gru", 29, 64, 2, compute_dtype="float32",
+                          device="cuda")
+    init = {k: v.clone() for k, v in init.state_dict().items()}
+    runs = []
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graphed in (False, True):
+            model, _ = build_model("gru", 29, 64, 2, compute_dtype="float32",
+                                   device="cuda")
+            model.load_state_dict(init)
+            opt = build_optimizer("sgd", lr=lrs[0], momentum=0.9,
+                                  max_norm=100.0)
+            state = TrainState.create(model, opt)
+            gen = torch.Generator(device="cuda").manual_seed(21)
+            multi = make_multi_train_step(model, opt, cfg)
+            step = make_train_step(model, opt, cfg)
+            losses = []
+            for g, lr in enumerate(lrs):
+                set_lr(state.opt_state, lr)
+                group = host[2 * g:2 * g + 2]
+                if graphed:
+                    stacked, live = stack_microbatches(group, 2)
+                    m = multi(state, {k: torch.from_numpy(v).cuda()
+                                      for k, v in stacked.items()}, gen, live,
+                              shared)
+                    losses += list(m["loss"])
+                else:
+                    for b in group:
+                        m = step(state, {**{k: torch.from_numpy(v).cuda()
+                                            for k, v in b.items()},
+                                         **shared}, generator=gen)
+                        losses.append(m["loss"])
+            if graphed:
+                stats = multi.graphs.stats()
+                assert (stats["graphs"], stats["eager_steps"],
+                        stats["replays"]) == (1, 1, 5)
+            torch.cuda.synchronize()
+            runs.append((model, state, gen, torch.stack(losses)))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    (ma, sa, ga, la), (mb, sb, gb, lb) = runs
+    assert torch.equal(la, lb), (la, lb)
+    for (name, a), (_, b) in zip(ma.state_dict().items(),
+                                 mb.state_dict().items()):
+        assert torch.equal(a, b), name
+    for a, b in zip(sa.opt_state["trace"], sb.opt_state["trace"]):
+        assert torch.equal(a, b)
+    assert torch.equal(sa.step, sb.step) and int(sb.step) == 6
+    assert sb.opt_state["lr_host"] == lrs[-1]
+    assert torch.equal(ga.get_state(), gb.get_state())
+
+
+def test_step_graphs_evict_the_least_recent(dev):
+    """A cache of one graph over two alternating shapes: each shape warms
+    up eagerly once, then every change of shape evicts the other graph and
+    captures anew; the draws equal an eager run's and K1's counter counts
+    every step once."""
+    import types
+
+    from deepspeech_tpu_torch.ops.cuda import stft
+    from deepspeech_tpu_torch.train.graph import StepGraphs
+
+    batches = [{"audio": torch.from_numpy(np.random.default_rng(i)
+                                          .standard_normal((3, n)).astype(
+                                              np.float32)).to(dev)}
+               for i, n in enumerate((4000, 4000, 6000, 6000, 4000, 6000,
+                                      6000))]
+    state = types.SimpleNamespace(step=torch.zeros((), dtype=torch.int64,
+                                                   device=dev))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    graphs = StepGraphs(_fake_step, state, gen)
+    graphs.max_graphs = 1
+    before = stft.launches
+    got = [graphs(b) for b in batches]
+    assert stft.launches == before + len(batches)
+    stats = graphs.stats()
+    assert (stats["graphs"], stats["evictions"], len(stats["capture_s"]),
+            stats["eager_steps"], stats["replays"]) == (1, 3, 4, 2, 5)
+    ref_state = types.SimpleNamespace(step=torch.zeros((), dtype=torch.int64,
+                                                       device=dev))
+    ref_gen = torch.Generator(device=dev).manual_seed(6)
+    for g, b in zip(got, batches):
+        w = _fake_step(ref_state, b, ref_gen)
+        assert torch.equal(g["draw"], w["draw"])
+        torch.testing.assert_close(g["mag"], w["mag"], rtol=0, atol=0)
+    assert torch.equal(gen.get_state(), ref_gen.get_state())
+    assert int(state.step) == len(batches)
 
 
 def _dp_batch():

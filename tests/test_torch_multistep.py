@@ -266,6 +266,51 @@ def test_lr_tensor_set_get_and_optax_leaves():
                                                  before))
 
 
+def test_read_counters_finds_every_launch_counter():
+    """``ops.cuda.read_counters`` reads every wrapper's ``*launches``
+    integer, a new one too, with no list to keep (a counter it missed
+    would not move under a graph's replays); ``reset_counters`` zeroes
+    them."""
+    from deepspeech_tpu_torch.ops.cuda import (read_counters, reset_counters,
+                                               stft)
+
+    names = set(read_counters())
+    assert {("stft", "launches"), ("gru", "bwd_launches"),
+            ("gru", "proj_launches"), ("lstm", "scan_res_launches"),
+            ("ctc", "alpha_launches"), ("ctc", "beta_launches"),
+            ("topk", "launches")} <= names and len(names) == 15
+    stft.extra_launches = 3
+    try:
+        assert read_counters()[("stft", "extra_launches")] == 3
+        reset_counters()
+        assert set(read_counters().values()) == {0}
+    finally:
+        del stft.extra_launches
+
+
+@pytest.mark.parametrize("k, calls, started", [
+    (1, [(4, 1), (5, 1)], [False, True]),
+    (1, [(6, 1)], [False]),            # resumed past the start
+    (4, [(4, 4)], [True]),             # the start inside the group
+    (4, [(0, 4), (8, 4)], [False, False]),
+])
+def test_profiler_starts_at_its_step_or_group(tmp_path, k, calls, started):
+    """``--profile-start 5``: at k 1 the trace starts at step 5 only (a run
+    resumed past it takes none, as the JAX CLI's ``step ==
+    profile_start``); at k > 1 with the group that holds step 5."""
+    from deepspeech_tpu_torch.cli.train import Profiler
+
+    prof = Profiler(str(tmp_path), 5, 2, torch.device("cpu"),
+                    say=lambda *a: None)
+    for (step, steps), want in zip(calls, started):
+        prof.step(step, steps)
+        assert (prof.prof is not None) == want, (k, step)
+    if prof.prof is not None:
+        prof.step(8, k)
+        assert prof.path == str(tmp_path / "trace_steps_5_7.json")
+        assert os.path.exists(prof.path)
+
+
 @pytest.fixture(scope="module")
 def manifest(tmp_path_factory):
     """6 utterances in two audio buckets: 3 batches of 2, so that a group
