@@ -255,6 +255,7 @@ sleeping kernel (``device_ms``).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import importlib
@@ -1804,12 +1805,9 @@ def phase_forward(torch, counts, floor, cell="gru", hidden=HIDDEN,
     return model, meta
 
 
-def device_busy(torch, fn) -> tuple[list, float, float]:
-    """``fn`` once under torch.profiler -> (its device ops as (start us,
-    end us, name), the trace timeline's span from the first device op to
-    the end of the last, the busy time within it: the union of kernel,
-    memcpy and memset intervals); ([], 0, 0) where the trace holds no
-    device op."""
+def trace_events(torch, fn) -> list:
+    """``fn`` once under torch.profiler (CPU and CUDA activities) -> the
+    Chrome trace's events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1821,19 +1819,39 @@ def device_busy(torch, fn) -> tuple[list, float, float]:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    ops = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
-                 for e in events if e.get("ph") == "X" and e.get("cat") in
-                 ("kernel", "gpu_memcpy", "gpu_memset"))
+            return json.load(f)["traceEvents"]
+
+
+def device_ops(events: list) -> list:
+    """The device ops of a trace's ``events`` as (start us, end us, name),
+    in order."""
+    return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                   e["name"]) for e in events if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def busy_of(ops: list) -> tuple[float, float]:
+    """(the span from the first of ``ops`` to the end of the last, the busy
+    time within it: the union of their intervals); (0, 0) for none."""
     if not ops:
-        return [], 0.0, 0.0
+        return 0.0, 0.0
     busy, (lo, hi) = 0.0, ops[0][:2]
     for start, end, _ in ops[1:]:
         if start > hi:
             busy, lo = busy + hi - lo, start
         hi = max(hi, end)
     busy += hi - lo
-    return ops, max(end for _, end, _ in ops) - ops[0][0], busy
+    return max(end for _, end, _ in ops) - ops[0][0], busy
+
+
+def device_busy(torch, fn) -> tuple[list, float, float]:
+    """``fn`` once under torch.profiler -> (its device ops as (start us,
+    end us, name), the trace timeline's span from the first device op to
+    the end of the last, the busy time within it: the union of kernel,
+    memcpy and memset intervals); ([], 0, 0) where the trace holds no
+    device op."""
+    ops = device_ops(trace_events(torch, fn))
+    return (ops, *busy_of(ops))
 
 
 def profile_run(torch, label, fn, ms: float, floor: dict):
@@ -4592,7 +4610,7 @@ def phase_multi_gpu(torch, step12: dict) -> dict:
 # most, the bucket switch); config 4 one full group. The timings: SPD_TIMED
 # steps back to back each way, and SPD_PROFILED under the profiler
 SPD_K, SPD_SHORT, SPD_SHORT_AUDIO = 4, 2, 100_000
-SPD_TIMED, SPD_PROFILED, SPD_TRACE_TRIES = 8, 4, 3
+SPD_TIMED, SPD_PROFILED = 8, 4
 # the replayed run against the eager run of the same batches, both with
 # cuDNN's deterministic algorithms (torch.backends.cudnn.deterministic):
 # the replays run the same kernels on the same state, so the steps'
@@ -4617,6 +4635,44 @@ TRACED = (("K1", r"stft_(fft|dft)_kernel", ("stft_mag",)),
 # eager warm-up, a capture and a replay at each of SPD_CACHE_SECONDS
 # audio buckets, targets of 15 labels a second (LibriSpeech's read speech)
 SPD_CACHE_SECONDS = tuple(range(2, 18))
+
+
+def spd_profile(torch, one) -> tuple[list, dict]:
+    """SPD_PROFILED calls of ``one`` (a train step) under the profiler,
+    after one call more and a marker (a sleeping kernel) in the same
+    trace, so that what the start of a window loses is not counted (in
+    the whole script a window of 4 steps held 3 K1 records in each of 3
+    profiles, eager and replayed; the phase alone held 4). -> (the device
+    ops after the marker, the
+    launch counters' moves over those calls). Where the marker is missing,
+    or a row of TRACED disagrees, the trace's names and categories of that
+    row's kernels before and after the marker are logged."""
+    box = {}
+
+    def fn():
+        one()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        box["before"] = read_counts()
+        for _ in range(SPD_PROFILED):
+            one()
+
+    events = trace_events(torch, fn)
+    counted = {k: n - box["before"][k] for k, n in read_counts().items()}
+    ops = device_ops(events)
+    marks = [start for start, _, name in ops if "spin_kernel" in name]
+    after = [op for op in ops if marks and op[0] > marks[-1]]
+    traced = traced_launches(after, counted)
+    if not marks or any(t != c for t, c in traced.values()):
+        for row, rx, _ in TRACED:
+            seen = collections.Counter(
+                (e.get("cat"), bool(marks) and float(e["ts"]) > marks[-1])
+                for e in events if e.get("ph") == "X"
+                and re.search(rx, e.get("name", "")))
+            log(f"trace of {SPD_PROFILED} steps after a warm-up: {row} "
+                f"(category, after the marker): {dict(seen)}; counted "
+                f"{traced[row][1]}; marker {'found' if marks else 'missing'}")
+    return after, counted
 
 
 def traced_launches(ops: list, counted: dict) -> dict:
@@ -4736,21 +4792,10 @@ def spd_run(torch, init: dict, hidden: int, host: list, how: str,
             events.append((start, end))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        # the trace loses a record now and then (one train step's device
-        # ops read 1,527 and 1,528 in two runs of the same script): a
-        # profile whose kernels disagree with the counters is taken again,
-        # up to SPD_TRACE_TRIES times, and every disagreeing reading logged
-        for attempt in range(1, SPD_TRACE_TRIES + 1):
-            before = read_counts()
-            ops, span, busy = device_busy(torch, lambda: [
-                one() for _ in range(SPD_PROFILED)])
-            counted = {k: n - before[k] for k, n in read_counts().items()}
-            traced = traced_launches(ops, counted)
-            if all(t == c for t, c in traced.values()):
-                break
-            log(f"{how}, profile {attempt}: the trace's kernels against "
-                f"the counters {traced}")
-        run.update(traced=traced, trace_tries=attempt,
+        ops, counted = spd_profile(torch, one)
+        span, busy = busy_of(ops)
+        traced = traced_launches(ops, counted)
+        run.update(traced=traced,
             ms=float(np.median([a.elapsed_time(b) for a, b in events])),
             host_ms=1e3 * wall / SPD_TIMED, issue_ms=1e3 * issue / SPD_TIMED,
             host_idle=1.0 - issue / wall,
@@ -4889,8 +4934,7 @@ def phase_steps_per_dispatch(torch) -> dict:
             f"{SPD_PROFILED} replayed steps (counted): "
             + ", ".join(f"{row} {t} ({c})" for row, (t, c)
                         in p["traced"].items())
-            + f" (profile {e['trace_tries']} eager, {p['trace_tries']} "
-            f"replayed); host {e['host_ms']:.3f} / "
+            + f"; host {e['host_ms']:.3f} / "
             f"{p['host_ms']:.3f} ms a step, issuing {e['issue_ms']:.3f} / "
             f"{p['issue_ms']:.3f} ms of it (host idle {e['host_idle']:.2%} / "
             f"{p['host_idle']:.2%}); device idle {e['device_idle']:.2%} / "
