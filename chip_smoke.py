@@ -205,9 +205,29 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    tolerances, the launches of a step (K1 1, K2 with residuals 6, K5 6,
    K8 1, K9 1; no K4 at model 2), the collectives of a step, the model-2
    ranks' K2 and K5 launches each held to its plain version on its
-   inputs, the time-sliced step times; then the data-parallel step at
-   world size 1 over NCCL against phase 12's step time; where the machine
-   has two cards, data 2 over NCCL a card a rank;
+   inputs, the time-sliced step times, the replicated leaves bit-equal
+   across the model-2 ranks (and which raw gradients differed before
+   the model group's broadcast); then the data-parallel step at world size
+   1 over NCCL against phase 12's step time, and its
+   --steps-per-dispatch 4 replays with the NCCL collectives captured,
+   bit-equal to eager steps under cuDNN deterministic, the mesh's
+   collectives counted per replay; where the machine has two cards, data
+   2 over NCCL a card a rank;
+22a'. the rest of the JAX mesh rule (phase_mesh_model): the single-process
+   references of the default model, the unidirectional LSTM-800 (bf16)
+   and cnn (f32, dropout 0.1) at phase 12's batch, under cuDNN's
+   deterministic algorithms; four rank processes on cuda:0 over gloo at
+   data 1 x model 4 on the default model (every RNN tensor gate-sharded,
+   1/4 a rank, gathered whole before its layer), every step held to the
+   reference near bit for bit (MESH_TOLS), the launches of a step against
+   phase 12's, the gathers counted, each rank's K1, K2 (D=2), K5, K8 and
+   K9 launches of its first step held to plain; two ranks at model 2 on
+   the LSTM (K1, K3 and K7 at D=1, K8, K9; its head class-sharded) and on
+   cnn (K1, K8, K9; its head sharded on input channels) likewise; each
+   model group's replicated leaves bit-equal after the steps; the ranks'
+   step times (time-sliced: not a scaling figure); then two gloo ranks at
+   data 2 at
+   --steps-per-dispatch 2 against k 1 (eager lanes, logged);
 22b. --steps-per-dispatch 4 (phase_steps_per_dispatch): the default model
    (bf16, batch 20 x 7.5 s, SGD-Nesterov, clip 100) through two full
    groups of 4 and a short group of 2 batches of a shorter bucket (a second
@@ -244,8 +264,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    and K9's their device time, the chain floor and F.ctc_loss's device
    time, K9's the layer's times too; the kernels of phase 22b add their
    launches there, ``launches_steps_per_dispatch``), after a line of the
-   serving, CNN, data-path, multi-GPU, steps-per-dispatch and multi-rank
-   test figures, then the device line last.
+   serving, CNN, data-path, multi-GPU, mesh-model, steps-per-dispatch and
+   multi-rank test figures, then the device line last.
 
 No phase catches its own failure: a mismatch raises and the exit is
 non-zero. Times are CUDA-event medians with warm L2; K1's and K10's (and
@@ -899,14 +919,15 @@ def plain_path(only: tuple = ()):
 @contextlib.contextmanager
 def recorded(names: tuple):
     """Inside, each wrapper named in ``names`` (``stft_mag``, ``gru_layer``,
-    ``gru_bwd``, ``ctc_alpha``, ``ctc_beta``) records every call: {name:
-    [(args, kwargs, result)]}, tensors cloned, so a launch of the path
-    itself can be held to its plain version on its own inputs
-    afterwards."""
-    from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
+    ``gru_bwd``, ``lstm_layer``, ``lstm_bwd``, ``ctc_alpha``,
+    ``ctc_beta``) records every call: {name: [(args, kwargs, result)]},
+    tensors cloned, so a launch of the path itself can be held to its
+    plain version on its own inputs afterwards."""
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft
 
     mods = {"stft_mag": stft, "gru_layer": gru, "gru_bwd": gru,
-            "ctc_alpha": ctc, "ctc_beta": ctc}
+            "lstm_layer": lstm, "lstm_bwd": lstm, "ctc_alpha": ctc,
+            "ctc_beta": ctc}
     calls = {name: [] for name in names}
     saved = {name: getattr(mods[name], name) for name in names}
 
@@ -938,13 +959,16 @@ def hold_recorded(torch, calls: dict) -> dict:
     residuals g and hn, stored in bf16, within one bf16 ulp, BF16_ULP x
     max(1, max|reference|): hn = W_hn h + b_hn is not bounded by 1, and an
     ulp at [1, 2) is 2^-7), K5's outputs at GRU_BWD_TOL x max(1,
+    max|reference|), K3 at LSTM_TOL (its cell stream c x max(1, max|c|),
+    as ``hold_fused``), K7's outputs at LSTM_BWD_TOL x max(1,
     max|reference|), K8's alphas and loss and K9's logit gradient at
     CTC_TOL (non-finite entries in the same places) -> {wrapper: (launches
     held, the largest max_abs_err)}."""
-    from deepspeech_tpu_torch.ops.cuda import ctc, gru, stft
+    from deepspeech_tpu_torch.ops.cuda import ctc, gru, lstm, stft
 
     plain = {"stft_mag": stft.plain, "gru_layer": gru.plain,
-             "gru_bwd": gru.plain_bwd, "ctc_alpha": ctc.plain_alpha,
+             "gru_bwd": gru.plain_bwd, "lstm_layer": lstm.plain,
+             "lstm_bwd": lstm.plain_bwd, "ctc_alpha": ctc.plain_alpha,
              "ctc_beta": ctc.plain_beta}
     out = {}
     for name, seen in calls.items():
@@ -965,7 +989,13 @@ def hold_recorded(torch, calls: dict) -> dict:
                 if name == "gru_bwd":
                     tol = GRU_BWD_TOL[str(args[1].dtype).split(".")[-1]] \
                         * scale
-                if name in ("gru_layer", "gru_bwd"):
+                if name == "lstm_layer":  # (out, c, g)
+                    tol = LSTM_TOL[str(args[0].dtype).split(".")[-1]] * (
+                        scale if i == 1 else 1.0)
+                if name == "lstm_bwd":  # args (dout, g, c, w_hh, lengths)
+                    tol = LSTM_BWD_TOL[str(args[1].dtype).split(".")[-1]] \
+                        * scale
+                if name in RNN_HELD:
                     if not err <= tol:
                         raise AssertionError(f"{name} at "
                                              f"{tuple(args[0].shape)}"
@@ -977,6 +1007,39 @@ def hold_recorded(torch, calls: dict) -> dict:
                         **(STFT_TOL if name == "stft_mag" else CTC_TOL))
         out[name] = (len(seen), worst)
     return out
+
+
+# the RNN wrappers ``recorded`` can hold, and where in each one's arguments
+# its directions D and rows B sit: (argument, dim) of each
+RNN_HELD = {"gru_layer": ((1, 0), (0, 1)), "lstm_layer": ((1, 0), (0, 1)),
+            "gru_bwd": ((0, 0), (0, 2)), "lstm_bwd": ((0, 0), (0, 2))}
+
+
+def held_shapes(calls: dict) -> dict:
+    """{wrapper: {"directions": [D ...], "rows": [B ...]}} of the launches
+    ``recorded`` kept (the rows alone for K1, K8 and K9: the batch's)."""
+    out = {}
+    for name, seen in calls.items():
+        (di, dd), (ri, rd) = RNN_HELD.get(name, ((None, 0), (0, 0)))
+        out[name] = {"rows": sorted({a[ri].shape[rd] for a, _, _ in seen})}
+        if di is not None:
+            out[name]["directions"] = sorted({a[di].shape[dd]
+                                              for a, _, _ in seen})
+    return out
+
+
+def check_held(label: str, got: dict, names: tuple, ndir: int,
+               rows: int) -> None:
+    """A rank's first-step launches held to plain (``rank_steps``): each
+    wrapper in ``names`` held LAYERS times (an RNN wrapper) or once, at
+    ``ndir`` directions and ``rows`` rows."""
+    for name in names:
+        h = got["held"][name]
+        n = LAYERS if name in RNN_HELD else 1
+        if (h["launches"] != n or h["rows"] != [rows]
+                or h.get("directions", [ndir]) != [ndir]):
+            raise AssertionError(f"{label}: {name} held {h}, expected "
+                                 f"{n} launches at D={ndir}, B {rows}")
 
 
 # the wrappers' launch counters (``ops.cuda.read_counters``) by the names
@@ -4226,20 +4289,32 @@ MULTI_STEPS, MULTI_TIMED = 3, 4
 MULTI_DRIFT_TOL = 1e-2
 
 
-def multi_gpu_reference(torch, cell_hidden: int, batch_size: int,
-                        seed: int, path: str) -> dict:
-    """The single-process bf16 train step of 6 x BiGRU-<cell_hidden> on
-    ``batch_size`` x 7.5 s, MULTI_STEPS times from seeded weights with the
-    augmentation drawn from a generator seeded with SEED; saved to ``path``
-    (the init, the batch, each step's loss, grad norm and parameters, on
-    the host) for the ranks -> its first step's metrics and the median
-    time of steps 2-MULTI_STEPS (CUDA events)."""
+def gru_spec(hidden: int) -> dict:
+    """The bf16 6 x BiGRU-<hidden> of the multi-GPU phases."""
+    return dict(rnn_type="gru", hidden_size=hidden, bidirectional=True,
+                compute_dtype="bfloat16")
+
+
+def multi_gpu_reference(torch, spec: dict, batch_size: int, seed: int,
+                        path: str, deterministic: bool = False) -> dict:
+    """The single-process train step of the model ``spec`` names
+    (``build_model``'s keywords: 6 layers, CLASSES, seeded weights) on
+    ``batch_size`` x 7.5 s, MULTI_STEPS times with the augmentation (and a
+    CNN's dropout) drawn from a generator seeded with SEED, under cuDNN's
+    deterministic algorithms where ``deterministic``; saved to ``path``
+    (the spec, the init, the batch, each step's loss, grad norm and
+    parameters, on the host, and ``deterministic``) for the ranks -> its
+    first step's metrics and the median time of steps 2-MULTI_STEPS (CUDA
+    events)."""
+    from deepspeech_tpu_torch.models import build_model
     from deepspeech_tpu_torch.train.optim import build_optimizer
     from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
                                                  make_train_step)
 
     rng = np.random.default_rng(seed)
-    model, _ = default_model(torch, seed, "gru", cell_hidden)
+    model, _ = build_model(num_classes=CLASSES, hidden_layers=LAYERS,
+                           device="cuda", **spec)
+    random_weights(model, np.random.default_rng(seed))
     batch = train_batch(torch, rng, LABELS, batch_size)
     init = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
     optimizer = build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
@@ -4250,61 +4325,97 @@ def multi_gpu_reference(torch, cell_hidden: int, batch_size: int,
     for _ in range(MULTI_STEPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        m = step(state, batch, generator=gen)
-        end.record()
-        end.synchronize()
+        with cudnn_deterministic(torch, deterministic):
+            start.record()
+            m = step(state, batch, generator=gen)
+            end.record()
+            end.synchronize()
         times.append(start.elapsed_time(end))
         steps.append(dict(loss=m["loss"].item(),
                           grad_norm=m["grad_norm"].item(),
                           params={k: p.detach().to("cpu", copy=True)
                                   for k, p in model.named_parameters()}))
-    torch.save(dict(hidden=cell_hidden, init=init,
+    torch.save(dict(spec=spec, init=init,
                     batch={k: v.cpu() for k, v in batch.items()},
-                    steps=steps), path)
+                    steps=steps, deterministic=deterministic), path)
     return dict(steps[0], ms=float(np.median(times[1:])))
 
 
 def reference_model(torch, ref: dict):
-    """The bf16 6 x BiGRU model of a ``multi_gpu_reference`` file with its
-    init loaded, on the current card."""
+    """The model of a ``multi_gpu_reference`` file with its init loaded, on
+    the current card."""
     from deepspeech_tpu_torch.models import build_model
 
-    model, _ = build_model("gru", CLASSES, ref["hidden"], LAYERS,
-                           bidirectional=True, compute_dtype="bfloat16",
-                           device="cuda")
+    model, _ = build_model(num_classes=CLASSES, hidden_layers=LAYERS,
+                           device="cuda", **ref["spec"])
     model.load_state_dict(ref["init"])
     return model
+
+
+def replica_digests(torch, tensors) -> dict:
+    """{name: SHA-256 of the tensor's bytes}: a replicated leaf's bits, to
+    hold the ranks of a model group bit-equal."""
+    import hashlib
+
+    return {n: hashlib.sha256(t.detach().contiguous().cpu().view(
+        torch.uint8).numpy().tobytes()).hexdigest() for n, t in tensors}
 
 
 HELD = ("stft_mag", "gru_layer", "gru_bwd", "ctc_alpha", "ctc_beta")
 
 
-def rank_steps(torch, mesh, path: str, hold_kernels: bool = False,
-               extra: int = 0) -> dict:
-    """On this rank: the reference's model, sharded onto ``mesh``, stepped
-    on its data shard's rows with the generator seeded as the reference's,
-    each of the reference's steps held to it, then ``extra`` steps more;
-    the launches and collectives of the first step, every step's time
-    (CUDA events). ``hold_kernels``: the first step's K1, K2, K5, K8 and
-    K9 launches recorded and each held to its plain version on this
-    rank's own inputs (``hold_recorded``)."""
-    from deepspeech_tpu_torch.parallel import shard_state
+def rank_steps(torch, mesh, path: str, held: tuple = (), extra: int = 0,
+               tols: dict | None = None) -> dict:
+    """On this rank: the reference's model, sharded onto ``mesh`` by the
+    JAX rule, stepped on its data shard's rows with the generator seeded
+    as the reference's, each of the reference's steps held to it, then
+    ``extra`` steps more; the launches and collectives of the first step,
+    every step's time (CUDA events), each sharded tensor and momentum
+    checked to be this rank's 1/model of the whole, the digests of the
+    replicated parameters' gradients as the backward makes them in the
+    first step (before the model group's broadcast) and of every
+    replicated parameter and buffer after the steps
+    (``replica_digests``). ``held``: the wrappers whose first-step
+    launches are recorded and each held to its plain version on this
+    rank's own inputs (``hold_recorded``), with their directions and rows
+    (``held_shapes``). ``tols``: {"loss", "norm", "change"}: (the first
+    step's, the later steps') bounds of the loss and the grad norm
+    relative and of each parameter's error over its change; by default
+    phase 12's, the later steps' looser (the reference itself drifts
+    between runs under cuDNN's default algorithms). With the reference's
+    ``deterministic`` set, the steps run under cuDNN's deterministic
+    algorithms as it did."""
+    ref = torch.load(path, mmap=True)
+    tols = tols or dict(loss=(STEP_LOSS_TOL, MULTI_DRIFT_TOL),
+                        norm=(STEP_LOSS_TOL, MULTI_DRIFT_TOL),
+                        change=(STEP_GRAD_TOL, STEP_GRAD_TOL))
+    with cudnn_deterministic(torch, ref["deterministic"]):
+        return _rank_steps(torch, mesh, ref, held, extra, tols)
+
+
+def _rank_steps(torch, mesh, ref, held, extra, tols) -> dict:
+    from deepspeech_tpu_torch.parallel import (shard_dims, shard_slice,
+                                               shard_state)
     from deepspeech_tpu_torch.train.optim import build_optimizer
     from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
                                                  make_train_step)
 
-    ref = torch.load(path, mmap=True)
     model = reference_model(torch, ref)
     optimizer = build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
     state = shard_state(TrainState.create(model, optimizer), mesh)
+    dims = shard_dims(model)
     step = make_train_step(model, optimizer, StepConfig(), mesh)
     batch = mesh.data_rows({k: v.cuda() for k, v in ref["batch"].items()})
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     out = dict(loss_rel=[], norm_rel=[], param_worst=[], ms=[])
+    replicated = [(n, p) for n, p in model.named_parameters()
+                  if n not in dims]
+    raw: dict = {}
+    hooks = [p.register_hook(lambda g, n=n: raw.update(
+        replica_digests(torch, [(n, g)]))) for n, p in replicated]
     for k, want in enumerate(ref["steps"] + [None] * extra):
         first = k == 0
-        with (recorded(HELD) if first and hold_kernels
+        with (recorded(held) if first and held
               else contextlib.nullcontext({})) as calls:
             if first:
                 reset_counts()
@@ -4316,20 +4427,15 @@ def rank_steps(torch, mesh, path: str, hold_kernels: bool = False,
             end.record()
             end.synchronize()
         if first:
+            for h in hooks:
+                h.remove()
+            out["raw_replicas"] = raw
             out["launches"] = read_counts()
             out["collectives"] = dict(mesh.counts)
-            held = hold_recorded(torch, calls)
-            out["held"] = {k: dict(launches=n, max_abs_err=e)
-                           for k, (n, e) in held.items()}
-            # the directions of each K2 and K5 launch (w_ih's, dout's) and
-            # the rows each launch took
-            for name, at in (("gru_layer", 1), ("gru_bwd", 0)):
-                if name in calls:
-                    out["held"][name]["directions"] = sorted(
-                        {args[at].shape[0] for args, _, _ in calls[name]})
-            if "ctc_alpha" in calls:
-                out["held_rows"] = sorted({args[0].shape[0] for args, _, _
-                                           in calls["ctc_alpha"]})
+            shapes = held_shapes(calls)
+            out["held"] = {k: dict(shapes[k], launches=n, max_abs_err=e)
+                           for k, (n, e) in hold_recorded(torch,
+                                                          calls).items()}
             del calls
         out["ms"].append(start.elapsed_time(end))
         if want is None:
@@ -4340,37 +4446,52 @@ def rank_steps(torch, mesh, path: str, hold_kernels: bool = False,
                                / want["grad_norm"])
         worst = 0.0
         for name, p in model.named_parameters():
-            i = mesh.model_index if name in state.sharded else None
             full, init = want["params"][name], ref["init"][name]
-            if i is not None:
-                full, init = full[i:i + 1], init[i:i + 1]
+            if name in dims:
+                full = shard_slice(full, dims[name], mesh)
+                init = shard_slice(init, dims[name], mesh)
             moved = (full - init).abs().max().item()
             err = (p.detach().cpu() - full).abs().max().item()
             worst = max(worst, err / max(moved, 1e-30))
         out["param_worst"].append(worst)
-        tol = STEP_LOSS_TOL if first else MULTI_DRIFT_TOL
+        at = 0 if first else 1
         if bool(m["step_skipped"]) or not (
-                out["loss_rel"][-1] <= tol and out["norm_rel"][-1] <= tol
-                and worst <= STEP_GRAD_TOL):
+                out["loss_rel"][-1] <= tols["loss"][at]
+                and out["norm_rel"][-1] <= tols["norm"][at]
+                and worst <= tols["change"][at]):
             raise AssertionError(
                 f"rank {mesh.rank} step {k + 1} against the single-process "
                 f"step: loss rel {out['loss_rel'][-1]}, grad norm rel "
                 f"{out['norm_rel'][-1]}, parameters {worst} of their change, "
-                f"skipped {bool(m['step_skipped'])}")
-    halves = [n for n, p in model.named_parameters()
-              if n in state.sharded and p.shape[0] == 1]
-    if len(halves) != len(state.sharded):
-        raise AssertionError(f"rank {mesh.rank}: sharded {state.sharded}, "
-                             f"one direction held of {halves}")
-    out["sharded"] = len(state.sharded)
+                f"skipped {bool(m['step_skipped'])} (bounds {tols})")
+    # each sharded tensor and its momentum: this rank's 1/model of the whole
+    params = [n for n, _ in model.named_parameters()]
+    for name, dim in dims.items():
+        whole = ref["init"][name].shape
+        trace = state.opt_state["trace"][params.index(name)]
+        for what, t in (("parameter", dict(model.named_parameters())[name]),
+                        ("momentum", trace)):
+            shape = list(whole)
+            shape[dim] //= mesh.model
+            if list(t.shape) != shape or whole[dim] % mesh.model:
+                raise AssertionError(f"rank {mesh.rank}: {what} of {name} "
+                                     f"{tuple(t.shape)}, whole {whole}")
+    out["sharded"] = {n: [d, list(ref["init"][n].shape)]
+                      for n, d in dims.items()}
+    out["replicas"] = replica_digests(
+        torch, replicated + list(model.named_buffers()))
+    out["replicated_grad_bytes"] = sum(4 * p.numel() for _, p in replicated)
     return out
 
 
 def rank_main(argv) -> int:
-    """A rank process of phase_multi_gpu: ``--rank <job> <rank> <world>
-    <backend> <dir>``. Job ``gloo``: data 2 on the default model, then
-    model 2 on config 4; job ``nccl``: data 2 alone, a card a rank. Its
-    results go to ``<dir>/<job>_<rank>.json``."""
+    """A rank process of phase_multi_gpu or phase_mesh_model: ``--rank
+    <job> <rank> <world> <backend> <dir>``. Job ``gloo``: data 2 on the
+    default model, then model 2 on config 4; ``nccl``: data 2 alone, a
+    card a rank; ``mesh4`` (4 ranks): model 4 on the default model;
+    ``mesh2``: model 2 on the unidirectional LSTM-800, model 2 on
+    ``cnn``, then data 2 at --steps-per-dispatch MESH_SPD_K against k 1
+    (``spd_mesh_ranks``). Its results go to ``<dir>/<job>_<rank>.json``."""
     import datetime
 
     import torch
@@ -4387,12 +4508,27 @@ def rank_main(argv) -> int:
         timeout=datetime.timedelta(seconds=300))
     try:
         out = {"device": torch.cuda.get_device_name(dev)}
-        out["dp"] = rank_steps(torch, make_mesh(data=2, device=dev),
-                               os.path.join(d, "dp.pt"), job == "gloo")
+        if job == "mesh4":
+            out["m4"] = rank_steps(
+                torch, make_mesh(data=1, model=4, device=dev),
+                os.path.join(d, "m4.pt"), MESH_HELD["m4"], tols=MESH_TOLS)
+        elif job == "mesh2":
+            for key in ("lstm", "cnn"):
+                out[key] = rank_steps(
+                    torch, make_mesh(data=1, model=2, device=dev),
+                    os.path.join(d, f"{key}.pt"), MESH_HELD[key],
+                    tols=MESH_TOLS)
+            out["spd"] = spd_mesh_ranks(
+                torch, make_mesh(data=2, device=dev),
+                os.path.join(d, "m4.pt"), MESH_SPD_K)
+        else:
+            out["dp"] = rank_steps(torch, make_mesh(data=2, device=dev),
+                                   os.path.join(d, "dp.pt"),
+                                   HELD if job == "gloo" else ())
         if job == "gloo":
             out["tp"] = rank_steps(
                 torch, make_mesh(data=1, model=2, device=dev),
-                os.path.join(d, "tp.pt"), True)
+                os.path.join(d, "tp.pt"), HELD)
         with open(os.path.join(d, f"{job}_{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -4400,13 +4536,14 @@ def rank_main(argv) -> int:
     return 0
 
 
-def run_ranks(job: str, backend: str, d: str, timeout: int = 600) -> list:
-    """Two rank processes of this script on ``job``; every one stopped
-    before this returns or raises -> their results."""
+def run_ranks(job: str, backend: str, d: str, timeout: int = 600,
+              world: int = 2) -> list:
+    """``world`` rank processes of this script on ``job``; every one
+    stopped before this returns or raises -> their results."""
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank", job, str(r),
-         "2", backend, d], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(2)]
+         str(world), backend, d], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
     try:
         outs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -4419,7 +4556,7 @@ def run_ranks(job: str, backend: str, d: str, timeout: int = 600) -> list:
             raise AssertionError(f"{job} rank {r} exited {p.returncode}:\n"
                                  + text[-6000:])
     results = []
-    for r in range(2):
+    for r in range(world):
         with open(os.path.join(d, f"{job}_{r}.json")) as f:
             results.append(json.load(f))
     return results
@@ -4450,9 +4587,97 @@ def nccl_world_one(torch, d: str) -> dict:
                                  f"{mesh.groups['host']}: {n_valid} rows")
         out = rank_steps(torch, mesh, os.path.join(d, "dp.pt"),
                          extra=MULTI_TIMED + 1 - MULTI_STEPS)
+        out["spd"] = spd_mesh_ranks(torch, mesh, os.path.join(d, "dp.pt"),
+                                    SPD_K)
     finally:
         torch.distributed.destroy_process_group()
     return dict(out, ms=float(np.median(out["ms"][1:])))
+
+
+def spd_mesh_run(torch, mesh, ref: dict, host: list, k: int | None
+                 ) -> dict:
+    """The reference's model sharded onto ``mesh`` through ``host``'s
+    batches (this rank's data rows), under cuDNN's deterministic
+    algorithms, the generator seeded with SEED: ``k`` None a
+    ``train_step`` a batch, else groups of up to ``k`` batches of one
+    shape through ``make_multi_train_step(..., mesh)`` -> its launches,
+    collectives, metrics, state, momentum, generator state, whether the
+    lanes were captured and the graph cache's counts."""
+    from deepspeech_tpu_torch.parallel import shard_state
+    from deepspeech_tpu_torch.train.optim import build_optimizer
+    from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
+                                                 make_multi_train_step,
+                                                 make_train_step)
+
+    model = reference_model(torch, ref)
+    opt = build_optimizer("sgd", lr=3e-4, momentum=0.9, max_norm=100.0)
+    state = shard_state(TrainState.create(model, opt), mesh)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = [mesh.data_rows(b) for b in host]
+    with cudnn_deterministic(torch):
+        reset_counts()
+        mesh.counts.clear()
+        if k is None:
+            step = make_train_step(model, opt, StepConfig(), mesh)
+            ms = [step(state, {n: torch.from_numpy(v).cuda()
+                               for n, v in b.items()}, generator=gen)
+                  for b in rows]
+            m = {n: torch.stack([x[n] for x in ms]) for n in
+                 ("loss", "grad_norm", "step_skipped")}
+            multi = None
+        else:
+            multi = make_multi_train_step(model, opt, StepConfig(), mesh)
+            parts = [multi(state, stacked, gen, live)
+                     for stacked, live in spd_groups(torch, rows, k)]
+            m = {n: torch.cat([x[n] for x in parts]) for n in
+                 ("loss", "grad_norm", "step_skipped")}
+        torch.cuda.synchronize()
+    graphs = getattr(multi, "graphs", None)
+    return dict(launches=read_counts(), collectives=dict(mesh.counts),
+                metrics=m, state={n: v.clone() for n, v in
+                                  model.state_dict().items()},
+                opt=[t.clone() for t in state.opt_state["trace"]],
+                gen=gen.get_state(), captured=getattr(multi, "captured",
+                                                      None),
+                graphs=None if graphs is None else graphs.stats())
+
+
+def spd_mesh_ranks(torch, mesh, path: str, k: int) -> dict:
+    """--steps-per-dispatch ``k`` on this rank of ``mesh``: the reference's
+    model through ``k`` batches of its shape (at k 2 then one of a shorter
+    bucket: a full group, and a short one after the bucket switch) by
+    ``spd_mesh_run`` with ``k`` and with one ``train_step`` a batch: the
+    metrics, state, momentum and generator held bit-equal, the launches
+    and the mesh's collectives equal (a replay counts what it runs) ->
+    the readings."""
+    ref = torch.load(path, mmap=True)
+    rng = np.random.default_rng(SEED + 70)
+    batch = ref["batch"]["audio"].shape[0]
+    host = (spd_batches(torch, rng, k if k > 2 else 2, AUDIO_S, batch)
+            + ([] if k > 2 else spd_batches(torch, rng, 1,
+                                            SPD_SHORT_AUDIO, batch)))
+    eager = spd_mesh_run(torch, mesh, ref, host, None)
+    multi = spd_mesh_run(torch, mesh, ref, host, k)
+    unequal = ([n for n in eager["metrics"] if not torch.equal(
+        multi["metrics"][n], eager["metrics"][n])]
+        + [n for n, v in eager["state"].items()
+           if not torch.equal(multi["state"][n], v)]
+        + [f"trace {i}" for i, (a, b) in enumerate(zip(multi["opt"],
+                                                      eager["opt"]))
+           if not torch.equal(a, b)]
+        + ([] if torch.equal(multi["gen"], eager["gen"]) else ["generator"]))
+    if (unequal or multi["launches"] != eager["launches"]
+            or multi["collectives"] != eager["collectives"]
+            or eager["metrics"]["step_skipped"].any()):
+        raise AssertionError(
+            f"rank {mesh.rank}, --steps-per-dispatch {k} on data "
+            f"{mesh.data} x model {mesh.model} against a train_step a "
+            f"batch: {unequal} differ; launches {multi['launches']} / "
+            f"{eager['launches']}; collectives {multi['collectives']} / "
+            f"{eager['collectives']}")
+    return dict(batches=len(host), captured=multi["captured"],
+                graphs=multi["graphs"], launches=multi["launches"],
+                collectives=multi["collectives"])
 
 
 def phase_multi_gpu(torch, step12: dict) -> dict:
@@ -4475,10 +4700,11 @@ def phase_multi_gpu(torch, step12: dict) -> dict:
     dp_seed, tp_seed = SEED + 6, SEED + 26  # phase 12's and phase 20's
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        ref_dp = multi_gpu_reference(torch, HIDDEN, BATCH, dp_seed,
-                                     os.path.join(d, "dp.pt"))
-        ref_tp = multi_gpu_reference(torch, WIDE, WIDE_BATCH["gru"],
-                                     tp_seed, os.path.join(d, "tp.pt"))
+        ref_dp = multi_gpu_reference(torch, gru_spec(HIDDEN), BATCH,
+                                     dp_seed, os.path.join(d, "dp.pt"))
+        ref_tp = multi_gpu_reference(torch, gru_spec(WIDE),
+                                     WIDE_BATCH["gru"], tp_seed,
+                                     os.path.join(d, "tp.pt"))
         gc.collect()
         torch.cuda.empty_cache()
         log(f"multi-GPU references (single process, {MULTI_STEPS} steps "
@@ -4534,21 +4760,14 @@ def phase_multi_gpu(torch, step12: dict) -> dict:
                 # B 10 with D=2, model 2 at B 64 with D=1
                 held, ndir = got["held"], 2 if key == "dp" else 1
                 rows = [BATCH // 2] if key == "dp" else [WIDE_BATCH["gru"]]
-                for name in HELD:
-                    n = LAYERS if name.startswith("gru") else 1
-                    if (held[name]["launches"] != n
-                            or held[name].get("directions", [ndir]) != [ndir]
-                            or got["held_rows"] != rows):
-                        raise AssertionError(
-                            f"{label} rank {r}: {name} held {held[name]}, "
-                            f"rows {got['held_rows']}")
+                check_held(f"{label} rank {r}", got, HELD, ndir, rows[0])
                 log(f"{label}, rank {r}: K1, K2 (D={ndir}, with "
                     f"residuals), K5 (D={ndir}), K8 and K9 launches of its "
                     f"first step at B {rows[0]}, each held to the plain "
                     f"version on its inputs: {held}"
-                    + (f"; {got['sharded']} RNN tensors and their momenta "
-                       "held as one direction, (1, ...)" if key == "tp"
-                       else ""))
+                    + (f"; {len(got['sharded'])} tensors and their momenta "
+                       "held as 1/2 of the whole (the RNN's one direction, "
+                       "the head's 15 classes)" if key == "tp" else ""))
             ms = [float(np.median(res[key]["ms"][1:])) for res in ranks]
             out[key] = dict(
                 ms=ms, launches=ranks[0][key]["launches"],
@@ -4565,16 +4784,36 @@ def phase_multi_gpu(torch, step12: dict) -> dict:
                 "card (gloo through the host): not a scaling figure)")
             out[key]["held"] = {n: max(res[key]["held"][n]["max_abs_err"]
                                        for res in ranks) for n in HELD}
+            if key == "tp":
+                out[key]["replicas"] = hold_replicas(label, ranks, key)
         t0 = time.perf_counter()
         one = nccl_world_one(torch, d)
         if one["launches"] != want["dp"]:
             raise AssertionError(f"NCCL world-1 step: launches "
                                  f"{one['launches']}, expected {want['dp']}")
+        spd = one["spd"]
+        if not spd["captured"] or spd["graphs"] != dict(
+                spd["graphs"], graphs=1, eager_steps=1, replays=SPD_K - 1):
+            raise AssertionError(f"--steps-per-dispatch {SPD_K} at world "
+                                 f"size 1 over NCCL: {spd}")
+        log(f"--steps-per-dispatch {SPD_K} at world size 1 over NCCL: one "
+            f"group of {SPD_K} batches of phase 12's shape, {SPD_K - 1} "
+            f"replays of a graph whose collectives are NCCL nodes "
+            f"(capture {spd['graphs']['capture_s'][0]:.3f} s); metrics, "
+            f"state, momentum and generator bit-equal to a train_step a "
+            f"batch under cuDNN deterministic; the mesh's collectives over "
+            f"the {SPD_K} steps {spd['collectives']}, as the eager steps "
+            f"count them (a replay adds its graph's)")
         out["nccl_world_1"] = dict(ms=one["ms"], single_ms=step12["ms"],
                                    reference_ms=ref_dp["ms"],
                                    collectives=one["collectives"],
                                    loss_rel=max(one["loss_rel"]),
-                                   norm_rel=max(one["norm_rel"]))
+                                   norm_rel=max(one["norm_rel"]),
+                                   steps_per_dispatch=dict(
+                                       k=SPD_K, collectives=spd[
+                                           "collectives"],
+                                       capture_s=spd["graphs"][
+                                           "capture_s"]))
         log(f"data-parallel step at world size 1 over NCCL (every "
             f"collective on the card): {one['ms']:.3f} ms (median of steps "
             f"2-{MULTI_TIMED + 1}, CUDA events) against phase 12's "
@@ -4601,6 +4840,199 @@ def phase_multi_gpu(torch, step12: dict) -> dict:
         else:
             log("one card: data 2 over NCCL not run, scaling across cards "
                 "not measured")
+    return out
+
+
+def hold_replicas(label: str, ranks: list, key: str) -> dict:
+    """The ranks of one model group after their steps (``rank_steps``):
+    every replicated parameter and buffer bit-equal across them (their
+    digests), and the replicated parameters whose first-step gradients,
+    as each rank's backward made them, differed before the model group
+    broadcast them (the fault the broadcast repairs) -> the readings."""
+    reps = [r[key]["replicas"] for r in ranks]
+    differ = sorted(n for n in reps[0] if len({x[n] for x in reps}) > 1)
+    raws = [r[key]["raw_replicas"] for r in ranks]
+    raw = sorted(n for n in raws[0] if len({x[n] for x in raws}) > 1)
+    if differ:
+        raise AssertionError(f"{label}: replicated leaves differ across the "
+                             f"model group after the steps: {differ}")
+    nbytes = ranks[0][key]["replicated_grad_bytes"]
+    log(f"{label}: all {len(reps[0])} replicated parameters and buffers "
+        f"bit-equal across the {len(ranks)} ranks after the steps; the "
+        f"first step's gradients as each rank's backward made them "
+        f"differed in {len(raw)} of {len(raws[0])} replicated parameters "
+        f"({', '.join(raw) or 'none'}) before the model group's broadcast "
+        f"(one broadcast of {nbytes / 1e6:.3f} MB a step)")
+    return dict(leaves=len(reps[0]), raw_grads_differ=raw,
+                broadcast_bytes=nbytes)
+
+
+# phase_mesh_model: the gloo ranks' --steps-per-dispatch (eager lanes)
+MESH_SPD_K = 2
+# the wrappers each case's ranks hold to plain on their first step
+MESH_HELD = {"m4": HELD,
+             "lstm": ("stft_mag", "lstm_layer", "lstm_bwd", "ctc_alpha",
+                      "ctc_beta"),
+             "cnn": ("stft_mag", "ctc_alpha", "ctc_beta")}
+# the ranks' steps against the single-process step, both under cuDNN's
+# deterministic algorithms: each rank at data 1 runs the same kernels on
+# the same whole tensors and rows as the one process, the model group's
+# broadcast hands every rank its first rank's gradients of the replicated
+# parameters, and only the grad norm sums its squares in another order
+# (the sharded ones over the model group), which moves the update where
+# the norm clips: then a parameter near 1 (a BatchNorm scale) can round
+# to the next f32, an ulp that is ~1e-3 of its one-step change, and the
+# next steps' bf16 roundings carry it on. Readings on an NVIDIA H100 80GB
+# HBM3 at 700 W: model 4 (clipping from step 1) loss 0, 0, 1.8e-6 and
+# grad norm 6.3e-8, 6.3e-6, 6.3e-5 relative, parameters 8.0e-4, 3.3e-3,
+# 5.0e-3 of their change at steps 1-3; the LSTM (clipping at step 3)
+# equal for two steps, then 8.2e-8 and 2.5e-4; `cnn` (no clip) equal at
+# every step.
+# Bounds about 5 times those, (first step, after):
+MESH_TOLS = dict(loss=(1e-6, 1e-5), norm=(1e-6, 5e-4), change=(4e-3, 2e-2))
+
+
+def phase_mesh_model(torch) -> dict:
+    """The JAX rule's other shardings on the card (``parallel/``), ranks of
+    this script time-sliced on cuda:0 over gloo (``run_ranks``): four
+    ranks at data 1 x model 4 on the default model (bf16, phase 12's batch
+    of 20; every RNN tensor gate-sharded, 1/4 a rank, and gathered whole
+    before its layer; the 30-class head replicated: K1, K2 with residuals
+    at D=2, K5, K8, K9); two at model 2 on the unidirectional LSTM-800
+    (bf16, gate-sharded, the head 15 classes a rank: K1, K3 with
+    residuals and K7 at D=1, K8, K9) and on ``cnn`` (f32, dropout 0.1, the
+    head 400 input channels a rank: K1, K8, K9). Each rank's first-step
+    launches of those kernels held to their plain versions on its inputs
+    (``MESH_HELD``, with their directions and rows); each rank's every
+    step held to the single-process step (``multi_gpu_reference``), both
+    under cuDNN's deterministic algorithms, at MESH_TOLS; its launches a
+    step against phase 12's, its collectives (the gathers by tag), its
+    tensors 1/model of the whole, the step times (time-sliced ranks under
+    deterministic algorithms: not a scaling figure), and the replicated
+    leaves bit-equal across each model group (``hold_replicas``); then the
+    two ranks at data 2 on the default model at --steps-per-dispatch
+    MESH_SPD_K against k 1 (gloo: the lanes run eagerly, logged) -> the
+    phase's figures."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cases = {
+        "m4": (gru_spec(HIDDEN), SEED + 6, 4, "data 1 x model 4: "
+               f"{LAYERS} x BiGRU-{HIDDEN} bf16, batch {BATCH}",
+               expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1,
+                             gru_fwd=LAYERS, gru_fwd_res=LAYERS,
+                             gru_bwd=LAYERS),
+               {"gather_rnn": 4 * LAYERS, "replicas": 1, "grad_norm": 1,
+                "nan": 1}),
+        "lstm": (dict(rnn_type="lstm", hidden_size=HIDDEN,
+                      bidirectional=False, compute_dtype="bfloat16"),
+                 SEED + 16, 2, f"data 1 x model 2: {LAYERS} x "
+                 f"LSTM-{HIDDEN} (unidirectional) bf16, batch {BATCH}",
+                 expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1,
+                               lstm_fwd=LAYERS, lstm_fwd_res=LAYERS,
+                               lstm_bwd=LAYERS),
+                 {"gather_rnn": 4 * LAYERS, "gather_head": 1,
+                  "replicas": 1, "grad_norm": 1, "nan": 1}),
+        "cnn": (dict(rnn_type="cnn", hidden_size=HIDDEN, cnn_width=256,
+                     dropout=0.1), SEED + 56, 2, f"data 1 x model 2: cnn "
+                f"(width 256, epilog {HIDDEN}, dropout 0.1) f32, batch "
+                f"{BATCH}", expect_counts(stft_mag=1, ctc_alpha=1,
+                                           ctc_beta=1),
+                {"gather_head": 1, "replicas": 1, "grad_norm": 1,
+                 "nan": 1}),
+    }
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        refs = {key: multi_gpu_reference(torch, spec, BATCH, seed,
+                                         os.path.join(d, f"{key}.pt"),
+                                         deterministic=True)
+                for key, (spec, seed, *_) in cases.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"mesh-model references (single process, {MULTI_STEPS} steps "
+            f"each, cuDNN deterministic): "
+            + ", ".join(f"{k} loss {r['loss']:.4f}, {r['ms']:.1f} ms a step"
+                        for k, r in refs.items())
+            + f" ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        ranks = {"m4": run_ranks("mesh4", "gloo", d, world=4)}
+        ranks["lstm"] = ranks["cnn"] = ranks["spd"] = run_ranks(
+            "mesh2", "gloo", d)
+        log(f"mesh-model ranks ran in {time.perf_counter() - t0:.1f} s "
+            "(4 then 2 processes on cuda:0 over gloo)")
+        for key, (spec, _, model, label, want, coll) in cases.items():
+            for r, res in enumerate(ranks[key]):
+                got = res[key]
+                gathered = {n: v for n, v in got["collectives"].items()
+                            if n.startswith("gather")}
+                if got["launches"] != want or got["collectives"] != coll:
+                    raise AssertionError(
+                        f"{label} rank {r}: launches {got['launches']}, "
+                        f"expected {want}; collectives "
+                        f"{got['collectives']}, expected {coll}")
+                log(f"{label}, rank {r}: launches a step {got['launches']}"
+                    f" (phase 12's kernels, counted); collectives a step "
+                    f"{got['collectives']} (gathers {gathered}); "
+                    f"{len(got['sharded'])} tensors held as 1/{model} of "
+                    f"the whole, their momenta too; against the "
+                    f"single-process step: loss rel "
+                    + ", ".join(f"{x:.2e}" for x in got["loss_rel"])
+                    + ", grad norm rel "
+                    + ", ".join(f"{x:.2e}" for x in got["norm_rel"])
+                    + ", worst parameter "
+                    + ", ".join(f"{x:.2e}" for x in got["param_worst"])
+                    + f" of its change, both under cuDNN deterministic "
+                    f"(bounds, first step and after: {MESH_TOLS})")
+                ndir = 2 if key == "m4" else 1
+                check_held(f"{label} rank {r}", got, MESH_HELD[key], ndir,
+                           BATCH)
+                log(f"{label}, rank {r}: its first step's launches of "
+                    f"{', '.join(MESH_HELD[key])} at B {BATCH}"
+                    + (f" (the RNN's at D={ndir} on the gathered tensors)"
+                       if key != "cnn" else "")
+                    + f", each held to the plain version on its inputs: "
+                    f"{got['held']}")
+            ms = [float(np.median(res[key]["ms"][1:])) for res in ranks[key]]
+            log(f"{label}: step " + ", ".join(
+                f"rank {r} {m:.1f} ms" for r, m in enumerate(ms))
+                + f" (median of steps 2-{MULTI_STEPS}, CUDA events; "
+                f"{model} ranks time-slice one card over gloo: not a "
+                f"scaling figure; the single-process step "
+                f"{refs[key]['ms']:.1f} ms)")
+            out[key] = dict(
+                ms=ms, single_ms=refs[key]["ms"],
+                launches=ranks[key][0][key]["launches"],
+                collectives=ranks[key][0][key]["collectives"],
+                sharded=len(ranks[key][0][key]["sharded"]),
+                loss_rel=max(x for res in ranks[key]
+                             for x in res[key]["loss_rel"]),
+                norm_rel=max(x for res in ranks[key]
+                             for x in res[key]["norm_rel"]),
+                param_worst=max(x for res in ranks[key]
+                                for x in res[key]["param_worst"]),
+
+                replicas=hold_replicas(label, ranks[key], key),
+                held={n: max(res[key]["held"][n]["max_abs_err"]
+                             for res in ranks[key])
+                      for n in MESH_HELD[key]})
+        spd = [res["spd"] for res in ranks["spd"]]
+        if any(x["captured"] is not False for x in spd):
+            raise AssertionError(f"gloo ranks' lanes captured: {spd}")
+        log(f"--steps-per-dispatch {MESH_SPD_K} on two gloo ranks (data 2, "
+            f"{LAYERS} x BiGRU-{HIDDEN} bf16, batch {BATCH}, "
+            f"{spd[0]['batches']} "
+            "batches: a full group, then a short one after a bucket "
+            "switch): the lanes run eagerly, as the rule says for gloo "
+            "(it stages each collective through the host, which a CUDA "
+            "graph cannot capture); metrics, state, momentum and generator "
+            "bit-equal to a train_step a batch under cuDNN deterministic, "
+            f"launches {spd[0]['launches']} and collectives "
+            f"{spd[0]['collectives']} equal")
+        out["spd_gloo"] = dict(k=MESH_SPD_K, batches=spd[0]["batches"],
+                               captured=False,
+                               collectives=spd[0]["collectives"])
     return out
 
 
@@ -4690,16 +5122,16 @@ def spd_batches(torch, rng, n: int, audio: int, batch: int) -> list:
             for _ in range(n)]
 
 
-def spd_groups(torch, host: list) -> list:
-    """The train CLI's grouping (``pull_group``): up to SPD_K batches of
+def spd_groups(torch, host: list, k: int = SPD_K) -> list:
+    """The train CLI's grouping (``pull_group``): up to ``k`` batches of
     one shape a group -> [(stacked on the card, live)]."""
     from deepspeech_tpu_torch.data import stack_microbatches
 
     groups, cur = [], []
     for b in host + [None]:
-        if cur and (b is None or len(cur) == SPD_K or any(
-                b[k].shape != cur[0][k].shape for k in ("audio", "targets"))):
-            stacked, live = stack_microbatches(cur, SPD_K)
+        if cur and (b is None or len(cur) == k or any(
+                b[n].shape != cur[0][n].shape for n in ("audio", "targets"))):
+            stacked, live = stack_microbatches(cur, k)
             groups.append(({k: torch.from_numpy(v).cuda()
                             for k, v in stacked.items()}, live))
             cur = []
@@ -5500,7 +5932,10 @@ def main() -> int:
     mark("the config-4 train CLI with curriculum sampling")
     multi_gpu = phase_multi_gpu(torch, step12)
     mark("multi-GPU training: data 2 and model 2 ranks on the card, NCCL "
-         "at world size 1")
+         f"at world size 1 (and its --steps-per-dispatch {SPD_K} replays)")
+    mesh_model = phase_mesh_model(torch)
+    mark("the JAX rule's gate and head shardings: model 4 and model 2 ranks "
+         f"on the card, --steps-per-dispatch {MESH_SPD_K} on two gloo ranks")
     spd = phase_steps_per_dispatch(torch)
     mark(f"--steps-per-dispatch {SPD_K}: replayed train steps against eager "
          "ones, the default model and config 4")
@@ -5537,7 +5972,8 @@ def main() -> int:
     serve["greedy"].pop("texts")
     serve["device_beam"].pop("texts")
     log(json.dumps({"serve": serve, "cnn": cnn, "data_path": data_path,
-                    "multi_gpu": multi_gpu, "steps_per_dispatch": spd,
+                    "multi_gpu": multi_gpu, "mesh_model": mesh_model,
+                    "steps_per_dispatch": spd,
                     "step_graph_cache": spd_cache_out,
                     "steps_per_dispatch_cli": spd_cli,
                     "test_multi": test_multi}))

@@ -5,7 +5,7 @@ several, one process a card.
         --val-manifest val.csv [--epochs 70 --batch-size 20 --device cuda]
     torchrun --nproc-per-node 8 -m deepspeech_tpu_torch.cli.train \\
         --train-manifest train.csv --val-manifest val.csv --dist-init \\
-        [--mesh-model 2]
+        [--mesh-model M] [--steps-per-dispatch k]
 
 Epochs over the train manifest: before each, the dataset's epoch list is
 set (all rows, or with ``--use-curriculum`` the rows drawn by curriculum
@@ -54,25 +54,32 @@ ranks a data shard: ``--batch-size`` stays the global batch, each shard
 takes ``batch // data`` rows from rank-strided bins
 (``DistributedBucketingSampler`` by data index), every shard pads alike,
 and the step all-reduces what the JAX SPMD step sums (``train/step.py``).
-At ``--mesh-model 2`` each rank of a shard holds one direction of every
-bidirectional RNN layer and its moments. Validation is sharded and its
-counters summed. Rank 0 alone prints, logs, fires the observers,
-profiles and writes checkpoints (whole, gathered over the model group),
-with its own curriculum stores as sidecars; each rank feeds its rows to
-its stores, and a ``--use-curriculum`` epoch draw is rank 0's.
+Every model key runs at every ``--mesh-model`` M that divides the world:
+each rank of a data shard stores its slice of the tensors the JAX rule
+shards (``parallel/mesh.py:param_spec``: an RNN layer's direction axis
+where it divides, else its gate axis; the head's classes, or a ConvStack
+head's input channels) and of their moments, and gathers each whole
+before the layer that reads it (at M 2, a bidirectional layer runs one
+direction a rank instead). Validation is sharded and its counters summed.
+Rank 0 alone prints, logs, fires the observers, profiles and writes
+checkpoints (whole, gathered over the model group; a whole checkpoint,
+of either package, resumes at any M by slicing), with its own curriculum
+stores as sidecars; each rank feeds its rows to its stores, and a
+``--use-curriculum`` epoch draw is rank 0's.
 
-``--steps-per-dispatch k`` > 1 (one process): groups of up to k batches
-of one shape (a bucket switch or the epoch's end closes a group early),
+``--steps-per-dispatch k`` > 1: groups of up to k batches of one shape
+(a bucket switch or the epoch's end closes a group early; on a mesh each
+batch is padded alike first, so every rank closes its groups alike),
 stacked on the host and copied to the card as one superbatch; each
 microbatch a train step (``make_multi_train_step``), on the card the first
 of a shape eagerly and the others as replays of its CUDA graph
 (``train/graph.py``), with the same draws from the generator; the group's
 metrics read back once and accounted microbatch by microbatch as at k=1,
-mid-epoch checkpoints checked after each group.
-
-Not ported yet (each raises SystemExit naming ROADMAP.md):
-``--steps-per-dispatch`` > 1 on several processes and ``--mesh-model`` >
-2.
+mid-epoch checkpoints checked after each group. On several ranks the
+collectives are captured with the step where every group is NCCL's; over
+gloo the lanes run eagerly (logged once). The ranks must share one
+machine, as the JAX CLI runs k > 1 over one host's devices: ranks on
+several machines exit at the join.
 """
 
 from __future__ import annotations
@@ -203,14 +210,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: cuda)")
     p.add_argument("--mesh-model", default=1, type=int,
-                   help="tensor-parallel width: 1, or 2 (each rank of a "
-                        "data shard holds one direction of every "
-                        "bidirectional RNN layer)")
+                   help="tensor-parallel width M, dividing the world: "
+                        "each rank of a data shard stores its slice of the "
+                        "RNN tensors and the head that the JAX rule shards")
     p.add_argument("--steps-per-dispatch", default=1, type=int,
                    help="k same-shape batches a group: the first batch of "
                         "a shape runs eagerly, the rest as replays of its "
-                        "CUDA graph, read back once a group; numerics as "
-                        "k=1; one process only")
+                        "CUDA graph (eagerly over gloo), read back once a "
+                        "group; numerics as k=1; ranks of one machine")
     p.add_argument("--bucket-audio-seconds", default=1.0, type=float,
                    help="audio padding granularity")
     p.add_argument("--wire-dtype", default="int16",
@@ -241,18 +248,24 @@ HIST_KEYS = ("loss_results", "wer_results", "cer_results",
 
 
 def check_ported(args) -> None:
-    """Refuse the flags whose paths the port has not ported yet, before
-    any rendezvous is joined."""
-    joined = rendezvous(args)
-    if args.steps_per_dispatch > 1 and joined is not None and joined[1] > 1:
-        raise SystemExit("--steps-per-dispatch > 1 runs on one process: "
-                         "its graphs across ranks (NCCL inside the graph) "
-                         "are not ported yet (see ROADMAP.md)")
-    if args.mesh_model > 2:
-        raise SystemExit("--mesh-model > 2: gate-dim tensor parallelism is "
-                         "not ported yet (see ROADMAP.md)")
+    """Refuse the flag values no path takes, before any rendezvous is
+    joined (an incomplete rendezvous, a --mesh-model below 1)."""
+    rendezvous(args)
     if args.mesh_model < 1:
-        raise SystemExit("--mesh-model must be 1 or 2")
+        raise SystemExit("--mesh-model must be 1 or more")
+
+
+def check_one_machine(mesh) -> None:
+    """``--steps-per-dispatch`` > 1 on several ranks runs on one machine,
+    as the JAX CLI runs it over one host's devices and refuses it across
+    hosts (``deepspeech_tpu/cli/train.py:438-443``): every rank's host
+    name, gathered once at the join; every rank exits alike."""
+    import socket
+
+    hosts = mesh.all_gather_object(socket.gethostname(), tag="hosts")
+    if len(set(hosts)) > 1:
+        raise SystemExit("--steps-per-dispatch > 1 runs on the ranks of "
+                         f"one machine; these span {sorted(set(hosts))}")
 
 
 def init_distributed(args):
@@ -415,6 +428,8 @@ def main(argv=None, observers=()) -> int:
     check_ported(args)
     dev, mesh = init_distributed(args)
     try:
+        if mesh is not None and args.steps_per_dispatch > 1:
+            check_one_machine(mesh)
         return train(args, dev, mesh, observers)
     finally:
         if mesh is not None:
@@ -430,12 +445,11 @@ def train(args, dev, mesh, observers) -> int:
                                            BucketSpec, stack_microbatches)
     from deepspeech_tpu_torch.decoders import GreedyDecoder
     from deepspeech_tpu_torch.models import build_model
-    from deepspeech_tpu_torch.models.factory import RNN_KEYS
     from deepspeech_tpu_torch.parallel import (equalize_batch_padding,
                                                gather_state,
                                                local_batch_to_global,
-                                               metrics_to_local, shard_state,
-                                               unshard)
+                                               metrics_to_local, shard_dims,
+                                               shard_state, unshard)
     from deepspeech_tpu_torch.text.labels import Labels, load_labels
     from deepspeech_tpu_torch.train import checkpoint as ckpt
     from deepspeech_tpu_torch.train.evaluate import (decode_batch_greedy,
@@ -487,11 +501,6 @@ def train(args, dev, mesh, observers) -> int:
             bidirectional=args.bidirectional, bnm=args.batch_norm_momentum,
             cnn_width=args.cnn_width, dropout=args.dropout,
             compute_dtype=args.compute_dtype, device=dev)
-    if args.mesh_model > 1 and not (meta["rnn_type"] in RNN_KEYS
-                                    and meta["bidirectional"]):
-        raise SystemExit("--mesh-model 2 shards the two directions of a "
-                         "bidirectional RNN model; gate-dim tensor "
-                         "parallelism is not ported yet (see ROADMAP.md)")
     optimizer = build_optimizer(args.optimizer, lr=args.lr,
                                 momentum=args.momentum,
                                 weight_decay=args.weight_decay,
@@ -565,8 +574,14 @@ def train(args, dev, mesh, observers) -> int:
 
     spd = args.steps_per_dispatch
     train_step = make_train_step(model, optimizer, cfg, mesh)
-    multi_step = make_multi_train_step(model, optimizer, cfg) if spd > 1 \
-        else None
+    multi_step = make_multi_train_step(model, optimizer, cfg, mesh) \
+        if spd > 1 else None
+    if multi_step is not None and dev.type == "cuda":
+        say(f"steps per dispatch {spd}: " + (
+            "each shape's step captured as a CUDA graph, collectives "
+            "included" if multi_step.captured else
+            "lanes run eagerly: gloo stages each collective through the "
+            "host, which a CUDA graph cannot capture"))
     eval_step = make_eval_step(model, StepConfig(audio_conf=test_conf,
                                                  normalize=args.norm))
     decoder = GreedyDecoder(labels.labels, blank_index=labels.blank_index)
@@ -690,7 +705,8 @@ def train(args, dev, mesh, observers) -> int:
                 if grads is not None:
                     names = [n for n, _ in model.named_parameters()]
                     full = dict(sd)
-                    full.update((n, unshard(g, mesh) if n in state.sharded
+                    dims = shard_dims(model)
+                    full.update((n, unshard(g, mesh, dims[n]) if n in dims
                                  else g) for n, g in zip(names, grads))
                     grads = torch_to_jax(full)[0]
                 else:
@@ -741,25 +757,30 @@ def train(args, dev, mesh, observers) -> int:
         def pull_group():
             """Up to k host batches of one shape (JAX ``pull_group``; one
             at k=1): a batch of another shape closes the group and opens
-            the next. Each batch's shards are padded alike on a mesh. The
-            group is stacked on the host (``stack_microbatches``) and
-            copied to the device as one superbatch, queued behind the steps
-            before it -> ([(batch, real rows of the global batch)],
-            superbatch, live lanes)."""
+            the next. On a mesh each batch's shards are padded alike
+            before its shape is compared, so that every rank closes its
+            groups at the same batches. The group is stacked on the host
+            (``stack_microbatches``) and copied to the device as one
+            superbatch, queued behind the steps before it -> ([(batch,
+            real rows of the global batch)], superbatch, live lanes)."""
             group = []
             while len(group) < spd:
-                b = held.pop() if held else next(batches, None)
-                if b is None:
-                    break
-                if group and any(b[k].shape != group[0][0][k].shape
+                if held:
+                    item = held.pop()
+                else:
+                    b = next(batches, None)
+                    if b is None:
+                        break
+                    if mesh is not None and mesh.spans("data"):
+                        item = equalize_batch_padding(b, mesh)
+                    else:
+                        item = (b, int(np.asarray(b["valid"]).sum()))
+                if group and any(item[0][k].shape != group[0][0][k].shape
                                  for k in ("audio", "targets")):
-                    held.append(b)
+                    held.append(item)
                     break
                 watch.mark_data()
-                if mesh is not None and mesh.spans("data"):
-                    group.append(equalize_batch_padding(b, mesh))
-                else:
-                    group.append((b, int(np.asarray(b["valid"]).sum())))
+                group.append(item)
             if not group:
                 return None
             stacked, live = stack_microbatches([b for b, _ in group], spd)

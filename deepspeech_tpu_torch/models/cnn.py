@@ -32,6 +32,7 @@ from torch import nn
 
 from deepspeech_tpu_torch.models.layers import TorchBatchNorm, length_mask
 from deepspeech_tpu_torch.ops import fp32_matmul
+from deepspeech_tpu_torch.parallel.tp_rnn import gathered
 
 N_BINS = 161
 
@@ -145,7 +146,11 @@ class ConvStack(nn.Module):
     """A sequence of ConvBlocks defined by spec dicts + a 1x1 conv head.
 
     ``specs`` keeps the spec dicts (the JAX module's ``blocks``); the
-    modules are ``blocks``."""
+    modules are ``blocks``. On a mesh whose rule shards the head's input
+    channels, ``fc.weight`` is gathered whole before the 1x1 conv; the
+    blocks stay replicated."""
+
+    mesh = None
 
     def __init__(self, blocks, num_classes: int, in_features: int = N_BINS):
         super().__init__()
@@ -166,7 +171,8 @@ class ConvStack(nn.Module):
         with fp32_matmul():
             for block in self.blocks:
                 x, out_lengths = block(x, out_lengths, generator)
-            logits = self.fc(x).transpose(1, 2).float()
+            weight = gathered(self.fc.weight, self.mesh, "gather_head")
+            logits = F.conv1d(x, weight, self.fc.bias).transpose(1, 2).float()
         return logits, torch.softmax(logits, dim=-1), out_lengths
 
 

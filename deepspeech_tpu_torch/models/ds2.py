@@ -30,7 +30,8 @@ from deepspeech_tpu_torch.models.layers import (Lookahead, TorchBatchNorm,
                                                 hardtanh_0_20, length_mask)
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.rnn import CELL_GATES, rnn_scan
-from deepspeech_tpu_torch.parallel.tp_rnn import maybe_direction_sharded
+from deepspeech_tpu_torch.parallel.tp_rnn import (gathered,
+                                                  maybe_direction_sharded)
 
 
 def conv_out_lengths(lengths: torch.Tensor) -> torch.Tensor:
@@ -84,9 +85,11 @@ class RecurrentLayer(nn.Module):
 
     Weights keep the JAX layout, stacked over directions: w_ih (D, F, G*H),
     b_ih (D, G*H), w_hh (D, H, G*H), b_hh (D, G*H). Under tensor
-    parallelism (``parallel.shard_params``) a bidirectional layer holds one
-    direction, (1, ...), and runs through ``maybe_direction_sharded``, as
-    the JAX layer does."""
+    parallelism (``parallel.shard_params``) the layer holds a slice of
+    each: one direction, (1, ...), of a bidirectional layer at model 2,
+    which runs through ``maybe_direction_sharded`` as the JAX layer does;
+    else a slice of the gate axis (or of the directions at world size 1),
+    which it gathers whole before ``rnn_scan`` (``parallel/tp_rnn.py``)."""
 
     mesh = None
 
@@ -118,14 +121,18 @@ class RecurrentLayer(nn.Module):
             compute_dtype=self.compute_dtype)
         if out is not None:
             return out
-        return rnn_scan(x, lengths, self.w_ih, self.b_ih, self.w_hh,
-                        self.b_hh, cell=self.cell,
+        w = [gathered(p, self.mesh, "gather_rnn")
+             for p in (self.w_ih, self.b_ih, self.w_hh, self.b_hh)]
+        return rnn_scan(x, lengths, *w, cell=self.cell,
                         bidirectional=self.bidirectional,
                         compute_dtype=self.compute_dtype)
 
 
 class DeepSpeech2(nn.Module):
-    """The DS2 conv+RNN acoustic model."""
+    """The DS2 conv+RNN acoustic model. On a mesh whose rule shards the
+    head's classes, ``fc.weight`` is gathered whole before the fold."""
+
+    mesh = None
 
     def __init__(self, num_classes: int, hidden_size: int = 800,
                  hidden_layers: int = 6, cell: str = "gru",
@@ -163,7 +170,8 @@ class DeepSpeech2(nn.Module):
             # the head BN folds into the fc weight:
             # bn(x) @ W == x @ (a[:, None] * W) + b @ W
             a, sh = self.fc_bn(x)
-            kernel = self.fc.weight.float().t()  # (H, C)
+            kernel = gathered(self.fc.weight, self.mesh,
+                              "gather_head").float().t()  # (H, C)
             x = x @ (a[:, None] * kernel) + sh @ kernel
         logits = x.transpose(0, 1).float()
         return logits, torch.softmax(logits, dim=-1), out_lengths

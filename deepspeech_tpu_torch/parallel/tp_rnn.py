@@ -1,24 +1,45 @@
-"""Direction-sharded tensor parallelism for bidirectional RNN layers (the
-JAX package's ``parallel/tp_rnn.py``).
+"""Tensor parallelism over the model axis (the JAX package's
+``parallel/tp_rnn.py``, and what GSPMD does with the JAX rule's gate-dim
+and head shardings).
 
-A bidirectional layer's two directions are independent until their sum, so
-at ``--mesh-model 2`` each rank of a model group holds one direction's
-W_ih, W_hh and biases (and their optimizer moments) and runs the whole
-recurrence locally, on the same kernels as one card at D=1: K2 (with K5
-backward) where ``fused_route`` holds at D=1, else K4. The only traffic is
-one all-reduce of the (T, B, H) f32 output a layer forward and one of dx
-backward. Model rank 1 runs the backward direction as a forward one on its
-input reversed within each row's length (an involution: the same gather
-restores the output's order); rank 0's order is the identity. Padding
-sits at the tail in both, where a zero output gradient stops the chain.
+Two ways to run a layer whose tensors ``parallel.shard_params`` sharded
+(``parallel/mesh.py:param_spec``, the JAX rule):
 
-Megatron's two operators carry the gradient: ``g`` (the layer output,
-summed over the model group) is an all-reduce forward and the identity
-backward; ``f`` (the layer input, replicated over the group) is the
-identity forward and an all-reduce of dx backward, so that the layers
-below, the conv front and its BatchNorms get both directions' gradient.
-The JAX package gets ``f`` from shard_map's transpose of a replicated
-input.
+* **Gathered** (every sharded tensor but a direction split over two
+  ranks): the layer gathers each of its sharded f32 tensors whole over
+  the model group (``gathered``: one all-gather forward, no collective
+  backward) and computes on them as one card does, on the same kernels:
+  K2/K5 or K4/K5 for a GRU layer, K3/K7 or K6/K7 for an LSTM layer, by
+  ``fused_route``, plain PyTorch for the vanilla cell; the head folds or
+  convolves with the whole ``fc.weight``. This is what the JAX package
+  runs on its accelerator: GSPMD all-gathers a gate-sharded W_ih/W_hh at
+  the ``pallas_call`` boundary, and the layer runs replicated over the
+  model axis. What sharding saves is the memory of the tensors and
+  their optimizer moments at rest. Every rank of a model group holds the
+  same rows and computes the same whole gradient, so the gather's
+  backward is the rank's own slice of it, with no collective; the step's
+  data all-reduce then sums each slice over its data group
+  (``train/step.py``).
+* **Direction-sharded** (a bidirectional direction-sum layer whose two
+  directions sit on the two ranks of a 2-wide model axis, the JAX
+  rule's first candidate at model 2): each rank holds one direction's
+  W_ih, W_hh and biases (and their optimizer moments) and runs the whole
+  recurrence locally, on the same kernels as one card at D=1: K2 (with
+  K5 backward) where ``fused_route`` holds at D=1, else K4. The only
+  traffic is one all-reduce of the (T, B, H) f32 output a layer forward
+  and one of dx backward. Model rank 1 runs the backward direction as a
+  forward one on its input reversed within each row's length (an
+  involution: the same gather restores the output's order); rank 0's
+  order is the identity. Padding sits at the tail in both, where a zero
+  output gradient stops the chain.
+
+  Megatron's two operators carry the gradient: ``g`` (the layer output,
+  summed over the model group) is an all-reduce forward and the identity
+  backward; ``f`` (the layer input, replicated over the group) is the
+  identity forward and an all-reduce of dx backward, so that the layers
+  below, the conv front and its BatchNorms get both directions'
+  gradient. The JAX package gets ``f`` from shard_map's transpose of a
+  replicated input.
 """
 
 from __future__ import annotations
@@ -26,6 +47,34 @@ from __future__ import annotations
 import torch
 
 from deepspeech_tpu_torch.ops.rnn import rnn_scan
+from deepspeech_tpu_torch.parallel.mesh import shard_slice
+
+
+class GatherFromModel(torch.autograd.Function):
+    """A sharded parameter gathered whole over the model group forward
+    (``Mesh.all_gather``, counted under ``tag``); backward the rank's own
+    slice of the whole gradient, with no collective (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, p, mesh, dim, tag):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.all_gather(p, "model", dim, tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (shard_slice(grad, ctx.dim, ctx.mesh).contiguous(), None,
+                None, None)
+
+
+def gathered(p: torch.Tensor, mesh, tag: str) -> torch.Tensor:
+    """``p`` whole: gathered over the model group where ``shard_params``
+    sharded it (its ``shard_dim``), else ``p`` itself. The f32 parameter
+    is gathered, not a bf16 copy, so the layer is the one-card layer bit
+    for bit."""
+    dim = getattr(p, "shard_dim", None)
+    if dim is None or mesh is None:
+        return p
+    return GatherFromModel.apply(p, mesh, dim, tag)
 
 
 class CopyToModel(torch.autograd.Function):
@@ -87,12 +136,13 @@ def maybe_direction_sharded(x, lengths, w_ih, b_ih, w_hh, b_hh, *, mesh,
                             cell: str, bidirectional: bool,
                             sum_directions: bool = True, compute_dtype=None):
     """``direction_sharded_rnn`` where it applies (a bidirectional layer
-    with a direction sum whose weights hold one direction, on a mesh with a
-    2-wide model axis), else None: the caller runs ``rnn_scan``. The JAX
-    condition that the batch tile the data axis always holds here, each
-    rank holding its shard's rows."""
+    with a direction sum whose tensors' spec shards the direction axis,
+    ``w_ih.shard_dim`` 0, over a 2-wide model axis: one direction a
+    rank), else None: the caller gathers what is sharded and runs
+    ``rnn_scan``. The JAX condition that the batch tile the data axis
+    always holds here, each rank holding its shard's rows."""
     if (mesh is None or mesh.model != 2 or not bidirectional
-            or not sum_directions or w_ih.shape[0] != 1):
+            or not sum_directions or getattr(w_ih, "shard_dim", None) != 0):
         return None
     return direction_sharded_rnn(x, lengths, w_ih, b_ih, w_hh, b_hh,
                                  mesh=mesh, cell=cell,

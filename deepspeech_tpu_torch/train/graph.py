@@ -52,7 +52,22 @@ Launch counts: a wrapper counts a launch when it issues it, which under
 capture happens once per graph. The cache reads every counter
 (``ops.cuda.read_counters``) around a capture, puts them back (nothing
 ran) and adds the graph's launches once a replay, so the counters count
-what ran on the card.
+what ran on the card. The mesh's collective counts (``Mesh.counts``) are
+treated alike.
+
+Across ranks (a ``parallel.Mesh``): each rank captures its own train
+step, whose NCCL collectives (the gradient all-reduce, the grad-norm
+squares, the NaN flag, the BatchNorm moments, the gathers of the sharded
+parameters) become nodes of its graph; every rank replays its graph in
+the same order, as it would run the eager steps. The eager first step of
+a shape also sets up the NCCL communicators before the capture. The
+loader's padding exchange (``equalize_batch_padding``, over gloo on the
+host) runs before a lane is stacked, outside any graph. A gloo collective
+on CUDA tensors is staged through the host and cannot be captured, so
+the rule is fixed: the lanes are captured where every group of the step
+is NCCL's, and run eagerly over gloo, on the card as on the CPU
+(``train/step.py:captures``; the train CLI logs which, once). Eager
+lanes launch every kernel as the replays do.
 
 The kernels capture as they are. Their launch paths' host calls
 (``cudaFuncSetAttribute``, the occupancy and attribute queries of K4/K6's
@@ -89,6 +104,7 @@ class _Graph:
     inputs: dict          # static inputs, one per batch key
     outputs: dict         # static outputs: the step's metrics
     launches: dict        # kernel launches of one replay, by counter
+    collectives: dict     # the mesh's collectives of one replay, by tag
 
 
 def _key(batch: dict, shared: dict) -> tuple:
@@ -107,9 +123,10 @@ class StepGraphs:
     (the device noise bank)."""
 
     def __init__(self, train_step: Callable, state,
-                 generator: torch.Generator | None):
+                 generator: torch.Generator | None, mesh=None):
         self.train_step, self.state, self.generator = (train_step, state,
                                                        generator)
+        self.mesh = mesh
         self.max_graphs = MAX_GRAPHS
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(state.step.device)
@@ -138,6 +155,8 @@ class StepGraphs:
             g.inputs[k].copy_(v, non_blocking=True)
         g.graph.replay()
         add_counters(g.launches)
+        if self.mesh is not None:
+            self.mesh.counts.update(g.collectives)
         self.replays += 1
         return {k: v.clone() for k, v in g.outputs.items()}
 
@@ -147,6 +166,9 @@ class StepGraphs:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         before = read_counters()
+        counts = self.mesh.counts if self.mesh is not None else \
+            collections.Counter()
+        issued = counts.copy()
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
@@ -155,10 +177,13 @@ class StepGraphs:
         finally:
             after = read_counters()
             add_counters({c: before[c] - n for c, n in after.items()})
+            collectives = counts - issued
+            counts.clear()
+            counts.update(issued)
         self.capture_s.append(time.perf_counter() - t0)
         return _Graph(graph, inputs, outputs,
                       {c: n - before[c] for c, n in after.items()
-                       if n != before[c]})
+                       if n != before[c]}, dict(collectives))
 
     def stats(self) -> dict:
         """Graphs held, every capture's seconds, evictions, eager steps,

@@ -28,7 +28,8 @@ replays on the live state.
 ``make_multi_train_step`` is ``--steps-per-dispatch``'s step (JAX
 ``make_multi_train_step``): k same-shape microbatches stacked on a leading
 axis, the dead lanes of a short group never run, each live lane through
-``train_step``, on the card as a replay of its shape's CUDA graph.
+``train_step``, on the card as a replay of its shape's CUDA graph (on a
+mesh of NCCL groups, the collectives inside the graph; over gloo, eager).
 
 On a ``parallel.Mesh`` (one process a card) the step computes what the
 JAX SPMD program computes for the global batch: each rank takes its data
@@ -37,10 +38,14 @@ seeded generator on every rank) cut to those rows, the BatchNorms take the
 global moments, the loss divides by the global count of real rows, and
 after ``autograd.grad`` one flat all-reduce sums the gradients and the
 loss over the data group (DistributedDataParallel's hooks do not fire
-under ``autograd.grad``). The grad norm counts each element once (the
-direction-sharded parameters' squares summed over the model group), and
-the NaN flag is the world's maximum, so every rank clips, skips and
-updates alike.
+under ``autograd.grad``) and a broadcast from the model group's first
+rank gives every rank of it that rank's gradients of the replicated
+parameters, so that their replicas stay bit-equal. The grad
+norm counts each element once (the sharded parameters' squares summed
+over the model group, each rank holding its own slice), and the NaN flag
+is the world's maximum, so every rank clips, skips and updates alike. A
+sharded parameter's gradient is the rank's slice of the whole one
+(``parallel/tp_rnn.py``).
 """
 
 from __future__ import annotations
@@ -62,14 +67,11 @@ from deepspeech_tpu_torch.train.optim import (Optimizer, assign_where,
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (its parameters and BatchNorm stats), the optimizer state,
-    the step counter (a 0-d int64 on the model's device) and the names of
-    the parameters this rank holds one direction of
-    (``parallel.shard_state``)."""
+    """The model (its parameters and BatchNorm stats), the optimizer state
+    and the step counter (a 0-d int64 on the model's device)."""
     model: torch.nn.Module
     opt_state: dict
     step: torch.Tensor
-    sharded: tuple = ()
 
     @classmethod
     def create(cls, model: torch.nn.Module, optimizer: Optimizer):
@@ -162,9 +164,19 @@ def _loss(logits, out_lens, batch, mesh=None):
 
 def _reduce_over_mesh(mesh, grads, loss, has_nan, sharded: list):
     """The data shards' gradients and losses summed by one flat all-reduce
-    over the data group; the grad norm with each element once (the
-    ``sharded`` parameters' squares summed over the model group); the NaN
-    flag's maximum over the world. -> (grads, loss, grad norm, has_nan)."""
+    over the data group; the replicated parameters' gradients the model
+    group's first rank's (a broadcast); the grad norm with each element
+    once (the ``sharded`` parameters' squares summed over the model
+    group); the NaN flag's maximum over the world. -> (grads, loss, grad
+    norm, has_nan).
+
+    The ranks of a model group compute a replicated parameter's gradient
+    from the same rows, but not bit for bit: cuDNN's default convolution
+    algorithms sum the weight gradients in an order of their own each
+    call, so the replicas of the conv front would part. One broadcast of
+    those gradients over the model group keeps them equal, and, where
+    cuDNN's algorithms are deterministic, equal to one process's bit for
+    bit (an average of equal values need not be)."""
     if mesh.spans("data"):
         flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
         mesh.all_reduce(flat, "data", tag="grads")
@@ -172,6 +184,14 @@ def _reduce_over_mesh(mesh, grads, loss, has_nan, sharded: list):
         *parts, loss = torch.split(flat, sizes)
         grads = [p.view_as(g) for p, g in zip(parts, grads)]
         loss = loss[0]
+    replicated = [i for i, s in enumerate(sharded) if not s]
+    if mesh.spans("model") and replicated:
+        flat = torch.cat([grads[i].reshape(-1) for i in replicated])
+        mesh.broadcast(flat, "model", tag="replicas")
+        grads = list(grads)
+        for i, part in zip(replicated, torch.split(
+                flat, [grads[i].numel() for i in replicated])):
+            grads[i] = part.view_as(grads[i])
     squares = [torch.sum(g * g) for g in grads]
     zero = loss.new_zeros(())
     sq_sharded = sum((q for q, s in zip(squares, sharded) if s), zero)
@@ -235,8 +255,8 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
             if mesh is None:
                 grad_norm = global_norm(grads)
             else:
-                sharded = [n in state.sharded
-                           for n, _ in model.named_parameters()]
+                sharded = [getattr(p, "shard_dim", None) is not None
+                           for p in params]
                 grads, loss, grad_norm, has_nan = _reduce_over_mesh(
                     mesh, grads, loss, has_nan, sharded)
             ok = ~has_nan & torch.isfinite(grad_norm)
@@ -257,11 +277,24 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     return train_step
 
 
+def captures(mesh) -> bool:
+    """Whether ``make_multi_train_step`` captures its lanes on the card:
+    with no mesh, or where every group the step's collectives take is
+    NCCL's. A gloo collective on CUDA tensors is staged through the host,
+    which a CUDA graph cannot capture, so over gloo the lanes run eagerly
+    (``train/graph.py``)."""
+    import torch.distributed as dist
+
+    return mesh is None or all(dist.get_backend(g) == "nccl"
+                               for axis, g in mesh.groups.items()
+                               if axis != "host")
+
+
 def make_multi_train_step(model: torch.nn.Module, optimizer: Optimizer,
-                          cfg: StepConfig = StepConfig()) -> Callable:
+                          cfg: StepConfig = StepConfig(),
+                          mesh=None) -> Callable:
     """-> multi_step(state, stacked, generator, live, shared=None) ->
-    metrics, k steps of one call (JAX ``make_multi_train_step``; one
-    process).
+    metrics, k steps of one call (JAX ``make_multi_train_step``).
 
     ``stacked``: a batch dict on the model's device with a leading
     microbatch axis (k, B, ...), k host batches of one shape stacked by
@@ -269,17 +302,21 @@ def make_multi_train_step(model: torch.nn.Module, optimizer: Optimizer,
     the padding lanes of a short group; ``shared``: tensors every
     microbatch reads (the device noise bank), never copied. The live lanes
     run in order, each one ``train_step(state, lane, generator=
-    generator)``: on the CPU that call itself; on the card a replay of the
-    CUDA graph of its shape's step (``graph.StepGraphs``, the first lane
-    of a new shape eager). Dead lanes do not run, so after a group with k'
-    live lanes the parameters, BatchNorm buffers, optimizer state, step
-    counter and generator are where k' ``train_step`` calls leave them.
-    metrics: each of ``train_step``'s stacked over the live lanes, (k',
-    ...). The graph cache, once made, is ``multi_step.graphs``; it is
-    bound to the first call's state and generator."""
+    generator)`` (``make_train_step(..., mesh)``: on a mesh each rank
+    passes its data shard's rows, and the lanes' collectives run as at
+    k=1): on the CPU that call itself; on the card a replay of the CUDA
+    graph of its shape's step (``graph.StepGraphs``, the first lane of a
+    new shape eager) where ``captures(mesh)``, else the call itself. Dead
+    lanes do not run, so after a group with k' live lanes the parameters,
+    BatchNorm buffers, optimizer state, step counter and generator are
+    where k' ``train_step`` calls leave them. metrics: each of
+    ``train_step``'s stacked over the live lanes, (k', ...). The graph
+    cache, once made, is ``multi_step.graphs``; it is bound to the first
+    call's state and generator. ``multi_step.captured`` says whether
+    lanes on the card are captured."""
     from deepspeech_tpu_torch.train.graph import StepGraphs
 
-    train_step = make_train_step(model, optimizer, cfg)
+    train_step = make_train_step(model, optimizer, cfg, mesh)
 
     def multi_step(state: TrainState, stacked: dict,
                    generator: torch.Generator | None, live,
@@ -288,9 +325,11 @@ def make_multi_train_step(model: torch.nn.Module, optimizer: Optimizer,
         lanes = [j for j, on in enumerate(live) if on]
         if not lanes:
             raise ValueError("multi_step: no live microbatch")
-        if next(iter(stacked.values())).device.type == "cuda":
+        if (multi_step.captured
+                and next(iter(stacked.values())).device.type == "cuda"):
             if multi_step.graphs is None:
-                multi_step.graphs = StepGraphs(train_step, state, generator)
+                multi_step.graphs = StepGraphs(train_step, state, generator,
+                                               mesh)
             step = multi_step.graphs
             if step.state is not state or step.generator is not generator:
                 raise ValueError("multi_step: the graphs were captured on "
@@ -304,6 +343,7 @@ def make_multi_train_step(model: torch.nn.Module, optimizer: Optimizer,
         return {k: torch.stack([m[k] for m in outs]) for k in outs[0]}
 
     multi_step.graphs = None
+    multi_step.captured = captures(mesh)
     return multi_step
 
 

@@ -24,7 +24,9 @@ pytest process, the inputs handed to the ranks as ``.npz``:
   max_norm 1), so a grad norm that counted a sharded element twice fails;
 * the collective audit: under tensor parallelism each rank holds (1, ...)
   RNN weights and moments, and a step issues exactly the expected
-  all-reduces, counted by ``Mesh.counts``, with no gather of a weight;
+  collectives, counted by ``Mesh.counts``: no gather of an RNN weight,
+  one of the head's class-sharded kernel (the JAX rule shards the 12
+  classes at model 2);
 * sharded validation on 2 ranks against the single-process pass;
 * a ``--use-curriculum`` epoch draw that differs between ranks becomes
   rank 0's on every rank;
@@ -410,14 +412,18 @@ def test_train_steps_match_jax_single_device(ranks, layout, k):
 # the collectives of one step of the 2-layer model: BN moments (bn0, bn1,
 # rnns.1.bn, fc_bn; sum and n, then the squares, forward and backward) over
 # the data group; the layer's g forward and f backward over the model group;
-# the valid-row count and the flat gradient over the data group; the
-# sharded squares of the grad norm over the model group; the NaN flag over
-# the world
+# the gather of the head's class-sharded kernel (12 classes, 6 a rank)
+# forward, none backward; the valid-row count and the flat gradient over
+# the data group; the replicated parameters' gradients broadcast over the
+# model group; the sharded squares of the grad norm over the model group;
+# the NaN flag over the world
 AUDIT = {
     "dp": {"bn": 8, "bn_grad": 8, "valid": 1, "grads": 1, "nan": 1},
-    "tp": {"tp": 2, "tp_grad": 2, "grad_norm": 1, "nan": 1},
-    "dp_tp": {"bn": 8, "bn_grad": 8, "tp": 2, "tp_grad": 2, "valid": 1,
-              "grads": 1, "grad_norm": 1, "nan": 1},
+    "tp": {"tp": 2, "tp_grad": 2, "gather_head": 1, "replicas": 1,
+           "grad_norm": 1, "nan": 1},
+    "dp_tp": {"bn": 8, "bn_grad": 8, "tp": 2, "tp_grad": 2,
+              "gather_head": 1, "valid": 1, "grads": 1, "replicas": 1,
+              "grad_norm": 1, "nan": 1},
 }
 
 

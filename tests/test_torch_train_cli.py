@@ -10,9 +10,9 @@ each wire, the step's featurize from each wire the JAX step's
 spectrogram, the sampler the JAX bins and ``get_cer_wer`` its WER/CER.
 Every flag the port has ported runs on the CPU in-process and shows its
 effect (augmentation, resuming, mid-epoch checkpoints, train-val, the
-metric log and dashboard, TensorBoard, profiling); the flags not ported
-(``--steps-per-dispatch`` > 1 on several processes, ``--mesh-model`` > 2)
-exit naming ROADMAP.md.
+metric log and dashboard, TensorBoard, profiling); the flag values no
+path takes (``--mesh-model`` 0, or above 1 on one process) exit naming
+the flag.
 """
 
 import json
@@ -136,12 +136,13 @@ def test_cer_wer_match_jax(hyp, ref):
 
 
 @pytest.mark.parametrize("flags", [
-    # k > 1 runs on one process; several are refused before any rendezvous
-    ["--steps-per-dispatch", "2", "--dist-url", "tcp://localhost:1234",
+    # a width below 1 is refused before any rendezvous
+    ["--mesh-model", "0", "--dist-url", "tcp://localhost:1234",
      "--dist-rank", "0", "--dist-world-size", "2"],
+    # a model axis of 4 needs 4 ranks or more
     ["--mesh-model", "4"]])
 def test_unported_flags_exit(flags):
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="--mesh-model"):
         train_main(["--device", "cpu", *flags])
 
 
