@@ -1,0 +1,8 @@
+"""Device ms a train step under the conv front's spans, forward and
+backward."""
+
+from portbench.harness import readers
+
+
+def read(run):
+    return readers.layer_ms(run, "train", "conv front")

@@ -1,0 +1,7 @@
+"""The card's peak allocated memory over the train run, in GiB."""
+
+from portbench.harness import readers
+
+
+def read(run):
+    return readers.peak_gib(run, "train")

@@ -1,0 +1,8 @@
+"""The recurrent layers' least time over their device time in the traced
+eval pass, in %."""
+
+from portbench.harness import readers
+
+
+def read(run):
+    return readers.recurrence_roofline(run, "infer")
