@@ -2411,15 +2411,15 @@ def phase_train_cli_full(torch) -> dict:
                 ".curriculum.csv", ".val.curriculum.csv",
                 ".trainval.curriculum.csv")]
         missing = [p for p in wanted if not os.path.exists(p)]
-        traces = os.listdir(prof) if os.path.isdir(prof) else []
-        if missing or len(traces) != 1:
+        traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+        if missing or traces != ["summary_1_2.json", "trace_steps_1_2.json"]:
             raise AssertionError(f"missing {missing}, traces {traces}")
         with open(os.path.join(logs, "full.jsonl")) as f:
             names = {json.loads(line)["event"] for line in f}
         if names != {"train", "params", "val_checkpoint", "trainval",
                      "lr_find", "checkpoint", "epoch", "val"}:
             raise AssertionError(f"JSONL events {sorted(names)}")
-        with open(os.path.join(prof, traces[0])) as f:
+        with open(os.path.join(prof, traces[1])) as f:
             kernels = sum(1 for e in json.load(f)["traceEvents"]
                           if e.get("cat") == "kernel")
         package = ckpt.load(mid)

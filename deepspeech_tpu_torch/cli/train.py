@@ -40,7 +40,8 @@ CLI's event names and keys (``--visdom`` adds the HTML dashboard,
 ``--tensorboard`` mirrors to TensorBoard where it imports, ``--log-params``
 adds parameter and gradient summaries every 100 steps); ``--profile-dir``
 writes a ``torch.profiler`` Chrome trace of ``--profile-steps`` steps from
-``--profile-start``. ``main(argv, observers)`` fires the observers' hooks
+``--profile-start``, with the port's spans in it and their summary beside
+it (``Profiler``). ``main(argv, observers)`` fires the observers' hooks
 as the JAX CLI does.
 
 Several cards (``parallel/``): the rendezvous is ``--dist-init``
@@ -85,6 +86,8 @@ several machines exit at the join.
 from __future__ import annotations
 
 import argparse
+import collections
+import json
 import os
 import time
 
@@ -93,6 +96,8 @@ import torch
 
 from deepspeech_tpu_torch.cli.args import add_reference_noop_args
 from deepspeech_tpu_torch.cli.common import rendezvous
+from deepspeech_tpu_torch.ops.cuda import read_counters
+from deepspeech_tpu_torch.utils import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -379,14 +384,26 @@ class Profiler:
     """``--profile-dir``: a torch.profiler window over global steps
     [start, start + steps) (at ``--steps-per-dispatch`` k > 1, over the
     groups that hold them), CPU and (on the card) CUDA activities, written
-    as one Chrome trace into the directory when it closes."""
+    as one Chrome trace into the directory when it closes.
+
+    The port's span recorder (``utils/trace.py``) is on over the window,
+    so its spans are ``ds.`` ranges of the trace, on the kernels' clock.
+    Beside the trace, ``summary_<start>_<end>.json`` holds what the window
+    recorded: ``spans`` (``trace.summary``: count, wall, self and thread
+    CPU ms by span name) and ``spans_dropped``; ``launches``, each kernel
+    launch counter's change (``ops.cuda.read_counters``); ``collectives``,
+    the mesh's collectives by tag (``Mesh.counts``'s change; None without
+    a mesh); ``step_graphs``, ``StepGraphs.stats()`` of the
+    ``--steps-per-dispatch`` graphs (None where no graph cache exists)."""
 
     def __init__(self, directory: str, start: int, steps: int, dev,
-                 say=print):
+                 say=print, mesh=None, multi_step=None):
         self.directory, self.start, self.steps = directory, start, steps
         self.dev, self.say = dev, say
+        self.mesh, self.multi_step = mesh, multi_step
         self.prof = None
         self.path = None
+        self.opened = None  # the window's counters as it opened
 
     def step(self, global_step: int, steps: int = 1):
         """Before the ``steps`` steps from ``global_step`` (a group of
@@ -399,6 +416,10 @@ class Profiler:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.opened = (time.perf_counter_ns(), read_counters(),
+                           collections.Counter(
+                               self.mesh.counts if self.mesh else ()))
+            trace.enable(True)
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.__enter__()
             self.say(f"  profiler trace started -> {self.directory}")
@@ -412,12 +433,33 @@ class Profiler:
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
         self.prof.__exit__(None, None, None)
+        trace.enable(False)
         os.makedirs(self.directory, exist_ok=True)
-        self.path = os.path.join(
-            self.directory,
-            f"trace_steps_{self.start}_{self.start + self.steps}.json")
+        end = self.start + self.steps
+        self.path = os.path.join(self.directory,
+                                 f"trace_steps_{self.start}_{end}.json")
         self.prof.export_chrome_trace(self.path)
+        with open(os.path.join(self.directory,
+                               f"summary_{self.start}_{end}.json"),
+                  "w") as f:
+            json.dump(self.summary(), f, indent=1, sort_keys=True)
         self.say(f"  profiler trace stopped -> {self.path}")
+
+    def summary(self) -> dict:
+        """What the window recorded (class docstring)."""
+        t0, counters, collectives = self.opened
+        graphs = getattr(self.multi_step, "graphs", None)
+        return {
+            "steps": [self.start, self.start + self.steps],
+            "spans": trace.summary([s for s in trace.take()
+                                    if s.start_ns >= t0]),
+            "spans_dropped": trace.dropped(),
+            "launches": {f"{m}.{a}": n - counters.get((m, a), 0)
+                         for (m, a), n in read_counters().items()},
+            "collectives": (dict(collections.Counter(self.mesh.counts)
+                                 - collectives)
+                            if self.mesh is not None else None),
+            "step_graphs": graphs.stats() if graphs is not None else None}
 
 
 def main(argv=None, observers=()) -> int:
@@ -651,7 +693,8 @@ def train(args, dev, mesh, observers) -> int:
         return summary
 
     profiler = Profiler(args.profile_dir if is_leader else "",
-                        args.profile_start, args.profile_steps, dev, say)
+                        args.profile_start, args.profile_steps, dev, say,
+                        mesh=mesh, multi_step=multi_step)
     samples_since_ckpt = 0
     global_step = 0
     last_wer = 0.0

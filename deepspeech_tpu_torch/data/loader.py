@@ -24,6 +24,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from deepspeech_tpu_torch.utils import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class BucketSpec:
@@ -125,16 +127,22 @@ class AudioDataLoader:
         out: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
+        def read(i):
+            with trace.span("loader.read"):
+                return self.dataset.__getitem__(i)
+
         def producer():
             with ThreadPoolExecutor(self.num_workers) as pool:
                 for ids in bins:
                     if stop.is_set():
                         break
                     try:
-                        samples = list(pool.map(self.dataset.__getitem__,
-                                                ids))
-                        out.put(("ok", collate_batch(
-                            samples, self.batch_size, self.bucket)))
+                        samples = list(pool.map(read, ids))
+                        with trace.span("loader.collate"):
+                            batch = collate_batch(samples, self.batch_size,
+                                                  self.bucket)
+                        with trace.span("loader.put"):
+                            out.put(("ok", batch))
                     except Exception as e:  # surface worker errors in-line
                         out.put(("err", e))
                         break
@@ -144,7 +152,8 @@ class AudioDataLoader:
         thread.start()
         try:
             while True:
-                kind, item = out.get()
+                with trace.span("loader.wait"):
+                    kind, item = out.get()
                 if kind == "end":
                     break
                 if kind == "err":

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from deepspeech_tpu_torch.decoders.base import Decoder
+from deepspeech_tpu_torch.utils import trace
 
 
 def greedy_ids(probs_or_logits: torch.Tensor) -> torch.Tensor:
@@ -53,14 +54,18 @@ class GreedyDecoder(Decoder):
 
     def decode_ids(self, ids, sizes=None):
         """Decode argmax ids computed on the device (the train and eval
-        steps return them) -> (strings, offsets), repeats collapsed."""
-        if isinstance(ids, torch.Tensor):
-            ids = ids.cpu().numpy()
-        if isinstance(sizes, torch.Tensor):
-            sizes = sizes.cpu().numpy()
-        return self.convert_to_strings(np.asarray(ids), sizes,
-                                       remove_repetitions=True,
-                                       return_offsets=True)
+        steps return them) -> (strings, offsets), repeats collapsed.
+        Spans: ``decode``, and within it ``decode.readback`` over the
+        copies to the host, which wait for the device."""
+        with trace.span("decode"):
+            with trace.span("decode.readback"):
+                if isinstance(ids, torch.Tensor):
+                    ids = ids.cpu().numpy()
+                if isinstance(sizes, torch.Tensor):
+                    sizes = sizes.cpu().numpy()
+            return self.convert_to_strings(np.asarray(ids), sizes,
+                                           remove_repetitions=True,
+                                           return_offsets=True)
 
     def decode(self, probs, sizes=None):
         """probs: (B, T, C) tensor. -> (strings, offsets), repeats

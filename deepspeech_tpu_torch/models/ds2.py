@@ -32,6 +32,7 @@ from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.rnn import CELL_GATES, rnn_scan
 from deepspeech_tpu_torch.parallel.tp_rnn import (gathered,
                                                   maybe_direction_sharded)
+from deepspeech_tpu_torch.utils import trace
 
 
 def conv_out_lengths(lengths: torch.Tensor) -> torch.Tensor:
@@ -151,6 +152,7 @@ class DeepSpeech2(nn.Module):
                           else Lookahead(hidden_size, context))
         self.fc_bn = TorchBatchNorm(hidden_size, bnm, fold=True)
         self.fc = nn.Linear(hidden_size, num_classes, bias=False)
+        self.span_names = [f"rnn.{i}" for i in range(hidden_layers)]
 
     def forward(self, spect: torch.Tensor, lengths: torch.Tensor,
                 generator: torch.Generator | None = None):
@@ -159,12 +161,14 @@ class DeepSpeech2(nn.Module):
         ``generator`` is ignored: the model has no dropout (a ``ConvStack``
         draws its dropout from it; the train step passes it to both)."""
         out_lengths = conv_out_lengths(lengths)
-        x = self.conv(spect.float(), out_lengths)
+        with trace.span("conv"):
+            x = self.conv(spect.float(), out_lengths)
         b, c, f, t = x.shape
         x = x.reshape(b, c * f, t).permute(2, 0, 1)  # (T', B, 1312)
-        for layer in self.rnns:
-            x = layer(x, out_lengths)
-        with fp32_matmul():
+        for layer, name in zip(self.rnns, self.span_names):
+            with trace.span(name):
+                x = layer(x, out_lengths)
+        with trace.span("head"), fp32_matmul():
             if self.lookahead is not None:
                 x = hardtanh_0_20(self.lookahead(x))
             # the head BN folds into the fc weight:

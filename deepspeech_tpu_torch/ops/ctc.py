@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from deepspeech_tpu_torch.ops.cuda import ctc as ctc_kernel
+from deepspeech_tpu_torch.utils import trace
 
 
 def _prep(logits, targets, blank):
@@ -57,8 +58,9 @@ class CTCLoss(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         log_probs, ext, tls, lens, alphas, loss = ctx.saved_tensors
-        dlogits = ctc_kernel.ctc_beta(log_probs, ext, tls, lens, alphas, loss,
-                                      g)
+        with trace.span("ctc.bwd"):
+            dlogits = ctc_kernel.ctc_beta(log_probs, ext, tls, lens, alphas,
+                                          loss, g)
         return dlogits, None, None, None, None
 
 

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import threading
 
+from deepspeech_tpu_torch.utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -77,7 +79,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: str, lib: str) -> str:
 def build_all(names=SOURCES, force: bool = False) -> dict[str, str]:
     """Compile the stale (or, with ``force``, all) kernels in parallel;
     -> {name: nvcc output}."""
-    with _lock:
+    with _lock, trace.span("build"):
         os.makedirs(BUILD_DIR, exist_ok=True)
         todo = [n for n in names if force or _stale(n)]
         procs = {n: _start(n) for n in todo}

@@ -69,6 +69,7 @@ from deepspeech_tpu_torch.ops.cuda.recurrence import (bwd_blocks,
                                                       to_time_order,
                                                       valid_mask,
                                                       walk_index)
+from deepspeech_tpu_torch.utils import trace
 
 launches = 0      # gru_fwd launches (one per layer call), both variants
 res_launches = 0  # of those, the training variant's (residuals written)
@@ -474,22 +475,23 @@ class GRULayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        x, w_ih, w_op, out, g, hn, lengths = ctx.saved_tensors
-        ndir, t, b, hidden = out.shape
-        dt = x.dtype
-        dg, dnh, dbi, dbh = gru_bwd(dout.float().contiguous(), g, hn, out,
-                                    w_op, lengths)
-        x2 = x.reshape(t * b, -1)
-        dx = 0.0
-        dw_ih = []
-        with fp32_matmul():
-            for d in range(ndir):
-                dg2 = dg[d].reshape(t * b, 3 * hidden)
-                dx = dx + mm_f32(dg2, w_ih[d].t())
-                dw_ih.append(mm_f32(x2.t(), dg2))
-        dx = dx.reshape(x.shape).to(dt)
-        return (dx, torch.stack(dw_ih).to(w_ih.dtype), dbi,
-                _dw_hh(out, dg, dnh, lengths), dbh, None)
+        with trace.span("rnn.bwd"):
+            x, w_ih, w_op, out, g, hn, lengths = ctx.saved_tensors
+            ndir, t, b, hidden = out.shape
+            dt = x.dtype
+            dg, dnh, dbi, dbh = gru_bwd(dout.float().contiguous(), g, hn, out,
+                                        w_op, lengths)
+            x2 = x.reshape(t * b, -1)
+            dx = 0.0
+            dw_ih = []
+            with fp32_matmul():
+                for d in range(ndir):
+                    dg2 = dg[d].reshape(t * b, 3 * hidden)
+                    dx = dx + mm_f32(dg2, w_ih[d].t())
+                    dw_ih.append(mm_f32(x2.t(), dg2))
+            dx = dx.reshape(x.shape).to(dt)
+            return (dx, torch.stack(dw_ih).to(w_ih.dtype), dbi,
+                    _dw_hh(out, dg, dnh, lengths), dbh, None)
 
 
 def _dw_hh(out: torch.Tensor, dg: torch.Tensor, dnh: torch.Tensor,
@@ -525,7 +527,8 @@ class GRUScanLayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        w_op, out, g, hn, lengths = ctx.saved_tensors
-        dg, dnh, dbi, dbh = gru_bwd(dout.float().contiguous(), g, hn, out,
-                                    w_op, lengths)
-        return dg, dbi, _dw_hh(out, dg, dnh, lengths), dbh, None
+        with trace.span("rnn.bwd"):
+            w_op, out, g, hn, lengths = ctx.saved_tensors
+            dg, dnh, dbi, dbh = gru_bwd(dout.float().contiguous(), g, hn, out,
+                                        w_op, lengths)
+            return dg, dbi, _dw_hh(out, dg, dnh, lengths), dbh, None

@@ -72,6 +72,7 @@ from deepspeech_tpu_torch.ops.cuda.recurrence import (bwd_blocks,
                                                       to_time_order,
                                                       valid_mask,
                                                       walk_index)
+from deepspeech_tpu_torch.utils import trace
 
 launches = 0      # lstm_fwd launches (one per layer call), both variants
 res_launches = 0  # of those, the training variant's (residuals written)
@@ -452,22 +453,23 @@ class LSTMLayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        x, w_ih, w_op, out, c, g, lengths = ctx.saved_tensors
-        ndir, t, b, hidden = out.shape
-        dt = x.dtype
-        dg, db = lstm_bwd(dout.float().contiguous(), g, c, w_op, lengths)
-        x2 = x.reshape(t * b, -1)
-        dx = 0.0
-        dw_ih = []
-        with fp32_matmul():
-            for d in range(ndir):
-                dg2 = dg[d].reshape(t * b, 4 * hidden)
-                dx = dx + mm_f32(dg2, w_ih[d].t())
-                dw_ih.append(mm_f32(x2.t(), dg2))
-        dx = dx.reshape(x.shape).to(dt)
-        # two tensors: autograd may keep each as a .grad and add into it
-        return (dx, torch.stack(dw_ih).to(w_ih.dtype), db,
-                _dw_hh(out, dg, lengths), db.clone(), None)
+        with trace.span("rnn.bwd"):
+            x, w_ih, w_op, out, c, g, lengths = ctx.saved_tensors
+            ndir, t, b, hidden = out.shape
+            dt = x.dtype
+            dg, db = lstm_bwd(dout.float().contiguous(), g, c, w_op, lengths)
+            x2 = x.reshape(t * b, -1)
+            dx = 0.0
+            dw_ih = []
+            with fp32_matmul():
+                for d in range(ndir):
+                    dg2 = dg[d].reshape(t * b, 4 * hidden)
+                    dx = dx + mm_f32(dg2, w_ih[d].t())
+                    dw_ih.append(mm_f32(x2.t(), dg2))
+            dx = dx.reshape(x.shape).to(dt)
+            # two tensors: autograd may keep each as a .grad and add into it
+            return (dx, torch.stack(dw_ih).to(w_ih.dtype), db,
+                    _dw_hh(out, dg, lengths), db.clone(), None)
 
 
 def _dw_hh(out: torch.Tensor, dg: torch.Tensor,
@@ -500,6 +502,7 @@ class LSTMScanLayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        w_op, out, c, g, lengths = ctx.saved_tensors
-        dg, db = lstm_bwd(dout.float().contiguous(), g, c, w_op, lengths)
-        return dg, db, _dw_hh(out, dg, lengths), db.clone(), None
+        with trace.span("rnn.bwd"):
+            w_op, out, c, g, lengths = ctx.saved_tensors
+            dg, db = lstm_bwd(dout.float().contiguous(), g, c, w_op, lengths)
+            return dg, db, _dw_hh(out, dg, lengths), db.clone(), None

@@ -51,6 +51,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from deepspeech_tpu_torch.utils import trace
+
 AXES = ("data", "model", "world", "host")
 RNN_WEIGHTS = ("w_ih", "b_ih", "w_hh", "b_hh")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -92,7 +94,8 @@ class Mesh:
         does not span it); returns ``t``."""
         if self.spans(axis):
             self.counts[tag or axis] += 1
-            dist.all_reduce(t, op=_OPS[op], group=self.groups[axis])
+            with trace.span("collective." + (tag or axis)):
+                dist.all_reduce(t, op=_OPS[op], group=self.groups[axis])
         return t
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int,
@@ -109,13 +112,14 @@ class Mesh:
         group = self.groups[axis]
         n = dist.get_world_size(group)
         t = t.contiguous()
-        if dist.get_backend(group) == "nccl":
-            out = t.new_empty((n,) + tuple(t.shape))
-            dist.all_gather_into_tensor(out, t, group=group)
-        else:
-            out = t.new_zeros((n,) + tuple(t.shape))
-            out[dist.get_group_rank(group, self.rank)] = t
-            dist.all_reduce(out, group=group)
+        with trace.span("collective." + tag):
+            if dist.get_backend(group) == "nccl":
+                out = t.new_empty((n,) + tuple(t.shape))
+                dist.all_gather_into_tensor(out, t, group=group)
+            else:
+                out = t.new_zeros((n,) + tuple(t.shape))
+                out[dist.get_group_rank(group, self.rank)] = t
+                dist.all_reduce(out, group=group)
         shape = list(t.shape)
         shape[dim] *= n
         return out.movedim(0, dim).reshape(shape)
@@ -127,8 +131,9 @@ class Mesh:
         if self.spans(axis):
             self.counts[tag] += 1
             group = self.groups[axis]
-            dist.broadcast(t, src=dist.get_global_rank(group, 0),
-                           group=group)
+            with trace.span("collective." + tag):
+                dist.broadcast(t, src=dist.get_global_rank(group, 0),
+                               group=group)
         return t
 
     def gather_object(self, obj, axis: str = "host",

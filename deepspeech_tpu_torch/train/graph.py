@@ -94,6 +94,7 @@ from typing import Callable
 import torch
 
 from deepspeech_tpu_torch.ops.cuda import add_counters, read_counters
+from deepspeech_tpu_torch.utils import trace
 
 MAX_GRAPHS = 16  # graphs a cache holds at most (module docstring)
 
@@ -148,17 +149,19 @@ class StepGraphs:
             while len(self.graphs) >= self.max_graphs:
                 self.graphs.popitem(last=False)
                 self.evictions += 1
-            g = self.graphs[key] = self._capture(batch, shared)
+            with trace.span("capture"):
+                g = self.graphs[key] = self._capture(batch, shared)
         else:
             self.graphs.move_to_end(key)
-        for k, v in batch.items():
-            g.inputs[k].copy_(v, non_blocking=True)
-        g.graph.replay()
-        add_counters(g.launches)
-        if self.mesh is not None:
-            self.mesh.counts.update(g.collectives)
-        self.replays += 1
-        return {k: v.clone() for k, v in g.outputs.items()}
+        with trace.span("replay"):
+            for k, v in batch.items():
+                g.inputs[k].copy_(v, non_blocking=True)
+            g.graph.replay()
+            add_counters(g.launches)
+            if self.mesh is not None:
+                self.mesh.counts.update(g.collectives)
+            self.replays += 1
+            return {k: v.clone() for k, v in g.outputs.items()}
 
     def _capture(self, batch: dict, shared: dict) -> _Graph:
         inputs = {k: torch.empty_like(v) for k, v in batch.items()}

@@ -63,6 +63,7 @@ from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.ctc import ctc_loss
 from deepspeech_tpu_torch.train.optim import (Optimizer, assign_where,
                                               global_norm)
+from deepspeech_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -232,6 +233,10 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                    jitter: torch.Tensor | None = None,
                    generator: torch.Generator | None = None,
                    return_grads: bool = False) -> dict:
+        with trace.span("step"):
+            return _train_step(state, batch, jitter, generator, return_grads)
+
+    def _train_step(state, batch, jitter, generator, return_grads):
         model.train()
         params = list(model.parameters())
         draws = {"masks": None, "noise": None}
@@ -243,14 +248,18 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
             if jitter is None:
                 jitter = draws["jitter"]
         with fp32_matmul():
-            spect, lengths = featurize(batch, cfg, jitter, draws["masks"],
-                                       draws["noise"])
-            logits, _, out_lens = model(spect, lengths, generator)
+            with trace.span("featurize"):
+                spect, lengths = featurize(batch, cfg, jitter,
+                                           draws["masks"], draws["noise"])
+            with trace.span("forward"):
+                logits, _, out_lens = model(spect, lengths, generator)
             has_nan = torch.isnan(logits).any()
             logits = torch.where(torch.isnan(logits), 0.0, logits)
-            loss, per_sample = _loss(logits, out_lens, batch, mesh)
-            grads = torch.autograd.grad(loss, params)
-        with torch.no_grad():
+            with trace.span("ctc"):
+                loss, per_sample = _loss(logits, out_lens, batch, mesh)
+            with trace.span("backward"):
+                grads = torch.autograd.grad(loss, params)
+        with torch.no_grad(), trace.span("optim"):
             loss = loss.detach()
             if mesh is None:
                 grad_norm = global_norm(grads)
@@ -353,13 +362,17 @@ def make_eval_step(model: torch.nn.Module,
     out_lens and probs; the model in eval mode, no gradient."""
 
     def eval_step(batch: dict) -> dict:
-        model.eval()
-        with torch.no_grad(), fp32_matmul():
-            spect, lengths = featurize(batch, cfg)
-            logits, probs, out_lens = model(spect, lengths)
-            loss, per_sample = _loss(logits, out_lens, batch)
-        return dict(loss=loss, per_sample=per_sample,
-                    greedy=logits.argmax(-1).to(torch.int32),
-                    out_lens=out_lens, probs=probs)
+        with trace.span("step"):
+            model.eval()
+            with torch.no_grad(), fp32_matmul():
+                with trace.span("featurize"):
+                    spect, lengths = featurize(batch, cfg)
+                with trace.span("forward"):
+                    logits, probs, out_lens = model(spect, lengths)
+                with trace.span("ctc"):
+                    loss, per_sample = _loss(logits, out_lens, batch)
+            return dict(loss=loss, per_sample=per_sample,
+                        greedy=logits.argmax(-1).to(torch.int32),
+                        out_lens=out_lens, probs=probs)
 
     return eval_step

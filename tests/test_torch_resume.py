@@ -507,7 +507,11 @@ def test_profile_dir_writes_a_trace_on_the_cpu(runs, tmp_path):
                                  str(tmp_path), "p")
                     + ["--epochs", "1", "--profile-dir", str(prof),
                        "--profile-start", "1", "--profile-steps", "1"]) == 0
-    (trace,) = os.listdir(prof)
-    with open(prof / trace) as f:
+    assert sorted(os.listdir(prof)) == ["summary_1_2.json",
+                                        "trace_steps_1_2.json"]
+    with open(prof / "trace_steps_1_2.json") as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     assert any("aten::" in n for n in names)
+    assert {"ds.step", "ds.forward", "ds.optim"} <= names
+    with open(prof / "summary_1_2.json") as f:
+        assert json.load(f)["spans"]["step"]["count"] == 1

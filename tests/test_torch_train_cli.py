@@ -232,8 +232,9 @@ def test_ported_flag_runs(trained, tmp_path, monkeypatch, capsys, flag):
     elif flag == "--continue-from":
         assert "Resuming from" in out and final["step"] == 2 + 2
         assert int(final["optim_state"][0]) == 4
-    elif flag == "--profile-dir":
-        assert len(os.listdir(tmp_path / "prof")) == 1
+    elif flag == "--profile-dir":  # the trace and its spans' summary
+        assert sorted(os.listdir(tmp_path / "prof")) == [
+            "summary_0_1.json", "trace_steps_0_1.json"]
     elif flag == "--tensorboard":  # where TensorBoard imports, it mirrors
         tb = logs / "flag"
         assert tb.exists() == _has_tensorboard()
