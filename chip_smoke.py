@@ -164,11 +164,11 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
 19. K4 (gru_scan), inference and training, against its plain version at
    the wide model's width: T 376, B 64, H 1600, on the wide route's
    projection of 1600-wide inputs rounded to the operand type, unequal
-   lengths, bf16 (one launch a step, persistent, and the rule's choice)
-   and f32, D 2 and D 1; its time a call and a step beside its bound, the
+   lengths, bf16 and f32 (one launch a step, persistent, and the rule's
+   choice), D 2 and D 1; its time a call and a step beside its bound, the
    bf16 step's L2 floor (W_hh's and h's bytes a step over the warm W_hh's
-   read rate), each bf16 variant's time, the plain version, the wide
-   route's whole layer (cuBLAS projection + K4) and cuDNN's nn.GRU; then
+   read rate), the f32 step's product floor (67 TFLOP/s), each variant's
+   time, the plain version, the wide route's layer and cuDNN's nn.GRU; then
    K5 in bf16 at the same width (B 64) on the plain forward's residuals,
    each variant against plain_bwd, its time a call and a step beside its
    bound, the step's L2 floor (the packed W_hh and the operand copy's
@@ -193,7 +193,7 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    6.8-7.5 s; its launches, both curriculum sidecars of every checkpoint
    (one row per wav), the drawn utterances' CERs moved from 0.999, epoch
    1's draw equal to Curriculum.sample recomputed from epoch 0's sidecar;
-   one f32 transcribe request on its checkpoint (K4 in all 6 layers);
+   one f32 transcribe request and one f32 test batch of 64 (K4 in all 6);
 22a. multi-GPU training (phase_multi_gpu): the single-process bf16 step
    of the default model on phase 12's batch and of config 4 at batch 64,
    3 steps each from seeded weights, saved as the reference; then two
@@ -1056,7 +1056,9 @@ COUNT_NAMES = {("stft", "launches"): "stft_mag",
                                      ("res_launches", "fwd_res"),
                                      ("scan_launches", "scan"),
                                      ("scan_res_launches", "scan_res"),
-                                     ("bwd_launches", "bwd"))}}
+                                     ("bwd_launches", "bwd"))},
+               ("gru", "scan_f32_persistent_launches"):
+                   "gru_scan_f32_persistent"}
 UNNAMED_COUNTERS = {("gru", "proj_launches")}
 
 
@@ -1390,12 +1392,12 @@ def phase_scan(torch, results, cell):
     """K4 or K6 against plain_scan at the wide model's width (T 376,
     H 1600; B 64 for the GRU, 20 for the LSTM; unequal lengths) on the wide
     route's projection of F-wide inputs, rounded to the operand type; bf16
-    (one launch a step, persistent, and the rule's choice) and f32, D 2 and
-    D 1, inference and training. Its time a call and a step beside its
-    bound, the bf16 step's L2 floor, the plain version and cuDNN's
-    bidirectional layer with the same weights (a yardstick that includes
-    the projection, so the wide route's whole layer, projection + kernel,
-    is timed too)."""
+    and K4's f32 (one launch a step, persistent, and the rule's choice) and
+    K6's f32, D 2 and D 1, inference and training. Its time a call and a
+    step beside its bound, the bf16 step's L2 floor, the f32 step's product
+    floor, the plain version and cuDNN's bidirectional layer with the same
+    weights (a yardstick that includes the projection, so the wide route's
+    whole layer, projection + kernel, is timed too)."""
     from deepspeech_tpu_torch.ops.rnn import project
 
     mod, _ = cell_kernels(cell)
@@ -1414,8 +1416,10 @@ def phase_scan(torch, results, cell):
             name = str(dt).split(".")[-1]
             tol = tol_of[name]
             x, w_ih, w_hh = x32.to(dt), w_ih32.to(dt), w_hh32.to(dt)
+            # the LSTM's f32 (K6) has one variant
             variants = (("step", "persistent", "auto")
-                        if dt == torch.bfloat16 else ("auto",))
+                        if dt == torch.bfloat16 or cell == "gru"
+                        else ("auto",))
             for ndir in (1, 2):
                 args = (project(x, w_ih[:ndir]), b_ih[:ndir], w_hh[:ndir],
                         b_hh[:ndir], lens)
@@ -1483,6 +1487,16 @@ def phase_scan(torch, results, cell):
                     f"step's W_hh and h bytes at the warm W_hh's read rate "
                     f"{rate / 1e12:.2f} TB/s), {floor_ms * t:.3f} ms a "
                     "call")
+            if dt == torch.float32 and len(by_variant) > 1:
+                # the step's products alone at the f32 FMA peak
+                floor_us = 2.0 * 2 * b * h * gh / PEAK_F32 * 1e6
+                log(f"{spec['name']} {spec['kernel']} f32 variants (with "
+                    "residuals): "
+                    + ", ".join(f"{v} {m:.3f} ms ({m / t * 1e3:.2f} us a "
+                                f"step)" for v, m in by_variant.items())
+                    + f"; the rule's {ms_res:.3f} ms; a step's f32 product "
+                    f"floor {floor_us:.2f} us (67 TFLOP/s), "
+                    f"{floor_us * t / 1e3:.3f} ms a call")
             log(f"{spec['name']} {spec['kernel']} {name} D=2 (T {t}, B {b}, "
                 f"H {h}): {ms:.3f} ms ({ms / t * 1e3:.2f} us a step), with "
                 f"residuals {ms_res:.3f} ms ({ms_res / t * 1e3:.2f} us a "
@@ -1499,6 +1513,16 @@ def phase_scan(torch, results, cell):
                     ms=ms_res, ms_inference=ms, plain_ms=plain_ms,
                     bound_ms=bound_res_ms, bound_by=by_res,
                     library_ms=lib_ms, layer_ms=layer_ms)
+            elif cell == "gru":  # the f32 eval path runs the rule's choice,
+                # the persistent variant here, for inference
+                results["gru_scan_f32_persistent"] = dict(
+                    route="cuda", max_abs_err=max([err] + [e for e, _ in
+                                                           errs]),
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=by, library_ms=lib_ms, extra=dict(
+                        ms_residuals=ms_res, layer_ms=layer_ms,
+                        step_variant_ms=by_variant["step"],
+                        product_floor_ms=floor_us * t / 1e3))
 
 
 def ctc_inputs(torch, rng):
@@ -2529,8 +2553,12 @@ def phase_wide_cli(torch):
     utterances' CERs moved from 0.999; epoch 1's list equal to
     Curriculum.sample recomputed from the store epoch 0 left (its sidecar),
     shuffled by the epoch. Then one f32 transcribe request on the final
-    checkpoint, which runs K4 in all 6 layers."""
+    checkpoint, which runs K4 in all 6 layers (one row: one launch a step,
+    the rule's choice), and the f32 test CLI on the validation manifest in
+    one batch of 64, the eval cell's shape (K4's persistent variant in all
+    6 layers) -> that batch's launches."""
     from deepspeech_tpu_torch.audio.io import save_wav
+    from deepspeech_tpu_torch.cli.test import main as test_main
     from deepspeech_tpu_torch.cli.train import main as train_main
     from deepspeech_tpu_torch.cli.transcribe import main as transcribe_main
     from deepspeech_tpu_torch.data import AudioDataset, read_manifest
@@ -2645,6 +2673,30 @@ def phase_wide_cli(torch):
             f"included), launches {counts}: {text[:50]!r}")
         if counts != expect_counts(stft_mag=1, gru_scan=LAYERS):
             raise AssertionError(f"config-4 transcribe launches {counts}")
+
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = test_main(["--model-path",
+                            os.path.join(save, "deepspeech_final.ckpt"),
+                            "--test-manifest", val, "--batch-size",
+                            str(batch), "--num-workers", "4"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"config-4 test CLI exited {rc}")
+        counts = read_counts()
+        log(f"test CLI on the config-4 checkpoint (f32, {batch} "
+            f"utterances, batch {batch}): {dt:.3f} s host clock (checkpoint "
+            f"load included), launches {counts}; "
+            f"{buf.getvalue().strip().splitlines()[-1:]}")
+        want = expect_counts(stft_mag=1, ctc_alpha=1, gru_scan=LAYERS,
+                             gru_scan_f32_persistent=LAYERS)
+        if counts != want:
+            raise AssertionError(f"config-4 test CLI launches {counts}, "
+                                 f"expected {want}")
+        return counts
 
 
 def topk_rows(rng, r: int, n: int, kind: str) -> np.ndarray:
@@ -5928,8 +5980,9 @@ def main() -> int:
                            f"{cell}_scan_res": wide,
                            f"{cell}_bwd": LAYERS}))
         mark(f"the 6 x Bi{cell.upper()}-{WIDE} phases")
-    phase_wide_cli(torch)
-    mark("the config-4 train CLI with curriculum sampling")
+    wide_f32_counts = phase_wide_cli(torch)
+    mark("the config-4 train CLI with curriculum sampling, its f32 test "
+         "batch")
     multi_gpu = phase_multi_gpu(torch, step12)
     mark("multi-GPU training: data 2 and model 2 ranks on the card, NCCL "
          f"at world size 1 (and its --steps-per-dispatch {SPD_K} replays)")
@@ -5947,16 +6000,20 @@ def main() -> int:
     mark("the test CLI on two gloo ranks against one process")
 
     # launches from one pass of each kernel's path: the GRU-800 train step,
-    # the LSTM-800 train step, the wide models' train steps, the beam
+    # the LSTM-800 train step, the wide models' train steps, the beam, and
+    # config 4's f32 test batch for K4's f32 persistent variant (the eval
+    # path's, timed for inference, its source and TPU kernel K4's)
     counts_of = {"lstm_fwd": lstm_train_counts, "lstm_bwd": lstm_train_counts,
                  "gru_scan": wide_counts["gru"],
-                 "lstm_scan": wide_counts["lstm"], "topk": beam_counts}
+                 "lstm_scan": wide_counts["lstm"], "topk": beam_counts,
+                 "gru_scan_f32_persistent": wide_f32_counts}
     kernels = []
-    for name in KERNELS:
+    for name in (*KERNELS, "gru_scan_f32_persistent"):
         r = results[name]
         counts = counts_of.get(name, train_counts)
+        base = name.removesuffix("_f32_persistent")
         kernels.append({"name": name, "route": r["route"],
-                        "source": SOURCES[name], "replaces": REPLACES[name],
+                        "source": SOURCES[base], "replaces": REPLACES[base],
                         "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

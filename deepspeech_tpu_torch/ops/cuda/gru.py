@@ -16,7 +16,10 @@ for the recurrence on its f32 stream) it runs one of three variants,
 ``rnn_kernel.py``
 (``_gru_fwd_kernel`` via ``bigru_scan_pallas`` / ``gru_scan_pallas``): the
 same recurrence on a projection computed outside and rounded to the
-operand type, for the layers ``route.fused_route`` sends there. For CPU
+operand type, for the layers ``route.fused_route`` sends there; in f32
+either one launch a step (K2's SIMT step kernel) or one persistent launch
+that reads W_hh once a step for the whole batch (``variant=``, or the rule
+``recurrence.scan_f32_variant``). For CPU
 tensors each wrapper runs its plain PyTorch twin beside it (``plain``,
 ``plain_scan``, ``plain_bwd``); for CUDA tensors it launches the kernel or
 raises.
@@ -52,19 +55,23 @@ import torch
 
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import build
-from deepspeech_tpu_torch.ops.cuda.recurrence import (bwd_blocks,
+from deepspeech_tpu_torch.ops.cuda.recurrence import (F32_LAYOUT,
+                                                      bwd_blocks,
                                                       bwd_variant,
                                                       check_layer,
                                                       check_scan,
                                                       fwd_capacity,
                                                       fwd_mode, fwd_variant,
                                                       h_copy_shape,
+                                                      h_copy_shape_f32,
                                                       h_prev_stream,
                                                       mm_f32, op_copy_shape,
                                                       pack_w_hh,
                                                       pack_w_hh_bwd,
+                                                      pack_w_hh_f32,
                                                       resident_blocks,
                                                       same_device,
+                                                      scan_f32_variant,
                                                       scan_variant,
                                                       to_time_order,
                                                       valid_mask,
@@ -76,6 +83,7 @@ res_launches = 0  # of those, the training variant's (residuals written)
 proj_launches = 0  # the bf16 projection GEMM alone (``projection``)
 scan_launches = 0      # gru_scan launches (K4, one per layer call)
 scan_res_launches = 0  # of those, the training variant's
+scan_f32_persistent_launches = 0  # of those, f32 in one persistent launch
 bwd_launches = 0  # gru_bwd launches (one per layer backward)
 
 _P = ctypes.c_void_p
@@ -101,8 +109,19 @@ def _fwd_kernel():
 def _scan_kernel():
     lib = build.load("gru_scan")
     lib.gru_scan_f32.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+    lib.gru_scan_f32_persistent.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    lib.gru_scan_f32_capacity.argtypes = [_I, _P]
     lib.gru_scan_bf16.argtypes = [_P] * 11 + [_I] * 5 + [_P]
-    lib.gru_scan_f32.restype = lib.gru_scan_bf16.restype = _I
+    lib.gru_scan_f32_layout.argtypes = [_P]
+    for name in (*_SCAN.values(), "gru_scan_f32_persistent",
+                 "gru_scan_f32_capacity", "gru_scan_f32_layout"):
+        getattr(lib, name).restype = _I
+    # the packing and scratch shapes built here follow the kernel's tiling
+    layout = (_I * len(F32_LAYOUT))()
+    build.check(lib, lib.gru_scan_f32_layout(layout), "gru_scan_f32_layout")
+    if tuple(layout) != F32_LAYOUT:
+        raise RuntimeError(f"gru_scan's f32 layout {tuple(layout)} is not "
+                           f"recurrence.F32_LAYOUT {F32_LAYOUT}")
     return lib
 
 
@@ -285,10 +304,13 @@ def gru_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
     each row's length; with ``residuals`` -> (out, g, hn) for K5.
 
     xp (D, T, B, 3H) and w_hh (D, H, 3H) share the operand type (float32
-    or bfloat16); b_ih, b_hh (D, 3H) f32; lengths (B,). In bf16 the kernel
-    runs on tensor cores from W_hh packed here (``pack_w_hh``), one launch
-    a step or one persistent launch: ``variant`` "auto" (the kernel's
-    rule), "step" or "persistent"; f32 has one variant."""
+    or bfloat16); b_ih, b_hh (D, 3H) f32; lengths (B,). ``variant`` "auto",
+    "step" (one launch a step) or "persistent" (one launch a call; above 64
+    rows, or where its grid is not resident at once, it raises). In bf16
+    the kernel runs on tensor cores from W_hh packed here (``pack_w_hh``),
+    "auto" the kernel's rule. In f32 every product is an f32 FMA; the
+    persistent variant reads W_hh packed here (``pack_w_hh_f32``) once a
+    step for the whole batch, "auto" the rule ``scan_f32_variant``."""
     if xp.device.type == "cpu":
         return plain_scan(xp, b_ih, w_hh, b_hh, lengths, residuals)
     if xp.device.type != "cuda":
@@ -323,16 +345,33 @@ def gru_scan(xp: torch.Tensor, b_ih: torch.Tensor, w_hh: torch.Tensor,
                 hb.data_ptr(), bar.data_ptr(), out.data_ptr(), *res, t, b,
                 hidden, ndir, mode, stream)
     else:
-        state = torch.empty((2, ndir, b, hidden), dtype=torch.float32,
-                            device=dev)
-        with torch.cuda.device(dev):
-            code = lib.gru_scan_f32(
-                xp.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(),
-                b_hh.data_ptr(), lens.data_ptr(), state.data_ptr(),
-                out.data_ptr(), *res, t, b, hidden, ndir, stream)
+        mode = scan_f32_variant(variant, b, hidden, ndir, resident_blocks(
+            lib, "gru_scan_f32_capacity", hidden, dev)
+            if variant == "auto" else 0)
+        if mode == 2:
+            w_pk = pack_w_hh_f32(w_hh)
+            ht = torch.empty(h_copy_shape_f32(ndir, b, hidden),
+                             dtype=torch.float32, device=dev)
+            bar = torch.empty(1, dtype=torch.int32, device=dev)
+            with torch.cuda.device(dev):
+                code = lib.gru_scan_f32_persistent(
+                    xp.data_ptr(), b_ih.data_ptr(), w_pk.data_ptr(),
+                    b_hh.data_ptr(), lens.data_ptr(), ht.data_ptr(),
+                    bar.data_ptr(), out.data_ptr(), *res, t, b, hidden,
+                    ndir, stream)
+        else:
+            state = torch.empty((2, ndir, b, hidden), dtype=torch.float32,
+                                device=dev)
+            with torch.cuda.device(dev):
+                code = lib.gru_scan_f32(
+                    xp.data_ptr(), b_ih.data_ptr(), w_hh.data_ptr(),
+                    b_hh.data_ptr(), lens.data_ptr(), state.data_ptr(),
+                    out.data_ptr(), *res, t, b, hidden, ndir, stream)
     build.check(lib, code, "gru_scan kernel")
-    global scan_launches, scan_res_launches
+    global scan_launches, scan_res_launches, scan_f32_persistent_launches
     scan_launches += 1
+    if dt == torch.float32 and mode == 2:
+        scan_f32_persistent_launches += 1
     if not residuals:
         return out
     scan_res_launches += 1

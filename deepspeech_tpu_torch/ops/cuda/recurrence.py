@@ -1,9 +1,10 @@
 """Helpers shared by the recurrent-layer wrappers (``gru.py``, ``lstm.py``):
 the backward direction's time walk, the h_prev stream of the backward
-products, argument checks, the f32-sum matmul of the layer backwards, and
-the W_hh packings, scratch shapes and rules of the bf16 recurrence kernels
+products, argument checks, the f32-sum matmul of the layer backwards, the
+W_hh packings, scratch shapes and rules of the bf16 recurrence kernels
 (K2, K3, K4, K6: ``csrc/rnn_mma.cuh``, with K2's and K3's projection GEMM
-in ``csrc/proj_mma.cuh``; K5, K7: ``csrc/rnn_mma_bwd.cuh``)."""
+in ``csrc/proj_mma.cuh``; K5, K7: ``csrc/rnn_mma_bwd.cuh``), and those of
+K4's f32 persistent variant (``csrc/gru_scan.cu``: ``f32_scan``)."""
 
 from __future__ import annotations
 
@@ -159,6 +160,87 @@ def scan_variant(variant: str) -> int:
     return SCAN_VARIANTS[variant]
 
 
+# K4's f32 persistent variant (csrc/gru_scan.cu, f32_scan): F32_TJ units a
+# block, F32_ROW floats a packed W_hh row (its 3 * F32_TJ columns padded),
+# K chunks of F32_KC rows, the batch in blocks of F32_RB rows, at most
+# F32_CHUNK rows (the kernel's TJ, ROW, KC, RT, NB: ``gru._scan_kernel``
+# holds them to its ``gru_scan_f32_layout`` when it loads the library);
+# "auto" takes it from F32_MIN_BLOCKS blocks a direction, a threshold
+# interpolated between two measured grids (``scan_f32_variant``)
+F32_TJ, F32_ROW, F32_KC, F32_RB, F32_CHUNK = 25, 84, 32, 8, 64
+F32_LAYOUT = (F32_TJ, F32_ROW, F32_KC, F32_RB, F32_CHUNK)
+F32_MIN_BLOCKS = 48
+
+
+def pack_w_hh_f32(w_hh: torch.Tensor) -> torch.Tensor:
+    """(D, H, G*H) -> (D, NJ, Hk, ROW), the order in which the f32
+    persistent kernel's blocks read W_hh (NJ = ceil(H / TJ), Hk = H rounded
+    up to KC): row k of block jb holds, at column g*TJ + u,
+    ``w_hh[d, k, g*H + jb*TJ + u]``; zero past H in k and in the units, and
+    in the columns from G*TJ on. A block's K chunk of KC rows is one
+    contiguous run."""
+    ndir, hidden, gh = w_hh.shape
+    gates = gh // hidden
+    nj = -(-hidden // F32_TJ)
+    w = w_hh.reshape(ndir, hidden, gates, hidden)
+    if nj * F32_TJ != hidden:
+        w = torch.nn.functional.pad(w, (0, nj * F32_TJ - hidden))
+    # one fill and one strided copy: two kernels a call on the card
+    out = w_hh.new_zeros((ndir, nj, -(-hidden // F32_KC) * F32_KC,
+                          F32_ROW))
+    out[:, :, :hidden, :gates * F32_TJ].unflatten(-1, (gates, F32_TJ)).copy_(
+        w.reshape(ndir, hidden, gates, nj, F32_TJ).permute(0, 3, 1, 2, 4))
+    return out
+
+
+def unpack_w_hh_f32(packed: torch.Tensor, gates: int,
+                    hidden: int) -> torch.Tensor:
+    """The inverse of ``pack_w_hh_f32`` -> (D, H, G*H)."""
+    ndir, nj, hk = packed.shape[:3]
+    w = packed[..., :gates * F32_TJ].reshape(ndir, nj, hk, gates, F32_TJ)
+    w = w.permute(0, 2, 3, 1, 4).reshape(ndir, hk, gates, nj * F32_TJ)
+    return w[:, :hidden, :, :hidden].reshape(ndir, hidden, gates * hidden)
+
+
+def h_copy_shape_f32(ndir: int, b: int, hidden: int) -> tuple:
+    """(2, D, Hk, P): the f32 persistent kernel's two copies of h_prev,
+    transposed (element (k, b) of a copy at k * P + b), H rounded up to
+    whole K chunks and the pitch P the batch rounded up to F32_RB, + 4."""
+    return (2, ndir, -(-hidden // F32_KC) * F32_KC,
+            -(-b // F32_RB) * F32_RB + 4)
+
+
+def f32_blocks(ndir: int, hidden: int) -> int:
+    """The f32 persistent kernel's grid: ceil(H / TJ) blocks a direction."""
+    return ndir * -(-hidden // F32_TJ)
+
+
+def scan_f32_variant(variant: str, b: int, hidden: int, ndir: int,
+                     capacity: int) -> int:
+    """K4's f32 variant, 1 (one launch a step, ``gru_step``) or 2 (one
+    persistent launch): ``variant`` "step" or "persistent" as asked; "auto"
+    the rule, persistent where the batch fits (<= F32_CHUNK rows) and the
+    grid is resident at once (``capacity`` blocks can be), where it fills
+    the card (F32_MIN_BLOCKS blocks a direction or more: H >= 1,176) and
+    where the batch is more than one block of F32_RB rows; else one launch
+    a step. Each persistent block walks all of H's K chunks every step, so
+    its step takes about as long on a small grid as on a full one, while
+    the step kernel spreads ceil(B / 8) reads of W_hh over the whole card:
+    on the H100 (PERF.md) the persistent step is 2.3x faster at B 64,
+    H 1600, D 2, 1.7x at B 20 and 1.2x at D 1, but 8% slower at H 800, D 2
+    (64 blocks) and 4% slower at B 8. No grid between 32 and 64 blocks a
+    direction was measured, and no configuration runs one: 48 is
+    interpolated. The persistent step grows about as H, the step kernel's
+    as H squared, so the two measured grids put their crossing near 35
+    blocks a direction (H ~865), below the threshold."""
+    mode = scan_variant(variant)
+    if mode:
+        return mode
+    return 2 if (F32_RB < b <= F32_CHUNK
+                 and f32_blocks(ndir, hidden) <= capacity
+                 and f32_blocks(1, hidden) >= F32_MIN_BLOCKS) else 1
+
+
 # The fused forwards' bf16 variants (K2, K3; csrc/rnn_mma.cuh): one launch a
 # step, persistent with W_hh streamed from L2 once a step, persistent with
 # each block's W_hh slice resident in shared memory. "auto" is the rule
@@ -311,17 +393,18 @@ def bwd_variant(variant: str, b: int, blocks: int, resident: int) -> int:
 _resident: dict = {}
 
 
-def resident_blocks(lib: ctypes.CDLL, name: str, b: int,
+def resident_blocks(lib: ctypes.CDLL, name: str, size: int,
                     dev: torch.device) -> int:
-    """How many blocks of a bf16 backward's persistent kernel (the C entry
-    ``name`` of ``lib``: ``<cell>_bwd_resident``) can be resident at once
-    on ``dev`` for a batch of ``b`` rows; asked once."""
-    key = (name, -(-b // 8), torch.cuda.current_device()
+    """How many blocks of a persistent kernel (the C entry ``name`` of
+    ``lib``: ``<cell>_bwd_resident`` for a bf16 backward at a batch of
+    ``size`` rows, ``gru_scan_f32_capacity`` for K4's f32 variant at
+    ``size`` units) can be resident at once on ``dev``; asked once."""
+    key = (name, size, torch.cuda.current_device()
            if dev.index is None else dev.index)
     if key not in _resident:
         n = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            code = getattr(lib, name)(b, ctypes.byref(n))
+            code = getattr(lib, name)(size, ctypes.byref(n))
         build.check(lib, code, name)
         _resident[key] = n.value
     return _resident[key]

@@ -624,7 +624,7 @@ def _scan_case(dev, dtype, ndir, t, b, h, gates, seed):
     return xp.to(dtype), b_ih, w_hh.to(dtype), b_hh, lens
 
 
-@pytest.mark.parametrize("variant", ["step", "persistent"])
+@pytest.mark.parametrize("variant", ["step", "persistent", "auto"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 5e-3)])
 @pytest.mark.parametrize("ndir", [1, 2])
@@ -632,25 +632,34 @@ def _scan_case(dev, dtype, ndir, t, b, h, gates, seed):
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_scan_kernel_matches_plain(dev, cell, dtype, tol, ndir, t, b, h,
                                    variant):
-    """K4 and K6, inference and training, one launch a step and persistent
-    (bf16; f32 has one variant), against plain_scan with the tolerances of
-    K2 and K3 (the LSTM's c relative to its largest value). A persistent
-    launch of a batch above one chunk raises: it never falls back."""
+    """K4 and K6, inference and training, in each variant (the LSTM's f32
+    has one), against plain_scan with the tolerances of K2 and K3 (the
+    LSTM's c relative to its largest value). A persistent launch of a batch
+    above one chunk raises: it never falls back. K4's f32 persistent
+    variant counts one launch a call, and "auto" takes it from 9 to 64 rows
+    at H 1600 (recurrence.scan_f32_variant)."""
     from deepspeech_tpu_torch.ops.cuda import gru, lstm
 
     mod = gru if cell == "gru" else lstm
     scan = gru.gru_scan if cell == "gru" else lstm.lstm_scan
     args = _scan_case(dev, dtype, ndir, t, b, h, 3 if cell == "gru" else 4,
                       t + b + 5)
-    if dtype == torch.bfloat16 and variant == "persistent" and b > 64:
+    f32_gru = dtype == torch.float32 and cell == "gru"
+    if (variant == "persistent" and b > 64
+            and (dtype == torch.bfloat16 or f32_gru)):
         with pytest.raises(RuntimeError, match="scan kernel"):
             scan(*args, variant=variant)
         return
-    before = (mod.scan_launches, mod.scan_res_launches, mod.launches)
+    before = (mod.scan_launches, mod.scan_res_launches, mod.launches,
+              gru.scan_f32_persistent_launches)
     got = scan(*args, variant=variant)
     res = scan(*args, residuals=True, variant=variant)
-    assert (mod.scan_launches, mod.scan_res_launches, mod.launches) == (
-        before[0] + 2, before[1] + 1, before[2])
+    persistent = f32_gru and (variant == "persistent"
+                              or (variant == "auto" and 8 < b <= 64
+                                  and h >= 1200))
+    assert (mod.scan_launches, mod.scan_res_launches, mod.launches,
+            gru.scan_f32_persistent_launches) == (
+        before[0] + 2, before[1] + 1, before[2], before[3] + 2 * persistent)
     ref = mod.plain_scan(*args, residuals=True)
     torch.testing.assert_close(got, ref[0], rtol=0, atol=tol)
     for name, a, w in zip(("h", "r1", "r2"), res, ref):
@@ -662,6 +671,52 @@ def test_scan_kernel_matches_plain(dev, cell, dtype, tol, ndir, t, b, h,
     pad = torch.arange(t, device=dev)[:, None] >= args[-1][None, :]
     for a in (got, *res):
         assert not a[:, pad].any()
+
+
+@pytest.mark.parametrize("variant", ["persistent", "auto"])
+@pytest.mark.parametrize("ndir", [1, 2])
+def test_scan_f32_persistent_at_the_eval_shape(dev, ndir, variant):
+    """K4's f32 persistent variant at the eval cell's layer shape (B 64,
+    H 1600, T 406; ragged lengths from a length-1 row to a full one),
+    inference and with residuals, against plain_scan at 1e-4, one launch
+    a call; zero past each row's length."""
+    from deepspeech_tpu_torch.ops.cuda import gru
+
+    t, b, h = 406, 64, 1600
+    xp, b_ih, w_hh, b_hh, _ = _scan_case(dev, torch.float32, ndir, t, b, h,
+                                         3, 61)
+    lens = torch.from_numpy(np.linspace(t, 1, b).astype(np.int64)).to(dev)
+    assert int(lens.min()) == 1 and int(lens.max()) == t
+    args = (xp, b_ih, w_hh, b_hh, lens)
+    before = gru.scan_f32_persistent_launches
+    got = gru.gru_scan(*args, variant=variant)
+    res = gru.gru_scan(*args, residuals=True, variant=variant)
+    assert gru.scan_f32_persistent_launches == before + 2
+    ref = gru.plain_scan(*args, residuals=True)
+    torch.testing.assert_close(got, ref[0], rtol=0, atol=1e-4)
+    for name, a, w in zip(("h", "g", "hn"), res, ref):
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-4, msg=name)
+    pad = torch.arange(t, device=dev)[:, None] >= lens[None, :]
+    for a in (got, *res):
+        assert not a[:, pad].any()
+
+
+@pytest.mark.parametrize("variant", ["step", "persistent"])
+def test_scan_f32_without_steps(dev, variant):
+    """K4 in f32 at T 0, each variant: empty outputs, and the card still
+    sound after the call (the persistent kernel's copy of its resident
+    W_hh chunks is waited for only inside the step loop, so T 0 launches
+    nothing)."""
+    from deepspeech_tpu_torch.ops.cuda import gru
+
+    xp, b_ih, w_hh, b_hh, _ = _scan_case(dev, torch.float32, 2, 0, 16, 96,
+                                         3, 7)
+    lens = torch.zeros(16, dtype=torch.int64, device=dev)
+    out, g, hn = gru.gru_scan(xp, b_ih, w_hh, b_hh, lens, residuals=True,
+                              variant=variant)
+    torch.cuda.synchronize()
+    assert (out.shape, g.shape, hn.shape) == (
+        (2, 0, 16, 96), (2, 0, 16, 288), (2, 0, 16, 96))
 
 
 @pytest.mark.parametrize("t,b,h", [(41, 20, 96), (5, 13, 200),
@@ -1154,12 +1209,12 @@ def test_fused_forward_variants_capture(dev, cell, variant, dtype,
 
 @pytest.mark.parametrize("variant,dtype", [
     ("persistent", torch.bfloat16), ("step", torch.bfloat16),
-    ("auto", torch.float32)])
+    ("auto", torch.float32), ("step", torch.float32)])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_scan_variants_capture(dev, cell, variant, dtype):
     """K4 and K6 at config 4's width (B 64, H 1600; T 9): the cooperative
-    persistent launch, one launch a step and f32, with residuals,
-    captured and replayed."""
+    persistent launches (bf16, and K4's f32 by the rule), one launch a step
+    in both types, with residuals, captured and replayed."""
     import functools
 
     from deepspeech_tpu_torch.ops.cuda import gru, lstm
