@@ -1058,7 +1058,9 @@ COUNT_NAMES = {("stft", "launches"): "stft_mag",
                                      ("scan_res_launches", "scan_res"),
                                      ("bwd_launches", "bwd"))},
                ("gru", "scan_f32_persistent_launches"):
-                   "gru_scan_f32_persistent"}
+                   "gru_scan_f32_persistent",
+               ("attention", "mhsa_sdpa_launches"): "mhsa_sdpa",
+               ("attention", "mhsa_plain_launches"): "mhsa_plain"}
 UNNAMED_COUNTERS = {("gru", "proj_launches")}
 
 

@@ -9,6 +9,14 @@ frames and, in training, applies the device spectrogram masks
 (``augment/spectrogram.py``) to the magnitudes before normalizing, as the
 reference does. The host (numpy) parity path, ``parse_audio_np``, is the
 JAX package's, copied: the dataset's ``emit="spect"`` runs it.
+
+With ``AudioConf.n_mels`` > 0 the batch path is a log-mel front instead
+(``log_mel_batch``, the Conformer's): the power of the same |STFT| through
+an (n_mels x n_fft//2+1) Slaney mel matrix (``mel_filterbank``, librosa's
+defaults written out), log(x + 2**-24), each band's mean and standard
+deviation over the utterance's valid frames removed (NeMo's
+``per_feature``); zeros past them. ``n_mels`` 0, the default, is the 161
+linear bins above, and a conf's dict then carries no ``n_mels``.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ class AudioConf:
     noise_levels: tuple = (0.0, 0.5)
     aug_prob_8khz: float = 0.0
     aug_prob_spect: float = 0.0
+    n_mels: int = 0  # 0: the 161 linear bins; else a log-mel front
 
     @property
     def n_fft(self) -> int:
@@ -61,6 +70,8 @@ class AudioConf:
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
         d["noise_levels"] = tuple(d["noise_levels"])
+        if not self.n_mels:
+            del d["n_mels"]
         return d
 
     @classmethod
@@ -214,6 +225,77 @@ def draw_masks(batch: int, n_frames: int, conf: AudioConf,
     return out
 
 
+MEL_LOG_GUARD = 2.0 ** -24  # added to the mel power before the log
+PER_FEATURE_EPS = 1e-5  # added to each band's standard deviation
+
+
+def _hz_to_mel(f: np.ndarray) -> np.ndarray:
+    """Slaney's mel scale (librosa ``hz_to_mel(htk=False)``): linear below
+    1 kHz, logarithmic above."""
+    f = np.asarray(f, np.float64)
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel, logstep = min_log_hz / f_sp, np.log(6.4) / 27.0
+    return np.where(f >= min_log_hz,
+                    min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz)
+                    / logstep, f / f_sp)
+
+
+def _mel_to_hz(m: np.ndarray) -> np.ndarray:
+    m = np.asarray(m, np.float64)
+    f_sp, min_log_hz = 200.0 / 3, 1000.0
+    min_log_mel, logstep = min_log_hz / f_sp, np.log(6.4) / 27.0
+    return np.where(m >= min_log_mel,
+                    min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                    f_sp * m)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
+    """(n_mels, n_fft // 2 + 1) f32: librosa ``filters.mel``'s defaults
+    (fmin 0, fmax sr / 2, Slaney scale, Slaney area norm): triangles
+    between n_mels + 2 points even on the mel scale, each scaled by 2 over
+    its width in Hz."""
+    freqs = np.linspace(0.0, sample_rate / 2, n_fft // 2 + 1)
+    hz = _mel_to_hz(np.linspace(_hz_to_mel(0.0), _hz_to_mel(sample_rate / 2),
+                                n_mels + 2))
+    width = np.diff(hz)
+    ramps = hz[:, None] - freqs[None, :]
+    lower = -ramps[:-2] / width[:-1, None]
+    upper = ramps[2:] / width[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (hz[2:] - hz[:-2]))[:, None]
+    return weights.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_on(sample_rate: int, n_fft: int, n_mels: int,
+            device: torch.device) -> torch.Tensor:
+    """``mel_filterbank`` on ``device``, copied there once."""
+    return torch.from_numpy(mel_filterbank(sample_rate, n_fft,
+                                           n_mels)).to(device)
+
+
+def log_mel_batch(mag: torch.Tensor, frame_lengths: torch.Tensor,
+                  conf: AudioConf) -> torch.Tensor:
+    """(B, n_fft//2+1, T) |STFT| -> (B, n_mels, T) log-mel, each band less
+    its mean over the row's valid frames and over their standard deviation
+    (n - 1 in the denominator) plus ``PER_FEATURE_EPS`` (NeMo's
+    ``per_feature``), zero past them. The filterbank product runs in f32
+    with TF32 off."""
+    from deepspeech_tpu_torch.ops import fp32_matmul
+
+    fb = _mel_on(conf.sample_rate, conf.n_fft, conf.n_mels, mag.device)
+    with fp32_matmul():
+        mel = torch.matmul(fb, mag.float() * mag.float())
+    spect = torch.log(mel + MEL_LOG_GUARD)
+    mask = length_mask(frame_lengths, spect.shape[-1])[:, None, :]
+    n = mask.sum(-1, keepdim=True)
+    mean = (spect * mask).sum(-1, keepdim=True) / n.clamp(min=1.0)
+    var = (((spect - mean) * mask) ** 2).sum(-1, keepdim=True) / (
+        n - 1).clamp(min=1.0)
+    return (spect - mean) / (torch.sqrt(var) + PER_FEATURE_EPS) * mask
+
+
 def featurize_batch(audio: torch.Tensor, audio_lengths: torch.Tensor,
                     conf: AudioConf, normalize: str = "max_frame",
                     jitter: torch.Tensor | None = None,
@@ -228,11 +310,16 @@ def featurize_batch(audio: torch.Tensor, audio_lengths: torch.Tensor,
     every valid frame (reference data_loader_aug.py:213-214). ``masks``
     (``draw_masks``): the SpecAugment and 8 kHz band-zero draws, applied
     to the magnitudes before normalization at ``conf``'s probabilities
-    (reference data_loader_aug.py:241-248).
+    (reference data_loader_aug.py:241-248). With ``conf.n_mels`` the
+    front is ``log_mel_batch`` (B, n_mels, T); ``normalize``, ``jitter``
+    and ``masks`` do not act there.
     """
     window = make_window(conf.window, conf.n_fft)
     mag = stft_kernel.stft_mag(audio, conf.n_fft, conf.hop, window,
                                center=True)
+    if conf.n_mels:
+        frame_lengths = 1 + audio_lengths.to(mag.device) // conf.hop
+        return log_mel_batch(mag, frame_lengths, conf), frame_lengths
     n_bins = conf.n_fft // 2 + 1
     if n_bins < N_BINS:
         out = mag.new_zeros((*mag.shape[:-2], N_BINS, mag.shape[-1]))

@@ -36,6 +36,18 @@ def load_inference_model(path: str, device: str | torch.device = "cuda"):
     return model, labels, AudioConf.from_dict(conf_dict), package
 
 
+def refuse_conformer(model, what: str) -> None:
+    """Exit where ``what`` (a streaming path) is handed a Conformer, whose
+    attention reads the whole utterance."""
+    from deepspeech_tpu_torch.models import Conformer
+
+    if isinstance(model, Conformer):
+        raise SystemExit(f"{what} streams the audio in chunks; a conformer "
+                         "attends over the whole utterance and does not "
+                         "stream: use test or transcribe without "
+                         "--chunk-seconds")
+
+
 def build_decoder(args, labels):
     """Greedy, host beam, or beam on ``args.device`` per CLI flags
     (reference test.py:73-83)."""

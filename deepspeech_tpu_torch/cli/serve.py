@@ -50,11 +50,13 @@ def main(argv=None) -> int:
 
     from deepspeech_tpu_torch.audio.dsp import resample
     from deepspeech_tpu_torch.audio.io import load_audio_norm
-    from deepspeech_tpu_torch.cli.common import load_inference_model
+    from deepspeech_tpu_torch.cli.common import (load_inference_model,
+                                                 refuse_conformer)
     from deepspeech_tpu_torch.serve import StreamPool
 
     model, labels, audio_conf, _ = load_inference_model(args.continue_from,
                                                         device=args.device)
+    refuse_conformer(model, "serve")
     if getattr(model, "bidirectional", False):
         raise SystemExit("serve requires a streamable model: a "
                          "unidirectional DS2 (lookahead head) or any CNN "

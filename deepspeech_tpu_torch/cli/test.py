@@ -100,7 +100,7 @@ def run(args, dev, mesh) -> int:
     from deepspeech_tpu_torch.cli.common import (build_decoder,
                                                  load_inference_model)
     from deepspeech_tpu_torch.data import (AudioDataLoader, AudioDataset,
-                                           BucketingSampler)
+                                           BucketingSampler, BucketSpec)
     from deepspeech_tpu_torch.decoders import BeamCTCDecoder, GreedyDecoder
     from deepspeech_tpu_torch.metrics import get_cer_wer
     from deepspeech_tpu_torch.parallel import equalize_batch_padding
@@ -125,7 +125,10 @@ def run(args, dev, mesh) -> int:
     rows = args.batch_size // world
     bins = [ids[rank * rows:(rank + 1) * rows]
             for ids in BucketingSampler(len(dataset), args.batch_size)]
+    # each row's reflect tail at least the front's half window
+    tail = max(BucketSpec.reflect_tail, audio_conf.n_fft // 2)
     loader = AudioDataLoader(dataset, bins, rows,
+                             BucketSpec(reflect_tail=tail),
                              num_workers=args.num_workers)
     eval_step = make_eval_step(
         model, StepConfig(audio_conf=audio_conf, normalize=args.norm))

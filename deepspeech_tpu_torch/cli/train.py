@@ -28,6 +28,12 @@ them, and each package's ``--continue-from`` resumes the other's (mid-epoch
 ones inside their epoch, through ``AudioDataLoader.iter_from``);
 ``--finetune`` takes the weights only.
 
+``--rnn-type conformer`` trains a Conformer-CTC (``models/conformer.py``)
+of the ``--conformer-*`` sizes over a log-mel front of
+``--conformer-n-mels`` bands, data parallel only: ``--mesh-model`` > 1
+exits. ``--adam-beta2`` and ``--adam-eps`` set Adam's (optax's defaults
+unless given); a checkpoint carries them and a resume takes them back.
+
 Augmentation as the JAX CLI: ``--augment`` runs the host waveform
 pipeline (``--aug-type``) with the per-sample RNG seeded from (seed,
 epoch, index); ``--aug-prob-spect`` and ``--aug-prob-8khz`` mask the
@@ -131,8 +137,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden-size", default=800, type=int)
     p.add_argument("--hidden-layers", default=6, type=int)
     p.add_argument("--rnn-type", default="gru",
-                   help="gru, lstm, rnn, or a CNN: cnn, cnn_residual, "
-                        "glu_small, glu_large, large_cnn, cnn_jasper")
+                   help="gru, lstm, rnn, a CNN: cnn, cnn_residual, "
+                        "glu_small, glu_large, large_cnn, cnn_jasper, or "
+                        "conformer")
+    p.add_argument("--conformer-d-model", default=512, type=int,
+                   help="acts with --rnn-type conformer")
+    p.add_argument("--conformer-heads", default=8, type=int,
+                   help="acts with --rnn-type conformer")
+    p.add_argument("--conformer-layers", default=17, type=int,
+                   help="acts with --rnn-type conformer")
+    p.add_argument("--conformer-ff", default=2048, type=int,
+                   help="feed-forward width; acts with --rnn-type conformer")
+    p.add_argument("--conformer-kernel", default=32, type=int,
+                   help="depthwise conv kernel; acts with --rnn-type "
+                        "conformer")
+    p.add_argument("--conformer-n-mels", default=80, type=int,
+                   help="log-mel bands of its front; acts with --rnn-type "
+                        "conformer")
     p.add_argument("--cnn-width", default=256, type=int)
     p.add_argument("--dropout", default=0, type=float)
     p.add_argument("--no-bidirectional", dest="bidirectional",
@@ -147,6 +168,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", default="sgd", help="sgd or adam")
     p.add_argument("--weight-decay", default=0, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
+    p.add_argument("--adam-beta2", default=0.999, type=float,
+                   help="acts with --optimizer adam")
+    p.add_argument("--adam-eps", default=1e-8, type=float,
+                   help="acts with --optimizer adam")
     p.add_argument("--max-norm", default=100, type=float,
                    help="gradient norm clip")
     p.add_argument("--learning-anneal", default=1.1, type=float)
@@ -258,6 +283,9 @@ def check_ported(args) -> None:
     rendezvous(args)
     if args.mesh_model < 1:
         raise SystemExit("--mesh-model must be 1 or more")
+    if args.rnn_type == "conformer" and args.mesh_model > 1:
+        raise SystemExit("--rnn-type conformer trains data parallel only: "
+                         "--mesh-model must be 1")
 
 
 def check_one_machine(mesh) -> None:
@@ -305,6 +333,7 @@ def audio_conf_from_args(args, train: bool):
     training (JAX ``cli/train.py:187-196``)."""
     from deepspeech_tpu_torch.audio.features import AudioConf
 
+    n_mels = args.conformer_n_mels if args.rnn_type == "conformer" else 0
     return AudioConf(
         sample_rate=args.sample_rate, window_size=args.window_size,
         window_stride=args.window_stride, window=args.window,
@@ -312,7 +341,8 @@ def audio_conf_from_args(args, train: bool):
         noise_prob=args.noise_prob if train else 0,
         noise_levels=(args.noise_min, args.noise_max),
         aug_prob_8khz=args.aug_prob_8khz if train else 0,
-        aug_prob_spect=args.aug_prob_spect if train else 0)
+        aug_prob_spect=args.aug_prob_spect if train else 0,
+        n_mels=n_mels)
 
 
 def sampler_for(n: int, batch_size: int, mesh):
@@ -487,6 +517,7 @@ def train(args, dev, mesh, observers) -> int:
                                            BucketSpec, stack_microbatches)
     from deepspeech_tpu_torch.decoders import GreedyDecoder
     from deepspeech_tpu_torch.models import build_model
+    from deepspeech_tpu_torch.models.factory import META_KEYS
     from deepspeech_tpu_torch.parallel import (equalize_batch_padding,
                                                gather_state,
                                                local_batch_to_global,
@@ -496,7 +527,8 @@ def train(args, dev, mesh, observers) -> int:
     from deepspeech_tpu_torch.train import checkpoint as ckpt
     from deepspeech_tpu_torch.train.evaluate import (decode_batch_greedy,
                                                      evaluate)
-    from deepspeech_tpu_torch.train.optim import (build_optimizer, get_lr,
+    from deepspeech_tpu_torch.train.optim import (ADAM_B2, ADAM_EPS,
+                                                  build_optimizer, get_lr,
                                                   set_lr)
     from deepspeech_tpu_torch.train.step import (StepConfig, TrainState,
                                                  make_eval_step,
@@ -529,24 +561,35 @@ def train(args, dev, mesh, observers) -> int:
                                      "noise_dir": None, "noise_prob": 0,
                                      "aug_prob_8khz": 0,
                                      "aug_prob_spect": 0})
+    adam = {"beta2": args.adam_beta2, "eps": args.adam_eps}
     if package is not None:
-        meta = {k: package[k] for k in
-                ("rnn_type", "num_classes", "hidden_size", "hidden_layers",
-                 "bidirectional", "bnm", "cnn_width", "dropout", "context")
-                if k in package}
+        meta = {k: package[k] for k in META_KEYS if k in package}
+        if meta.get("rnn_type") == "conformer" and args.mesh_model > 1:
+            raise SystemExit("a conformer checkpoint trains data parallel "
+                             "only: --mesh-model must be 1")
         model, meta = build_model(**meta, compute_dtype=args.compute_dtype,
                                   device=dev)
+        if not args.finetune:
+            adam = {k: package.get(f"adam_{k}", v) for k, v in adam.items()}
     else:
         model, meta = build_model(
             rnn_type=args.rnn_type, num_classes=len(labels.labels),
             hidden_size=args.hidden_size, hidden_layers=args.hidden_layers,
             bidirectional=args.bidirectional, bnm=args.batch_norm_momentum,
             cnn_width=args.cnn_width, dropout=args.dropout,
-            compute_dtype=args.compute_dtype, device=dev)
+            compute_dtype=args.compute_dtype, device=dev,
+            d_model=args.conformer_d_model, heads=args.conformer_heads,
+            layers=args.conformer_layers, ff=args.conformer_ff,
+            conv_kernel=args.conformer_kernel,
+            n_mels=args.conformer_n_mels)
     optimizer = build_optimizer(args.optimizer, lr=args.lr,
                                 momentum=args.momentum,
                                 weight_decay=args.weight_decay,
-                                max_norm=args.max_norm)
+                                max_norm=args.max_norm, **adam)
+    if optimizer.kind == "adam" and (optimizer.beta2, optimizer.eps) != (
+            ADAM_B2, ADAM_EPS):  # checkpointed with the optimizer
+        meta = {**meta, "adam_beta2": optimizer.beta2,
+                "adam_eps": optimizer.eps}
     state = TrainState.create(model, optimizer)
     start_epoch = start_iter = checkpoint_id = 0
     best_quality = None

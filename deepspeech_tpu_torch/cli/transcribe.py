@@ -162,13 +162,16 @@ def decode_results(decoded_output, decoded_offsets, args, package):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from deepspeech_tpu_torch.cli.common import (build_decoder,
-                                                 load_inference_model)
+                                                 load_inference_model,
+                                                 refuse_conformer)
 
     model, labels, audio_conf, package = load_inference_model(
         args.continue_from, device=args.device)
     decoder = build_decoder(args, labels)
     if args.chunk_seconds > 0:
         import sys
+
+        refuse_conformer(model, "transcribe --chunk-seconds")
 
         def echo(frag):
             print(frag, end="", file=sys.stderr, flush=True)

@@ -23,6 +23,10 @@ The ConvStack map (``models/cnn.py``):
 * ``block{i}/se_reduce``, ``se_expand``: Dense ``kernel`` (in, out) <->
   Linear ``weight`` (out, in), ``bias`` as is;
 * ``fc/kernel`` (1, in, C) <-> ``fc.weight`` (C, in, 1); ``fc/bias``.
+
+The Conformer (``models/conformer.py``; ``subsample`` in the trees) has no
+JAX twin: its trees are its state_dict cut at the dots, every tensor in
+the port's layout, the BatchNorms' running stats in ``batch_stats``.
 """
 
 from __future__ import annotations
@@ -123,8 +127,27 @@ def _cnn_to_jax(sd: dict) -> tuple[dict, dict]:
     return params, stats
 
 
+_STAT_LEAVES = ("running_mean", "running_var")
+
+
+def _dotted_to_trees(sd: dict) -> tuple[dict, dict]:
+    params: dict = {}
+    stats: dict = {}
+    for name, v in sd.items():
+        *path, leaf = name.split(".")
+        _set(stats if leaf in _STAT_LEAVES else params, path, leaf, v)
+    return params, stats
+
+
+def _trees_to_dotted(params: dict, batch_stats: dict) -> dict:
+    return _f32({".".join(path): leaf for tree in (params, batch_stats)
+                 for path, leaf in tree_items(tree)})
+
+
 def jax_to_torch(params: dict, batch_stats: dict) -> dict:
     """JAX variable trees (numpy leaves) -> the port's state_dict."""
+    if "subsample" in params:
+        return _trees_to_dotted(params, batch_stats)
     if "block0" in params:
         return _cnn_to_torch(params, batch_stats)
     sd = {}
@@ -153,6 +176,8 @@ def torch_to_jax(state_dict: dict) -> tuple[dict, dict]:
     """The port's state_dict -> (params, batch_stats) JAX trees of numpy
     arrays."""
     sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    if "subsample.conv0.weight" in sd:
+        return _dotted_to_trees(sd)
     if "blocks.0.conv.weight" in sd:
         return _cnn_to_jax(sd)
     params: dict = {}

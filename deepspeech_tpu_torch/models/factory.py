@@ -17,7 +17,14 @@ from deepspeech_tpu_torch.models.ds2 import DeepSpeech2
 RNN_KEYS = ("rnn", "gru", "lstm")
 CNN_KEYS = ("cnn", "cnn_residual", "glu_small", "glu_large", "large_cnn",
             "cnn_jasper")
-SUPPORTED = RNN_KEYS + CNN_KEYS
+SUPPORTED = RNN_KEYS + CNN_KEYS + ("conformer",)
+# the Conformer's sizes in a checkpoint's meta
+CONFORMER_KEYS = ("d_model", "heads", "layers", "ff", "conv_kernel",
+                  "n_mels")
+# every meta field ``build_model`` takes back
+META_KEYS = ("rnn_type", "num_classes", "hidden_size", "hidden_layers",
+             "bidirectional", "bnm", "cnn_width", "dropout", "context",
+             *CONFORMER_KEYS)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": None, "f32": None, None: None}
@@ -28,8 +35,15 @@ def build_model(rnn_type: str = "gru", num_classes: int = 29,
                 bidirectional: bool = True, bnm: float = 0.1,
                 cnn_width: int = 256, dropout: float = 0.0,
                 context: int = 20, compute_dtype=None,
-                device: str | torch.device = "cuda"):
+                device: str | torch.device = "cuda", d_model: int = 512,
+                heads: int = 8, layers: int = 17, ff: int = 2048,
+                conv_kernel: int = 32, n_mels: int = 80):
     """-> (torch module on ``device``, meta dict for checkpoints).
+
+    ``d_model`` ... ``n_mels`` are the Conformer's sizes (width, attention
+    heads, blocks, feed-forward width, depthwise kernel, mel bands in);
+    the other families ignore them, as the Conformer ignores the DS2 and
+    CNN sizes but ``num_classes``, ``bnm`` and ``dropout``.
 
     ``compute_dtype``: matmul operand type ("bfloat16" / torch.bfloat16, or
     None for float32). A runtime choice: the weights are always float32 and
@@ -39,6 +53,15 @@ def build_model(rnn_type: str = "gru", num_classes: int = 29,
     if isinstance(compute_dtype, str) or compute_dtype is None:
         compute_dtype = _DTYPES[compute_dtype]
     rnn_type = rnn_type.lower()
+    if rnn_type == "conformer":
+        from deepspeech_tpu_torch.models.conformer import Conformer
+        meta = {"rnn_type": rnn_type, "num_classes": num_classes,
+                "bnm": bnm, "dropout": dropout, "d_model": d_model,
+                "heads": heads, "layers": layers, "ff": ff,
+                "conv_kernel": conv_kernel, "n_mels": n_mels}
+        model = Conformer(num_classes, d_model, heads, layers, ff,
+                          conv_kernel, n_mels, dropout, bnm, compute_dtype)
+        return model.to(dev), meta
     meta = {
         "rnn_type": rnn_type, "num_classes": num_classes,
         "hidden_size": hidden_size, "hidden_layers": hidden_layers,
@@ -67,8 +90,5 @@ def build_model(rnn_type: str = "gru", num_classes: int = 29,
 
 def model_from_meta(meta: dict, device: str | torch.device = "cuda"):
     """Rebuild the f32 module from a checkpoint's meta fields."""
-    kw = {k: meta[k] for k in
-          ("rnn_type", "num_classes", "hidden_size", "hidden_layers",
-           "bidirectional", "bnm", "cnn_width", "dropout", "context")
-          if k in meta}
+    kw = {k: meta[k] for k in META_KEYS if k in meta}
     return build_model(**kw, device=device)[0]

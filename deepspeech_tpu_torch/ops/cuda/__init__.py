@@ -5,17 +5,21 @@ module-level integers whose names end in ``launches``, one where it issues
 a launch; ``read_counters`` finds and reads them all and ``add_counters``
 moves them, as the CUDA graphs of the train step do (``train/graph.py``: a
 launch issued under capture runs once per replay). A new counter needs no
-list of its own: its name is enough."""
+list of its own: its name is enough. ``attention`` is the port's
+attention route (``ops/attention.py``), beside this package: a library
+kernel's wrapper, counted as the others are."""
 
 from __future__ import annotations
 
 import importlib
 
-COUNTED = ("stft", "gru", "lstm", "ctc", "topk")
+COUNTED = ("stft", "gru", "lstm", "ctc", "topk", "attention")
+BESIDE = ("attention",)  # modules of ``ops`` rather than of ``ops.cuda``
 
 
 def _module(name: str):
-    return importlib.import_module(f"{__name__}.{name}")
+    package = __name__.rpartition(".")[0] if name in BESIDE else __name__
+    return importlib.import_module(f"{package}.{name}")
 
 
 def read_counters() -> dict:

@@ -9,14 +9,23 @@ parameter tensors and a new state and changes nothing in place; the train
 step then writes them over the old ones where the step is kept
 (``assign_where``, a per-tensor where that needs no host sync), so every
 tensor of the state keeps its storage and a captured CUDA graph of the
-step (``train/graph.py``) reads and writes the live state. The learning
-rate lives in the state, as optax's injected hyperparameter does: ``lr``,
-a 0-d f32 tensor on the parameters' device that the update reads and
-``set_lr`` overwrites in place (a replayed graph sees the anneal), and
-``lr_host``, the same value as a Python float, which ``get_lr`` returns
-without a device read; beside them that wrapper's step count
-(``inject_count``, a 0-d int32 that advances with every applied update,
-as optax's does).
+step (``train/graph.py``) reads and writes the live state.
+
+The clip and the update move every list of tensors through multi-tensor
+(``torch._foreach_*``) ops, a few launches for all of them rather than
+one or more a tensor: each element takes the same operations in the same
+order as the one-tensor formulas in the comments, so they give the bits
+those formulas give. The global norm's squares are one multi-tensor
+product; their sums and the sum over the tensors keep the one-tensor
+order, so the norm's bits are those of a sum of per-tensor sums too.
+
+The learning rate lives in the state, as optax's injected hyperparameter
+does: ``lr``, a 0-d f32 tensor on the parameters' device that the update
+reads and ``set_lr`` overwrites in place (a replayed graph sees the
+anneal), and ``lr_host``, the same value as a Python float, which
+``get_lr`` returns without a device read; beside them that wrapper's step
+count (``inject_count``, a 0-d int32 that advances with every applied
+update, as optax's does).
 
 Checkpoints hold the state as optax's leaves (``to_optax_leaves``,
 ``from_optax_leaves``), so each package resumes the other's:
@@ -41,7 +50,9 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    tensors = [t.float() for t in tensors]
+    squares = torch._foreach_mul(tensors, tensors)
+    return torch.sqrt(sum(torch.sum(q) for q in squares))
 
 
 def clip_by_global_norm(grads: list, max_norm: float,
@@ -51,7 +62,10 @@ def clip_by_global_norm(grads: list, max_norm: float,
     this rank does not hold)."""
     norm = global_norm(grads) if norm is None else norm
     clip = norm >= max_norm  # optax keeps the grads when norm < max_norm
-    return [torch.where(clip, g / norm * max_norm, g) for g in grads], norm
+    # g / norm * max_norm where clipping, else g / 1 * 1 (= g)
+    one = torch.ones_like(norm)
+    scaled = torch._foreach_div(grads, torch.where(clip, norm, one))
+    return torch._foreach_mul(scaled, torch.where(clip, max_norm, one)), norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +77,8 @@ class Optimizer:
     momentum: float = 0.9
     weight_decay: float = 0.0
     max_norm: float = 100.0
+    beta2: float = ADAM_B2  # Adam's second-moment decay
+    eps: float = ADAM_EPS  # Adam's eps, outside the square root
 
     def init(self, params: list) -> dict:
         dev = params[0].device
@@ -88,27 +104,29 @@ class Optimizer:
         lr = state["lr"]
         new = {"lr": lr, "lr_host": state["lr_host"],
                "inject_count": state["inject_count"] + 1}
+        add, mul, div = (torch._foreach_add, torch._foreach_mul,
+                         torch._foreach_div)
         if self.kind == "sgd":
-            if self.weight_decay > 0:
-                grads = [g + self.weight_decay * p
-                         for g, p in zip(grads, params)]
+            if self.weight_decay > 0:  # g + wd p
+                grads = add(grads, mul(params, self.weight_decay))
             # optax.trace(nesterov=True): t = g + m t; update = g + m t
-            trace = [g + self.momentum * t
-                     for g, t in zip(grads, state["trace"])]
-            updates = [g + self.momentum * t for g, t in zip(grads, trace)]
-            new["trace"] = trace
+            trace = add(grads, mul(state["trace"], self.momentum))
+            updates = add(grads, mul(trace, self.momentum))
+            new["trace"] = list(trace)
         else:
             count = state["count"] + 1
-            mu = [(1 - ADAM_B1) * g + ADAM_B1 * m
-                  for g, m in zip(grads, state["mu"])]
-            nu = [(1 - ADAM_B2) * g * g + ADAM_B2 * v
-                  for g, v in zip(grads, state["nu"])]
+            b2 = self.beta2
+            # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g g + b2 nu
+            mu = add(mul(grads, 1 - ADAM_B1), mul(state["mu"], ADAM_B1))
+            nu = add(mul(mul(grads, 1 - b2), grads), mul(state["nu"], b2))
             c1 = 1 - ADAM_B1 ** count.float()  # f32, as optax's bias
-            c2 = 1 - ADAM_B2 ** count.float()  # correction
-            updates = [(m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
-                       for m, v in zip(mu, nu)]
-            new.update(count=count, mu=mu, nu=nu)
-        return [p - lr * u for p, u in zip(params, updates)], new
+            c2 = 1 - b2 ** count.float()  # correction
+            # (mu / c1) / (sqrt(nu / c2) + eps)
+            updates = div(div(mu, c1),
+                          add(torch._foreach_sqrt(div(nu, c2)), self.eps))
+            new.update(count=count, mu=list(mu), nu=list(nu))
+        # p - lr u
+        return list(torch._foreach_sub(params, mul(updates, lr))), new
 
 
 def assign_where(ok: torch.Tensor, new, old) -> None:
@@ -128,11 +146,14 @@ def assign_where(ok: torch.Tensor, new, old) -> None:
 
 def build_optimizer(optimizer: str = "sgd", lr: float = 3e-4,
                     momentum: float = 0.9, weight_decay: float = 0.0,
-                    max_norm: float = 100.0) -> Optimizer:
-    """Gradient clip (reference train.py:622-623) + SGD/Adam."""
+                    max_norm: float = 100.0, beta2: float = ADAM_B2,
+                    eps: float = ADAM_EPS) -> Optimizer:
+    """Gradient clip (reference train.py:622-623) + SGD/Adam; ``beta2``
+    and ``eps`` act with Adam (optax's defaults unless given)."""
     if optimizer not in ("sgd", "adam"):
         raise ValueError(f"unknown optimizer: {optimizer}")
-    return Optimizer(optimizer, lr, momentum, weight_decay, max_norm)
+    return Optimizer(optimizer, lr, momentum, weight_decay, max_norm, beta2,
+                     eps)
 
 
 def get_lr(opt_state: dict) -> float:

@@ -1,0 +1,8 @@
+"""Device ms a Conformer train step under the attention modules' spans,
+forward and backward."""
+
+from portbench.harness import readers
+
+
+def read(run):
+    return readers.layer_ms(run, "train", "self-attention")

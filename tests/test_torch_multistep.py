@@ -331,7 +331,9 @@ def test_read_counters_finds_every_launch_counter():
             ("gru", "proj_launches"), ("lstm", "scan_res_launches"),
             ("gru", "scan_f32_persistent_launches"),
             ("ctc", "alpha_launches"), ("ctc", "beta_launches"),
-            ("topk", "launches")} <= names and len(names) == 16
+            ("topk", "launches"), ("attention", "mhsa_sdpa_launches"),
+            ("attention", "mhsa_plain_launches")} <= names
+    assert len(names) == 18
     stft.extra_launches = 3
     try:
         assert read_counters()[("stft", "extra_launches")] == 3
