@@ -1060,8 +1060,18 @@ COUNT_NAMES = {("stft", "launches"): "stft_mag",
                ("gru", "scan_f32_persistent_launches"):
                    "gru_scan_f32_persistent",
                ("attention", "mhsa_sdpa_launches"): "mhsa_sdpa",
-               ("attention", "mhsa_plain_launches"): "mhsa_plain"}
+               ("attention", "mhsa_plain_launches"): "mhsa_plain",
+               **{("conv", f"{name}_launches"): f"conv_{name}"
+                  for name in ("fprop", "dgrad", "wgrad", "reduce")}}
 UNNAMED_COUNTERS = {("gru", "proj_launches")}
+
+
+def conv_launches(forwards: int = 0, steps: int = 0) -> dict:
+    """The conv kernels' launches (``ops.cuda.conv``) of ``forwards``
+    forwards and ``steps`` train steps of a bf16 DS2: both convs' forward
+    each, and a step's conv1 dgrad and both wgrads with their reductions."""
+    return dict(conv_fprop=2 * (forwards + steps), conv_dgrad=steps,
+                conv_wgrad=2 * steps, conv_reduce=2 * steps)
 
 
 def reset_counts():
@@ -1854,7 +1864,8 @@ def phase_forward(torch, counts, floor, cell="gru", hidden=HIDDEN,
         counts.update(read_counts())
         log(f"{cell}-{hidden} inference path (bf16 forward, batch {b}): "
             f"launches {counts}")
-        want = want or expect_counts(stft_mag=1, **{f"{cell}_fwd": LAYERS})
+        want = want or expect_counts(stft_mag=1, **conv_launches(1),
+                                     **{f"{cell}_fwd": LAYERS})
         if counts != want:
             raise AssertionError(f"inference path: launches {counts}, "
                                  f"expected {want}")
@@ -2115,7 +2126,7 @@ def phase_train(torch, counts, floor, cell="gru", hidden=HIDDEN,
             counts.update(read_counts())
             log(f"{cell}-{hidden} train path, one step: launches {counts}")
             want = want or expect_counts(
-                stft_mag=1, ctc_alpha=1, ctc_beta=1,
+                stft_mag=1, ctc_alpha=1, ctc_beta=1, **conv_launches(steps=1),
                 **{f"{cell}_{k}": LAYERS for k in ("fwd", "fwd_res", "bwd")})
             if counts != want:
                 raise AssertionError(f"train step launches {counts}, "
@@ -2231,6 +2242,7 @@ def phase_train_cli(torch, cell="gru"):
             f"steps + validation): {dt:.3f} s host clock, launches {counts}")
         # 2 train steps, then 2 validation batches (forward and loss only)
         want = expect_counts(stft_mag=4, ctc_alpha=4, ctc_beta=2,
+                             **conv_launches(2, 2),
                              **{f"{cell}_fwd": 4 * LAYERS,
                                 f"{cell}_fwd_res": 2 * LAYERS,
                                 f"{cell}_bwd": 2 * LAYERS})
@@ -2419,7 +2431,8 @@ def phase_train_cli_full(torch) -> dict:
         vb = -(-6 // BATCH)
         want = expect_counts(stft_mag=3 + 4 * vb, ctc_alpha=3 + 4 * vb,
                              ctc_beta=3, gru_fwd=(3 + 4 * vb) * LAYERS,
-                             gru_fwd_res=3 * LAYERS, gru_bwd=3 * LAYERS)
+                             gru_fwd_res=3 * LAYERS, gru_bwd=3 * LAYERS,
+                             **conv_launches(4 * vb, 3))
         log(f"train CLI with every flag (6 x BiGRU-800 bf16, 3 steps + 4 "
             f"validation batches): {dt:.3f} s host clock, launches {counts}")
         if counts != want:
@@ -2487,7 +2500,8 @@ def phase_train_cli_full(torch) -> dict:
         # epoch 2 (2), each on both manifests
         want = expect_counts(stft_mag=4 + 8 * vb, ctc_alpha=4 + 8 * vb,
                              ctc_beta=4, gru_fwd=(4 + 8 * vb) * LAYERS,
-                             gru_fwd_res=4 * LAYERS, gru_bwd=4 * LAYERS)
+                             gru_fwd_res=4 * LAYERS, gru_bwd=4 * LAYERS,
+                             **conv_launches(8 * vb, 4))
         if counts != want:
             raise AssertionError(f"resumed CLI launches {counts}, expected "
                                  f"{want}")
@@ -2631,7 +2645,8 @@ def phase_wide_cli(torch):
             stft_mag=steps + evals, gru_fwd=steps + evals, gru_fwd_res=steps,
             gru_scan=(LAYERS - 1) * (steps + evals),
             gru_scan_res=(LAYERS - 1) * steps, gru_bwd=LAYERS * steps,
-            ctc_alpha=steps + evals, ctc_beta=steps)
+            ctc_alpha=steps + evals, ctc_beta=steps,
+            **conv_launches(evals, steps))
         if sorted(drawn) != [0, 1] or counts != want:
             raise AssertionError(f"config-4 train CLI: epochs {sorted(drawn)}"
                                  f", launches {counts}, expected {want}")
@@ -2722,6 +2737,121 @@ def topk_rows(rng, r: int, n: int, kind: str) -> np.ndarray:
         x[pick] = rng.choice(specials, int(pick.sum()))
         x[0] = np.float32(-0.0)
     return x
+
+
+# the conv front's products (phase_conv): both train cells' batches at their
+# mean bin (12.7 s: 1,273 spectrogram frames, 637 after conv0)
+CONV_BATCHES, CONV_FRAMES = (20, 64), 1273
+
+
+def conv_products(torch, conv, b: int, t_in: int, seed: int):
+    """The five conv products at (b, t_in) on bf16-valued operands drawn
+    on the card -> {name: (kernel call, plain twin call, cuDNN f32 call,
+    useful FLOPs)}; the plain twins and cuDNN run under fp32_matmul."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = conv.out_frames(0, t_in)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x0 = randn(b, 1, 161, t_in)
+    x1 = randn(b, 32, 81, t).to(torch.bfloat16)
+    w0 = randn(32, 1, 41, 11, scale=0.05).to(torch.bfloat16)
+    w1 = randn(32, 32, 21, 11, scale=0.05).to(torch.bfloat16)
+    b0, b1 = randn(32), randn(32)
+    dy0, dy1 = randn(b, 32, 81, t), randn(b, 32, 41, t)
+    x0r, x1f, w0f, w1f = (x0.to(torch.bfloat16).float(), x1.float(),
+                          w0.float(), w1.float())
+    g0, g1 = conv.GEOMETRIES
+    f0 = 2.0 * b * 81 * t * 32 * 41 * 11
+    f1 = 2.0 * b * 41 * t * 32 * 32 * 21 * 11
+    return {
+        "fprop0": (lambda: conv.fprop(x0, w0, b0, 0),
+                   lambda: conv.plain_fprop(x0, w0, b0, 0),
+                   lambda: F.conv2d(x0r, w0f, b0, g0.stride, g0.padding), f0),
+        "fprop1": (lambda: conv.fprop(x1, w1, b1, 1),
+                   lambda: conv.plain_fprop(x1, w1, b1, 1),
+                   lambda: F.conv2d(x1f, w1f, b1, g1.stride, g1.padding), f1),
+        "dgrad1": (lambda: conv.dgrad(dy1, w1, 1, x1.shape),
+                   lambda: conv.plain_dgrad(dy1, w1, 1, x1.shape),
+                   lambda: torch.nn.grad.conv2d_input(
+                       x1.shape, w1f, dy1, g1.stride, g1.padding), f1),
+        "wgrad0": (lambda: conv.wgrad(dy0, x0, 0),
+                   lambda: conv.plain_wgrad(dy0, x0, 0),
+                   lambda: torch.nn.grad.conv2d_weight(
+                       x0r, w0.shape, dy0, g0.stride, g0.padding), f0),
+        "wgrad1": (lambda: conv.wgrad(dy1, x1, 1),
+                   lambda: conv.plain_wgrad(dy1, x1, 1),
+                   lambda: torch.nn.grad.conv2d_weight(
+                       x1f, w1.shape, dy1, g1.stride, g1.padding), f1)}
+
+
+def phase_conv(torch, results):
+    """The conv front's kernels (bf16 operands, f32 sums) at both train
+    cells' batches and mean bin: each product against its plain twin on the
+    same operands (the forward to 1e-4 of the twin's largest, the gradients
+    within 2^-7 of it: one bf16 ulp of the largest), the weight gradients
+    bit-equal on a second run; CUDA-event medians of the kernel, the plain
+    twin and cuDNN's f32 product of the same operands (TF32 off), beside the
+    bound of this product's useful FLOPs at the bf16 peak (the gradients'
+    hi + lo split doubles their tensor work)."""
+    from deepspeech_tpu_torch.ops import fp32_matmul
+    from deepspeech_tpu_torch.ops.cuda import conv
+
+    rows = {}
+    for b in CONV_BATCHES:
+        prods = conv_products(torch, conv, b, CONV_FRAMES, SEED + 40 + b)
+        with fp32_matmul():
+            for name, (kernel, plain, library, flops) in prods.items():
+                got, want = kernel(), plain()
+                err = max_err(got, want)[0]
+                scale = want.float().abs().max().item()
+                tol = (1e-4 if name.startswith("fprop") else 2.0 ** -7) * scale
+                if not err <= tol:
+                    raise AssertionError(f"conv {name} at B {b}: {err} "
+                                         f"against plain (tolerance {tol})")
+                if name.startswith("wgrad") and not torch.equal(got,
+                                                                kernel()):
+                    raise AssertionError(f"conv {name} at B {b}: two runs "
+                                         "differ")
+                split = 1 if name.startswith("fprop") else 2
+                r = dict(ms=time_ms(kernel), plain_ms=time_ms(plain),
+                         library_ms=time_ms(library), max_abs_err=err,
+                         scale=scale, flops=flops,
+                         bound_ms=flops / PEAK_BF16 * 1e3,
+                         split_bound_ms=split * flops / PEAK_BF16 * 1e3)
+                rows[f"{name}_b{b}"] = r
+                log(f"conv {name} B {b} T' {conv.out_frames(0, CONV_FRAMES)}"
+                    f": kernel {r['ms']:.3f} ms ({flops / r['ms'] / 1e9:.1f} "
+                    f"TFLOP/s useful), plain {r['plain_ms']:.3f} ms, cuDNN "
+                    f"f32 {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f}"
+                    f" ms (operations; {r['split_bound_ms']:.3f} with the "
+                    f"split), max err {err:.3e} of {scale:.3e}")
+        del prods
+        torch.cuda.empty_cache()
+    step = {b: sum(rows[f"{n}_b{b}"]["ms"] for n in
+                   ("fprop0", "fprop1", "dgrad1", "wgrad0", "wgrad1"))
+            for b in CONV_BATCHES}
+    library = {b: sum(rows[f"{n}_b{b}"]["library_ms"] for n in
+                      ("fprop0", "fprop1", "dgrad1", "wgrad0", "wgrad1"))
+               for b in CONV_BATCHES}
+    bound_ms = {b: sum(rows[f"{n}_b{b}"]["bound_ms"] for n in
+                       ("fprop0", "fprop1", "dgrad1", "wgrad0", "wgrad1"))
+                for b in CONV_BATCHES}
+    log(f"conv products of a train step: kernels {step} ms, cuDNN f32 "
+        f"{library} ms, bound {bound_ms} ms (B: ms)")
+    wide = f"_b{CONV_BATCHES[-1]}"
+    results["conv"] = dict(
+        route="cuda", ms=step[CONV_BATCHES[-1]],
+        plain_ms=sum(r["plain_ms"] for k, r in rows.items()
+                     if k.endswith(wide)),
+        library_ms=library[CONV_BATCHES[-1]],
+        bound_ms=bound_ms[CONV_BATCHES[-1]], bound_by="operations",
+        max_abs_err=max(r["max_abs_err"] / max(1.0, r["scale"])
+                        for r in rows.values()),
+        extra=dict(products=rows, step_ms=step, library_step_ms=library))
 
 
 def phase_topk(torch, results):
@@ -2854,7 +2984,8 @@ def phase_beam(torch, model, counts, floor: dict, dslm: str) -> None:
     log(f"beam path (featurize -> bf16 6 x BiGRU-800 -> device beam width "
         f"10, {BATCH} x {AUDIO_S / SR} s, T {t}): {dt:.3f} s host clock, "
         f"launches {counts}; {strings[0][0][:50]!r}")
-    want = expect_counts(stft_mag=1, gru_fwd=LAYERS, topk=t)
+    want = expect_counts(stft_mag=1, gru_fwd=LAYERS, topk=t,
+                         **conv_launches(1))
     if counts != want:
         raise AssertionError(f"beam path launches {counts}, expected {want}")
     lens = out_lens.tolist()
@@ -4349,13 +4480,65 @@ def gru_spec(hidden: int) -> dict:
                 compute_dtype="bfloat16")
 
 
+def mesh_order_norm(torch, model, k: int):
+    """-> a ``global_norm`` of ``model``'s gradients in the order of the
+    ranks of a data 1 x model ``k`` mesh (``train/step.py:
+    _reduce_over_mesh``): on each rank the squares of its slices of the
+    sharded parameters (``param_spec``), each summed alone and then in the
+    parameter order; the ranks' sums in the order of gloo's all-reduce of
+    one element, x0 + (x1 + (x2 + x3)); the replicated parameters' squares
+    in the parameter order, plus that."""
+    from deepspeech_tpu_torch.parallel.mesh import param_spec, shard_dim
+
+    dims = [shard_dim(param_spec(n, p.shape, k))
+            for n, p in model.named_parameters()]
+
+    def norm(grads):
+        zero = grads[0].new_zeros((), dtype=torch.float32)
+        ranks = []
+        for r in range(k):
+            acc = zero
+            for g, d in zip(grads, dims):
+                if d is not None:
+                    n = g.shape[d] // k
+                    part = g.narrow(d, r * n, n).contiguous()
+                    acc = acc + torch.sum(part * part)
+            ranks.append(acc)
+        sharded = ranks[-1]
+        for acc in reversed(ranks[:-1]):
+            sharded = acc + sharded
+        replicated = sum((torch.sum(g * g) for g, d in zip(grads, dims)
+                          if d is None), zero)
+        return torch.sqrt(replicated + sharded)
+
+    return norm
+
+
+@contextlib.contextmanager
+def train_step_norm(norm):
+    """The train step's ``global_norm`` replaced by ``norm`` inside (kept
+    where ``norm`` is None)."""
+    from deepspeech_tpu_torch.train import step as step_module
+
+    kept = step_module.global_norm
+    step_module.global_norm = norm or kept
+    try:
+        yield
+    finally:
+        step_module.global_norm = kept
+
+
 def multi_gpu_reference(torch, spec: dict, batch_size: int, seed: int,
-                        path: str, deterministic: bool = False) -> dict:
+                        path: str, deterministic: bool = False,
+                        model_norm: int = 1) -> dict:
     """The single-process train step of the model ``spec`` names
     (``build_model``'s keywords: 6 layers, CLASSES, seeded weights) on
     ``batch_size`` x 7.5 s, MULTI_STEPS times with the augmentation (and a
     CNN's dropout) drawn from a generator seeded with SEED, under cuDNN's
-    deterministic algorithms where ``deterministic``; saved to ``path``
+    deterministic algorithms where ``deterministic``, its grad norm summed
+    as a data 1 x model ``model_norm`` mesh sums it where ``model_norm``
+    > 1 (``mesh_order_norm``: the clip then scales the gradients as on the
+    ranks); saved to ``path``
     (the spec, the init, the batch, each step's loss, grad norm and
     parameters, on the host, and ``deterministic``) for the ranks -> its
     first step's metrics and the median time of steps 2-MULTI_STEPS (CUDA
@@ -4375,11 +4558,13 @@ def multi_gpu_reference(torch, spec: dict, batch_size: int, seed: int,
     state = TrainState.create(model, optimizer)
     step = make_train_step(model, optimizer, StepConfig())
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    norm = (mesh_order_norm(torch, model, model_norm) if model_norm > 1
+            else None)
     steps, times = [], []
     for _ in range(MULTI_STEPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        with cudnn_deterministic(torch, deterministic):
+        with cudnn_deterministic(torch, deterministic), train_step_norm(norm):
             start.record()
             m = step(state, batch, generator=gen)
             end.record()
@@ -4783,7 +4968,7 @@ def phase_multi_gpu(torch, step12: dict) -> dict:
         log(f"two gloo ranks ran in {time.perf_counter() - t0:.1f} s")
         want = {"dp": expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1,
                                     gru_fwd=LAYERS, gru_fwd_res=LAYERS,
-                                    gru_bwd=LAYERS)}
+                                    gru_bwd=LAYERS, **conv_launches(steps=1))}
         want["tp"] = want["dp"]
         for key, label in (("dp", f"data 2: 6 x BiGRU-{HIDDEN}, batch "
                                   f"{BATCH}"),
@@ -4932,17 +5117,21 @@ MESH_HELD = {"m4": HELD,
 # deterministic algorithms: each rank at data 1 runs the same kernels on
 # the same whole tensors and rows as the one process, the model group's
 # broadcast hands every rank its first rank's gradients of the replicated
-# parameters, and only the grad norm sums its squares in another order
-# (the sharded ones over the model group), which moves the update where
-# the norm clips: then a parameter near 1 (a BatchNorm scale) can round
-# to the next f32, an ulp that is ~1e-3 of its one-step change, and the
-# next steps' bf16 roundings carry it on. Readings on an NVIDIA H100 80GB
-# HBM3 at 700 W: model 4 (clipping from step 1) loss 0, 0, 1.8e-6 and
-# grad norm 6.3e-8, 6.3e-6, 6.3e-5 relative, parameters 8.0e-4, 3.3e-3,
-# 5.0e-3 of their change at steps 1-3; the LSTM (clipping at step 3)
-# equal for two steps, then 8.2e-8 and 2.5e-4; `cnn` (no clip) equal at
-# every step.
-# Bounds about 5 times those, (first step, after):
+# parameters, and the one process sums its grad norm's squares in the
+# ranks' order (``mesh_order_norm``), so the clip scales both alike. With
+# the norm summed in its own order the last bit of the norm moved the
+# update where the norm clips: a parameter near 1 (a BatchNorm scale)
+# could round to the next f32, an ulp that is ~1e-3 of its one-step
+# change, and the next steps' bf16 roundings carried it on. Readings so,
+# on an NVIDIA H100 80GB HBM3 at 700 W: model 4 (clipping from step 1)
+# loss 0, 0, 1.8e-6 and grad norm 6.3e-8, 6.3e-6, 6.3e-5 relative,
+# parameters 8.0e-4, 3.3e-3, 5.0e-3 of their change at steps 1-3, and
+# loss 0, 1.3e-5, 7.8e-6 with the conv front's tensor-core kernels; the
+# LSTM (clipping at step 3) equal for two steps, then 8.2e-8 and 2.5e-4;
+# `cnn` (no clip) equal at every step. In the ranks' order every rank of
+# the three reads 0 at every step: loss, grad norm and parameters.
+# Bounds about 5 times the readings in the one process's order, (first
+# step, after):
 MESH_TOLS = dict(loss=(1e-6, 1e-5), norm=(1e-6, 5e-4), change=(4e-3, 2e-2))
 
 
@@ -4976,7 +5165,7 @@ def phase_mesh_model(torch) -> dict:
                f"{LAYERS} x BiGRU-{HIDDEN} bf16, batch {BATCH}",
                expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1,
                              gru_fwd=LAYERS, gru_fwd_res=LAYERS,
-                             gru_bwd=LAYERS),
+                             gru_bwd=LAYERS, **conv_launches(steps=1)),
                {"gather_rnn": 4 * LAYERS, "replicas": 1, "grad_norm": 1,
                 "nan": 1}),
         "lstm": (dict(rnn_type="lstm", hidden_size=HIDDEN,
@@ -4985,7 +5174,7 @@ def phase_mesh_model(torch) -> dict:
                  f"LSTM-{HIDDEN} (unidirectional) bf16, batch {BATCH}",
                  expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1,
                                lstm_fwd=LAYERS, lstm_fwd_res=LAYERS,
-                               lstm_bwd=LAYERS),
+                               lstm_bwd=LAYERS, **conv_launches(steps=1)),
                  {"gather_rnn": 4 * LAYERS, "gather_head": 1,
                   "replicas": 1, "grad_norm": 1, "nan": 1}),
         "cnn": (dict(rnn_type="cnn", hidden_size=HIDDEN, cnn_width=256,
@@ -5001,8 +5190,9 @@ def phase_mesh_model(torch) -> dict:
         t0 = time.perf_counter()
         refs = {key: multi_gpu_reference(torch, spec, BATCH, seed,
                                          os.path.join(d, f"{key}.pt"),
-                                         deterministic=True)
-                for key, (spec, seed, *_) in cases.items()}
+                                         deterministic=True,
+                                         model_norm=model)
+                for key, (spec, seed, model, *_) in cases.items()}
         gc.collect()
         torch.cuda.empty_cache()
         log(f"mesh-model references (single process, {MULTI_STEPS} steps "
@@ -5335,12 +5525,13 @@ def phase_steps_per_dispatch(torch) -> dict:
             ("default", SEED + 41, HIDDEN, host,
              expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1,
                            gru_fwd=LAYERS, gru_fwd_res=LAYERS,
-                           gru_bwd=LAYERS)),
+                           gru_bwd=LAYERS, **conv_launches(steps=1))),
             ("config4", SEED + 42, WIDE,
              spd_batches(torch, rng, SPD_K, AUDIO_S, WIDE_BATCH["gru"]),
              expect_counts(stft_mag=1, ctc_alpha=1, ctc_beta=1, gru_fwd=1,
                            gru_fwd_res=1, gru_scan=LAYERS - 1,
-                           gru_scan_res=LAYERS - 1, gru_bwd=LAYERS))):
+                           gru_scan_res=LAYERS - 1, gru_bwd=LAYERS,
+                           **conv_launches(steps=1)))):
         label = (f"{LAYERS} x BiGRU-{hidden} bf16, batch "
                  f"{batches[0]['audio'].shape[0]}")
         model, _ = default_model(torch, seed, "gru", hidden)
@@ -5684,7 +5875,8 @@ def phase_spd_cli(torch) -> dict:
     vals = 4  # three checkpoints' validations and the epoch's, 1 batch each
     want = expect_counts(stft_mag=steps + vals, ctc_alpha=steps + vals,
                          ctc_beta=steps, gru_fwd=(steps + vals) * LAYERS,
-                         gru_fwd_res=steps * LAYERS, gru_bwd=steps * LAYERS)
+                         gru_fwd_res=steps * LAYERS, gru_bwd=steps * LAYERS,
+                         **conv_launches(vals, steps))
     label = (f"train CLI --steps-per-dispatch {SPD_K} against 1 (6 x "
              f"BiGRU-{HIDDEN} bf16, batch {BATCH}, {steps} steps in bins "
              f"{SPD_CLI_BINS}, device noise, spectrogram masks, a checkpoint "
@@ -5924,9 +6116,10 @@ def main() -> int:
     phase_ctc_long(torch, results)
     mark("K1, K2, K5, K8/K9 (both routes) held to their plain versions")
     phase_topk(torch, results)
+    phase_conv(torch, results)
     model, meta = phase_forward(torch, {}, floor)
     phase_cli(torch, model, meta, {})
-    mark("K10, the GRU forward and the transcribe CLI")
+    mark("K10, the conv kernels, the GRU forward and the transcribe CLI")
     # the beam slice: the device beam on the forward's posteriors, then the
     # transcribe and test CLIs with the beam decoders and a synthetic LM
     with tempfile.TemporaryDirectory() as lm_dir:
@@ -5974,10 +6167,12 @@ def main() -> int:
         b = WIDE_BATCH[cell]
         fwd = {f"{cell}_fwd": fused, f"{cell}_scan": wide}
         phase_forward(torch, {}, floor, cell, WIDE, b,
-                      want=expect_counts(stft_mag=1, **fwd))
+                      want=expect_counts(stft_mag=1, **fwd,
+                                         **conv_launches(1)))
         phase_train(torch, wide_counts[cell], floor, cell, WIDE, b,
                     want=expect_counts(
                         stft_mag=1, ctc_alpha=1, ctc_beta=1, **fwd,
+                        **conv_launches(steps=1),
                         **{f"{cell}_fwd_res": fused,
                            f"{cell}_scan_res": wide,
                            f"{cell}_bwd": LAYERS}))
@@ -6027,6 +6222,16 @@ def main() -> int:
         replayed = sum(run["launches"][name] for run in spd.values())
         if replayed:
             kernels[-1]["launches_steps_per_dispatch"] = replayed
+    # the conv front's kernels: no TPU kernel, the wide train cell's batch;
+    # launches of the GRU-800 train step (phase_train)
+    kernels.append({"name": "conv", "route": "cuda",
+                    "source": "deepspeech_tpu_torch/csrc/conv_mma.cu",
+                    "replaces": None,
+                    "launches": sum(n for k, n in train_counts.items()
+                                    if k.startswith("conv_")),
+                    **{k: v for k, v in results["conv"].items()
+                       if k not in ("route", "extra")},
+                    **results["conv"]["extra"]})
     log(card)
     serve["greedy"].pop("texts")
     serve["device_beam"].pop("texts")

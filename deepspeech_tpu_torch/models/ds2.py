@@ -14,8 +14,11 @@
 
 With ``compute_dtype=torch.bfloat16`` the matmul and conv operands are
 rounded to bf16 while every sum, the state and the gates stay f32, as in the
-JAX model. The convs run in f32 on the rounded operands (TF32 off), so
-their results are not rounded to bf16 before the BatchNorm.
+JAX model. On the card the two convs then run on the tensor-core kernels
+of ``ops/cuda/conv.py`` (bf16 operands, f32 sums and results); in f32, and
+on the CPU, they run as ``F.conv2d`` in f32 on the rounded operands (TF32
+off). Either way their results are not rounded to bf16 before the
+BatchNorm.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from torch import nn
 from deepspeech_tpu_torch.models.layers import (Lookahead, TorchBatchNorm,
                                                 hardtanh_0_20, length_mask)
 from deepspeech_tpu_torch.ops import fp32_matmul
+from deepspeech_tpu_torch.ops.cuda import conv as conv_kernels
 from deepspeech_tpu_torch.ops.rnn import CELL_GATES, rnn_scan
 from deepspeech_tpu_torch.parallel.tp_rnn import (gathered,
                                                   maybe_direction_sharded)
@@ -65,9 +69,14 @@ class ConvFrontend(nn.Module):
         cd = self.compute_dtype
         h = x[:, None]
         for conv, bn in ((self.conv0, self.bn0), (self.conv1, self.bn1)):
-            with fp32_matmul():
-                h = F.conv2d(_rounded(h, cd), _rounded(conv.weight, cd),
-                             conv.bias.float(), conv.stride, conv.padding)
+            if conv_kernels.on_kernels(h.device, cd):
+                h = conv_kernels.conv2d_bf16(h, conv.weight, conv.bias,
+                                             conv.stride, conv.padding)
+            else:
+                with fp32_matmul():
+                    h = F.conv2d(_rounded(h, cd), _rounded(conv.weight, cd),
+                                 conv.bias.float(), conv.stride,
+                                 conv.padding)
             mask = length_mask(out_lengths, h.shape[-1])
             if out_start is not None:
                 idx = torch.arange(h.shape[-1], device=h.device)[None, :]

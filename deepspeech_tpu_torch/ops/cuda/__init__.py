@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import importlib
 
-COUNTED = ("stft", "gru", "lstm", "ctc", "topk", "attention")
+COUNTED = ("stft", "gru", "lstm", "ctc", "topk", "conv", "attention")
 BESIDE = ("attention",)  # modules of ``ops`` rather than of ``ops.cuda``
 
 

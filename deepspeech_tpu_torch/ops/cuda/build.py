@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("stft_mag", "gru_fwd", "gru_scan", "gru_bwd", "lstm_fwd",
-           "lstm_scan", "lstm_bwd", "ctc", "topk")
+           "lstm_scan", "lstm_bwd", "ctc", "topk", "conv_mma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v")

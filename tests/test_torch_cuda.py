@@ -39,7 +39,13 @@ new inputs bit-equal to eager calls; a pageable copy under capture raises;
 launches, and a capture that fails raises; a cache of one graph evicts
 and captures again; the k-step multi-step of a small GRU and LSTM model,
 f32 and bf16, against as many eager steps, and with the LR set between
-groups and the device noise bank read in place, bit-equal to them.
+groups and the device noise bank read in place, bit-equal to them. The
+conv front's kernels (bf16 operands, f32 sums) against f64 products of
+the same operands at both convs' shapes and the train cells' batches: the
+forward to f32 reassociation, dgrad and wgrad within the bf16 rounding
+they get (dy as hi + lo); equal bits on two runs and under a CUDA graph;
+the bf16 front against its CPU twin; the f32 front on cuDNN with TF32
+off.
 """
 
 import contextlib
@@ -1799,6 +1805,277 @@ def test_two_gloo_ranks_on_the_card_match_one_process(dev, tmp_path):
         assert sorted(errs) == sorted(_HELD), (where, errs)
         for name, err in errs.items():
             assert err <= _HELD[name][2], (where, name, err)
+
+
+# ---- the conv front's tensor-core kernels (csrc/conv_mma.cu) -------------
+
+# (B, T_in): T' 29 (odd), 30 (even), 637 (odd, the train cells' mean bin),
+# 638 (even) at the train cells' batches
+CONV_SHAPES = [(1, 57), (1, 60), (20, 1273), (64, 1276)]
+
+
+def _conv_operands(dev, c, b, t_in, seed):
+    """x (conv0: f32; conv1: bf16), w (f32, bf16 values), bias, dy for
+    conv ``c``, drawn on the card, with a masked tail in the last row."""
+    from deepspeech_tpu_torch.ops.cuda import conv
+
+    g = conv.GEOMETRIES[c]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = conv.out_frames(0, t_in)
+    if c == 0:
+        x = torch.randn((b, 1, 161, t_in), generator=gen, device=dev)
+    else:
+        x = torch.randn((b, 32, 81, t), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    x[-1, ..., x.shape[-1] * 3 // 4:] = 0
+    w = (torch.randn((32, g.cin, *g.kernel), generator=gen, device=dev)
+         * 0.05).to(torch.bfloat16)
+    bias = torch.randn((32,), generator=gen, device=dev)
+    dy = torch.randn((b, 32, (g.rows - 1) // 2 + 1, t), generator=gen,
+                     device=dev)
+    dy[-1, ..., t * 3 // 4:] = 0
+    return x, w, bias, dy
+
+
+def _conv_held(got, ref, terms, rel):
+    """|got - ref| <= rel |ref| + 2^-14 (sum of the products' magnitudes)
+    elementwise -> the largest ratio of the error to that bound."""
+    err = (got.double() - ref).abs()
+    return float((err / (rel * ref.abs() + 2.0 ** -14 * terms
+                         + 1e-300)).max())
+
+
+@pytest.mark.parametrize("b,t_in", CONV_SHAPES)
+def test_conv_kernels_match_f64(dev, b, t_in):
+    """Each product against the f64 product of the same bf16-valued
+    operands: the forward (f32 result, bias in its epilogue) to f32
+    reassociation, 2^-16 of the products' magnitudes; dgrad (conv1) and
+    wgrad (both) within one bf16 ulp and 2^-14 of the products' magnitudes,
+    the rounding they get today (dy enters as hi + lo)."""
+    import torch.nn.functional as F
+
+    from deepspeech_tpu_torch.ops.cuda import conv
+
+    for c in (0, 1):
+        g = conv.GEOMETRIES[c]
+        x, w, bias, dy = _conv_operands(dev, c, b, t_in, seed=b + t_in + c)
+        xd = x.to(torch.bfloat16).double()
+        wd, dyd = w.double(), dy.double()
+        before = (conv.fprop_launches, conv.dgrad_launches,
+                  conv.wgrad_launches, conv.reduce_launches)
+        out = conv.fprop(x, w, bias, c)
+        ref = F.conv2d(xd, wd, bias.double(), g.stride, g.padding)
+        terms = F.conv2d(xd.abs(), wd.abs(), bias.double().abs(), g.stride,
+                         g.padding)
+        err = float(((out.double() - ref).abs() / (2.0 ** -16 * terms
+                                                   + 1e-300)).max())
+        assert out.dtype == torch.float32 and err <= 1, ("fprop", c, err)
+        dw = conv.wgrad(dy, x, c)
+        ref = torch.nn.grad.conv2d_weight(xd, w.shape, dyd, g.stride,
+                                          g.padding)
+        terms = torch.nn.grad.conv2d_weight(xd.abs(), w.shape, dyd.abs(),
+                                            g.stride, g.padding)
+        assert torch.equal(dw, dw.to(torch.bfloat16).float())
+        err = _conv_held(dw, ref, terms, 2.0 ** -7)
+        assert err <= 1, ("wgrad", c, err)
+        if c == 1:
+            dx = conv.dgrad(dy, w, 1, x.shape)
+            ref = torch.nn.grad.conv2d_input(x.shape, wd, dyd, g.stride,
+                                             g.padding)
+            terms = torch.nn.grad.conv2d_input(x.shape, wd.abs(), dyd.abs(),
+                                               g.stride, g.padding)
+            assert dx.dtype == torch.bfloat16
+            err = _conv_held(dx, ref, terms, 2.0 ** -7)
+            assert err <= 1, ("dgrad", err)
+        after = (conv.fprop_launches, conv.dgrad_launches,
+                 conv.wgrad_launches, conv.reduce_launches)
+        assert [a - z for a, z in zip(after, before)] == [1, c, 1, 1]
+
+
+def test_conv_gradients_take_dy_low_term(dev):
+    """dgrad and both wgrads read dy as hi + lo: with dy = 1 + k 2^-10 (k
+    1-3: hi 1, lo k 2^-10) and small integer weights and inputs every
+    product and sum is exact in f32, so each gradient is the bf16 rounding
+    of the exact hi + lo product, bit for bit; a kernel that read hi alone
+    would give the hi-only product, which differs in a tenth of the
+    elements or more."""
+    from deepspeech_tpu_torch.ops.cuda import conv
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    t_in = 128
+    t = conv.out_frames(0, t_in)
+
+    def ints(shape, low, high):
+        return torch.randint(low, high, shape, generator=gen,
+                             device=dev).float()
+
+    for c in (0, 1):
+        g = conv.GEOMETRIES[c]
+        x = ints((1, g.cin, g.rows, t_in if c == 0 else t), 0, 3)
+        x = x if c == 0 else x.to(torch.bfloat16)
+        w = ints((32, g.cin, *g.kernel), -1, 3).to(torch.bfloat16)
+        dy = 1 + ints((1, 32, (g.rows - 1) // 2 + 1, t), 1, 4) * 2.0 ** -10
+        hi, lo = conv.split_hi_lo(dy)
+        assert bool((hi == 1).all()) and bool((lo != 0).all())
+        terms = {"hi + lo": hi.double() + lo.double(), "hi": hi.double()}
+        xd, wd = x.double(), w.double()
+        got = {"wgrad": conv.wgrad(dy, x, c)}
+        want = {k: {"wgrad": torch.nn.grad.conv2d_weight(
+            xd, w.shape, d, g.stride, g.padding).to(torch.bfloat16).float()}
+            for k, d in terms.items()}
+        if c == 1:
+            got["dgrad"] = conv.dgrad(dy, w, 1, x.shape)
+            for k, d in terms.items():
+                want[k]["dgrad"] = torch.nn.grad.conv2d_input(
+                    x.shape, wd, d, g.stride, g.padding).to(torch.bfloat16)
+        for name, out in got.items():
+            assert torch.equal(out, want["hi + lo"][name]), (name, c)
+            moved = (want["hi"][name] != want["hi + lo"][name]).double()
+            assert float(moved.mean()) >= 0.1, (name, c, float(moved.mean()))
+
+
+def _conv_products(conv, x0, x1, w0, w1, b0, b1, dy0, dy1):
+    return (conv.fprop(x0, w0, b0, 0), conv.fprop(x1, w1, b1, 1),
+            conv.dgrad(dy1, w1, 1, x1.shape), conv.wgrad(dy0, x0, 0),
+            conv.wgrad(dy1, x1, 1))
+
+
+def test_conv_kernels_deterministic_and_captured(dev):
+    """Two runs of every product give equal bits; a CUDA graph of them,
+    replayed on new inputs, equals eager calls on those inputs bit for
+    bit."""
+    from deepspeech_tpu_torch.ops.cuda import conv
+
+    def operands(seed):
+        x0, w0, b0, dy0 = _conv_operands(dev, 0, 20, 801, seed)
+        x1, w1, b1, dy1 = _conv_operands(dev, 1, 20, 801, seed + 1)
+        return x0, x1, w0, w1, b0, b1, dy0, dy1
+
+    first = operands(1)
+    one, two = (_conv_products(conv, *first) for _ in range(2))
+    assert all(torch.equal(p, q) for p, q in zip(one, two))
+    static = [t.clone() for t in first]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _conv_products(conv, *static)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = _conv_products(conv, *static)
+    for seed in (5, 9):
+        new = operands(seed)
+        for s, n in zip(static, new):
+            s.copy_(n)
+        graph.replay()
+        eager = _conv_products(conv, *new)
+        assert all(torch.equal(p, q) for p, q in zip(outs, eager))
+
+
+def test_bf16_conv_front_on_the_card_matches_cpu(dev, monkeypatch):
+    """The bf16 ``ConvFrontend`` on the card (the kernels) against its CPU
+    twin (f32 convs of the rounded operands), train mode: the output within
+    one bf16 ulp (and 2^-6: a conv0 value rounded the other way moves
+    conv1's sums a little); the counters read 2 forwards, 1 dgrad and 2
+    wgrads; and each product the front launched, recorded with its inputs,
+    against its plain twin on the CPU on those inputs (the forward to
+    2^-16, the gradients within one bf16 ulp and 2^-14, of the products'
+    magnitudes). The parameters' gradients are not compared whole: a
+    pre-activation that the two sides' f32 sums put on either side of a
+    Hardtanh bound (0 or 20) takes its term in or out of the sums below it
+    (as chip_smoke.py's CNN phase finds for ReLU)."""
+    import torch.nn.functional as F
+
+    from deepspeech_tpu_torch.models.ds2 import ConvFrontend, conv_out_lengths
+    from deepspeech_tpu_torch.ops.cuda import conv
+
+    calls = []
+    for name in ("fprop", "dgrad", "wgrad"):
+        def recorder(*args, _fn=getattr(conv, name), _name=name):
+            calls.append((_name, [a.clone() if torch.is_tensor(a) else a
+                                  for a in args]))
+            out = _fn(*args)
+            calls[-1] += (out.clone(),)
+            return out
+        monkeypatch.setattr(conv, name, recorder)
+    torch.manual_seed(0)
+    cpu = ConvFrontend(compute_dtype=torch.bfloat16)
+    card = ConvFrontend(compute_dtype=torch.bfloat16).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((4, 161, 301)).astype(
+        np.float32))
+    lengths = torch.tensor([301, 280, 200, 97])
+    for i, n in enumerate(lengths.tolist()):
+        x[i, :, n:] = 0
+    weight = torch.from_numpy(rng.standard_normal((4, 32, 41, 151)).astype(
+        np.float32))
+    outs = []
+    for model, where in ((cpu, "cpu"), (card, dev)):
+        calls.clear()
+        before = (conv.fprop_launches, conv.dgrad_launches,
+                  conv.wgrad_launches)
+        out = model(x.to(where), conv_out_lengths(lengths).to(where))
+        (out.float() * weight.to(where)).sum().backward()
+        after = (conv.fprop_launches, conv.dgrad_launches,
+                 conv.wgrad_launches)
+        assert [a - z for a, z in zip(after, before)] == (
+            [2, 1, 2] if where is dev else [0, 0, 0])
+        outs.append(out.float().cpu())
+    got, ref = outs[1], outs[0]
+    assert bool(((got - ref).abs() <= 2.0 ** -7 * ref.abs() + 2.0 ** -6)
+                .all())
+    assert sorted(c[0] for c in calls) == ["dgrad", "fprop", "fprop",
+                                           "wgrad", "wgrad"]
+    for name, args, out in calls:
+        args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        want = getattr(conv, f"plain_{name}")(*args)
+        c = args[2] if name != "fprop" else args[3]
+        g = conv.GEOMETRIES[c]
+        if name == "fprop":
+            xd, wd = args[0].to(torch.bfloat16).double(), args[1].double()
+            terms = F.conv2d(xd.abs(), wd.abs(), args[2].double().abs(),
+                             g.stride, g.padding)
+            rel = 0.0
+        elif name == "dgrad":
+            terms = torch.nn.grad.conv2d_input(
+                args[3], args[1].double().abs(), args[0].double().abs(),
+                g.stride, g.padding)
+            rel = 2.0 ** -7
+        else:
+            terms = torch.nn.grad.conv2d_weight(
+                args[1].to(torch.bfloat16).double().abs(),
+                (32, g.cin, *g.kernel), args[0].double().abs(), g.stride,
+                g.padding)
+            rel = 2.0 ** -7
+        err = (out.cpu().double() - want.double()).abs()
+        bound = rel * want.double().abs() + (
+            2.0 ** -16 if name == "fprop" else 2.0 ** -14) * terms
+        assert bool((err <= bound).all()), (name, c, float(err.max()))
+
+
+def test_f32_conv_front_on_the_card_keeps_cudnn_tf32_off(dev, monkeypatch):
+    """An f32 ``ConvFrontend`` on the card calls ``F.conv2d`` (cuDNN) with
+    TF32 off, twice, and no conv kernel."""
+    import types
+
+    import torch.nn.functional as F
+
+    from deepspeech_tpu_torch.models import ds2
+    from deepspeech_tpu_torch.ops.cuda import conv
+
+    flags = []
+
+    def conv2d(*a, **k):
+        flags.append(torch.backends.cudnn.allow_tf32)
+        return F.conv2d(*a, **k)
+
+    monkeypatch.setattr(ds2, "F", types.SimpleNamespace(conv2d=conv2d))
+    front = ds2.ConvFrontend().to(dev)
+    x = torch.randn((2, 161, 120), device=dev)
+    before = conv.fprop_launches
+    front(x, ds2.conv_out_lengths(torch.tensor([120, 90], device=dev)))
+    assert flags == [False, False] and conv.fprop_launches == before
 
 
 # the failed captures last: a capture that fails leaves its stream behind

@@ -332,8 +332,10 @@ def test_read_counters_finds_every_launch_counter():
             ("gru", "scan_f32_persistent_launches"),
             ("ctc", "alpha_launches"), ("ctc", "beta_launches"),
             ("topk", "launches"), ("attention", "mhsa_sdpa_launches"),
-            ("attention", "mhsa_plain_launches")} <= names
-    assert len(names) == 18
+            ("attention", "mhsa_plain_launches"), ("conv", "fprop_launches"),
+            ("conv", "dgrad_launches"), ("conv", "wgrad_launches"),
+            ("conv", "reduce_launches")} <= names
+    assert len(names) == 22
     stft.extra_launches = 3
     try:
         assert read_counters()[("stft", "extra_launches")] == 3
