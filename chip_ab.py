@@ -60,6 +60,7 @@ for cell, fused, wide in (("gru", 1, c.LAYERS - 1), ("lstm", 0, c.LAYERS)):
     c.phase_train(torch, {}, floor, cell, c.WIDE, c.WIDE_BATCH[cell],
                   want=c.expect_counts(
                       stft_mag=1, ctc_alpha=1, ctc_beta=1, **fwd,
+                      **c.conv_launches(steps=1),
                       **{f"{cell}_fwd_res": fused, f"{cell}_scan_res": wide,
                          f"{cell}_bwd": c.LAYERS}))
 """

@@ -22,8 +22,8 @@ Needs one CUDA card and nvcc; exits non-zero without them. In order:
    (torch.matmul of the same bf16 operands) and its bound; then the
    latency floor of the recurrences: an empty launch from a host loop,
    the f32 step kernels of K2, K5, K3 and K7 at the least work, and a
-   persistent grid doing only its grid barrier a step (the W-resident
-   grid's release barrier, and the streamed kernels' barrier);
+   persistent grid doing only its grid barrier a step (on the W-resident
+   grid at H 800 and on the streamed kernels' grid at H 1600);
 5. K5 (gru_bwd) against its plain version at the same shapes: dg, dnh and
    the bias grads (bf16: the rule's variant, one launch a step and
    persistent), then dx, dW_ih and dW_hh through the layer's autograd
@@ -839,32 +839,31 @@ def step_floor(torch) -> dict:
         return time_ms(lambda: lstm.lstm_bwd(out, r2, r1, w_hh, lens),
                        reps=7)
 
-    # the persistent grids' floor: a grid doing only its barrier a step, the
-    # W-resident variant's (release/acquire, on its grid at H 800, D 2) and
-    # the streamed kernels' (on K4's and K5's 100-block grids at H 1600)
+    # the persistent grids' floor: a grid doing only its barrier a step, on
+    # the W-resident variant's grid at H 800, D 2 and on K4's and K5's
+    # 100-block grids at H 1600
     from deepspeech_tpu_torch.ops.cuda.recurrence import fwd_blocks
 
     lib.grid_sync_steps.argtypes = [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p, ctypes.c_int,
-                                    ctypes.c_void_p]
+                                    ctypes.c_void_p, ctypes.c_void_p]
     lib.grid_sync_steps.restype = ctypes.c_int
     bar = torch.zeros(1, dtype=torch.int32, device="cuda")
 
-    def sync_ms(steps, release, blocks):
+    def sync_ms(steps, blocks):
         return time_ms(lambda: build.check(lib, lib.grid_sync_steps(
-            blocks, steps, bar.data_ptr(), release, stream), "grid sync"),
-            reps=7)
+            blocks, steps, bar.data_ptr(), stream), "grid sync"), reps=7)
 
     res_blocks = fwd_blocks(2, HIDDEN)[1]
     floor = dict(gap_ms=gap_ms)
-    floor["sync_us"] = (sync_ms(376, 1, res_blocks)
-                        - sync_ms(188, 1, res_blocks)) / 188 * 1e3
-    floor["sync_streamed_us"] = (sync_ms(376, 0, 100)
-                                 - sync_ms(188, 0, 100)) / 188 * 1e3
-    log(f"persistent floor per step (a grid doing only its barrier): "
-        f"{floor['sync_us']:.3f} us (the W-resident variant's barrier, "
-        f"{res_blocks} blocks), {floor['sync_streamed_us']:.3f} us (the "
-        f"streamed kernels' barrier, 100 blocks); x 376 steps = "
+    floor["sync_us"] = (sync_ms(376, res_blocks)
+                        - sync_ms(188, res_blocks)) / 188 * 1e3
+    floor["sync_streamed_us"] = (sync_ms(376, 100)
+                                 - sync_ms(188, 100)) / 188 * 1e3
+    log(f"persistent floor per step (a grid doing only its barrier, the "
+        f"one grid barrier of the persistent kernels): "
+        f"{floor['sync_us']:.3f} us on the W-resident grid ({res_blocks} "
+        f"blocks), {floor['sync_streamed_us']:.3f} us on the streamed "
+        f"grid (100 blocks); x 376 steps = "
         f"{floor['sync_us'] * 376 / 1e3:.3f} ms a call")
     for cell, key in (("gru", ""), ("lstm", "lstm_")):
         for backward, what in ((False, "step_ms"), (True, "bwd_step_ms")):

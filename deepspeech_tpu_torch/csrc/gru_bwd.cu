@@ -67,13 +67,13 @@ static_assert(RB == STAGE_ROWS, "load_column reads RB rows");
 
 struct BwdArgs {
   const float* dout;  // (D, T, B, H) f32
-  const void* g;      // (D, T, B, 3H) T
-  const void* hn;     // (D, T, B, H) T
+  const float* g;     // (D, T, B, 3H) f32
+  const float* hn;    // (D, T, B, H) f32
   const float* h;     // (D, T, B, H) f32, zero past each length
-  const void* wt;     // (D, 3H, H) T: W_hh transposed
+  const float* wt;    // (D, 3H, H) f32: W_hh transposed
   const int* lens;    // (B) int32
-  void* dg;           // (D, T, B, 3H) T out
-  void* dnh;          // (D, T, B, H) T out
+  float* dg;          // (D, T, B, 3H) f32 out
+  float* dnh;         // (D, T, B, H) f32 out
   float* acc_i;       // (D, B, 3H) f32: per-row dbi sums
   float* acc_h;       // (D, B, 3H) f32: per-row dbh sums
   float* dh;          // (D, B, H) f32: carried dh past the length
@@ -89,7 +89,6 @@ __device__ __forceinline__ int walk_time(int d, int s, int Tn) {
 // dh. Writes dg and dnh at that step's time, adds to the bias accumulators,
 // and leaves dh_tot * z (valid step) or the carried dh (past the length)
 // for the next launch.
-template <typename T>
 __device__ __forceinline__ void bwd_point(const BwdArgs& a, int d, int b,
                                           int k, int s, float dh_in) {
   const int H = a.H, B = a.B, G = 3 * H;
@@ -97,20 +96,20 @@ __device__ __forceinline__ void bwd_point(const BwdArgs& a, int d, int b,
   const int len = a.lens[b];
   const size_t row = (static_cast<size_t>(d) * a.Tn + t) * B + b;
   const size_t e = (static_cast<size_t>(d) * B + b) * H + k;
-  T* dgr = static_cast<T*>(a.dg) + row * G + k;
-  T* dnhr = static_cast<T*>(a.dnh) + row * H + k;
+  float* dgr = a.dg + row * G + k;
+  float* dnhr = a.dnh + row * H + k;
   if (t >= len) {
-    dgr[0] = dgr[H] = dgr[2 * H] = ds_from_float<T>(0.f);
-    *dnhr = ds_from_float<T>(0.f);
+    dgr[0] = dgr[H] = dgr[2 * H] = 0.f;
+    *dnhr = 0.f;
     a.dh[e] = dh_in;
     return;
   }
   const float dh_tot = a.dout[row * H + k] + dh_in;
-  const T* gr = static_cast<const T*>(a.g) + row * G + k;
-  const float r = ds_to_float(gr[0]);
-  const float z = ds_to_float(gr[H]);
-  const float n = ds_to_float(gr[2 * H]);
-  const float hnv = ds_to_float(static_cast<const T*>(a.hn)[row * H + k]);
+  const float* gr = a.g + row * G + k;
+  const float r = gr[0];
+  const float z = gr[H];
+  const float n = gr[2 * H];
+  const float hnv = a.hn[row * H + k];
   float hp = 0.f;
   if (d == 0) {
     if (t > 0) hp = a.h[(row - B) * H + k];
@@ -121,10 +120,10 @@ __device__ __forceinline__ void bwd_point(const BwdArgs& a, int d, int b,
   const float dz_pre = dh_tot * (hp - n) * z * (1.f - z);
   const float dr_pre = dn_pre * hnv * r * (1.f - r);
   const float dnhv = dn_pre * r;
-  dgr[0] = ds_from_float<T>(dr_pre);
-  dgr[H] = ds_from_float<T>(dz_pre);
-  dgr[2 * H] = ds_from_float<T>(dn_pre);
-  *dnhr = ds_from_float<T>(dnhv);
+  dgr[0] = dr_pre;
+  dgr[H] = dz_pre;
+  dgr[2 * H] = dn_pre;
+  *dnhr = dnhv;
   const size_t ae = (static_cast<size_t>(d) * B + b) * G + k;
   a.acc_i[ae] += dr_pre;
   a.acc_i[ae + H] += dz_pre;
@@ -136,28 +135,24 @@ __device__ __forceinline__ void bwd_point(const BwdArgs& a, int d, int b,
 }
 
 // The first step (s = 0) with nothing carried; grid (ceil(H/256), B, D).
-template <typename T>
 __global__ void __launch_bounds__(256) bwd_first(BwdArgs a) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < a.H) bwd_point<T>(a, blockIdx.z, blockIdx.y, k, 0, 0.f);
+  if (k < a.H) bwd_point(a, blockIdx.z, blockIdx.y, k, 0, 0.f);
 }
 
 // dh_prev of step s, then the pointwise part of step s + 1;
 // grid (ceil(H/TJ), ceil(B/RB), D).
-template <typename T>
 __global__ void __launch_bounds__(STEP_THREADS) bwd_step(BwdArgs a, int s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = a.H, B = a.B, G = 3 * H;
-  T* ds = reinterpret_cast<T*>(smem_raw);                     // (3H, RB)
+  float* ds = reinterpret_cast<float*>(smem_raw);  // (3H, RB)
   float* red = reinterpret_cast<float*>(
-      smem_raw + ((static_cast<size_t>(RB) * G * sizeof(T) + 15) & ~15));
+      smem_raw + ((static_cast<size_t>(RB) * G * sizeof(float) + 15) & ~15));
   const int d = blockIdx.z;
   const int j0 = blockIdx.x * TJ;
   const int b0 = blockIdx.y * RB;
   const int t = walk_time(d, s, a.Tn);
   const int tid = threadIdx.x;
-  const T* dg = static_cast<const T*>(a.dg);
-  const T* dnh = static_cast<const T*>(a.dnh);
 
   // a thread stages one column a pass: RB independent row loads, coalesced
   // across the warp, then one vector store of the RB values side by side
@@ -165,12 +160,13 @@ __global__ void __launch_bounds__(STEP_THREADS) bwd_step(BwdArgs a, int s) {
   const int nrows = min(RB, B - b0);
   for (int c = tid; c < G; c += STEP_THREADS) {
     const bool gate = c < 2 * H;
-    const T* src = gate ? dg + row0 * G + c : dnh + row0 * H + (c - 2 * H);
+    const float* src =
+        gate ? a.dg + row0 * G + c : a.dnh + row0 * H + (c - 2 * H);
     const int stride = gate ? G : H;
-    T v[RB];
+    float v[RB];
 #pragma unroll
     for (int r = 0; r < RB; ++r)
-      v[r] = r < nrows ? src[r * stride] : ds_from_float<T>(0.f);
+      v[r] = r < nrows ? src[r * stride] : 0.f;
     store_column(ds + c * RB, v);
   }
   __syncthreads();
@@ -181,15 +177,15 @@ __global__ void __launch_bounds__(STEP_THREADS) bwd_step(BwdArgs a, int s) {
 #pragma unroll
   for (int r = 0; r < RB; ++r) acc[r] = 0.f;
   if (k < H) {
-    const T* wd = static_cast<const T*>(a.wt) + static_cast<size_t>(d) * G * H;
+    const float* wd = a.wt + static_cast<size_t>(d) * G * H;
     // one column of each gate block an iteration: three independent loads
     // from L2, unrolled so that twelve are in flight, as in K2's loop
 #pragma unroll 4
     for (int c = ks; c < H; c += KS) {
-      const T* wc = wd + static_cast<size_t>(c) * H + k;
-      const float w0 = ds_to_float(wc[0]);
-      const float w1 = ds_to_float(wc[static_cast<size_t>(H) * H]);
-      const float w2 = ds_to_float(wc[static_cast<size_t>(2 * H) * H]);
+      const float* wc = wd + static_cast<size_t>(c) * H + k;
+      const float w0 = wc[0];
+      const float w1 = wc[static_cast<size_t>(H) * H];
+      const float w2 = wc[static_cast<size_t>(2 * H) * H];
       float v0[RB], v1[RB], v2[RB];
       load_column(ds + c * RB, v0);
       load_column(ds + (c + H) * RB, v1);
@@ -214,7 +210,7 @@ __global__ void __launch_bounds__(STEP_THREADS) bwd_step(BwdArgs a, int s) {
       for (int q = 0; q < KS; ++q) sum += red[(q * RB + r) * TJ + jl2];
       const size_t e = (static_cast<size_t>(d) * B + b) * H + kk;
       const float dh_new = t < a.lens[b] ? a.dhz[e] + sum : a.dh[e];
-      bwd_point<T>(a, d, b, kk, s + 1, dh_new);
+      bwd_point(a, d, b, kk, s + 1, dh_new);
     }
   }
 }
@@ -237,7 +233,6 @@ __global__ void bias_reduce(const float* __restrict__ acc_i,
   dbh[i] = sh;
 }
 
-template <typename T>
 int gru_bwd(const BwdArgs& a, int D, float* dbi, float* dbh,
             cudaStream_t stream) {
   const int H = a.H, B = a.B, G = 3 * H;
@@ -245,19 +240,20 @@ int gru_bwd(const BwdArgs& a, int D, float* dbi, float* dbh,
   cudaError_t err = cudaMemsetAsync(a.acc_i, 0, acc_bytes, stream);
   if (err == cudaSuccess) err = cudaMemsetAsync(a.acc_h, 0, acc_bytes, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_first<T><<<dim3((H + 255) / 256, B, D), 256, 0, stream>>>(a);
+  bwd_first<<<dim3((H + 255) / 256, B, D), 256, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem = ((static_cast<size_t>(RB) * G * sizeof(T) + 15) & ~15) +
-                      static_cast<size_t>(KS) * RB * TJ * sizeof(float);
-  err = cudaFuncSetAttribute(bwd_step<T>,
+  const size_t smem =
+      ((static_cast<size_t>(RB) * G * sizeof(float) + 15) & ~15) +
+      static_cast<size_t>(KS) * RB * TJ * sizeof(float);
+  err = cudaFuncSetAttribute(bwd_step,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((H + TJ - 1) / TJ, (B + RB - 1) / RB, D);
   for (int s = 0; s + 1 < a.Tn; ++s) {
-    bwd_step<T><<<grid, STEP_THREADS, smem, stream>>>(a, s);
+    bwd_step<<<grid, STEP_THREADS, smem, stream>>>(a, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -266,31 +262,22 @@ int gru_bwd(const BwdArgs& a, int D, float* dbi, float* dbh,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int gru_bwd_entry(const float* dout, const T* g, const T* hn, const float* h,
-                  const T* wt, const int* lens, T* dg, T* dnh, float* scratch,
-                  float* dbi, float* dbh, int Tn, int B, int H, int D,
-                  void* stream) {
-  const size_t acc = static_cast<size_t>(D) * B * 3 * H;
-  const size_t st = static_cast<size_t>(D) * B * H;
-  const BwdArgs a{dout, g, hn, h, wt, lens, dg, dnh, scratch, scratch + acc,
-                  scratch + 2 * acc, scratch + 2 * acc + st, Tn, B, H};
-  return gru_bwd<T>(a, D, dbi, dbh, static_cast<cudaStream_t>(stream));
-}
-
 }  // namespace
 
-// dout, h (D, T, B, H) f32; g (D, T, B, 3H), hn (D, T, B, H) and wt =
-// W_hh^T (D, 3H, H) in the operand type; lens (B) int32 <= T; out dg
-// (D, T, B, 3H) and dnh (D, T, B, H) in the operand type, dbi and dbh
-// (D, 3H) f32; scratch f32 of 2 * D * B * 3H + 2 * D * B * H entries.
+// dout, h (D, T, B, H); g (D, T, B, 3H), hn (D, T, B, H) and wt = W_hh^T
+// (D, 3H, H); lens (B) int32 <= T; out dg (D, T, B, 3H), dnh (D, T, B, H),
+// dbi and dbh (D, 3H); scratch of 2 * D * B * 3H + 2 * D * B * H entries;
+// all but lens f32.
 DS_EXPORT int gru_bwd_f32(const float* dout, const float* g, const float* hn,
                           const float* h, const float* wt, const int* lens,
                           float* dg, float* dnh, float* scratch, float* dbi,
                           float* dbh, int Tn, int B, int H, int D,
                           void* stream) {
-  return gru_bwd_entry<float>(dout, g, hn, h, wt, lens, dg, dnh, scratch, dbi,
-                              dbh, Tn, B, H, D, stream);
+  const size_t acc = static_cast<size_t>(D) * B * 3 * H;
+  const size_t st = static_cast<size_t>(D) * B * H;
+  const BwdArgs a{dout, g, hn, h, wt, lens, dg, dnh, scratch, scratch + acc,
+                  scratch + 2 * acc, scratch + 2 * acc + st, Tn, B, H};
+  return gru_bwd(a, D, dbi, dbh, static_cast<cudaStream_t>(stream));
 }
 
 // bf16: w_pk is W_hh packed (D, NJ, NK, 64, 128) (rnn_mma_bwd.cuh);

@@ -43,6 +43,14 @@ namespace {
 
 __global__ void empty_kernel() {}
 
+// A persistent grid that does nothing but `steps` grid barriers.
+__global__ void __launch_bounds__(mma_rnn::THREADS, 1)
+    sync_kernel(unsigned* bar, int steps) {
+  const unsigned nblocks = gridDim.x * gridDim.y;
+  for (int s = 0; s < steps; ++s)
+    mma_rnn::grid_sync_release(bar, (s + 1) * nblocks);
+}
+
 }  // namespace
 
 // f32: x (T, B, F); w_ih (D, F, 3H); w_hh (D, H, 3H); b_ih, b_hh (D, 3H);
@@ -55,11 +63,10 @@ DS_EXPORT int gru_fwd_f32(const float* x, const float* w_ih,
                           float* state, float* out, float* g, float* hn,
                           int Tn, int B, int F, int H, int D, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_proj_gemm<float>(x, w_ih, xp, Tn * B, 3 * H, F,
-                                            D, st);
+  cudaError_t err = launch_proj_gemm(x, w_ih, xp, Tn * B, 3 * H, F, D, st);
   if (err == cudaSuccess)
-    err = gru_recurrence<float, float>(xp, w_hh, b_ih, b_hh, lens, state,
-                                       out, g, hn, Tn, B, H, D, st);
+    err = gru_recurrence(xp, w_hh, b_ih, b_hh, lens, state,
+                         out, g, hn, Tn, B, H, D, st);
   return static_cast<int>(err);
 }
 
@@ -117,11 +124,17 @@ DS_EXPORT int empty_launches(int n, void* stream) {
 }
 
 // One cooperative launch of `blocks` blocks doing nothing but `steps` grid
-// barriers on bar (1) uint32, the W-resident kernel's (release 1) or the
-// streamed kernels' (0): the launch-free floor under a step of the
-// persistent variants (chip_smoke.py times it).
+// barriers on bar (1) uint32, zeroed here: the launch-free floor under a
+// step of the persistent variants (chip_smoke.py times it).
 DS_EXPORT int grid_sync_steps(int blocks, int steps, unsigned* bar,
-                              int release, void* stream) {
-  return static_cast<int>(mma_rnn::sync_steps(
-      blocks, steps, bar, release != 0, static_cast<cudaStream_t>(stream)));
+                              void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(bar, 0, sizeof(unsigned), st);
+  void* params[] = {&bar, &steps};
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(sync_kernel),
+                                      dim3(blocks), dim3(mma_rnn::THREADS),
+                                      params, 0, st);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
 }

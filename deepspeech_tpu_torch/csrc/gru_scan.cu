@@ -453,7 +453,7 @@ DS_EXPORT int gru_scan_f32(const float* xp, const float* b_ih,
                            const int* lens, float* state, float* out,
                            float* g, float* hn, int Tn, int B, int H, int D,
                            void* stream) {
-  return static_cast<int>(gru_recurrence<float, float>(
+  return static_cast<int>(gru_recurrence(
       xp, w_hh, b_ih, b_hh, lens, state, out, g, hn, Tn, B, H, D,
       static_cast<cudaStream_t>(stream)));
 }

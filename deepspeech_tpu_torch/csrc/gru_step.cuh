@@ -14,11 +14,6 @@
 //    ping-pongs between two state buffers. The bf16 recurrences' tensor-
 //    core steps, persistent variants and W_hh held in shared memory are
 //    rnn_mma.cuh's.
-//  * T is the operand type of W_hh and of the residuals (instantiated for
-//    float; the template also takes __nv_bfloat16, where the hidden dot
-//    rounds h_prev to bf16 and every product accumulates in f32). XT is
-//    the type of the projection stream, widened to f32 before b_ih is
-//    added.
 #pragma once
 
 #include "rnn_common.cuh"
@@ -31,27 +26,26 @@ constexpr int RB = 8;    // batch rows per recurrence block
 constexpr int STEP_THREADS = TJ * KS;
 
 // One time step s for both directions; grid (ceil(H/TJ), ceil(B/RB), D).
-// xp (D, T, B, 3H) in XT, without b_ih; w_hh (D, H, 3H); b_ih, b_hh
-// (D, 3H) f32; lens (B) int32; h_in/h_out (D, B, H) f32; out (D, T, B, H)
-// f32; g_out (D, T, B, 3H) and hn_out (D, T, B, H) in T, or both null.
-template <typename T, typename XT>
+// xp (D, T, B, 3H) without b_ih; w_hh (D, H, 3H); b_ih, b_hh (D, 3H);
+// lens (B) int32; h_in/h_out (D, B, H); out (D, T, B, H); g_out
+// (D, T, B, 3H) and hn_out (D, T, B, H), or both null; all but lens f32.
 __global__ void __launch_bounds__(STEP_THREADS)
-gru_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
+gru_step(const float* __restrict__ xp, const float* __restrict__ w_hh,
          const float* __restrict__ b_ih, const float* __restrict__ b_hh,
          const int* __restrict__ lens, const float* __restrict__ h_in,
          float* __restrict__ h_out, float* __restrict__ out,
-         T* __restrict__ g_out, T* __restrict__ hn_out, int s, int Tn,
-         int B, int H) {
+         float* __restrict__ g_out, float* __restrict__ hn_out, int s,
+         int Tn, int B, int H) {
   extern __shared__ float smem[];
   const int G = 3 * H;
-  float* hs = smem;                  // (RB, H): h_prev rounded to T
+  float* hs = smem;                  // (RB, H): h_prev
   float* red = smem + RB * H;        // (KS, 3, RB, TJ) partial sums
   const int d = blockIdx.z;
   const int j0 = blockIdx.x * TJ;
   const int b0 = blockIdx.y * RB;
   const float* hprev = h_in + static_cast<size_t>(d) * B * H;
   float* hnew = h_out + static_cast<size_t>(d) * B * H;
-  const T* wd = w_hh + static_cast<size_t>(d) * H * G;
+  const float* wd = w_hh + static_cast<size_t>(d) * H * G;
   const int tid = threadIdx.x;
 
   // a thread stages one column a pass: RB independent row loads, no division
@@ -62,7 +56,7 @@ gru_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
     for (int r = 0; r < RB; ++r)
       v[r] = r < nrows ? hprev[(b0 + r) * H + k] : 0.f;
 #pragma unroll
-    for (int r = 0; r < RB; ++r) hs[r * H + k] = ds_round_to<T>(v[r]);
+    for (int r = 0; r < RB; ++r) hs[r * H + k] = v[r];
   }
   __syncthreads();
 
@@ -77,10 +71,10 @@ gru_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
     // unrolled so that several W_hh loads from L2 are in flight at once
 #pragma unroll 4
     for (int k = ks; k < H; k += KS) {
-      const T* wk = wd + static_cast<size_t>(k) * G + j;
-      const float wr = ds_to_float(wk[0]);
-      const float wz = ds_to_float(wk[H]);
-      const float wn = ds_to_float(wk[2 * H]);
+      const float* wk = wd + static_cast<size_t>(k) * G + j;
+      const float wr = wk[0];
+      const float wz = wk[H];
+      const float wn = wk[2 * H];
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
         const float hv = hs[r * H + k];
@@ -119,11 +113,11 @@ gru_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
       float* o = out + row * H + jj;
       float rg = 0.f, zg = 0.f, ng = 0.f;
       if (valid) {
-        const XT* xg = xp + row * G;
+        const float* xg = xp + row * G;
         const float* bi = b_ih + d * G;
-        const float xr = ds_to_float(xg[jj]) + bi[jj];
-        const float xz = ds_to_float(xg[H + jj]) + bi[H + jj];
-        const float xn = ds_to_float(xg[2 * H + jj]) + bi[2 * H + jj];
+        const float xr = xg[jj] + bi[jj];
+        const float xz = xg[H + jj] + bi[H + jj];
+        const float xn = xg[2 * H + jj] + bi[2 * H + jj];
         rg = ds_sigmoid(xr + hr);
         zg = ds_sigmoid(xz + hz);
         ng = tanhf(xn + rg * hn);
@@ -136,28 +130,28 @@ gru_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
         hn = 0.f;
       }
       if (g_out != nullptr) {
-        T* gr = g_out + row * G + jj;
-        gr[0] = ds_from_float<T>(rg);
-        gr[H] = ds_from_float<T>(zg);
-        gr[2 * H] = ds_from_float<T>(ng);
-        hn_out[row * H + jj] = ds_from_float<T>(hn);
+        float* gr = g_out + row * G + jj;
+        gr[0] = rg;
+        gr[H] = zg;
+        gr[2 * H] = ng;
+        hn_out[row * H + jj] = hn;
       }
     }
   }
 }
 
 // The Tn launches of gru_step after zeroing h; state (2, D, B, H) f32.
-template <typename T, typename XT>
-cudaError_t gru_recurrence(const XT* xp, const T* w_hh, const float* b_ih,
-                           const float* b_hh, const int* lens, float* state,
-                           float* out, T* g_out, T* hn_out, int Tn, int B,
-                           int H, int D, cudaStream_t stream) {
+cudaError_t gru_recurrence(const float* xp, const float* w_hh,
+                           const float* b_ih, const float* b_hh,
+                           const int* lens, float* state, float* out,
+                           float* g_out, float* hn_out, int Tn, int B, int H,
+                           int D, cudaStream_t stream) {
   const size_t hsz = static_cast<size_t>(D) * B * H;
   cudaError_t err = cudaMemsetAsync(state, 0, hsz * sizeof(float), stream);
   if (err != cudaSuccess) return err;
   const size_t smem = (static_cast<size_t>(RB) * H + KS * 3 * RB * TJ) *
                       sizeof(float);
-  err = cudaFuncSetAttribute(gru_step<T, XT>,
+  err = cudaFuncSetAttribute(gru_step,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -165,7 +159,7 @@ cudaError_t gru_recurrence(const XT* xp, const T* w_hh, const float* b_ih,
   for (int s = 0; s < Tn; ++s) {
     const float* h_in = state + (s & 1) * hsz;
     float* h_out = state + ((s + 1) & 1) * hsz;
-    gru_step<T, XT><<<sgrid, STEP_THREADS, smem, stream>>>(
+    gru_step<<<sgrid, STEP_THREADS, smem, stream>>>(
         xp, w_hh, b_ih, b_hh, lens, h_in, h_out, out, g_out, hn_out, s, Tn,
         B, H);
     err = cudaGetLastError();

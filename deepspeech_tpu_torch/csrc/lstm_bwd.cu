@@ -69,11 +69,11 @@ static_assert(RB == STAGE_ROWS, "load_column reads RB rows");
 
 struct BwdArgs {
   const float* dout;  // (D, T, B, H) f32
-  const void* g;      // (D, T, B, 4H) T: i, f, g, o
+  const float* g;     // (D, T, B, 4H) f32: i, f, g, o
   const float* c;     // (D, T, B, H) f32, zero past each length
-  const void* wt;     // (D, 4H, H) T: W_hh transposed
+  const float* wt;    // (D, 4H, H) f32: W_hh transposed
   const int* lens;    // (B) int32
-  void* dg;           // (D, T, B, 4H) T out
+  float* dg;          // (D, T, B, 4H) f32 out
   float* acc;         // (D, B, 4H) f32: per-row db sums
   float* dh;          // (D, B, H) f32: carried dh past the length
   float* dc;          // (D, B, H) f32: carried dc
@@ -88,7 +88,6 @@ __device__ __forceinline__ int walk_time(int d, int s, int Tn) {
 // dh. Writes dg at that step's time, adds to the bias accumulators and
 // updates the carried dc; past the length it writes zeros and leaves dh_in
 // in dh for the next launch.
-template <typename T>
 __device__ __forceinline__ void bwd_point(const BwdArgs& a, int d, int b,
                                           int k, int s, float dh_in) {
   const int H = a.H, B = a.B, G = 4 * H;
@@ -96,18 +95,18 @@ __device__ __forceinline__ void bwd_point(const BwdArgs& a, int d, int b,
   const int len = a.lens[b];
   const size_t row = (static_cast<size_t>(d) * a.Tn + t) * B + b;
   const size_t e = (static_cast<size_t>(d) * B + b) * H + k;
-  T* dgr = static_cast<T*>(a.dg) + row * G + k;
+  float* dgr = a.dg + row * G + k;
   if (t >= len) {
-    dgr[0] = dgr[H] = dgr[2 * H] = dgr[3 * H] = ds_from_float<T>(0.f);
+    dgr[0] = dgr[H] = dgr[2 * H] = dgr[3 * H] = 0.f;
     a.dh[e] = dh_in;
     return;
   }
   const float dh_tot = a.dout[row * H + k] + dh_in;
-  const T* gr = static_cast<const T*>(a.g) + row * G + k;
-  const float i = ds_to_float(gr[0]);
-  const float f = ds_to_float(gr[H]);
-  const float gg = ds_to_float(gr[2 * H]);
-  const float o = ds_to_float(gr[3 * H]);
+  const float* gr = a.g + row * G + k;
+  const float i = gr[0];
+  const float f = gr[H];
+  const float gg = gr[2 * H];
+  const float o = gr[3 * H];
   float cp = 0.f;
   if (d == 0) {
     if (t > 0) cp = a.c[(row - B) * H + k];
@@ -120,10 +119,10 @@ __device__ __forceinline__ void bwd_point(const BwdArgs& a, int d, int b,
   const float di_pre = dc_tot * gg * i * (1.f - i);
   const float df_pre = dc_tot * cp * f * (1.f - f);
   const float dg_pre = dc_tot * i * (1.f - gg * gg);
-  dgr[0] = ds_from_float<T>(di_pre);
-  dgr[H] = ds_from_float<T>(df_pre);
-  dgr[2 * H] = ds_from_float<T>(dg_pre);
-  dgr[3 * H] = ds_from_float<T>(do_pre);
+  dgr[0] = di_pre;
+  dgr[H] = df_pre;
+  dgr[2 * H] = dg_pre;
+  dgr[3 * H] = do_pre;
   const size_t ae = (static_cast<size_t>(d) * B + b) * G + k;
   a.acc[ae] += di_pre;
   a.acc[ae + H] += df_pre;
@@ -133,40 +132,36 @@ __device__ __forceinline__ void bwd_point(const BwdArgs& a, int d, int b,
 }
 
 // The first step (s = 0) with nothing carried; grid (ceil(H/256), B, D).
-template <typename T>
 __global__ void __launch_bounds__(256) bwd_first(BwdArgs a) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < a.H) bwd_point<T>(a, blockIdx.z, blockIdx.y, k, 0, 0.f);
+  if (k < a.H) bwd_point(a, blockIdx.z, blockIdx.y, k, 0, 0.f);
 }
 
 // dh_prev of step s, then the pointwise part of step s + 1;
 // grid (ceil(H/TJ), ceil(B/RB), D).
-template <typename T>
 __global__ void __launch_bounds__(STEP_THREADS)
 lstm_bwd_step(BwdArgs a, int s) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = a.H, B = a.B, G = 4 * H;
-  T* ds = reinterpret_cast<T*>(smem_raw);                     // (4H, RB)
+  float* ds = reinterpret_cast<float*>(smem_raw);  // (4H, RB)
   float* red = reinterpret_cast<float*>(
-      smem_raw + ((static_cast<size_t>(RB) * G * sizeof(T) + 15) & ~15));
+      smem_raw + ((static_cast<size_t>(RB) * G * sizeof(float) + 15) & ~15));
   const int d = blockIdx.z;
   const int j0 = blockIdx.x * TJ;
   const int b0 = blockIdx.y * RB;
   const int t = walk_time(d, s, a.Tn);
   const int tid = threadIdx.x;
-  const T* dg = static_cast<const T*>(a.dg);
 
   // a thread stages one column a pass: RB independent row loads, coalesced
   // across the warp, then one vector store of the RB values side by side
   const size_t row0 = (static_cast<size_t>(d) * a.Tn + t) * B + b0;
   const int nrows = min(RB, B - b0);
   for (int c = tid; c < G; c += STEP_THREADS) {
-    const T* src = dg + row0 * G + c;
-    T v[RB];
+    const float* src = a.dg + row0 * G + c;
+    float v[RB];
 #pragma unroll
     for (int r = 0; r < RB; ++r)
-      v[r] = r < nrows ? src[static_cast<size_t>(r) * G]
-                       : ds_from_float<T>(0.f);
+      v[r] = r < nrows ? src[static_cast<size_t>(r) * G] : 0.f;
     store_column(ds + c * RB, v);
   }
   __syncthreads();
@@ -177,17 +172,17 @@ lstm_bwd_step(BwdArgs a, int s) {
 #pragma unroll
   for (int r = 0; r < RB; ++r) acc[r] = 0.f;
   if (k < H) {
-    const T* wd = static_cast<const T*>(a.wt) + static_cast<size_t>(d) * G * H;
+    const float* wd = a.wt + static_cast<size_t>(d) * G * H;
     const size_t hh = static_cast<size_t>(H) * H;
     // one column of each gate block an iteration: four independent loads
     // from L2, unrolled so that sixteen are in flight, as in K2's loop
 #pragma unroll 4
     for (int c = ks; c < H; c += KS) {
-      const T* wc = wd + static_cast<size_t>(c) * H + k;
-      const float w0 = ds_to_float(wc[0]);
-      const float w1 = ds_to_float(wc[hh]);
-      const float w2 = ds_to_float(wc[2 * hh]);
-      const float w3 = ds_to_float(wc[3 * hh]);
+      const float* wc = wd + static_cast<size_t>(c) * H + k;
+      const float w0 = wc[0];
+      const float w1 = wc[hh];
+      const float w2 = wc[2 * hh];
+      const float w3 = wc[3 * hh];
       float v0[RB], v1[RB], v2[RB], v3[RB];
       load_column(ds + c * RB, v0);
       load_column(ds + (c + H) * RB, v1);
@@ -214,7 +209,7 @@ lstm_bwd_step(BwdArgs a, int s) {
       for (int q = 0; q < KS; ++q) sum += red[(q * RB + r) * TJ + jl2];
       const size_t e = (static_cast<size_t>(d) * B + b) * H + kk;
       const float dh_new = t < a.lens[b] ? sum : a.dh[e];
-      bwd_point<T>(a, d, b, kk, s + 1, dh_new);
+      bwd_point(a, d, b, kk, s + 1, dh_new);
     }
   }
 }
@@ -231,7 +226,6 @@ __global__ void bias_reduce(const float* __restrict__ acc,
   db[i] = sum;
 }
 
-template <typename T>
 int lstm_bwd(const BwdArgs& a, int D, float* db, cudaStream_t stream) {
   const int H = a.H, B = a.B, G = 4 * H;
   const size_t acc_bytes = static_cast<size_t>(D) * B * G * sizeof(float);
@@ -239,19 +233,20 @@ int lstm_bwd(const BwdArgs& a, int D, float* db, cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(a.acc, 0, acc_bytes, stream);
   if (err == cudaSuccess) err = cudaMemsetAsync(a.dc, 0, st_bytes, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_first<T><<<dim3((H + 255) / 256, B, D), 256, 0, stream>>>(a);
+  bwd_first<<<dim3((H + 255) / 256, B, D), 256, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem = ((static_cast<size_t>(RB) * G * sizeof(T) + 15) & ~15) +
-                      static_cast<size_t>(KS) * RB * TJ * sizeof(float);
-  err = cudaFuncSetAttribute(lstm_bwd_step<T>,
+  const size_t smem =
+      ((static_cast<size_t>(RB) * G * sizeof(float) + 15) & ~15) +
+      static_cast<size_t>(KS) * RB * TJ * sizeof(float);
+  err = cudaFuncSetAttribute(lstm_bwd_step,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((H + TJ - 1) / TJ, (B + RB - 1) / RB, D);
   for (int s = 0; s + 1 < a.Tn; ++s) {
-    lstm_bwd_step<T><<<grid, STEP_THREADS, smem, stream>>>(a, s);
+    lstm_bwd_step<<<grid, STEP_THREADS, smem, stream>>>(a, s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -259,29 +254,20 @@ int lstm_bwd(const BwdArgs& a, int D, float* db, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int lstm_bwd_entry(const float* dout, const T* g, const float* c,
-                   const T* wt, const int* lens, T* dg, float* scratch,
-                   float* db, int Tn, int B, int H, int D, void* stream) {
-  const size_t acc = static_cast<size_t>(D) * B * 4 * H;
-  const size_t st = static_cast<size_t>(D) * B * H;
-  const BwdArgs a{dout, g, c, wt, lens, dg, scratch, scratch + acc,
-                  scratch + acc + st, Tn, B, H};
-  return lstm_bwd<T>(a, D, db, static_cast<cudaStream_t>(stream));
-}
-
 }  // namespace
 
-// dout, c (D, T, B, H) f32; g (D, T, B, 4H) and wt = W_hh^T (D, 4H, H) in
-// the operand type; lens (B) int32 <= T; out dg (D, T, B, 4H) in the
-// operand type and db (D, 4H) f32; scratch f32 of D * B * 4H + 2 * D * B * H
-// entries.
+// dout, c (D, T, B, H); g (D, T, B, 4H) and wt = W_hh^T (D, 4H, H); lens
+// (B) int32 <= T; out dg (D, T, B, 4H) and db (D, 4H); scratch of
+// D * B * 4H + 2 * D * B * H entries; all but lens f32.
 DS_EXPORT int lstm_bwd_f32(const float* dout, const float* g, const float* c,
                            const float* wt, const int* lens, float* dg,
                            float* scratch, float* db, int Tn, int B, int H,
                            int D, void* stream) {
-  return lstm_bwd_entry<float>(dout, g, c, wt, lens, dg, scratch, db, Tn, B,
-                               H, D, stream);
+  const size_t acc = static_cast<size_t>(D) * B * 4 * H;
+  const size_t st = static_cast<size_t>(D) * B * H;
+  const BwdArgs a{dout, g, c, wt, lens, dg, scratch, scratch + acc,
+                  scratch + acc + st, Tn, B, H};
+  return lstm_bwd(a, D, db, static_cast<cudaStream_t>(stream));
 }
 
 // bf16: w_pk is W_hh packed (D, NJ, NK, 64, 128) (rnn_mma_bwd.cuh);

@@ -44,11 +44,10 @@ DS_EXPORT int lstm_fwd_f32(const float* x, const float* w_ih,
                            float* state, float* out, float* c, float* g,
                            int Tn, int B, int F, int H, int D, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_proj_gemm<float>(x, w_ih, xp, Tn * B, 4 * H, F,
-                                            D, st);
+  cudaError_t err = launch_proj_gemm(x, w_ih, xp, Tn * B, 4 * H, F, D, st);
   if (err == cudaSuccess)
-    err = lstm_recurrence<float, float>(xp, w_hh, b_ih, b_hh, lens, state,
-                                        out, c, g, Tn, B, H, D, st);
+    err = lstm_recurrence(xp, w_hh, b_ih, b_hh, lens, state,
+                          out, c, g, Tn, B, H, D, st);
   return static_cast<int>(err);
 }
 

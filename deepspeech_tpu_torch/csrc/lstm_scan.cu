@@ -44,7 +44,7 @@ DS_EXPORT int lstm_scan_f32(const float* xp, const float* b_ih,
                             const int* lens, float* state, float* out,
                             float* c, float* g, int Tn, int B, int H, int D,
                             void* stream) {
-  return static_cast<int>(lstm_recurrence<float, float>(
+  return static_cast<int>(lstm_recurrence(
       xp, w_hh, b_ih, b_hh, lens, state, out, c, g, Tn, B, H, D,
       static_cast<cudaStream_t>(stream)));
 }

@@ -15,11 +15,6 @@
 //    steps past a row's length keep its state and write zeros. h
 //    ping-pongs between two state buffers, since every block reads all of
 //    h_prev.
-//  * T is the operand type of W_hh and of the gate residuals (instantiated
-//    for float; the template also takes __nv_bfloat16, where the hidden
-//    dot rounds h_prev to bf16 and every product accumulates in f32). XT is
-//    the type of the projection stream, widened to f32 before b_ih is
-//    added.
 #pragma once
 
 #include "rnn_common.cuh"
@@ -32,21 +27,20 @@ constexpr int RB = 8;    // batch rows per recurrence block
 constexpr int STEP_THREADS = TJ * KS;
 
 // One time step s for both directions; grid (ceil(H/TJ), ceil(B/RB), D).
-// xp (D, T, B, 4H) in XT, without b_ih; w_hh (D, H, 4H); b_ih, b_hh
-// (D, 4H) f32; lens (B) int32; h_in/h_out (D, B, H) f32; c_state (D, B, H)
-// f32, updated in place; out (D, T, B, H) f32; c_out (D, T, B, H) f32 and g_out
-// (D, T, B, 4H) in T, or both null.
-template <typename T, typename XT>
+// xp (D, T, B, 4H) without b_ih; w_hh (D, H, 4H); b_ih, b_hh (D, 4H);
+// lens (B) int32; h_in/h_out (D, B, H); c_state (D, B, H), updated in
+// place; out (D, T, B, H); c_out (D, T, B, H) and g_out (D, T, B, 4H), or
+// both null; all but lens f32.
 __global__ void __launch_bounds__(STEP_THREADS)
-lstm_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
+lstm_step(const float* __restrict__ xp, const float* __restrict__ w_hh,
           const float* __restrict__ b_ih, const float* __restrict__ b_hh,
           const int* __restrict__ lens, const float* __restrict__ h_in,
           float* __restrict__ h_out, float* __restrict__ c_state,
           float* __restrict__ out, float* __restrict__ c_out,
-          T* __restrict__ g_out, int s, int Tn, int B, int H) {
+          float* __restrict__ g_out, int s, int Tn, int B, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
-  float* hs = smem;                  // (RB, H): h_prev rounded to T
+  float* hs = smem;                  // (RB, H): h_prev
   float* red = smem + RB * H;        // (KS, 4, RB, TJ) partial sums
   const int d = blockIdx.z;
   const int j0 = blockIdx.x * TJ;
@@ -54,7 +48,7 @@ lstm_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
   const float* hprev = h_in + static_cast<size_t>(d) * B * H;
   float* hnew = h_out + static_cast<size_t>(d) * B * H;
   float* cst = c_state + static_cast<size_t>(d) * B * H;
-  const T* wd = w_hh + static_cast<size_t>(d) * H * G;
+  const float* wd = w_hh + static_cast<size_t>(d) * H * G;
   const int tid = threadIdx.x;
 
   // a thread stages one column a pass: RB independent row loads, no division
@@ -65,7 +59,7 @@ lstm_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
     for (int r = 0; r < RB; ++r)
       v[r] = r < nrows ? hprev[(b0 + r) * H + k] : 0.f;
 #pragma unroll
-    for (int r = 0; r < RB; ++r) hs[r * H + k] = ds_round_to<T>(v[r]);
+    for (int r = 0; r < RB; ++r) hs[r * H + k] = v[r];
   }
   __syncthreads();
 
@@ -80,11 +74,11 @@ lstm_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
     // unrolled so that several W_hh loads from L2 are in flight at once
 #pragma unroll 4
     for (int k = ks; k < H; k += KS) {
-      const T* wk = wd + static_cast<size_t>(k) * G + j;
-      const float wi = ds_to_float(wk[0]);
-      const float wf = ds_to_float(wk[H]);
-      const float wg = ds_to_float(wk[2 * H]);
-      const float wo = ds_to_float(wk[3 * H]);
+      const float* wk = wd + static_cast<size_t>(k) * G + j;
+      const float wi = wk[0];
+      const float wf = wk[H];
+      const float wg = wk[2 * H];
+      const float wo = wk[3 * H];
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
         const float hv = hs[r * H + k];
@@ -121,14 +115,13 @@ lstm_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
       const size_t row = (static_cast<size_t>(d) * Tn + t) * B + b;
       float ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f, c = 0.f, h = 0.f;
       if (valid) {
-        const XT* xg = xp + row * G;
+        const float* xg = xp + row * G;
         const float* bi = b_ih + d * G;
         // (x @ W_ih + b_ih) + (h @ W_hh + b_hh), as the plain version sums
-        ig = ds_sigmoid((ds_to_float(xg[jj]) + bi[jj]) + hg[0]);
-        fg = ds_sigmoid((ds_to_float(xg[H + jj]) + bi[H + jj]) + hg[1]);
-        gg = tanhf((ds_to_float(xg[2 * H + jj]) + bi[2 * H + jj]) + hg[2]);
-        og = ds_sigmoid((ds_to_float(xg[3 * H + jj]) + bi[3 * H + jj])
-                        + hg[3]);
+        ig = ds_sigmoid((xg[jj] + bi[jj]) + hg[0]);
+        fg = ds_sigmoid((xg[H + jj] + bi[H + jj]) + hg[1]);
+        gg = tanhf((xg[2 * H + jj] + bi[2 * H + jj]) + hg[2]);
+        og = ds_sigmoid((xg[3 * H + jj] + bi[3 * H + jj]) + hg[3]);
         c = fg * cst[e] + ig * gg;
         h = og * tanhf(c);
         cst[e] = c;
@@ -139,11 +132,11 @@ lstm_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
       out[row * H + jj] = h;
       if (g_out != nullptr) {
         c_out[row * H + jj] = c;
-        T* gr = g_out + row * G + jj;
-        gr[0] = ds_from_float<T>(ig);
-        gr[H] = ds_from_float<T>(fg);
-        gr[2 * H] = ds_from_float<T>(gg);
-        gr[3 * H] = ds_from_float<T>(og);
+        float* gr = g_out + row * G + jj;
+        gr[0] = ig;
+        gr[H] = fg;
+        gr[2 * H] = gg;
+        gr[3 * H] = og;
       }
     }
   }
@@ -151,11 +144,11 @@ lstm_step(const XT* __restrict__ xp, const T* __restrict__ w_hh,
 
 // The Tn launches of lstm_step after zeroing h and c; state (3, D, B, H)
 // f32: h ping-pongs between [0] and [1], [2] holds c.
-template <typename T, typename XT>
-cudaError_t lstm_recurrence(const XT* xp, const T* w_hh, const float* b_ih,
-                            const float* b_hh, const int* lens, float* state,
-                            float* out, float* c_out, T* g_out, int Tn, int B,
-                            int H, int D, cudaStream_t stream) {
+cudaError_t lstm_recurrence(const float* xp, const float* w_hh,
+                            const float* b_ih, const float* b_hh,
+                            const int* lens, float* state, float* out,
+                            float* c_out, float* g_out, int Tn, int B, int H,
+                            int D, cudaStream_t stream) {
   const size_t hsz = static_cast<size_t>(D) * B * H;
   float* c_state = state + 2 * hsz;
   cudaError_t err = cudaMemsetAsync(state, 0, hsz * sizeof(float), stream);
@@ -164,7 +157,7 @@ cudaError_t lstm_recurrence(const XT* xp, const T* w_hh, const float* b_ih,
   if (err != cudaSuccess) return err;
   const size_t smem = (static_cast<size_t>(RB) * H + KS * 4 * RB * TJ) *
                       sizeof(float);
-  err = cudaFuncSetAttribute(lstm_step<T, XT>,
+  err = cudaFuncSetAttribute(lstm_step,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -172,7 +165,7 @@ cudaError_t lstm_recurrence(const XT* xp, const T* w_hh, const float* b_ih,
   for (int s = 0; s < Tn; ++s) {
     const float* h_in = state + (s & 1) * hsz;
     float* h_out = state + ((s + 1) & 1) * hsz;
-    lstm_step<T, XT><<<sgrid, STEP_THREADS, smem, stream>>>(
+    lstm_step<<<sgrid, STEP_THREADS, smem, stream>>>(
         xp, w_hh, b_ih, b_hh, lens, h_in, h_out, c_state, out, c_out, g_out,
         s, Tn, B, H);
     err = cudaGetLastError();

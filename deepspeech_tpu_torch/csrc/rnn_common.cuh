@@ -14,13 +14,12 @@ constexpr int GBM = 128, GBN = 128, GBK = 8;  // projection GEMM tile
 // A tiled SIMT GEMM (128 x 128 x 8 tiles, 8 x 8 per thread, f32 FMA), the
 // f32 projection of K2 and K3 (no TF32); their bf16 projection runs on
 // tensor cores (proj_mma.cuh).
-template <typename T>
 __global__ void __launch_bounds__(256)
-proj_gemm(const T* __restrict__ A, const T* __restrict__ W,
+proj_gemm(const float* __restrict__ A, const float* __restrict__ W,
           float* __restrict__ C, int M, int N, int K) {
   __shared__ __align__(16) float As[GBK][GBM];
   __shared__ __align__(16) float Bs[GBK][GBN];
-  const T* Wd = W + static_cast<size_t>(blockIdx.z) * K * N;
+  const float* Wd = W + static_cast<size_t>(blockIdx.z) * K * N;
   float* Cd = C + static_cast<size_t>(blockIdx.z) * M * N;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -36,15 +35,13 @@ proj_gemm(const T* __restrict__ A, const T* __restrict__ W,
     for (int i = tid; i < GBM * GBK; i += 256) {
       const int r = i / GBK, c = i % GBK;
       const int m = m0 + r, k = k0 + c;
-      As[c][r] = (m < M && k < K)
-                     ? ds_to_float(A[static_cast<size_t>(m) * K + k]) : 0.f;
+      As[c][r] = (m < M && k < K) ? A[static_cast<size_t>(m) * K + k] : 0.f;
     }
 #pragma unroll
     for (int i = tid; i < GBK * GBN; i += 256) {
       const int r = i / GBN, c = i % GBN;
       const int k = k0 + r, n = n0 + c;
-      Bs[r][c] = (k < K && n < N)
-                     ? ds_to_float(Wd[static_cast<size_t>(k) * N + n]) : 0.f;
+      Bs[r][c] = (k < K && n < N) ? Wd[static_cast<size_t>(k) * N + n] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -75,11 +72,11 @@ proj_gemm(const T* __restrict__ A, const T* __restrict__ W,
 }
 
 // Launch proj_gemm for the (D, M, N) f32 projection stream of x (M x K).
-template <typename T>
-cudaError_t launch_proj_gemm(const T* x, const T* w, float* c, int M, int N,
-                             int K, int D, cudaStream_t stream) {
+inline cudaError_t launch_proj_gemm(const float* x, const float* w, float* c,
+                                    int M, int N, int K, int D,
+                                    cudaStream_t stream) {
   const dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, D);
-  proj_gemm<T><<<grid, 256, 0, stream>>>(x, w, c, M, N, K);
+  proj_gemm<<<grid, 256, 0, stream>>>(x, w, c, M, N, K);
   return cudaGetLastError();
 }
 

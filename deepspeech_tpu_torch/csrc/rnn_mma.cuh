@@ -20,7 +20,7 @@
 //    [i | f | g | o] of the same units), K chunk kc; zero past H.
 //  * h_prev in the operand type: (2, D, B8, Hk) bf16, B8 = B rounded up
 //    to 8, Hk = NK * KC, zero in the padding; the step reads copy s & 1
-//    and writes copy (s + 1) & 1, rounded as ds_round_to does. The f32
+//    and writes copy (s + 1) & 1, rounded to nearest even. The f32
 //    state (D, B, H) (and the LSTM's c) is read and written in place by
 //    the one thread that owns each (unit, row).
 //
@@ -147,29 +147,22 @@ __device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Grid barrier of a cooperative launch, the pattern of cooperative groups'
-// grid sync: a block barrier, one fenced arrival on the counter (zeroed
-// before the launch), a spin until `target` blocks have arrived.
-__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    unsigned seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(seen) : "l"(bar) : "memory");
-    } while (seen < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// The same barrier on release/acquire operations (the pattern of
-// CUTLASS's GenericBarrier): the block barrier orders the block's writes
-// before thread 0's release reduction, which needs no separate fence and
-// returns nothing to wait for; the acquire load that sees the count orders
-// the reads after it. The W-resident kernel's barrier.
+// The grid barrier of the persistent kernels (a cooperative launch; the
+// counter is zeroed before it), the pattern of CUTLASS's GenericBarrier:
+// the block barrier orders the block's writes before thread 0's release
+// reduction, which makes them visible at gpu scope with no separate fence
+// and returns nothing to wait for; thread 0's acquire load that sees
+// `target` arrivals, then the block barrier, order every thread's later
+// accesses after every block's writes. That covers what the generic proxy
+// reads and writes after it: loads, the non-bulk cp.async of the streamed
+// forward's and the backward's rings (h_prev's or the operand's copy from
+// the other blocks) and the ring's stores over `red`, which the backward's
+// peer read through distributed shared memory before its arrival. A kernel
+// that reads what it guards through bulk copies (the async proxy: the
+// W-resident forward below, gru_scan.cu's f32 persistent scan) issues
+// fence.proxy.async before it. On the H100 it takes ~0.95 us a step on
+// grids of 100 and 104 blocks, against ~1.29 us for cooperative groups'
+// fence, atomicAdd, spin and fence (PERF.md §6).
 __device__ __forceinline__ void grid_sync_release(unsigned* bar,
                                                   unsigned target) {
   __syncthreads();
@@ -362,8 +355,8 @@ struct Pairs {
   int len[NP];     // the row's length; -1 where the pair lies outside
   float bi[G];     // b_ih of the unit
   float bh[G];     // b_hh of the unit
-  float x[NP][G];  // the step's projection (+ b_ih unless loaded RAW); 0
-                   // past the length
+  float x[NP][G];  // the step's projection, without b_ih; 0 past the
+                   // length
   float h[NP];     // f32 state
   float c[NP];     // LSTM cell state
   __device__ __forceinline__ static int unit() { return threadIdx.x % UJ; }
@@ -390,10 +383,10 @@ __device__ __forceinline__ void load_pairs(const Args& a, int d, int jb,
 }
 
 // The projection of step s for the thread's pairs (XT: bf16 for K4/K6, f32
-// for K2/K3), widened to f32 with b_ih added (RAW: without; the epilogue
-// adds it, so that no instruction waits for the load before the grid
-// barrier); read once, so it does not displace W_hh in L2.
-template <typename XT, bool RAW = false, class Q>
+// for K2/K3), widened to f32 without b_ih (the epilogue adds it, so that no
+// instruction waits for the load before the grid barrier); read once, so
+// it does not displace W_hh in L2.
+template <typename XT, class Q>
 __device__ __forceinline__ void load_x(const Args& a, int s, int d, int jb,
                                        int n0, Q& q) {
   const int GH = Q::G * a.H;
@@ -410,8 +403,7 @@ __device__ __forceinline__ void load_x(const Args& a, int s, int d, int jb,
           xp + ((static_cast<size_t>(d) * a.Tn + t) * a.B + b) * GH + jj;
 #pragma unroll
       for (int g = 0; g < Q::G; ++g)
-        q.x[p][g] = RAW ? load_stream(x + g * a.H)
-                        : load_stream(x + g * a.H) + q.bi[g];
+        q.x[p][g] = load_stream(x + g * a.H);
     }
   }
 }
@@ -439,9 +431,9 @@ __device__ __forceinline__ void state_io(const Args& a, int d, int jb,
 // The gate update of the thread's pairs for step s: the KS K-split sums
 // (red[(ks * NC + n) * MP + g * UJ + j]) plus b_hh, the gates in f32, h
 // (and c) in q, h in the operand type for the next step's product, out and
-// the residuals. RAW: q.x was loaded by load_x<XT, true>, b_ih is added
-// here (the same sum, (x + b_ih) + hg).
-template <int KS, int MP, bool RAW = false, class Q>
+// the residuals. b_ih is added here to load_x's projection: (x + b_ih) + hg.
+// A pair past its row's length holds b_ih, which no gate reads.
+template <int KS, int MP, class Q>
 __device__ __forceinline__ void epilogue(const Args& a, const float* red,
                                          __nv_bfloat16* hb_out, int s,
                                          int d, int jb, int n0, Q& q) {
@@ -467,7 +459,7 @@ __device__ __forceinline__ void epilogue(const Args& a, const float* red,
     const size_t row = (static_cast<size_t>(d) * a.Tn + t) * a.B + b;
     float x[G];
 #pragma unroll
-    for (int g = 0; g < G; ++g) x[g] = RAW ? q.x[p][g] + q.bi[g] : q.x[p][g];
+    for (int g = 0; g < G; ++g) x[g] = q.x[p][g] + q.bi[g];
     const float hp = q.h[p];
     float h = hp;
     float gate[G];
@@ -557,7 +549,7 @@ __global__ void __launch_bounds__(THREADS, 1) persistent_kernel(Args a) {
     if (s + 1 == a.Tn) break;
     load_x<XT>(a, s + 1, d, jb, 0, q);
     // every block's h for step s is written
-    grid_sync(a.bar, (s + 1) * nblocks);
+    grid_sync_release(a.bar, (s + 1) * nblocks);
   }
 }
 
@@ -861,7 +853,7 @@ __global__ void __launch_bounds__(THREADS, 1) resident_kernel(Args a) {
   load_pairs(a, d, jb, 0, q);
 #pragma unroll
   for (int p = 0; p < q.NP; ++p) q.h[p] = q.c[p] = 0.f;
-  load_x<XT, true>(a, 0, d, jb, 0, q);
+  load_x<XT>(a, 0, d, jb, 0, q);
   cp_async_wait<0>();
   // the W slice is in, and every barrier of the cluster is initialised
   // before any block multicasts into it
@@ -874,11 +866,11 @@ __global__ void __launch_bounds__(THREADS, 1) resident_kernel(Args a) {
     DS_STAMP(s, 1);
     res_product<G, NT>(a, ws, hs, red, bars, s, kw);
     DS_STAMP(s, 3 + HCH);
-    epilogue<R::KS, R::MP, true>(a, red, hb_out, s, d, jb, 0, q);
+    epilogue<R::KS, R::MP>(a, red, hb_out, s, d, jb, 0, q);
     DS_STAMP(s, 4 + HCH);
     if (s + 1 == a.Tn) break;
     // in flight through the barrier
-    load_x<XT, true>(a, s + 1, d, jb, 0, q);
+    load_x<XT>(a, s + 1, d, jb, 0, q);
     // the generic writes of this step, h_prev's copy in global memory and
     // `red` in shared memory, are read or overwritten by the next step's
     // bulk copies (the async proxy)
@@ -888,35 +880,6 @@ __global__ void __launch_bounds__(THREADS, 1) resident_kernel(Args a) {
     grid_sync_release(a.bar, (s + 1) * nblocks);
   }
   cluster_barrier();  // no block leaves while its cluster may copy into it
-}
-
-// A persistent grid that does nothing but `steps` grid barriers: the
-// launch-free floor under a step of the persistent variants
-// (chip_smoke.py times it), with the W-resident kernel's barrier (RELEASE)
-// or the streamed kernels' (grid_sync).
-template <bool RELEASE>
-__global__ void __launch_bounds__(THREADS, 1) sync_kernel(unsigned* bar,
-                                                          int steps) {
-  const unsigned nblocks = gridDim.x * gridDim.y;
-  for (int s = 0; s < steps; ++s) {
-    if (RELEASE)
-      grid_sync_release(bar, (s + 1) * nblocks);
-    else
-      grid_sync(bar, (s + 1) * nblocks);
-  }
-}
-
-inline cudaError_t sync_steps(int blocks, int steps, unsigned* bar,
-                              bool release, cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(bar, 0, sizeof(unsigned), stream);
-  if (err != cudaSuccess) return err;
-  void* params[] = {&bar, &steps};
-  err = cudaLaunchCooperativeKernel(
-      release ? reinterpret_cast<void*>(sync_kernel<true>)
-              : reinterpret_cast<void*>(sync_kernel<false>),
-      dim3(blocks), dim3(THREADS), params, 0, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 // The W-resident kernel's launch: grid (RCL ceil(ceil(H / RJ) / RCL), D) in

@@ -72,7 +72,7 @@ namespace cg = cooperative_groups;
 using mma_rnn::cp_async16;
 using mma_rnn::cp_async_commit;
 using mma_rnn::cp_async_wait;
-using mma_rnn::grid_sync;
+using mma_rnn::grid_sync_release;
 using mma_rnn::ldmatrix_x4;
 using mma_rnn::load_stream;
 using mma_rnn::mma_bf16;
@@ -488,7 +488,7 @@ __global__ void __launch_bounds__(THREADS, 1) persistent_kernel(Args a) {
     prefetch<G, NT>(a, s + 1, d, at.j0, 0, q);
     // every block's operand for step s is written, and every block has
     // read the copy and the partial sums the next step overwrites
-    grid_sync(a.bar, (s + 1) * nblocks);
+    grid_sync_release(a.bar, (s + 1) * nblocks);
   }
   cluster_sync();  // the peer has read our sums
   state_io<G, NT, true>(a, st, d, at.j0, 0, 2, q);

@@ -33,6 +33,7 @@ from deepspeech_tpu_torch.models.layers import (Lookahead, TorchBatchNorm,
                                                 hardtanh_0_20, length_mask)
 from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import conv as conv_kernels
+from deepspeech_tpu_torch.ops.products import cast_through
 from deepspeech_tpu_torch.ops.rnn import CELL_GATES, rnn_scan
 from deepspeech_tpu_torch.parallel.tp_rnn import (gathered,
                                                   maybe_direction_sharded)
@@ -42,11 +43,6 @@ from deepspeech_tpu_torch.utils import trace
 def conv_out_lengths(lengths: torch.Tensor) -> torch.Tensor:
     """Time lengths after the conv stack: floor((L-1)/2)+1."""
     return (lengths - 1) // 2 + 1
-
-
-def _rounded(x: torch.Tensor, dtype) -> torch.Tensor:
-    """x in f32, rounded to ``dtype`` first when one is given."""
-    return x.float() if dtype is None else x.to(dtype).float()
 
 
 class ConvFrontend(nn.Module):
@@ -74,7 +70,8 @@ class ConvFrontend(nn.Module):
                                              conv.stride, conv.padding)
             else:
                 with fp32_matmul():
-                    h = F.conv2d(_rounded(h, cd), _rounded(conv.weight, cd),
+                    h = F.conv2d(cast_through(h, cd),
+                                 cast_through(conv.weight, cd),
                                  conv.bias.float(), conv.stride,
                                  conv.padding)
             mask = length_mask(out_lengths, h.shape[-1])

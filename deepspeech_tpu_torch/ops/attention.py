@@ -42,7 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from deepspeech_tpu_torch.ops.products import bmm_nt
+from deepspeech_tpu_torch.ops.products import bmm_nt, cast_through
 
 mhsa_sdpa_launches = 0  # rel_attention calls on the SDPA route
 mhsa_plain_launches = 0  # rel_attention calls on the plain route
@@ -72,11 +72,6 @@ def key_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
             < keep[:, None])[:, None, None, :]
 
 
-def _operand(x: torch.Tensor, dtype) -> torch.Tensor:
-    """``x`` rounded to ``dtype`` (None: f32) and held in f32."""
-    return x.float() if dtype is None else x.to(dtype).float()
-
-
 def rel_attention(qu: torch.Tensor, qv: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, p: torch.Tensor, keep: torch.Tensor,
                   compute_dtype=None) -> torch.Tensor:
@@ -101,9 +96,11 @@ def rel_attention(qu: torch.Tensor, qv: torch.Tensor, k: torch.Tensor,
         mhsa_sdpa_launches += 1
         return out
     cd = compute_dtype
-    ac = torch.matmul(_operand(qu, cd), _operand(k, cd).transpose(-1, -2))
-    bd = torch.matmul(_operand(qv, cd), _operand(p, cd).transpose(-1, -2))
+    ac = torch.matmul(cast_through(qu, cd),
+                      cast_through(k, cd).transpose(-1, -2))
+    bd = torch.matmul(cast_through(qv, cd),
+                      cast_through(p, cd).transpose(-1, -2))
     scores = torch.where(keep, (ac + rel_shift(bd)) * scale, float("-inf"))
     probs = torch.softmax(scores, -1)
     mhsa_plain_launches += 1
-    return torch.matmul(_operand(probs, cd), _operand(v, cd))
+    return torch.matmul(cast_through(probs, cd), cast_through(v, cd))

@@ -59,16 +59,17 @@ from deepspeech_tpu_torch.ops.cuda.recurrence import (F32_LAYOUT,
                                                       bwd_blocks,
                                                       bwd_variant,
                                                       check_layer,
-                                                      check_scan,
+                                                      check_scan, dw_hh,
                                                       fwd_capacity,
                                                       fwd_mode, fwd_variant,
                                                       h_copy_shape,
                                                       h_copy_shape_f32,
                                                       h_prev_stream,
-                                                      mm_f32, op_copy_shape,
+                                                      op_copy_shape,
                                                       pack_w_hh,
                                                       pack_w_hh_bwd,
                                                       pack_w_hh_f32,
+                                                      proj_bwd,
                                                       resident_blocks,
                                                       same_device,
                                                       scan_f32_variant,
@@ -516,36 +517,20 @@ class GRULayer(torch.autograd.Function):
     def backward(ctx, dout):
         with trace.span("rnn.bwd"):
             x, w_ih, w_op, out, g, hn, lengths = ctx.saved_tensors
-            ndir, t, b, hidden = out.shape
-            dt = x.dtype
             dg, dnh, dbi, dbh = gru_bwd(dout.float().contiguous(), g, hn, out,
                                         w_op, lengths)
-            x2 = x.reshape(t * b, -1)
-            dx = 0.0
-            dw_ih = []
-            with fp32_matmul():
-                for d in range(ndir):
-                    dg2 = dg[d].reshape(t * b, 3 * hidden)
-                    dx = dx + mm_f32(dg2, w_ih[d].t())
-                    dw_ih.append(mm_f32(x2.t(), dg2))
-            dx = dx.reshape(x.shape).to(dt)
-            return (dx, torch.stack(dw_ih).to(w_ih.dtype), dbi,
-                    _dw_hh(out, dg, dnh, lengths), dbh, None)
+            dx, dw_ih = proj_bwd(x, w_ih, dg)
+            return dx, dw_ih, dbi, _dw_hh(out, dg, dnh, lengths), dbh, None
 
 
 def _dw_hh(out: torch.Tensor, dg: torch.Tensor, dnh: torch.Tensor,
            lengths: torch.Tensor) -> torch.Tensor:
-    """dW_hh (D, H, 3H) f32: h_prev against [dr, dz, dnh] summed over every
-    (t, b) on cuBLAS, the operands in dg's type."""
-    ndir, t, b, hidden = out.shape
-    hp = h_prev_stream(out, lengths).to(dg.dtype)
-    dw = []
-    with fp32_matmul():
-        for d in range(ndir):
-            dhp = torch.cat([dg[d][..., :2 * hidden], dnh[d]], -1)
-            dw.append(mm_f32(hp[d].reshape(t * b, hidden).t(),
-                             dhp.reshape(t * b, 3 * hidden)))
-    return torch.stack(dw)
+    """dW_hh (D, H, 3H) f32: h_prev against [dr, dz, dnh], built a direction
+    at a time."""
+    hidden = out.shape[-1]
+    ops = (torch.cat([dg[d][..., :2 * hidden], dnh[d]], -1)
+           for d in range(out.shape[0]))
+    return dw_hh(out, lengths, ops, dg.dtype)
 
 
 class GRUScanLayer(torch.autograd.Function):

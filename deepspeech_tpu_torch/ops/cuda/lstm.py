@@ -58,14 +58,14 @@ from deepspeech_tpu_torch.ops.cuda import build
 from deepspeech_tpu_torch.ops.cuda.recurrence import (bwd_blocks,
                                                       bwd_variant,
                                                       check_layer,
-                                                      check_scan,
+                                                      check_scan, dw_hh,
                                                       fwd_capacity,
                                                       fwd_mode, fwd_variant,
                                                       h_copy_shape,
-                                                      h_prev_stream,
-                                                      mm_f32, op_copy_shape,
+                                                      op_copy_shape,
                                                       pack_w_hh,
                                                       pack_w_hh_bwd,
+                                                      proj_bwd,
                                                       resident_blocks,
                                                       same_device,
                                                       scan_variant,
@@ -455,33 +455,11 @@ class LSTMLayer(torch.autograd.Function):
     def backward(ctx, dout):
         with trace.span("rnn.bwd"):
             x, w_ih, w_op, out, c, g, lengths = ctx.saved_tensors
-            ndir, t, b, hidden = out.shape
-            dt = x.dtype
             dg, db = lstm_bwd(dout.float().contiguous(), g, c, w_op, lengths)
-            x2 = x.reshape(t * b, -1)
-            dx = 0.0
-            dw_ih = []
-            with fp32_matmul():
-                for d in range(ndir):
-                    dg2 = dg[d].reshape(t * b, 4 * hidden)
-                    dx = dx + mm_f32(dg2, w_ih[d].t())
-                    dw_ih.append(mm_f32(x2.t(), dg2))
-            dx = dx.reshape(x.shape).to(dt)
+            dx, dw_ih = proj_bwd(x, w_ih, dg)
             # two tensors: autograd may keep each as a .grad and add into it
-            return (dx, torch.stack(dw_ih).to(w_ih.dtype), db,
-                    _dw_hh(out, dg, lengths), db.clone(), None)
-
-
-def _dw_hh(out: torch.Tensor, dg: torch.Tensor,
-           lengths: torch.Tensor) -> torch.Tensor:
-    """dW_hh (D, H, 4H) f32: h_prev against dg summed over every (t, b) on
-    cuBLAS, the operands in dg's type."""
-    ndir, t, b, hidden = out.shape
-    hp = h_prev_stream(out, lengths).to(dg.dtype)
-    with fp32_matmul():
-        return torch.stack([mm_f32(hp[d].reshape(t * b, hidden).t(),
-                                   dg[d].reshape(t * b, 4 * hidden))
-                            for d in range(ndir)])
+            return (dx, dw_ih, db, dw_hh(out, lengths, dg, dg.dtype),
+                    db.clone(), None)
 
 
 class LSTMScanLayer(torch.autograd.Function):
@@ -505,4 +483,4 @@ class LSTMScanLayer(torch.autograd.Function):
         with trace.span("rnn.bwd"):
             w_op, out, c, g, lengths = ctx.saved_tensors
             dg, db = lstm_bwd(dout.float().contiguous(), g, c, w_op, lengths)
-            return dg, db, _dw_hh(out, dg, lengths), db.clone(), None
+            return dg, db, dw_hh(out, lengths, dg, dg.dtype), db.clone(), None

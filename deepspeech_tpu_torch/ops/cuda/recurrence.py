@@ -1,10 +1,11 @@
 """Helpers shared by the recurrent-layer wrappers (``gru.py``, ``lstm.py``):
-the backward direction's time walk, the h_prev stream of the backward
-products, argument checks, the f32-sum matmul of the layer backwards, the
-W_hh packings, scratch shapes and rules of the bf16 recurrence kernels
-(K2, K3, K4, K6: ``csrc/rnn_mma.cuh``, with K2's and K3's projection GEMM
-in ``csrc/proj_mma.cuh``; K5, K7: ``csrc/rnn_mma_bwd.cuh``), and those of
-K4's f32 persistent variant (``csrc/gru_scan.cu``: ``f32_scan``)."""
+the backward direction's time walk, the h_prev stream and the cuBLAS
+products of the layer backwards (f32 sums: ``ops/products.py:mm_f32``),
+argument checks, the W_hh packings, scratch shapes and rules of the bf16
+recurrence kernels (K2, K3, K4, K6: ``csrc/rnn_mma.cuh``, with K2's and
+K3's projection GEMM in ``csrc/proj_mma.cuh``; K5, K7:
+``csrc/rnn_mma_bwd.cuh``), and those of K4's f32 persistent variant
+(``csrc/gru_scan.cu``: ``f32_scan``)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ import ctypes
 
 import torch
 
+from deepspeech_tpu_torch.ops import fp32_matmul
 from deepspeech_tpu_torch.ops.cuda import build
+from deepspeech_tpu_torch.ops.products import mm_f32
 
 
 def walk_index(lengths: torch.Tensor, t: int) -> torch.Tensor:
@@ -51,6 +54,38 @@ def h_prev_stream(h: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
                 < lengths.to(h.device)[None, :])[:, :, None]
         prev.append(torch.where(keep, nxt, 0.0))
     return torch.stack(prev)
+
+
+def proj_bwd(x: torch.Tensor, w_ih: torch.Tensor,
+             dg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused layers' projection backward: x (T, B, F) and w_ih
+    (D, F, G*H) as the forward took them, dg (D, T, B, G*H) the gate
+    grads -> dx (T, B, F) in x's type, the directions' dg @ W_ih^T summed in
+    f32, and dW_ih = x^T dg (D, F, G*H) in w_ih's type, on cuBLAS."""
+    ndir, t, b, gh = dg.shape
+    x2 = x.reshape(t * b, -1)
+    dx = 0.0
+    dw_ih = []
+    with fp32_matmul():
+        for d in range(ndir):
+            dg2 = dg[d].reshape(t * b, gh)
+            dx = dx + mm_f32(dg2, w_ih[d].t())
+            dw_ih.append(mm_f32(x2.t(), dg2))
+    return dx.reshape(x.shape).to(x.dtype), torch.stack(dw_ih).to(w_ih.dtype)
+
+
+def dw_hh(out: torch.Tensor, lengths: torch.Tensor, operands,
+          dtype: torch.dtype) -> torch.Tensor:
+    """dW_hh (D, H, K) f32: h_prev of the layer's outputs ``out``
+    (D, T, B, H), rounded to ``dtype``, against each direction's operand
+    (T, B, K) in ``dtype``, which ``operands`` yields in turn (the LSTM's
+    dg, the GRU's [dr, dz, dnh]), summed over every (t, b) on cuBLAS."""
+    _, t, b, hidden = out.shape
+    hp = h_prev_stream(out, lengths).to(dtype)
+    with fp32_matmul():
+        return torch.stack([
+            mm_f32(hp[d].reshape(t * b, hidden).t(), op.reshape(t * b, -1))
+            for d, op in enumerate(operands)])
 
 
 def same_device(where: str, dev: torch.device, **tensors) -> None:
@@ -409,10 +444,3 @@ def resident_blocks(lib: ctypes.CDLL, name: str, size: int,
         _resident[key] = n.value
     return _resident[key]
 
-
-def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with f32 sums and an f32 result, operands in their own type
-    (bf16 products are exact in f32)."""
-    if a.is_cuda and a.dtype == torch.bfloat16:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()

@@ -2,16 +2,20 @@
 results are f32, forward and backward.
 
 This is what ``compute_dtype`` bf16 means for the Conformer
-(``models/conformer.py``, ``ops/attention.py``), as for DS2's kernels
-(``ops/cuda/recurrence.py:mm_f32``): each operand is rounded to bf16, and
-nothing a product returns is: the outputs, the input gradients and the
-weight gradients of every product come out in f32.
+(``models/conformer.py``, ``ops/attention.py``), as for DS2's kernels and
+their layers' backward products (``ops/cuda/recurrence.py``): each operand
+is rounded to bf16, and nothing a product returns is: the outputs, the
+input gradients and the weight gradients of every product come out in f32.
 
+* ``mm_f32(a, b)``, ``bmm_f32(a, b)``: a @ b of operands in their own
+  type, with f32 sums and an f32 result;
 * ``rounded(x, dtype)``: ``x`` rounded to ``dtype`` and held in f32; the
   gradient passes unchanged (straight through), for an f32 product whose
   operands are to be bf16 (a convolution: bf16 x bf16 products are exact
   in f32, so the f32 product of the rounded operands is the bf16 one with
   f32 sums);
+* ``cast_through(x, dtype)``: ``x`` cast to ``dtype`` and back to f32 by
+  autograd's casts, so its gradient is rounded to ``dtype`` too;
 * ``matmul_nt(x, w, dtype)``: x (..., K) times w (N, K) transposed ->
   (..., N); its backward takes the incoming gradient in ``dtype`` as the
   operand of both products;
@@ -27,7 +31,13 @@ from __future__ import annotations
 
 import torch
 
-from deepspeech_tpu_torch.ops.cuda.recurrence import mm_f32
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with f32 sums and an f32 result, operands in their own type
+    (bf16 products are exact in f32)."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
 
 
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -50,6 +60,13 @@ class _Rounded(torch.autograd.Function):
 def rounded(x: torch.Tensor, dtype) -> torch.Tensor:
     """``x`` rounded to ``dtype``, in f32; the gradient straight through."""
     return _Rounded.apply(x, dtype)
+
+
+def cast_through(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` cast to ``dtype`` (None: as it is) and back to f32. Autograd
+    differentiates both casts, so the gradient is rounded to ``dtype`` as
+    the cast's is; ``rounded`` passes it straight through."""
+    return x.float() if dtype is None else x.to(dtype).float()
 
 
 class _MatmulNT(torch.autograd.Function):
